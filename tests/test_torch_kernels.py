@@ -1,0 +1,144 @@
+"""The port's kernel wrappers against the JAX package's Pallas kernels.
+
+On the CPU each wrapper runs its plain PyTorch version; the JAX kernels run
+in interpret mode, as the JAX package's own tests run them.  Both get the
+same numpy operands, and the solves get the same (JAX-made) packed LU, so
+each comparison isolates one kernel.  Tolerance: normwise
+``max|port - ref| <= 1e-5 * max|ref|`` — fp32 on both sides with sums
+taken in other orders (nothing is bitwise across frameworks); measured
+differences at n <= 600 are ~1e-6.  The float64 oracle anchors both.
+
+Each CUDA kernel is held against its plain version on the card in
+``test_torch_cuda.py``.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core.factorization import dense_block_inverses as jdense_block_inverses
+from repro.kernels import ebv_lu as jebv_lu
+from repro.kernels import trsm as jtrsm
+from repro_torch.core.blocked import fused_block_size
+from repro_torch.core.factorization import dense_block_inverses
+from repro_torch.kernels import ebv_lu, ref, trsm
+
+TOL = 1e-5
+SIZES = [64, 257, 600]  # 600 pads to 672 > 512: the reference's HBM megakernel branch
+# every size with a vector and a 3-wide RHS; the 300-wide RHS (more columns
+# than one solve_tiled/inverted block holds) at the largest size
+CASES = [(n, m) for n in SIZES for m in (None, 3)] + [(600, 300)]
+
+
+def dd(n, seed=0):
+    rng = np.random.default_rng(seed)
+    a = rng.uniform(-1.0, 1.0, (n, n)).astype(np.float32)
+    a[np.arange(n), np.arange(n)] = np.abs(a).sum(axis=1) + 1.0
+    return a
+
+
+def rhs(n, m, seed=1):
+    rng = np.random.default_rng(seed)
+    return rng.standard_normal((n,) if m is None else (n, m)).astype(np.float32)
+
+
+def t(x):
+    return torch.from_numpy(np.array(x))
+
+
+def close(port, want, tol=TOL):
+    port = np.asarray(port, np.float64)
+    want = np.asarray(want, np.float64)
+    assert port.shape == want.shape
+    err = np.abs(port - want).max() / np.abs(want).max()
+    assert err <= tol, f"normwise error {err:.2e} > {tol:.0e}"
+
+
+def close_lu(port, want, tol=TOL):
+    """A packed factor as its L (strictly lower) and U (upper) apart, each
+    against its own largest entry: U's diagonal is ~n/2 and L's entries
+    ~1/n, so one norm over both would not see L."""
+    port, want = np.asarray(port), np.asarray(want)
+    close(np.tril(port, -1), np.tril(want, -1), tol)
+    close(np.triu(port), np.triu(want), tol)
+
+
+@pytest.fixture(scope="module")
+def factors():
+    """Per size: the operand, the JAX kernel's packed LU and the JAX
+    package's inverted diagonal blocks of it (numpy)."""
+    out = {}
+    for n in SIZES:
+        a = dd(n, n)
+        lu = jebv_lu.lu_fused(jnp.asarray(a))
+        linv, uinv = jdense_block_inverses(lu, block=256)
+        out[n] = (a, np.asarray(lu), np.asarray(linv), np.asarray(uinv))
+    return out
+
+
+@pytest.mark.parametrize("n", SIZES)
+def test_lu_fused_matches_reference_kernel(n, factors):
+    a, jlu, _, _ = factors[n]
+    lu = ebv_lu.lu_fused(torch.from_numpy(a))
+    close_lu(lu, jlu)
+    close_lu(lu, ref.lu_ref(a))
+
+
+@pytest.mark.parametrize("n,m", CASES)
+def test_solve_vmem_matches_reference_kernel(n, m, factors):
+    _, jlu, jlinv, juinv = factors[n]
+    b = rhs(n, m)
+    x = trsm.solve_vmem(t(jlu), t(b))
+    close(x, jtrsm.solve_vmem(jnp.asarray(jlu), jnp.asarray(b)))
+    close(x, ref.solve_ref(jlu, b))
+
+
+@pytest.mark.parametrize("n,m", CASES)
+def test_solve_tiled_matches_reference_kernel(n, m, factors):
+    _, jlu, jlinv, juinv = factors[n]
+    b = rhs(n, m)
+    x = trsm.solve_tiled(t(jlu), t(b))
+    close(x, jtrsm.solve_tiled(jnp.asarray(jlu), jnp.asarray(b)))
+    close(x, ref.solve_ref(jlu, b))
+
+
+@pytest.mark.parametrize("n,m", CASES)
+def test_solve_inverted_matches_reference_kernel(n, m, factors):
+    _, jlu, jlinv, juinv = factors[n]
+    b = rhs(n, m)
+    linv, uinv = dense_block_inverses(t(jlu), block=256)
+    close(linv, jlinv)
+    close(uinv, juinv)
+    x = trsm.solve_inverted(t(jlu), linv, uinv, t(b))
+    close(x, jtrsm.solve_inverted(jnp.asarray(jlu), jnp.asarray(jlinv), jnp.asarray(juinv), jnp.asarray(b)))
+    close(x, ref.solve_ref(jlu, b))
+
+
+def test_wrappers_count_launches_and_not_on_the_cpu():
+    wrappers = (ebv_lu.lu_fused, trsm.solve_vmem, trsm.solve_tiled, trsm.solve_inverted)
+    for w in wrappers:
+        assert isinstance(w.launches, int)
+        w.launches = 0
+    a = torch.from_numpy(dd(40, 1))
+    b = torch.from_numpy(rhs(40, 2))
+    lu = ebv_lu.lu_fused(a)
+    linv, uinv = dense_block_inverses(lu, block=16)
+    trsm.solve_vmem(lu, b)
+    trsm.solve_tiled(lu, b, block=16)
+    trsm.solve_inverted(lu, linv, uinv, b)
+    assert [w.launches for w in wrappers] == [0, 0, 0, 0]  # the plain versions ran
+
+
+def test_lu_fused_rejects_what_the_kernel_does_not_take():
+    with pytest.raises(TypeError):
+        ebv_lu.lu_fused(torch.eye(8, dtype=torch.float64))
+    with pytest.raises(ValueError):
+        ebv_lu.lu_fused(torch.ones(4, 5))
+
+
+@pytest.mark.parametrize("n,block", [(64, 256), (257, 256), (2000, 256), (8000, 256)])
+def test_fused_launch_count(n, block):
+    # four launches per step (diagonal tile, two panel solves, trailing
+    # update), none of the last three on the last step
+    S = -(-n // fused_block_size(n, block))
+    assert ebv_lu.fused_launches(n, block) == 4 * S - 3
