@@ -21,15 +21,24 @@ def tensor_from_numpy(x, *, device=None) -> torch.Tensor:
     return torch.from_numpy(np.array(x)).to(_device.resolve(device))  # a writable copy
 
 
-def factorization_from_numpy(packed, linv=None, uinv=None, *, block: int, tier: float = 0.0,
+def factorization_from_numpy(packed, linv=None, uinv=None, tlo=None, tup=None, *, block: int,
+                             tier: float = 0.0, structure: str = "dense", bw: int = 0,
                              device=None) -> Factorization:
-    """A reference ``Factorization`` (its ``packed``, ``linv`` and ``uinv``
-    as numpy arrays, plus its ``block`` and ``tier``) as this package's
-    dense artifact.  The health record is not carried: it is recomputed
-    here when asked for."""
-    if (linv is None) != (uinv is None):
-        raise ValueError("linv and uinv come together (an enriched artifact) or not at all")
+    """A reference ``Factorization`` (its ``packed``, ``linv``, ``uinv``,
+    ``tlo`` and ``tup`` as numpy arrays, plus its ``block``, ``tier``,
+    ``structure`` and ``bw``) as this package's artifact.  The health
+    record is not carried: it is recomputed here when asked for."""
+    if structure not in ("dense", "banded"):
+        raise ValueError(f"structure is 'dense' or 'banded', got {structure!r}")
+    if (structure == "banded") != (bw > 0):
+        raise ValueError(f"a {structure} artifact with bw={bw}")
+    parts = (linv, uinv, tlo, tup) if structure == "banded" else (linv, uinv)
+    if len({x is None for x in parts}) > 1:
+        raise ValueError("the enrichments come together (an enriched artifact) or not at all")
+    if structure == "dense" and (tlo is not None or tup is not None):
+        raise ValueError("a dense artifact has no transfer blocks")
     dev = _device.resolve(device)
     conv = (lambda x: None if x is None else tensor_from_numpy(x, device=dev))
-    return Factorization(packed=conv(packed), linv=conv(linv), uinv=conv(uinv),
-                         structure="dense", block=int(block), tier=float(tier))
+    return Factorization(packed=conv(packed), linv=conv(linv), uinv=conv(uinv), tlo=conv(tlo),
+                         tup=conv(tup), structure=structure, bw=int(bw), block=int(block),
+                         tier=float(tier))

@@ -10,8 +10,8 @@ overflows.  The screening record holds:
 * **element growth** — ``max|U| / max|A|``;
 * **finiteness** — any Inf/NaN anywhere in the packed factors.
 
-This is the dense half of the reference module; the banded record arrives
-with the banded slice.
+Dense factors and row-aligned band factors (``bw > 0``) are screened
+alike; a band's residual is computed on the band, never densified.
 """
 from __future__ import annotations
 
@@ -26,6 +26,7 @@ __all__ = [
     "FactorHealth",
     "factor_health",
     "relative_residual",
+    "banded_matvec",
 ]
 
 _TINY = 1e-30  # denominator floor: an all-zero operand is its own problem
@@ -95,25 +96,51 @@ def _dense_health(packed: torch.Tensor, ref_max: torch.Tensor) -> FactorHealth:
     )
 
 
+def _banded_health(packed: torch.Tensor, ref_max: torch.Tensor, bw: int) -> FactorHealth:
+    # row-aligned band: column bw holds the pivots, columns bw..2bw the U
+    # part, columns 0..bw-1 the L multipliers
+    return FactorHealth(
+        min_pivot=packed[..., bw].abs().min(),
+        growth=packed[..., bw:].abs().max() / torch.clamp(ref_max, min=_TINY),
+        finite=torch.isfinite(packed).all(),
+        ref_max=ref_max,
+    )
+
+
 def factor_health(factors, *, ref_max, bw: int = 0) -> FactorHealth:
-    """Screening record for a packed dense ``(n, n)`` factor, a
+    """Screening record for a packed dense ``(n, n)`` factor, a packed
+    row-aligned band ``(n, 2bw+1)`` (``bw > 0``), a
     :class:`~repro_torch.core.factorization.Factorization` or
     :class:`~repro_torch.core.pivoted.PivotedFactors`.  ``ref_max`` is
     ``max|A|`` of the operand that was factored."""
     from .pivoted import PivotedFactors
 
-    if bw:
-        raise NotImplementedError("banded health records arrive with the banded slice (ROADMAP queue A, item 8)")
     factors = getattr(factors, "packed", factors)
     if isinstance(factors, PivotedFactors):
         factors = factors.lu
     ref_max = torch.as_tensor(ref_max, dtype=torch.float32, device=factors.device)
+    if bw:
+        return _banded_health(factors, ref_max, bw)
     return _dense_health(factors, ref_max)
 
 
+def banded_matvec(arow: torch.Tensor, x: torch.Tensor, *, bw: int) -> torch.Tensor:
+    """``A @ x`` on the row-aligned band (``arow[i, t] = A[i, i-bw+t]``)
+    without densifying: O(n·bw) work and memory.  ``x`` is ``(n,)`` or
+    ``(n, m)``."""
+    n = arow.shape[0]
+    squeeze = x.ndim == 1
+    xm = x[:, None] if squeeze else x
+    xp = torch.nn.functional.pad(xm, (0, 0, bw, bw))  # (n + 2bw, m)
+    y = torch.zeros_like(xm)
+    for t in range(2 * bw + 1):
+        y = y + arow[:, t:t + 1] * xp[t:t + n]
+    return y[:, 0] if squeeze else y
+
+
 def relative_residual(a, b, x, *, bw: int = 0) -> torch.Tensor:
-    """Frobenius relative residual ``|Ax - b| / |b|`` of a dense system."""
-    if bw:
-        raise NotImplementedError("banded residuals arrive with the banded slice (ROADMAP queue A, item 8)")
+    """Frobenius relative residual ``|Ax - b| / |b|`` of a dense ``(n, n)``
+    or row-aligned band operand (``bw > 0``)."""
     a32, b32, x32 = (t.to(torch.float32) for t in (a, b, x))
-    return torch.linalg.norm(b32 - a32 @ x32) / torch.clamp(torch.linalg.norm(b32), min=_TINY)
+    ax = banded_matvec(a32, x32, bw=bw) if bw else a32 @ x32
+    return torch.linalg.norm(b32 - ax) / torch.clamp(torch.linalg.norm(b32), min=_TINY)

@@ -31,14 +31,20 @@ _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
+_N = ctypes.POINTER(_I)
 # C entry points: name -> argument types.  Every entry returns the
-# cudaError_t of its launches as an int (0 = success); ebv_lu_fused also
-# reports through its last argument how many kernels it launched.
+# cudaError_t of its launches as an int (0 = success); ebv_lu_fused and the
+# ebv_band_* entries also report through their last argument how many
+# kernels they launched.
 _SIGNATURES = {
-    "ebv_lu_fused": [_P, _I, _I, _P, ctypes.POINTER(_I)],
+    "ebv_lu_fused": [_P, _I, _I, _P, _N],
     "ebv_solve_vmem": [_P, _P, _P, _I, _I, _I, _I, _P],
     "ebv_solve_tiled": [_P, _P, _P, _I, _I, _I, _I, _P],
     "ebv_solve_inverted": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "ebv_band_lu_resident": [_P, _I, _I, _P, _N],
+    "ebv_band_lu_steps": [_P, _I, _I, _I, _P, _N],
+    "ebv_band_solve": [_P, _P, _P, _I, _I, _I, _I, _P, _N],
+    "ebv_band_solve_inverted": [_P] * 9 + [_I] * 4 + [_P, _N],
 }
 
 

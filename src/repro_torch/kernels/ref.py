@@ -1,4 +1,5 @@
-"""Pure oracles for the dense kernels (numpy float64, loop-level naive).
+"""Pure oracles for the dense and banded kernels (numpy float64,
+loop-level naive).
 
 Deliberately the dumbest correct implementations — independent of both
 the CUDA kernels and the vectorized :mod:`repro_torch.core` paths — so the
@@ -8,7 +9,8 @@ from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["lu_ref", "solve_ref", "forward_ref", "backward_ref"]
+__all__ = ["lu_ref", "solve_ref", "forward_ref", "backward_ref", "banded_lu_ref",
+           "banded_solve_ref"]
 
 
 def lu_ref(a) -> np.ndarray:
@@ -39,3 +41,33 @@ def backward_ref(lu, y) -> np.ndarray:
 
 def solve_ref(lu, b) -> np.ndarray:
     return backward_ref(lu, forward_ref(lu, b))
+
+
+def _dense_of_band(arow, bw: int) -> np.ndarray:
+    arow = np.asarray(arow, dtype=np.float64)
+    n = arow.shape[0]
+    dense = np.zeros((n, n))
+    for i in range(n):
+        for t in range(2 * bw + 1):
+            j = i - bw + t
+            if 0 <= j < n:
+                dense[i, j] = arow[i, t]
+    return dense
+
+
+def banded_lu_ref(arow, bw: int) -> np.ndarray:
+    """Band LU by densifying, factoring with :func:`lu_ref`, re-banding."""
+    lu = lu_ref(_dense_of_band(arow, bw))
+    out = np.zeros(np.shape(arow))
+    for i in range(lu.shape[0]):
+        for t in range(2 * bw + 1):
+            j = i - bw + t
+            if 0 <= j < lu.shape[0]:
+                out[i, t] = lu[i, j]
+    return out
+
+
+def banded_solve_ref(lu_band, b, bw: int) -> np.ndarray:
+    """Substitution on packed band factors, through :func:`solve_ref` on
+    the densified factors."""
+    return solve_ref(_dense_of_band(lu_band, bw), b)

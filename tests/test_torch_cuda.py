@@ -20,8 +20,15 @@ import pytest
 import torch
 
 from repro_torch import solvers
-from repro_torch.core.factorization import dense_block_inverses, dense_inverted_solve
-from repro_torch.kernels import _build, ebv_lu, ops, ref, trsm
+from repro_torch.core.factorization import (
+    banded_inverted_solve,
+    dense_block_inverses,
+    dense_inverted_solve,
+    factorize_banded,
+)
+from repro_torch.core.banded import banded_solve_blocked
+from repro_torch.core.health import relative_residual
+from repro_torch.kernels import _build, banded, ebv_lu, ops, ref, trsm
 
 pytestmark = pytest.mark.cuda
 TOL = 1e-4
@@ -50,6 +57,29 @@ def close(got, want, tol=TOL):
 def close_lu(got, want, tol=TOL):
     close(got.tril(-1), want.tril(-1), tol)
     close(got.triu(), want.triu(), tol)
+
+
+def band_dd(n, bw, seed=0):
+    rng = np.random.default_rng(seed)
+    a = rng.uniform(-1.0, 1.0, (n, 2 * bw + 1)).astype(np.float32)
+    j = np.arange(n)[:, None] - bw + np.arange(2 * bw + 1)[None, :]
+    a = np.where((j >= 0) & (j < n), a, 0.0).astype(np.float32)
+    a[:, bw] = np.abs(a).sum(axis=1) - np.abs(a[:, bw]) + 1.0
+    return a
+
+
+def close_band_lu(got, want, bw, tol=TOL):
+    # L (columns 0..bw-1) and U (bw..2bw) of the packed band apart
+    close(got[:, :bw], want[:, :bw], tol)
+    close(got[:, bw:], want[:, bw:], tol)
+
+
+# (n, bw): tridiagonal; bw >= n; n not a multiple of the block; a slab that
+# no longer fits one block's shared memory (bw = 64, C = 256 for the tiled
+# factor: 491 KB skewed, 165 KB row-aligned); bw = 100 (the tiled factor's
+# slab and the resident factor's whole band past shared memory); bw = 200
+# (not even bw+1 rows fit: the device-memory walk)
+BAND_SHAPES = [(50, 1), (16, 20), (257, 5), (300, 64), (400, 100), (450, 200)]
 
 
 @pytest.fixture
@@ -117,4 +147,82 @@ def test_a_kernel_that_fails_raises_instead_of_escalating(screen, card, monkeypa
         else:
             with solvers.inject(slow_dispatch_us=1.0, op="factor"):
                 ops.lu(a)
+    assert not isinstance(ei.value, solvers.SolveFailure) and esc == []
+
+
+@pytest.mark.parametrize("n,bw", BAND_SHAPES)
+def test_band_factor_kernels_match_plain(n, bw, card):
+    a = torch.from_numpy(band_dd(n, bw, n + bw)).to(card)
+    plain = banded.banded_lu_plain(a, bw=bw)
+    counts = (banded.banded_lu_blocked.launches, banded.banded_lu_tiled.launches)
+    got_blocked = banded.banded_lu_blocked(a, bw=bw)
+    got_tiled = banded.banded_lu_tiled(a, bw=bw)
+    assert (banded.banded_lu_blocked.launches - counts[0],
+            banded.banded_lu_tiled.launches - counts[1]) == (1, banded.tiled_launches(n, bw))
+    close_band_lu(got_blocked, plain, bw)
+    close_band_lu(got_tiled, plain, bw)
+    close_band_lu(got_blocked, torch.from_numpy(ref.banded_lu_ref(band_dd(n, bw, n + bw), bw)), bw)
+    # the kernels round every operation as the plain version does
+    assert torch.equal(got_blocked, plain) and torch.equal(got_tiled, plain)
+
+
+def test_band_factors_leave_their_input_alone(card):
+    a = torch.from_numpy(band_dd(300, 16, 3)).to(card)
+    before = a.clone()
+    banded.banded_lu_blocked(a, bw=16)
+    banded.banded_lu_tiled(a, bw=16)
+    torch.cuda.synchronize()
+    assert torch.equal(a, before)
+
+
+@pytest.mark.parametrize("m,rhs_tile", [(None, 256), (3, 256), (64, 256), (33, 8)])
+@pytest.mark.parametrize("n,bw", BAND_SHAPES)
+def test_band_solve_kernels_match_plain(n, bw, m, rhs_tile, card):
+    lu = banded.banded_lu_plain(torch.from_numpy(band_dd(n, bw, n)).to(card), bw=bw)
+    b = torch.from_numpy(rhs(n, m)).to(card)
+    f = factorize_banded(lu, bw=bw)
+    counts = (banded.banded_solve_kernelized.launches, banded.banded_solve_inverted.launches)
+    close(banded.banded_solve_kernelized(lu, b, bw=bw, rhs_tile=rhs_tile),
+          banded_solve_blocked(lu, b, bw=bw))
+    close(banded.banded_solve_inverted(f.linv, f.uinv, f.tlo, f.tup, b, n=n, bw=bw),
+          banded_inverted_solve(f.linv, f.uinv, f.tlo, f.tup, b, n=n, bw=bw))
+    assert banded.banded_solve_kernelized.launches - counts[0] == 1
+    assert banded.banded_solve_inverted.launches - counts[1] == (2 if f.linv.shape[0] == 1 else 6)
+
+
+def test_band_kernels_take_an_empty_rhs_and_refuse_bw_0(card):
+    lu = banded.banded_lu_plain(torch.from_numpy(band_dd(40, 2, 4)).to(card), bw=2)
+    f = factorize_banded(lu, bw=2)
+    b = torch.zeros((40, 0), device=card)
+    assert banded.banded_solve_kernelized(lu, b, bw=2).shape == (40, 0)
+    assert banded.banded_solve_inverted(f.linv, f.uinv, f.tlo, f.tup, b, n=40, bw=2).shape == (40, 0)
+    diag = torch.ones((40, 1), device=card)
+    for fn in (banded.banded_lu_blocked, banded.banded_lu_tiled):
+        with pytest.raises(ValueError, match="bw >= 1"):
+            fn(diag, bw=0)
+
+
+@pytest.mark.parametrize("bw,factor", [(5, "cuda_blocked"), (16, "cuda_tiled")])
+def test_banded_main_path_dispatches_the_kernels(bw, factor, card):
+    a = torch.from_numpy(band_dd(2000, bw, 9)).to(card)
+    b = torch.from_numpy(rhs(2000, 4)).to(card)
+    wrapper = banded.banded_lu_blocked if factor == "cuda_blocked" else banded.banded_lu_tiled
+    before = (wrapper.launches, banded.banded_solve_kernelized.launches)
+    with solvers.record_dispatches() as log:
+        x = ops.banded_linear_solve(a, b, bw=bw)
+    assert [name for _, name in log] == [factor, "cuda"]
+    per_call = 1 if factor == "cuda_blocked" else banded.tiled_launches(2000, bw)
+    assert (wrapper.launches - before[0],
+            banded.banded_solve_kernelized.launches - before[1]) == (per_call, 1)
+    assert float(relative_residual(a, b, x, bw=bw)) < 1e-5
+
+
+def test_a_band_kernel_that_fails_raises_instead_of_escalating(card, monkeypatch):
+    def broken():
+        raise RuntimeError("kernel library failed to load")
+
+    monkeypatch.setattr(_build, "library", broken)
+    a = torch.from_numpy(band_dd(64, 3, 7)).to(card)
+    with solvers.record_escalations() as esc, pytest.raises(RuntimeError, match="failed to load") as ei:
+        ops.banded_lu(a, bw=3, health=True)
     assert not isinstance(ei.value, solvers.SolveFailure) and esc == []

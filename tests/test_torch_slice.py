@@ -140,7 +140,8 @@ def test_ops_run_where_the_tensor_lies():
 
 def test_importing_the_port_loads_neither_jax_nor_the_reference():
     code = (
-        "import sys, repro_torch.kernels.ops, repro_torch.convert, repro_torch.solvers; "
+        "import sys, repro_torch.kernels.ops, repro_torch.kernels.banded, repro_torch.core.banded, "
+        "repro_torch.core.factorization, repro_torch.convert, repro_torch.solvers; "
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m == 'repro' or m.startswith('repro.')); print(bad); sys.exit(1 if bad else 0)"
     )
