@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's dense and banded main paths on one NVIDIA
-card.
+"""Drive the PyTorch/CUDA port's dense, banded and batched main paths and
+the EbV-preconditioned optimizer on one NVIDIA card.
 
     python3 chip_smoke.py
 
@@ -8,7 +8,8 @@ Phases (any failure exits non-zero):
 
 1. card: name and power limit (``nvidia-smi``), torch and CUDA versions;
 2. build: the CUDA sources under ``src/repro_torch/csrc`` with ``nvcc``;
-3. kernels against their plain PyTorch versions on the card;
+3. kernels against their plain PyTorch versions on the card; 3c the
+   batched kernels (B9-B12) at the batched paths' shapes;
 4. the main paths, each with its kernels' launch counters set to 0 just
    before and read just after:
    - dense: ``repro_torch.kernels.ops.linear_solve`` at n = 500, 2000,
@@ -19,14 +20,26 @@ Phases (any failure exits non-zero):
      (n = 16384, bw = 16, m = 1 and 64) and the 5-point Poisson band of a
      256 x 256 grid (n = 65536, bw = 256), then ``banded_lu(enrich=True)``
      + ``banded_solve(impl="cuda_inverted")`` at n = 16384;
-   checks the dispatches, the counters, the residuals and the n = 500
-   answers against the float64 oracles;
+   - batched dense (4c): ``ops.linear_solve`` on stacks (B, n) = (8, 128),
+     (32, 256) (the reference's autotune grid) and (8, 1024) (its cap),
+     m = 1 and n, plain and ``lu(enrich=True)`` + ``lu_solve``;
+   - the optimizer (4d): three ``EbvPreconditioned`` steps on the parameter
+     tree of whisper-tiny (``configs/whisper_tiny.py`` as
+     ``models/lm.py:init_params`` lays it out: one order-384 group of two
+     systems with a (2, 384, 51968) RHS) and on the reference benchmark's
+     four (128, 128) leaves; the model's forward pass is not ported yet
+     (ROADMAP A13), so the gradients are drawn from a seeded generator;
+   - batched banded (4e): ``ops.banded_linear_solve`` on 16 Table 1 bands
+     (n = 16000, bw = 5) and a CFD ensemble of 32 five-point Poisson bands
+     on a 64 x 64 grid (n = 4096, bw = 64), each with its own diagonal;
+   checks the dispatches, the counters, the residuals and small answers
+   against the float64 oracles;
 5. times: each kernel, its plain version and a PyTorch library yardstick
    (where one exists) at the main paths' shapes (CUDA events, median of 5
    runs after one warm-up; the plain versions at the Poisson band one call,
    timed in phase 3), the bound, launches per call and peak memory;
    the ``cuda_vmem`` / ``cuda_tiled`` and ``cuda_blocked`` / ``cuda_tiled``
-   crossovers; device time by kernel;
+   crossovers; the optimizer step's time; device time by kernel;
 6. the ``kernels`` JSON line, the card line and the result line.
 
 It prints no result and exits 1 where ``torch.cuda.is_available()`` is false.
@@ -57,6 +70,20 @@ REPS = 5
 TABLE1 = ((500, 5), (4000, 5), (16000, 5))
 SHOOTOUT = (16384, 16)
 POISSON_NX = 256
+# the batched kernels' bit-for-bit contract (B9-B11) and B12's tolerance
+BATCHED_SOLVE_TOL = 1e-5
+# (B, n) of the batched dense path: scripts/autotune.py's batched grid and
+# the reference's BATCHED_VMEM_MAX_N
+BATCHED_DENSE = ((8, 128), (32, 256), (8, 1024))
+# whisper-tiny: d_model 384, 4 + 4 layers, d_ff 1536 (configs/whisper_tiny.py);
+# vocab 51865 padded to a multiple of 128 (models/lm.py:30-31)
+WHISPER = dict(d=384, vocab=51968, layers=4, ff=1536)
+OPT_STEPS = 3
+OPT_D, OPT_LEAVES = 128, 4  # benchmarks/run.py:184-197, opt_step_d128
+# (systems, n, bw) of the batched banded path: 16 of Table 1's largest band;
+# the Poisson ensemble, 32 members on a 64 x 64 grid (bw = 64)
+ENSEMBLE_T1 = (16, 16000, 5)
+ENSEMBLE_NX, ENSEMBLE_MEMBERS = 64, 32
 
 
 def fail(msg: str) -> None:
@@ -87,7 +114,8 @@ def main() -> int:
     from repro_torch.core.health import relative_residual
     from repro_torch.core.banded import banded_solve_blocked, make_banded_dd
     from repro_torch.core.factorization import banded_inverted_solve, factorize_banded
-    from repro_torch.kernels import _build, banded, ebv_lu, ops, ref, trsm
+    from repro_torch import train
+    from repro_torch.kernels import _build, banded, batched_lu, ebv_lu, ops, ref, trsm
     from repro_torch.solvers.backends import banded_static_impl
 
     dev = torch.device("cuda")
@@ -109,6 +137,25 @@ def main() -> int:
 
     def band(n, bw, seed):
         return make_banded_dd(torch.Generator(device=dev).manual_seed(seed), n, bw, device=dev)
+
+    def stack(bsz, n, seed):
+        g = torch.Generator(device=dev).manual_seed(seed)
+        return torch.stack([make_diagonally_dominant(g, n, device=dev) for _ in range(bsz)])
+
+    def rhs_stack(bsz, n, m, seed):
+        g = torch.Generator(device=dev).manual_seed(seed)
+        return torch.randn((bsz, n) if m == 1 else (bsz, n, m), generator=g, device=dev)
+
+    def band_stack(bsz, n, bw, seed):
+        g = torch.Generator(device=dev).manual_seed(seed)
+        return torch.stack([make_banded_dd(g, n, bw, device=dev) for _ in range(bsz)])
+
+    def poisson_ensemble(members, nx):
+        """``members`` 5-point Laplacians of an nx x nx grid in band form,
+        member s with diagonal 4.05 + 0.01 s (its own shift)."""
+        a = poisson_band(nx).expand(members, -1, -1).clone()
+        a[:, :, nx] += 0.01 * torch.arange(members, device=dev)[:, None]
+        return a
 
     def poisson_band(nx):
         """The 5-point Laplacian of an nx x nx grid with diagonal 4.05
@@ -212,6 +259,55 @@ def main() -> int:
     print(f"  plain versions at the Poisson band, one call each: factor {plain_once[pshape]:.1f} ms, "
           f"solve m=1 {plain_once[pshape + ' m=1']:.1f} ms", flush=True)
 
+    # ---- 3c. the batched kernels against their plain versions -------------
+    print("phase 3c: batched kernels vs plain (B9, B10, B11 bit for bit; B12 normwise, "
+          f"tolerance {BATCHED_SOLVE_TOL:.0e})", flush=True)
+
+    def compare_bitwise(name, shape, got, want):
+        torch.cuda.synchronize()
+        if got.shape != want.shape or not bool(torch.isfinite(got).all()):
+            fail(f"{name} {shape}: shape {tuple(got.shape)} or non-finite values")
+        abs_err = float((got.double() - want.double()).abs().max())
+        max_err[name] = max(max_err.get(name, 0.0), abs_err)
+        equal = bool(torch.equal(got, want))
+        print(f"  {name:25s} {shape:24s} max_abs {abs_err:.3e}  bitwise equal: {equal}", flush=True)
+        if not equal:
+            fail(f"{name} {shape}: kernel differs from its plain version")
+
+    d, vocab = WHISPER["d"], WHISPER["vocab"]
+    bstacks = {(bsz, n): stack(bsz, n, 850 + n) for bsz, n in BATCHED_DENSE + ((2, d),)}
+    blus = {}
+    for (bsz, n), a in bstacks.items():
+        blus[(bsz, n)] = batched_lu.batched_lu_vmem(a)
+        compare_bitwise("batched_lu_vmem", f"B={bsz} n={n}", blus[(bsz, n)],
+                        batched_lu.batched_lu_plain(a))
+    for (bsz, n), lu in blus.items():
+        for m in ((vocab,) if n == d else (1, n)):
+            b = rhs_stack(bsz, n, m, 870 + n + m)
+            compare_bitwise("batched_lu_solve_vmem", f"B={bsz} n={n} m={m}",
+                            batched_lu.batched_lu_solve_vmem(lu, b),
+                            batched_lu.batched_lu_solve_plain(lu, b))
+    ensembles = {ENSEMBLE_T1: band_stack(*ENSEMBLE_T1, 880),
+                 (ENSEMBLE_MEMBERS, ENSEMBLE_NX ** 2, ENSEMBLE_NX):
+                     poisson_ensemble(ENSEMBLE_MEMBERS, ENSEMBLE_NX)}
+    eplain, eplain_ms = {}, {}
+    for (bsz, n, bw), a in ensembles.items():
+        shape = f"B={bsz} n={n} bw={bw}"
+        eplain[(bsz, n, bw)], eplain_ms[shape] = once(lambda: banded.banded_lu_plain(a, bw=bw))
+        compare_bitwise("batched_banded_lu_vmem", shape, banded.batched_banded_lu_vmem(a, bw=bw),
+                        eplain[(bsz, n, bw)])
+        b = rhs_stack(bsz, n, 1, 890 + n)
+        want, eplain_ms[shape + " m=1"] = once(lambda: banded_solve_blocked(eplain[(bsz, n, bw)], b, bw=bw))
+        got = banded.batched_banded_solve_vmem(eplain[(bsz, n, bw)], b, bw=bw)
+        torch.cuda.synchronize()
+        abs_err = float((got.double() - want.double()).abs().max())
+        rel = abs_err / float(want.double().abs().max())
+        max_err["batched_banded_solve_vmem"] = max(max_err.get("batched_banded_solve_vmem", 0.0), abs_err)
+        print(f"  {'batched_banded_solve_vmem':25s} {shape + ' m=1':24s} max_abs {abs_err:.3e}  "
+              f"rel {rel:.3e}", flush=True)
+        if not (bool(torch.isfinite(got).all()) and rel <= BATCHED_SOLVE_TOL):
+            fail(f"batched_banded_solve_vmem {shape}: kernel disagrees with its plain version ({rel:.3e})")
+
     # ---- 4. the main paths -----------------------------------------------
     print("phase 4: main path", flush=True)
     wrappers = {"lu_fused": ebv_lu.lu_fused, "solve_vmem": trsm.solve_vmem,
@@ -311,6 +407,198 @@ def main() -> int:
     if not err5 <= 1e-5:
         fail(f"n=500 bw=5 answer off the float64 oracle by {err5:.3e}")
 
+    def check_results(results, residual_bw=0):
+        for label, a, b, x, got, want in results:
+            res = float(relative_residual(a, b, x, bw=residual_bw))
+            print(f"  {label:52s} dispatch {got}  residual {res:.3e}", flush=True)
+            if got != want:
+                fail(f"{label}: dispatched {got}, expected {want}")
+            if x.shape != b.shape or not bool(torch.isfinite(x).all()):
+                fail(f"{label}: result of shape {tuple(x.shape)} or non-finite")
+            if not res <= solvers.VERIFY_RESIDUAL_DEFAULT_BOUND:
+                fail(f"{label}: residual {res:.3e} > {solvers.VERIFY_RESIDUAL_DEFAULT_BOUND}")
+
+    def zero(wrappers):
+        torch.cuda.synchronize()
+        for w in wrappers.values():
+            w.launches = 0
+
+    def read(wrappers, expected, label):
+        torch.cuda.synchronize()
+        got = {k: w.launches for k, w in wrappers.items()}
+        print(f"  launches on the {label}: {got} (expected {expected})", flush=True)
+        if got != expected or min(got.values()) < 1:
+            fail(f"{label} launch counters {got}, expected {expected}, each at least 1")
+        return got
+
+    print("phase 4c: batched dense path", flush=True)
+    dwrappers = {"batched_lu_vmem": batched_lu.batched_lu_vmem,
+                 "batched_lu_solve_vmem": batched_lu.batched_lu_solve_vmem}
+    dcases = [(bsz, n, m, stack(bsz, n, 900 + n), rhs_stack(bsz, n, m, 950 + n + m))
+              for bsz, n in BATCHED_DENSE for m in (1, n)]
+    zero(dwrappers)
+    dresults = []
+    with solvers.record_dispatches() as log:
+        for bsz, n, m, a, b in dcases:
+            for enrich in (False, True):
+                mark = len(log)
+                if enrich:
+                    x = ops.lu_solve(ops.lu(a, enrich=True), b)
+                else:
+                    x = ops.linear_solve(a, b)
+                label = f"{'lu(enrich)+lu_solve' if enrich else 'linear_solve'} B={bsz} n={n} m={m}"
+                dresults.append((label, a, b, x, [nm for _, nm in log[mark:]], ["cuda_vmem"] * 2))
+    calls = 2 * len(dcases)
+    batched_launches = read(dwrappers, {k: calls for k in dwrappers}, "batched dense path")
+    check_results(dresults)
+    bsz, n, _, a, b = dcases[0]
+    want = ref.batched_solve_ref(ref.batched_lu_ref(a.double().cpu().numpy()), b.double().cpu().numpy())
+    err = float(np.abs(dresults[0][3].double().cpu().numpy() - want).max() / np.abs(want).max())
+    print(f"  B={bsz} n={n} m=1 against the float64 oracle (kernels/ref.py): normwise {err:.3e}", flush=True)
+    if not err <= 1e-5:
+        fail(f"B={bsz} n={n} answer off the float64 oracle by {err:.3e}")
+
+    print("phase 4d: the EbV-preconditioned optimizer", flush=True)
+
+    def whisper_tiny_tree(gen):
+        """Parameters of configs/whisper_tiny.py as models/lm.py:init_params
+        lays them out: bf16 weights, fp32 norm scales; the per-layer leaves
+        stacked over the layers (3-D, so AdamW steps them)."""
+        L, ff = WHISPER["layers"], WHISPER["ff"]
+        shapes = {"embed": (vocab, d), "unembed": (d, vocab), "ln_f.scale": (d,),
+                  "enc_ln_f.scale": (d,)}
+        for pre, cross in (("blocks", True), ("enc_blocks", False)):
+            for att in ("attn", "cross") if cross else ("attn",):
+                for w in ("wq", "wk", "wv", "wo"):
+                    shapes[f"{pre}.{att}.{w}"] = (L, d, d)
+            for ln in ("ln_attn", "ln_cross", "ln_mlp") if cross else ("ln_attn", "ln_mlp"):
+                shapes[f"{pre}.{ln}.scale"] = (L, d)
+            shapes[f"{pre}.mlp.wu"], shapes[f"{pre}.mlp.wd"] = (L, d, ff), (L, ff, d)
+        out = {}
+        for name, shape in sorted(shapes.items()):
+            if name.endswith("scale"):
+                out[name] = torch.ones(shape, device=dev)
+            else:
+                scale = 0.02 if name == "embed" else shape[-2] ** -0.5
+                out[name] = (torch.randn(shape, generator=gen, device=dev) * scale).to(torch.bfloat16)
+        return out
+
+    def draw_grads(params, gen):
+        for p in params.values():
+            p.grad = torch.randn(p.shape, generator=gen, device=dev).to(p.dtype)
+
+    solves = []  # (a3, r3, x3) of every preconditioner solve in the run
+
+    def recording(fn):
+        def linear_solve(a, b, **kw):
+            x = fn(a, b, **kw)
+            solves.append((a, b, x))
+            return x
+        return linear_solve
+
+    gen = torch.Generator(device=dev).manual_seed(2024)
+    trees = {"whisper-tiny": {k: torch.nn.Parameter(v) for k, v in whisper_tiny_tree(gen).items()},
+             f"opt_step_d{OPT_D}": {f"w{i}": torch.nn.Parameter(0.02 * torch.randn(
+                 (OPT_D, OPT_D), generator=gen, device=dev)) for i in range(OPT_LEAVES)}}
+    nparams = sum(p.numel() for p in trees["whisper-tiny"].values())
+    print(f"  whisper-tiny tree: {len(trees['whisper-tiny'])} leaves, {nparams} parameters", flush=True)
+    opts = {name: train.EbvPreconditioned(list(ps.values()), lr=train.warmup_cosine(3e-4, 2, OPT_STEPS))
+            for name, ps in trees.items()}
+    start = {name: {k: p.detach().clone() for k, p in ps.items()} for name, ps in trees.items()}
+    first_grads = {}
+    plain_ls = ops.linear_solve
+    ops.linear_solve = recording(plain_ls)
+    zero(dwrappers)
+    oresults = []
+    try:
+        with solvers.record_dispatches() as log:
+            for name, ps in trees.items():
+                for step in range(OPT_STEPS):
+                    draw_grads(ps, gen)
+                    if step == 0:
+                        first_grads[name] = {k: p.grad.clone() for k, p in ps.items()}
+                    mark = len(log)
+                    opts[name].step()
+                    oresults.append((f"{name} step {step + 1}",
+                                     [(p.op, p.n, p.batch, p.rhs, nm) for p, nm in log[mark:]]))
+    finally:
+        ops.linear_solve = plain_ls
+    opt_launches = read(dwrappers, {k: 3 * OPT_STEPS for k in dwrappers}, "optimizer path")
+    for k in dwrappers:
+        batched_launches[k] += opt_launches[k]
+    # whisper-tiny: the stacked norm scales (L, d) are 2-D too, one order-L
+    # group of five systems; embed and unembed the order-d group of two
+    L = WHISPER["layers"]
+    want_log = {"whisper-tiny": [("factor", L, 5, 0, "cuda_vmem"), ("solve", L, 5, d, "cuda_vmem"),
+                                 ("factor", d, 2, 0, "cuda_vmem"), ("solve", d, 2, vocab, "cuda_vmem")],
+                f"opt_step_d{OPT_D}": [("factor", OPT_D, OPT_LEAVES, 0, "cuda_vmem"),
+                                       ("solve", OPT_D, OPT_LEAVES, OPT_D, "cuda_vmem")]}
+    for label, got in oresults:
+        print(f"  {label:24s} dispatch {got}", flush=True)
+        if got != want_log[label.split(" step")[0]]:
+            fail(f"{label}: dispatched {got}")
+    for a3, r3, x3 in solves:
+        res = float(relative_residual(a3, r3, x3))
+        print(f"  preconditioner solve {tuple(r3.shape)}: worst system's residual {res:.3e}", flush=True)
+        if x3.shape != r3.shape or not bool(torch.isfinite(x3).all()) or not res <= 1e-4:
+            fail(f"preconditioner solve {tuple(r3.shape)}: residual {res:.3e} or non-finite")
+    for name, ps in trees.items():
+        for k, p in ps.items():
+            if not bool(torch.isfinite(p).all()) or torch.equal(p.detach(), start[name][k]):
+                fail(f"{name} {k}: not finite or not updated")
+    # the optimizer's own systems through the kernels and their plain versions
+    a3, r3, _ = next(s for s in solves if s[0].shape[-1] == d)
+    lu3 = batched_lu.batched_lu_vmem(a3)
+    compare_bitwise("batched_lu_vmem", f"optimizer B=2 n={d}", lu3, batched_lu.batched_lu_plain(a3))
+    compare_bitwise("batched_lu_solve_vmem", f"optimizer m={vocab}",
+                    batched_lu.batched_lu_solve_vmem(lu3, r3), batched_lu.batched_lu_solve_plain(lu3, r3))
+    # the d128 tree's first step on the card against the same step on the CPU
+    name = f"opt_step_d{OPT_D}"
+    cps = {k: torch.nn.Parameter(v.cpu().clone()) for k, v in start[name].items()}
+    copt = train.EbvPreconditioned(list(cps.values()), lr=train.warmup_cosine(3e-4, 2, OPT_STEPS))
+    for k, p in cps.items():
+        p.grad = first_grads[name][k].cpu()
+    copt.step()
+    gps = {k: torch.nn.Parameter(v.clone()) for k, v in start[name].items()}
+    gopt = train.EbvPreconditioned(list(gps.values()), lr=train.warmup_cosine(3e-4, 2, OPT_STEPS))
+    for k, p in gps.items():
+        p.grad = first_grads[name][k].clone()
+    gopt.step()
+    for k in cps:
+        du = gps[k].detach().cpu() - start[name][k].cpu()
+        dc = cps[k].detach() - start[name][k].cpu()
+        err = float((du - dc).abs().max() / dc.abs().max())
+        print(f"  {name} step 1 {k}: update on the card vs the CPU, normwise {err:.3e}", flush=True)
+        if not err <= 1e-4:
+            fail(f"{name} {k}: the card's step differs from the CPU's by {err:.3e}")
+
+    print("phase 4e: batched banded path (the CFD ensemble)", flush=True)
+    ewrappers = {"batched_banded_lu_vmem": banded.batched_banded_lu_vmem,
+                 "batched_banded_solve_vmem": banded.batched_banded_solve_vmem}
+    ecases = [(bsz, n, bw, a, rhs_stack(bsz, n, 1, 960 + n)) for (bsz, n, bw), a in ensembles.items()]
+    small = (4, 500, 5)
+    ecases.append((*small, band_stack(*small, 970), rhs_stack(small[0], small[1], 1, 971)))
+    zero(ewrappers)
+    eresults = []
+    with solvers.record_dispatches() as log:
+        for bsz, n, bw, a, b in ecases:
+            mark = len(log)
+            x = ops.banded_linear_solve(a, b, bw=bw)
+            eresults.append((f"banded_linear_solve B={bsz} n={n} bw={bw} m=1", a, b, x, bw,
+                             [nm for _, nm in log[mark:]]))
+    ens_launches = read(ewrappers, {k: len(ecases) for k in ewrappers}, "batched banded path")
+    batched_launches.update(ens_launches)
+    for label, a, b, x, bw, got in eresults:
+        check_results([(label, a, b, x, got, ["cuda_vmem"] * 2)], residual_bw=bw)
+    bsz, n, bw, a, b = ecases[-1]
+    want = ref.batched_banded_solve_ref(ref.batched_banded_lu_ref(a.double().cpu().numpy(), bw),
+                                        b.double().cpu().numpy(), bw)
+    err = float(np.abs(eresults[-1][3].double().cpu().numpy() - want).max() / np.abs(want).max())
+    print(f"  B={bsz} n={n} bw={bw} against the float64 oracle (kernels/ref.py): normwise {err:.3e}",
+          flush=True)
+    if not err <= 1e-5:
+        fail(f"B={bsz} n={n} bw={bw} answer off the float64 oracle by {err:.3e}")
+
     # ---- 5. times --------------------------------------------------------
     print(f"phase 5: times (ms, median of {REPS} after 1 warm-up; card: {card})", flush=True)
 
@@ -335,7 +623,10 @@ def main() -> int:
             return None
 
     def kernel_breakdown(fn):
-        """(kernel name, device µs, launches) of one call, largest first."""
+        """(kernel name, device µs, launches) of one call, largest first: the
+        device's own events (kernels, copies), not the host ops that launched
+        them, so the times add up to the device's busy time."""
+        from torch.autograd import DeviceType
         from torch.profiler import ProfilerActivity, profile
 
         fn()
@@ -344,7 +635,8 @@ def main() -> int:
             fn()
             torch.cuda.synchronize()
         rows = [(e.key, e.self_device_time_total, e.count) for e in prof.key_averages()
-                if e.self_device_time_total > 0]
+                if e.self_device_time_total > 0 and e.device_type != DeviceType.CPU
+                and not getattr(e, "is_user_annotation", False)]  # a span over kernels listed anyway
         if not rows:
             print("    the profiler saw no device time: not measured", flush=True)
         return sorted(rows, key=lambda r: -r[1])
@@ -443,6 +735,61 @@ def main() -> int:
                timed(lambda: banded_inverted_solve(*args, n=n, bw=bw)), None, 4 * n * bw * m, nbytes,
                per_call(banded.banded_solve_inverted, kernel))
 
+    # batched kernels at the batched paths' shapes; library: batched
+    # torch.linalg.lu_factor(pivot=False) for B9 and lu_solve with identity
+    # pivots for B10; none for the band kernels (B11, B12)
+    for (bsz, n), a in bstacks.items():
+        # 2n^3/3 flops per system; the stack read once and its factor written once
+        work = (bsz * 2 * n ** 3 / 3, 2 * bsz * n * n * 4)
+        kernel = lambda: batched_lu.batched_lu_vmem(a)
+        plain = (timed(lambda: batched_lu.batched_lu_plain(a)) if n <= 256
+                 else once(lambda: batched_lu.batched_lu_plain(a))[1])
+        record("batched_lu_vmem", f"B={bsz} n={n}", timed(kernel), plain,
+               library(lambda: torch.linalg.lu_factor(a, pivot=False)), *work,
+               per_call(batched_lu.batched_lu_vmem, kernel))
+    for (bsz, n), lu in blus.items():
+        piv = torch.arange(1, n + 1, dtype=torch.int32, device=dev).expand(bsz, n).contiguous()
+        for m in ((vocab,) if n == d else (1, n)):
+            b = rhs_stack(bsz, n, m, 980 + n + m)
+            b3 = b[..., None] if m == 1 else b
+            # 2n^2 m flops per system; the factors, b and x cross once
+            work = (bsz * 2 * n * n * m, bsz * (n * n + 2 * n * m) * 4)
+            kernel = lambda: batched_lu.batched_lu_solve_vmem(lu, b)
+            plain = (timed(lambda: batched_lu.batched_lu_solve_plain(lu, b)) if n * m <= 256 * 256
+                     else once(lambda: batched_lu.batched_lu_solve_plain(lu, b))[1])
+            record("batched_lu_solve_vmem", f"B={bsz} n={n} m={m}", timed(kernel), plain,
+                   library(lambda: torch.linalg.lu_solve(lu, piv, b3)), *work,
+                   per_call(batched_lu.batched_lu_solve_vmem, kernel))
+    a = bstacks[BATCHED_DENSE[-1]]
+    slot = solvers.get_backend("factor", "batched_dense", "torch")
+    _, slot_ms = once(lambda: slot.call(solvers.Problem.from_arrays("factor", a), a))
+    print(f"  the reference's slot past its cap, the plain fused_blocked_lu per system "
+          f"(torch slot), B={a.shape[0]} n={a.shape[1]}, one call: {slot_ms:.1f} ms", flush=True)
+    for (bsz, n, bw), a in ensembles.items():
+        shape = f"B={bsz} n={n} bw={bw}"
+        kernel = lambda: banded.batched_banded_lu_vmem(a, bw=bw)
+        record("batched_banded_lu_vmem", shape, timed(kernel), eplain_ms[shape], None,
+               bsz * n * (2 * bw * bw + bw), 2 * bsz * n * (2 * bw + 1) * 4,
+               per_call(banded.batched_banded_lu_vmem, kernel))
+        lu, b = eplain[(bsz, n, bw)], rhs_stack(bsz, n, 1, 990 + n)
+        kernel = lambda: banded.batched_banded_solve_vmem(lu, b, bw=bw)
+        record("batched_banded_solve_vmem", shape + " m=1", timed(kernel), eplain_ms[shape + " m=1"],
+               None, bsz * 4 * n * bw, bsz * (n * (2 * bw + 1) + 2 * n) * 4,
+               per_call(banded.batched_banded_solve_vmem, kernel))
+    print("  optimizer step (host clock around a synchronized step, median of 3):", flush=True)
+    opt_ms = {}
+    for name, ps in trees.items():
+        times = []
+        for _ in range(3):
+            draw_grads(ps, gen)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            opts[name].step()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        opt_ms[name] = statistics.median(times)
+        print(f"    {name:16s} {opt_ms[name]:.3f} ms (card: {card})", flush=True)
+
     print("  device time by kernel (torch.profiler, one call after a warm-up):", flush=True)
     a8 = matrix(8000, 8000)
     b8 = rhs(8000, 1, 11)
@@ -450,8 +797,17 @@ def main() -> int:
     pfactor = bwrappers[factor_wrapper[banded_static_impl(POISSON_NX)]]
     for label, fn in (("lu_fused n=8000", lambda: ebv_lu.lu_fused(a8)),
                       ("solve_tiled n=8000 m=1", lambda: trsm.solve_tiled(lus[8000], b8)),
-                      (f"{pfactor.__name__} n={pn} bw={POISSON_NX}", lambda: pfactor(ap, bw=POISSON_NX))):
-        for name, us, count in kernel_breakdown(fn):
+                      (f"{pfactor.__name__} n={pn} bw={POISSON_NX}", lambda: pfactor(ap, bw=POISSON_NX)),
+                      ("whisper-tiny optimizer step", lambda: opts["whisper-tiny"].step())):
+        rows_k = kernel_breakdown(fn)
+        busy = sum(us for _, us, _ in rows_k) / 1e3
+        print(f"    {label:24s} device busy {busy:.3f} ms in all, the {min(len(rows_k), 12)} "
+              "largest:", flush=True)
+        if label.endswith("optimizer step") and busy > 0:
+            step = opt_ms["whisper-tiny"]
+            print(f"    {label:24s} against the {step:.3f} ms step (host clock): idle share "
+                  f"{max(0.0, 1 - busy / step):.3f}", flush=True)
+        for name, us, count in rows_k[:12]:
             print(f"    {label:24s} {name[:48]:48s} {us / 1e3:9.3f} ms  x{count}", flush=True)
 
     print("  cuda_vmem / cuda_tiled crossover (kernel ms):", flush=True)
@@ -476,22 +832,32 @@ def main() -> int:
 
     # ---- 6. kernels line + result ----------------------------------------
     shoot = f"n={SHOOTOUT[0]} bw={SHOOTOUT[1]}"
+    ens = f"B={ENSEMBLE_MEMBERS} n={ENSEMBLE_NX ** 2} bw={ENSEMBLE_NX}"
     line_shape = {"lu_fused": "n=2000", "solve_vmem": f"n=2000 m={WIDE}",
                   "solve_tiled": f"n=8000 m={WIDE}", "solve_inverted": f"n=8000 m={WIDE}",
                   "banded_lu_blocked": "n=16000 bw=5", "banded_lu_tiled": shoot,
-                  "banded_solve_kernelized": f"{shoot} m={WIDE}", "banded_solve_inverted": f"{shoot} m={WIDE}"}
+                  "banded_solve_kernelized": f"{shoot} m={WIDE}", "banded_solve_inverted": f"{shoot} m={WIDE}",
+                  "batched_lu_vmem": f"B=2 n={d}", "batched_lu_solve_vmem": f"B=2 n={d} m={vocab}",
+                  "batched_banded_lu_vmem": ens, "batched_banded_solve_vmem": f"{ens} m=1"}
     source = {"lu_fused": "src/repro_torch/csrc/ebv_lu.cu", "solve_vmem": "src/repro_torch/csrc/trsm.cu",
               "solve_tiled": "src/repro_torch/csrc/trsm.cu", "solve_inverted": "src/repro_torch/csrc/trsm.cu",
-              **dict.fromkeys(bwrappers, "src/repro_torch/csrc/banded.cu")}
+              **dict.fromkeys(bwrappers, "src/repro_torch/csrc/banded.cu"),
+              **dict.fromkeys(dwrappers, "src/repro_torch/csrc/batched_lu.cu"),
+              **dict.fromkeys(ewrappers, "src/repro_torch/csrc/banded.cu")}
     replaces = {"lu_fused": "src/repro/kernels/ebv_lu.py:349", "solve_vmem": "src/repro/kernels/trsm.py:62",
                 "solve_tiled": "src/repro/kernels/trsm.py:160",
                 "solve_inverted": "src/repro/kernels/trsm.py:251",
                 "banded_lu_blocked": "src/repro/kernels/banded.py:129",
                 "banded_lu_tiled": "src/repro/kernels/banded.py:173",
                 "banded_solve_kernelized": "src/repro/kernels/banded.py:260",
-                "banded_solve_inverted": "src/repro/kernels/banded.py:324"}
+                "banded_solve_inverted": "src/repro/kernels/banded.py:324",
+                "batched_lu_vmem": "src/repro/kernels/batched_lu.py:28",
+                "batched_lu_solve_vmem": "src/repro/kernels/batched_lu.py:66",
+                "batched_banded_lu_vmem": "src/repro/kernels/banded.py:393",
+                "batched_banded_solve_vmem": "src/repro/kernels/banded.py:430"}
+    launches.update(batched_launches)
     kernels = []
-    for name in {**wrappers, **bwrappers}:
+    for name in {**wrappers, **bwrappers, **dwrappers, **ewrappers}:
         row = rows[(name, line_shape[name])]
         kernels.append({
             "name": name, "route": "cuda", "source": source[name], "replaces": replaces[name],

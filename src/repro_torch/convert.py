@@ -1,9 +1,11 @@
 """State carried across from the JAX package.
 
-This system has no weights: its state is the matrix, the right-hand sides
-and the ``Factorization`` artifact.  These helpers take the numpy arrays
-``np.asarray`` gives of the reference's tensors and rebuild them here, on
-the card unless ``device="cpu"`` is asked for.
+The solver's state is the matrix, the right-hand sides and the
+``Factorization`` artifact (a stack of them for the batched path); the
+optimizer's is the parameter tree and its ``step``/``mu``/``nu``/``cov``
+state.  These helpers take the numpy arrays ``np.asarray`` gives of the
+reference's tensors and rebuild them here, on the card unless
+``device="cpu"`` is asked for.
 """
 from __future__ import annotations
 
@@ -13,7 +15,8 @@ import torch
 from . import device as _device
 from .core.factorization import Factorization
 
-__all__ = ["tensor_from_numpy", "factorization_from_numpy"]
+__all__ = ["tensor_from_numpy", "factorization_from_numpy", "named_leaves",
+           "optimizer_from_numpy"]
 
 
 def tensor_from_numpy(x, *, device=None) -> torch.Tensor:
@@ -26,8 +29,9 @@ def factorization_from_numpy(packed, linv=None, uinv=None, tlo=None, tup=None, *
                              device=None) -> Factorization:
     """A reference ``Factorization`` (its ``packed``, ``linv``, ``uinv``,
     ``tlo`` and ``tup`` as numpy arrays, plus its ``block``, ``tier``,
-    ``structure`` and ``bw``) as this package's artifact.  The health
-    record is not carried: it is recomputed here when asked for."""
+    ``structure`` and ``bw``) as this package's artifact; a batched one
+    (leading batch axes on every array) gives a batched artifact.  The
+    health record is not carried: it is recomputed here when asked for."""
     if structure not in ("dense", "banded"):
         raise ValueError(f"structure is 'dense' or 'banded', got {structure!r}")
     if (structure == "banded") != (bw > 0):
@@ -42,3 +46,38 @@ def factorization_from_numpy(packed, linv=None, uinv=None, tlo=None, tup=None, *
     return Factorization(packed=conv(packed), linv=conv(linv), uinv=conv(uinv), tlo=conv(tlo),
                          tup=conv(tup), structure=structure, bw=int(bw), block=int(block),
                          tier=float(tier))
+
+
+def named_leaves(tree, prefix: str = "") -> dict:
+    """The leaves of a nested dict, in the order ``jax.tree`` flattens it
+    (keys sorted at every level), named by their ``.``-joined key paths."""
+    if not isinstance(tree, dict):
+        return {prefix: tree}
+    out = {}
+    for key in sorted(tree):
+        out.update(named_leaves(tree[key], f"{prefix}.{key}" if prefix else str(key)))
+    return out
+
+
+def optimizer_from_numpy(params, state, make_optimizer, *, device=None):
+    """The reference's parameter tree (a nested dict of numpy arrays) as
+    named ``torch.nn.Parameter`` s, and the optimizer ``make_optimizer``
+    builds over them (in the reference's leaf order) carrying the
+    reference optimizer's state: ``step`` and the ``mu``/``nu`` (and, for
+    the EbV optimizer, ``cov``) trees of ``adamw`` / ``ebv_preconditioned``.
+    ``state=None`` leaves the optimizer fresh, as the reference's ``init``
+    does.  Returns ``(named_params, optimizer)``; both then compute the
+    reference's next step."""
+    dev = _device.resolve(device)
+    named = {name: torch.nn.Parameter(tensor_from_numpy(x, device=dev))
+             for name, x in named_leaves(params).items()}
+    opt = make_optimizer(list(named.values()))
+    if state is not None:
+        parts = {key: named_leaves(state[key]) for key in ("mu", "nu", "cov") if key in state}
+        step = int(np.asarray(state["step"]))
+        for name, p in named.items():
+            st = opt.state[p]
+            st["step"] = step
+            for key, leaves in parts.items():
+                st[key] = tensor_from_numpy(leaves[name], device=dev)
+    return named, opt

@@ -10,6 +10,7 @@ Layers:
   * ``health``        — post-factor screening for the no-pivot contract.
   * ``pivoted``       — partial-pivoting last resort.
   * ``factorization`` — the ``Factorization`` artifact.
+  * ``batched``       — the batched solvers (a leading batch axis).
 """
 from .ebv import (
     ebv_lu,
@@ -33,6 +34,12 @@ from .health import (
 )
 from .pivoted import PivotedFactors, pivoted_lu, pivoted_solve
 from .factorization import Factorization
+from .batched import (
+    batched_ebv_lu,
+    batched_lu_solve,
+    batched_linear_solve,
+    batched_linear_solve_many,
+)
 
 __all__ = [
     "ebv_lu", "ebv_step", "equalized_pairing", "pair_lengths", "fold_index",
@@ -42,5 +49,6 @@ __all__ = [
     "forward_substitution", "backward_substitution", "lu_solve", "linear_solve",
     "FactorHealth", "HealthThresholds", "DEFAULT_THRESHOLDS", "factor_health",
     "relative_residual", "PivotedFactors", "pivoted_lu", "pivoted_solve",
-    "Factorization",
+    "Factorization", "batched_ebv_lu", "batched_lu_solve", "batched_linear_solve",
+    "batched_linear_solve_many",
 ]

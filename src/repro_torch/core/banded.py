@@ -161,41 +161,41 @@ def band_block_size(n: int, bw: int, block: int | None = None) -> int:
 
 
 def pad_band_identity(arow: torch.Tensor, bw: int, rows_to: int) -> torch.Tensor:
-    """Pad the band with identity rows (centre 1, zero coupling) — inert
-    under no-pivot elimination and substitution.  Returns ``arow`` itself
-    when no padding is needed."""
-    n, w = arow.shape
+    """Pad the band ``(..., n, 2bw+1)`` with identity rows (centre 1, zero
+    coupling) — inert under no-pivot elimination and substitution.  Returns
+    ``arow`` itself when no padding is needed."""
+    n, w = arow.shape[-2:]
     if rows_to == n:
         return arow
-    pad = torch.zeros((rows_to - n, w), dtype=arow.dtype, device=arow.device)
-    pad[:, bw] = 1
-    return torch.cat([arow, pad])
+    pad = torch.zeros((*arow.shape[:-2], rows_to - n, w), dtype=arow.dtype, device=arow.device)
+    pad[..., bw] = 1
+    return torch.cat([arow, pad], dim=-2)
 
 
 def band_to_skewed(ap: torch.Tensor, bw: int, block: int) -> torch.Tensor:
-    """Re-lay the row-aligned band ``(R, 2bw+1)`` (``R`` a multiple of
-    ``block``) into the window-aligned skewed form ``G`` ``(R, C+2bw)``:
+    """Re-lay the row-aligned band ``(..., R, 2bw+1)`` (``R`` a multiple of
+    ``block``) into the window-aligned skewed form ``G`` ``(..., R, C+2bw)``:
     ``G[i, c] = A[i, k(i) - bw + c]`` with ``k(i) = (i // C)·C``.
 
     Shifting row ``r0`` of a block right by ``r0`` is the identity on
     flattened indices once rows are padded to width ``C+2bw+1``: one pad,
     two reshapes and one slice.  Pure data movement, so exact."""
-    r, w = ap.shape
+    lead, (r, w) = ap.shape[:-2], ap.shape[-2:]
     c = block
     gw = c + 2 * bw
-    padded = F.pad(ap.reshape(r // c, c, w), (0, gw + 1 - w))
-    flat = padded.reshape(r // c, c * (gw + 1))[:, :c * gw]
-    return flat.reshape(r, gw)
+    padded = F.pad(ap.reshape(*lead, r // c, c, w), (0, gw + 1 - w))
+    flat = padded.reshape(*lead, r // c, c * (gw + 1))[..., :c * gw]
+    return flat.reshape(*lead, r, gw)
 
 
 def skewed_to_band(g: torch.Tensor, bw: int, block: int) -> torch.Tensor:
-    """Inverse of :func:`band_to_skewed`: skewed ``(R, C+2bw)`` →
-    row-aligned band ``(R, 2bw+1)``."""
-    r, gw = g.shape
+    """Inverse of :func:`band_to_skewed`: skewed ``(..., R, C+2bw)`` →
+    row-aligned band ``(..., R, 2bw+1)``."""
+    lead, (r, gw) = g.shape[:-2], g.shape[-2:]
     c = block
     w = 2 * bw + 1
-    flat = F.pad(g.reshape(r // c, c * gw), (0, c))
-    return flat.reshape(r // c, c, gw + 1)[:, :, :w].reshape(r, w)
+    flat = F.pad(g.reshape(*lead, r // c, c * gw), (0, c))
+    return flat.reshape(*lead, r // c, c, gw + 1)[..., :w].reshape(*lead, r, w)
 
 
 def band_window_from_slabs(own: torch.Tensor, carry: torch.Tensor, bw: int) -> torch.Tensor:
@@ -203,13 +203,14 @@ def band_window_from_slabs(own: torch.Tensor, carry: torch.Tensor, bw: int) -> t
     two skewed slabs: ``own`` ``(C, C+2bw)`` (the step's own rows) and
     ``carry`` (the next block's first ``bw`` rows — ``(bw, 2bw)`` when
     ``C ≥ bw``, ``(bw, C+bw)`` sliced at column ``bw-C`` otherwise)."""
-    c = own.shape[0]
-    top = own[:, bw:]
+    c = own.shape[-2]
+    top = own[..., bw:]
     if c >= bw:
-        bot = torch.cat([torch.zeros((bw, c - bw), dtype=own.dtype, device=own.device), carry], dim=1)
+        zero = torch.zeros((*own.shape[:-2], bw, c - bw), dtype=own.dtype, device=own.device)
+        bot = torch.cat([zero, carry], dim=-1)
     else:
         bot = carry
-    return torch.cat([top, bot])
+    return torch.cat([top, bot], dim=-2)
 
 
 def factor_band_window(window: torch.Tensor, npiv: int, bw: int) -> torch.Tensor:
@@ -218,10 +219,10 @@ def factor_band_window(window: torch.Tensor, npiv: int, bw: int) -> torch.Tensor
     ``(bw+1, bw+1)`` block the band reaches.  Returns a new tensor."""
     wnd = window.clone()
     for p in range(npiv):
-        blk = wnd[p:p + bw + 1, p:p + bw + 1]
-        l_col = blk[1:, :1] / blk[:1, :1]
-        blk[1:, 1:] -= l_col * blk[:1, 1:]  # rank-1 Schur update on the reachable block
-        blk[1:, :1] = l_col
+        blk = wnd[..., p:p + bw + 1, p:p + bw + 1]
+        l_col = blk[..., 1:, :1] / blk[..., :1, :1]
+        blk[..., 1:, 1:] -= l_col * blk[..., :1, 1:]  # rank-1 Schur update on the reachable block
+        blk[..., 1:, :1] = l_col
     return wnd
 
 
@@ -232,14 +233,14 @@ def unit_lower_window_solve(lwin: torch.Tensor, y: torch.Tensor, bw: int) -> tor
     one rank-``C2`` product retiring the ``bw`` rows the band couples.
     Returns a new tensor."""
     y = y.clone()
-    c = lwin.shape[0]
+    c = lwin.shape[-1]
     c2 = sub_block_width(c)
     for j in range(0, c, c2):
-        strip = strip_trsm(lwin[j:j + c2, j:j + c2], y[j:j + c2])
-        y[j:j + c2] = strip
+        strip = strip_trsm(lwin[..., j:j + c2, j:j + c2], y[..., j:j + c2, :])
+        y[..., j:j + c2, :] = strip
         hr = min(bw, c - j - c2)
         if hr > 0:
-            y[j + c2:j + c2 + hr] -= lwin[j + c2:j + c2 + hr, j:j + c2] @ strip
+            y[..., j + c2:j + c2 + hr, :] -= lwin[..., j + c2:j + c2 + hr, j:j + c2] @ strip
     return y
 
 
@@ -249,14 +250,14 @@ def upper_window_solve(uwin: torch.Tensor, x: torch.Tensor, bw: int) -> torch.Te
     with :func:`~repro_torch.core.blocked.strip_utrsm` strips.  Returns a
     new tensor."""
     x = x.clone()
-    c = uwin.shape[0]
+    c = uwin.shape[-1]
     c2 = sub_block_width(c)
     for j in range(c - c2, -1, -c2):
-        strip = strip_utrsm(uwin[j:j + c2, j:j + c2], x[j:j + c2])
-        x[j:j + c2] = strip
+        strip = strip_utrsm(uwin[..., j:j + c2, j:j + c2], x[..., j:j + c2, :])
+        x[..., j:j + c2, :] = strip
         hr = min(bw, j)
         if hr > 0:
-            x[j - hr:j] -= uwin[j - hr:j, j:j + c2] @ strip
+            x[..., j - hr:j, :] -= uwin[..., j - hr:j, j:j + c2] @ strip
     return x
 
 
@@ -274,7 +275,7 @@ def skew_pad(arow: torch.Tensor, bw: int, block: int) -> tuple[torch.Tensor, int
     """Identity-pad the band to :func:`skew_rows` rows and re-lay it into
     the skewed form.  Returns ``(G, num_steps)``; ``G`` never shares memory
     with ``arow``."""
-    n = arow.shape[0]
+    n = arow.shape[-2]
     ap = pad_band_identity(arow, bw, skew_rows(n, bw, block))
     return band_to_skewed(ap, bw, block).contiguous(), -(-n // block)
 
@@ -282,11 +283,11 @@ def skew_pad(arow: torch.Tensor, bw: int, block: int) -> tuple[torch.Tensor, int
 def band_step_slabs(g: torch.Tensor, k: int, *, block: int, bw: int):
     """One block step's (own, carry) slabs of the skewed band at row ``k``."""
     c = block
-    own = g[k:k + c]
+    own = g[..., k:k + c, :]
     if c >= bw:
-        carry = g[k + c:k + c + bw, :2 * bw]
+        carry = g[..., k + c:k + c + bw, :2 * bw]
     else:
-        carry = g[k + c:k + c + bw, bw - c:2 * bw]
+        carry = g[..., k + c:k + c + bw, bw - c:2 * bw]
     return own, carry
 
 
@@ -295,11 +296,11 @@ def band_step_writeback(g: torch.Tensor, window: torch.Tensor, k: int, *, block:
     step's own ``C`` rows are final; its ``bw`` carry rows flow into the
     next block's leading columns."""
     c = block
-    g[k:k + c, bw:] = window[:c]
+    g[..., k:k + c, bw:] = window[..., :c, :]
     if c >= bw:
-        g[k + c:k + c + bw, :2 * bw] = window[c:, c - bw:]
+        g[..., k + c:k + c + bw, :2 * bw] = window[..., c:, c - bw:]
     else:
-        g[k + c:k + c + bw, bw - c:2 * bw] = window[c:]
+        g[..., k + c:k + c + bw, bw - c:2 * bw] = window[..., c:, :]
     return g
 
 
@@ -315,26 +316,30 @@ def banded_lu_blocked(arow: torch.Tensor, *, bw: int, block: int | None = None) 
     """Blocked no-pivot band LU: ``C`` rows retired per step through the
     dense band window on the skewed layout.  Plain version of the CUDA
     factors :func:`repro_torch.kernels.banded.banded_lu_blocked` and
-    :func:`~repro_torch.kernels.banded.banded_lu_tiled`.  Never mutates
-    ``arow``."""
-    n = arow.shape[0]
+    :func:`~repro_torch.kernels.banded.banded_lu_tiled`, and, on a stack of
+    bands ``(..., n, 2bw+1)`` (every step runs on all of them at once), of
+    :func:`~repro_torch.kernels.banded.batched_banded_lu_vmem`.  Never
+    mutates ``arow``."""
+    n = arow.shape[-2]
     c = band_block_size(n, bw, block)
     g, s = skew_pad(arow, bw, c)
     for i in range(s):
         band_block_step(g, i * c, block=c, bw=bw)
-    return skewed_to_band(g, bw, c)[:n]
+    return skewed_to_band(g, bw, c)[..., :n, :]
 
 
 def banded_solve_blocked(lu_band, b: torch.Tensor, *, bw: int, block: int | None = None) -> torch.Tensor:
     """Blocked forward + backward substitution on the packed band factors:
     per block one coupling product against the ``bw`` solved rows above
     (below), then the in-block window solve.  Plain version of the CUDA
-    solve :func:`repro_torch.kernels.banded.banded_solve_kernelized`."""
+    solve :func:`repro_torch.kernels.banded.banded_solve_kernelized` and,
+    on a stack of factors ``(..., n, 2bw+1)`` with ``b`` ``(..., n)`` or
+    ``(..., n, m)``, of :func:`~repro_torch.kernels.banded.batched_banded_solve_vmem`."""
     lu_band = getattr(lu_band, "packed", lu_band)
-    n = lu_band.shape[0]
-    squeeze = b.ndim == 1
-    bm = b[:, None] if squeeze else b
-    m = bm.shape[1]
+    lead, n = lu_band.shape[:-2], lu_band.shape[-2]
+    squeeze = b.ndim == lu_band.ndim - 1
+    bm = b[..., None] if squeeze else b
+    m = bm.shape[-1]
     c = band_block_size(n, bw, block)
     s = -(-n // c)
     np_rows = s * c
@@ -343,20 +348,21 @@ def banded_solve_blocked(lu_band, b: torch.Tensor, *, bw: int, block: int | None
     # the in-block packed L/U window, F[:, bw+C:] couples to the rows below
     g = band_to_skewed(pad_band_identity(lu_band, bw, np_rows), bw, c)
     # x carries bw zero margin rows on both ends (rows [bw, bw+n) are real)
-    xp = torch.zeros((bw + np_rows + bw, m), dtype=bm.dtype, device=bm.device)
-    xp[bw:bw + n] = bm
+    xp = torch.zeros((*lead, bw + np_rows + bw, m), dtype=bm.dtype, device=bm.device)
+    xp[..., bw:bw + n, :] = bm
     for i in range(s):
         k = i * c
-        f = g[k:k + c]
-        yblk = xp[bw + k:bw + k + c] - f[:, :bw] @ xp[k:k + bw]
-        xp[bw + k:bw + k + c] = unit_lower_window_solve(f[:, bw:bw + c], yblk, bw)
+        f = g[..., k:k + c, :]
+        yblk = xp[..., bw + k:bw + k + c, :] - f[..., :bw] @ xp[..., k:k + bw, :]
+        xp[..., bw + k:bw + k + c, :] = unit_lower_window_solve(f[..., bw:bw + c], yblk, bw)
     for i in range(s - 1, -1, -1):
         k = i * c
-        f = g[k:k + c]
-        xblk = xp[bw + k:bw + k + c] - f[:, bw + c:] @ xp[bw + k + c:bw + k + c + bw]
-        xp[bw + k:bw + k + c] = upper_window_solve(f[:, bw:bw + c], xblk, bw)
-    x = xp[bw:bw + n]
-    return x[:, 0] if squeeze else x
+        f = g[..., k:k + c, :]
+        xblk = (xp[..., bw + k:bw + k + c, :]
+                - f[..., bw + c:] @ xp[..., bw + k + c:bw + k + c + bw, :])
+        xp[..., bw + k:bw + k + c, :] = upper_window_solve(f[..., bw:bw + c], xblk, bw)
+    x = xp[..., bw:bw + n, :]
+    return x[..., 0] if squeeze else x
 
 
 def banded_linear_solve_blocked(arow: torch.Tensor, b: torch.Tensor, *, bw: int,

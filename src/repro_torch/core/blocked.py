@@ -45,16 +45,17 @@ def sub_block_width(block: int) -> int:
 
 
 def pad_identity_tail(a: torch.Tensor, n_to: int) -> torch.Tensor:
-    """Embed square ``a`` in an (n_to, n_to) tensor with an identity tail —
-    inert under no-pivot elimination and substitution (unit pivots, zero
-    coupling).  Returns ``a`` itself when no padding is needed."""
+    """Embed square ``a`` (or each of a ``(..., n, n)`` stack) in an
+    (n_to, n_to) tensor with an identity tail — inert under no-pivot
+    elimination and substitution (unit pivots, zero coupling).  Returns
+    ``a`` itself when no padding is needed."""
     n = a.shape[-1]
     if n_to == n:
         return a
-    out = torch.zeros((n_to, n_to), dtype=a.dtype, device=a.device)
-    out[:n, :n] = a
+    out = torch.zeros((*a.shape[:-2], n_to, n_to), dtype=a.dtype, device=a.device)
+    out[..., :n, :n] = a
     idx = torch.arange(n, n_to, device=a.device)
-    out[idx, idx] = 1
+    out[..., idx, idx] = 1
     return out
 
 
@@ -62,8 +63,8 @@ def strip_trsm(ldiag: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
     """Unit-lower solve of a ``(C2, w)`` strip against the ``(C2, C2)``
     diagonal block, as a sequential axpy recurrence.  Returns a new tensor."""
     u = rhs.clone()
-    for k in range(ldiag.shape[0] - 1):
-        u[k + 1:] -= ldiag[k + 1:, k:k + 1] * u[k:k + 1]
+    for k in range(ldiag.shape[-1] - 1):
+        u[..., k + 1:, :] -= ldiag[..., k + 1:, k:k + 1] * u[..., k:k + 1, :]
     return u
 
 
@@ -72,9 +73,9 @@ def strip_utrsm(udiag: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
     strip against the ``(C2, C2)`` diagonal block — the backward twin of
     :func:`strip_trsm`.  Returns a new tensor."""
     x = rhs.clone()
-    for k in range(udiag.shape[0] - 1, -1, -1):
-        x[k] /= udiag[k, k]
-        x[:k] -= udiag[:k, k:k + 1] * x[k:k + 1]
+    for k in range(udiag.shape[-1] - 1, -1, -1):
+        x[..., k:k + 1, :] /= udiag[..., k:k + 1, k:k + 1]
+        x[..., :k, :] -= udiag[..., :k, k:k + 1] * x[..., k:k + 1, :]
     return x
 
 

@@ -51,12 +51,12 @@ __all__ = [
 
 
 def _packed_block_inverses(diags: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """``L^{-1}`` / ``U^{-1}`` of a ``(S, B, B)`` stack of packed diagonal
-    blocks by batched triangular solves against the identity (each solve
-    reads only its own triangle, so the packed layout needs no
+    """``L^{-1}`` / ``U^{-1}`` of a ``(..., S, B, B)`` stack of packed
+    diagonal blocks by batched triangular solves against the identity (each
+    solve reads only its own triangle, so the packed layout needs no
     unpacking)."""
-    s, b = diags.shape[0], diags.shape[1]
-    eye = torch.eye(b, dtype=diags.dtype, device=diags.device).expand(s, b, b)
+    b = diags.shape[-1]
+    eye = torch.eye(b, dtype=diags.dtype, device=diags.device).expand(diags.shape)
     linv = torch.linalg.solve_triangular(diags, eye, upper=False, unitriangular=True)
     uinv = torch.linalg.solve_triangular(diags, eye, upper=True)
     return linv, uinv
@@ -64,20 +64,22 @@ def _packed_block_inverses(diags: torch.Tensor) -> tuple[torch.Tensor, torch.Ten
 
 def dense_block_inverses(lu: torch.Tensor, *, block: int) -> tuple[torch.Tensor, torch.Tensor]:
     """``(S, B, B)`` ``L^{-1}`` / ``U^{-1}`` stacks of the identity-padded
-    packed LU's diagonal blocks, by batched triangular solves against the
-    identity (each solve reads only its own triangle, so the packed layout
-    needs no unpacking).  Runs once, at factor time."""
+    packed LU's diagonal blocks (``(..., S, B, B)`` for a ``(..., n, n)``
+    stack of factors), by batched triangular solves against the identity
+    (each solve reads only its own triangle, so the packed layout needs no
+    unpacking).  Runs once, at factor time."""
     n = lu.shape[-1]
     b = min(block, n)
     s = -(-n // b)
     lup = pad_identity_tail(lu, s * b)
-    return _packed_block_inverses(
-        torch.stack([lup[i * b:(i + 1) * b, i * b:(i + 1) * b] for i in range(s)]))
+    return _packed_block_inverses(torch.stack(
+        [lup[..., i * b:(i + 1) * b, i * b:(i + 1) * b] for i in range(s)], dim=-3))
 
 
 def banded_skewed_layout(lu_band: torch.Tensor, *, bw: int, block: int | None = None):
-    """Solve-layout skewed band ``G`` ``(S·C, C+2bw)`` of the packed band
-    factors, plus its ``(C, S)`` blocking.  Derived once, at factor time."""
+    """Solve-layout skewed band ``G`` ``(..., S·C, C+2bw)`` of the packed
+    band factors ``(..., n, 2bw+1)``, plus its ``(C, S)`` blocking.  Derived
+    once, at factor time."""
     n = lu_band.shape[-2]
     c = band_block_size(n, bw, block)
     s = -(-n // c)
@@ -90,12 +92,13 @@ def banded_block_inverses(g: torch.Tensor, *, bw: int, block: int):
     ``(S, C, C)`` ``L^{-1}`` / ``U^{-1}`` stacks plus the pre-coupled
     transfer blocks ``tlo[i] = L^{-1}_i F_i[:, :bw]`` (coupling to the
     block above) and ``tup[i] = U^{-1}_i F_i[:, bw+C:]`` (to the block
-    below), each ``(S, C, bw)``."""
+    below), each ``(S, C, bw)``; a stack of skewed bands gives stacks of
+    these."""
     c = block
     s = g.shape[-2] // c
-    f = g.reshape(s, c, c + 2 * bw)
-    linv, uinv = _packed_block_inverses(f[:, :, bw:bw + c])
-    return linv, uinv, linv @ f[:, :, :bw], uinv @ f[:, :, bw + c:]
+    f = g.reshape(*g.shape[:-2], s, c, c + 2 * bw)
+    linv, uinv = _packed_block_inverses(f[..., bw:bw + c])
+    return linv, uinv, linv @ f[..., :bw], uinv @ f[..., bw + c:]
 
 
 def inverted_dense_sweeps(lup: torch.Tensor, linv: torch.Tensor, uinv: torch.Tensor,
@@ -236,6 +239,10 @@ class Factorization:
         return self.packed.shape[-2]
 
     @property
+    def batched(self) -> bool:
+        return self.packed.ndim > 2
+
+    @property
     def enriched(self) -> bool:
         return self.linv is not None
 
@@ -248,13 +255,11 @@ def packed_of(x):
 def factorize_dense(packed: torch.Tensor, *, block: int = 256, tier: float = 0.0,
                     health: FactorHealth | None = None, fingerprint: str | None = None,
                     enrich: bool = True) -> Factorization:
-    """Wrap packed dense LU factors ``(n, n)`` into an artifact,
-    pre-inverting the diagonal blocks (in the ≥ fp32 compute dtype the
-    solves promote to) unless ``enrich=False``."""
+    """Wrap packed dense LU factors ``(..., n, n)`` into an artifact,
+    pre-inverting the diagonal blocks of every system (in the ≥ fp32
+    compute dtype the solves promote to) unless ``enrich=False``."""
     if isinstance(packed, Factorization):
         return packed
-    if packed.ndim != 2:
-        raise NotImplementedError("batched factorizations arrive with the batched slice (ROADMAP queue A, item 9)")
     b = min(block, packed.shape[-1])
     linv = uinv = None
     if enrich:
@@ -268,13 +273,12 @@ def factorize_dense(packed: torch.Tensor, *, block: int = 256, tier: float = 0.0
 def factorize_banded(packed: torch.Tensor, *, bw: int, block: int | None = None,
                      tier: float = 0.0, health: FactorHealth | None = None,
                      fingerprint: str | None = None, enrich: bool = True) -> Factorization:
-    """Wrap packed band LU factors ``(n, 2bw+1)`` into an artifact, deriving
-    the skewed solve layout and pre-inverting the in-window diagonal
-    blocks (in the ≥ fp32 compute dtype) unless ``enrich=False``."""
+    """Wrap packed band LU factors ``(..., n, 2bw+1)`` into an artifact,
+    deriving the skewed solve layout and pre-inverting the in-window
+    diagonal blocks of every system (in the ≥ fp32 compute dtype) unless
+    ``enrich=False``."""
     if isinstance(packed, Factorization):
         return packed
-    if packed.ndim != 2:
-        raise NotImplementedError("batched factorizations arrive with the batched slice (ROADMAP queue A, item 9)")
     c = band_block_size(packed.shape[-2], bw, block)
     linv = uinv = tlo = tup = None
     if enrich:

@@ -11,7 +11,9 @@ overflows.  The screening record holds:
 * **finiteness** — any Inf/NaN anywhere in the packed factors.
 
 Dense factors and row-aligned band factors (``bw > 0``) are screened
-alike; a band's residual is computed on the band, never densified.
+alike; a band's residual is computed on the band, never densified.  A
+stack of factors (leading batch axes) reduces to the worst system's
+record, and a stack's residual is its worst system's.
 """
 from __future__ import annotations
 
@@ -51,7 +53,8 @@ DEFAULT_THRESHOLDS = HealthThresholds()
 
 class FactorHealth(NamedTuple):
     """Screening record for one factorization; every field is a scalar
-    tensor on the factor's device."""
+    tensor on the factor's device.  A stack of factors reduces to the worst
+    system: one bad system taints the whole record."""
 
     min_pivot: torch.Tensor  # min |pivot|
     growth: torch.Tensor     # max|U| / max|A|
@@ -108,11 +111,12 @@ def _banded_health(packed: torch.Tensor, ref_max: torch.Tensor, bw: int) -> Fact
 
 
 def factor_health(factors, *, ref_max, bw: int = 0) -> FactorHealth:
-    """Screening record for a packed dense ``(n, n)`` factor, a packed
-    row-aligned band ``(n, 2bw+1)`` (``bw > 0``), a
+    """Screening record for a packed dense ``(..., n, n)`` factor, a packed
+    row-aligned band ``(..., n, 2bw+1)`` (``bw > 0``), a
     :class:`~repro_torch.core.factorization.Factorization` or
-    :class:`~repro_torch.core.pivoted.PivotedFactors`.  ``ref_max`` is
-    ``max|A|`` of the operand that was factored."""
+    :class:`~repro_torch.core.pivoted.PivotedFactors`; leading batch axes
+    reduce to the worst system.  ``ref_max`` is ``max|A|`` of the operand
+    that was factored."""
     from .pivoted import PivotedFactors
 
     factors = getattr(factors, "packed", factors)
@@ -126,21 +130,28 @@ def factor_health(factors, *, ref_max, bw: int = 0) -> FactorHealth:
 
 def banded_matvec(arow: torch.Tensor, x: torch.Tensor, *, bw: int) -> torch.Tensor:
     """``A @ x`` on the row-aligned band (``arow[i, t] = A[i, i-bw+t]``)
-    without densifying: O(n·bw) work and memory.  ``x`` is ``(n,)`` or
-    ``(n, m)``."""
-    n = arow.shape[0]
-    squeeze = x.ndim == 1
-    xm = x[:, None] if squeeze else x
-    xp = torch.nn.functional.pad(xm, (0, 0, bw, bw))  # (n + 2bw, m)
+    without densifying: O(n·bw) work and memory.  ``arow`` is
+    ``(..., n, 2bw+1)`` and ``x`` ``(..., n)`` or ``(..., n, m)``."""
+    n = arow.shape[-2]
+    squeeze = x.ndim == arow.ndim - 1
+    xm = x[..., None] if squeeze else x
+    xp = torch.nn.functional.pad(xm, (0, 0, bw, bw))  # (..., n + 2bw, m)
     y = torch.zeros_like(xm)
     for t in range(2 * bw + 1):
-        y = y + arow[:, t:t + 1] * xp[t:t + n]
-    return y[:, 0] if squeeze else y
+        y = y + arow[..., t:t + 1] * xp[..., t:t + n, :]
+    return y[..., 0] if squeeze else y
 
 
 def relative_residual(a, b, x, *, bw: int = 0) -> torch.Tensor:
     """Frobenius relative residual ``|Ax - b| / |b|`` of a dense ``(n, n)``
-    or row-aligned band operand (``bw > 0``)."""
+    or row-aligned band operand (``bw > 0``).  For a stack of systems
+    (``a`` ``(..., n, n)`` or ``(..., n, 2bw+1)``, ``b`` and ``x``
+    ``(..., n)`` or ``(..., n, m)``) it is the worst system's."""
     a32, b32, x32 = (t.to(torch.float32) for t in (a, b, x))
+    if b32.ndim == a32.ndim - 1:  # a vector (per system)
+        b32, x32 = b32[..., None], x32[..., None]
     ax = banded_matvec(a32, x32, bw=bw) if bw else a32 @ x32
-    return torch.linalg.norm(b32 - ax) / torch.clamp(torch.linalg.norm(b32), min=_TINY)
+    dims = (-2, -1)
+    res = torch.linalg.norm(b32 - ax, dim=dims) / torch.clamp(torch.linalg.norm(b32, dim=dims),
+                                                               min=_TINY)
+    return res.max()

@@ -49,6 +49,21 @@
 //   blocks (many blocks in flight), the (bw, m) tail recurrence over S (one
 //   block per 32 columns), and a second batched product: six launches in
 //   stream order (two when S = 1).  Bound: the inverses' 2*S*C*C*4 bytes.
+// batched_band_lu (ebv_batched_band_lu) — replaces src/repro/kernels/
+//   banded.py:batched_banded_lu_vmem, one grid program per system running
+//   the band_block_step loop on its VMEM-resident skewed band.  Here it is
+//   band_lu_resident_kernel's walk (band_lu_global_kernel's for bands too
+//   wide for the ring) with one block per system: blockIdx.x picks the
+//   system, whose band starts at blockIdx.x * n * (2bw+1) floats (64-bit
+//   offsets).  Each system is the same dependent pivot chain as the
+//   unbatched factor, so the batch only fills more SMs (one per system);
+//   the chain bounds each block as it does B5.  Bitwise equal to the plain
+//   version (repro_torch.core.banded.banded_lu_blocked over the stack).
+//
+// batched_band_solve (ebv_batched_band_solve) — replaces src/repro/kernels/
+//   banded.py:batched_banded_solve_vmem, one grid program per system.  Here
+//   it is band_solve_kernel on a grid over (32-column RHS tile, system):
+//   blockIdx.y picks the system.  Bound and latency as for B7, per system.
 #include <cuda_runtime.h>
 
 #include <cstddef>
@@ -172,8 +187,10 @@ __device__ void retire_pivots_staged(const RingRows& rows, float* lbuf, int p0, 
   __syncthreads();
 }
 
+// One block per system: blockIdx.x picks the band (one block when unbatched).
 __global__ void band_lu_resident_kernel(float* band, int n, int bw, int R, int C) {
   const int W = 2 * bw + 1;
+  band += (size_t)blockIdx.x * n * W;
   const int tid = threadIdx.y * blockDim.x + threadIdx.x, nt = blockDim.x * blockDim.y;
   const RingRows rows{smem, R, W};
   float* lbuf = smem + (size_t)R * W;
@@ -212,10 +229,12 @@ __global__ void band_lu_slab_kernel(float* band, int n, int bw, int k0, int C) {
 }
 
 __global__ void band_lu_global_kernel(float* band, int n, int bw, int p0, int p1) {
+  band += (size_t)blockIdx.x * n * (2 * bw + 1);  // the system (0 when unbatched)
   retire_pivots_global(GlobalRows{band, 2 * bw + 1}, smem, smem + bw, p0, p1, n, bw);
 }
 
-// x = (LU)^-1 b; one warp per RHS column, blockDim.x / 32 columns per block.
+// x = (LU)^-1 b; one warp per RHS column, blockDim.x / 32 columns per block;
+// blockIdx.y picks the system (0 when unbatched).
 // With cap > 0 each warp keeps the last cap (>= min(bw, n) + 32) solved
 // values of its column in a ring in shared memory, so the next strip reads
 // them without a round trip through L2; with cap = 0 it reads them back
@@ -226,6 +245,9 @@ __global__ void band_solve_kernel(const float* __restrict__ lu, const float* __r
   const int col = blockIdx.x * (blockDim.x >> 5) + warp;
   if (col >= m) return;  // uniform across the warp
   const int W = 2 * bw + 1;
+  lu += (size_t)blockIdx.y * n * W;
+  b += (size_t)blockIdx.y * n * m;
+  x += (size_t)blockIdx.y * n * m;
   const unsigned full = 0xffffffffu;
   float* ring = cap ? smem + (size_t)warp * cap : nullptr;
 
@@ -382,21 +404,17 @@ size_t ring_bytes(int rows, int bw) {
   return ((size_t)rows * (2 * bw + 1) + 2 * (size_t)bw) * sizeof(float);
 }
 
-cudaError_t launch_global(float* band, int n, int bw, int p0, int p1, cudaStream_t stream) {
-  band_lu_global_kernel<<<1, factor_block(bw), 2 * bw * sizeof(float), stream>>>(band, n, bw, p0,
-                                                                                  p1);
+cudaError_t launch_global(float* band, int batch, int n, int bw, int p0, int p1,
+                          cudaStream_t stream) {
+  band_lu_global_kernel<<<batch, factor_block(bw), 2 * bw * sizeof(float), stream>>>(band, n, bw,
+                                                                                      p0, p1);
   return cudaGetLastError();
 }
 
-}  // namespace
-
-// Factor the row-aligned (n, 2bw+1) fp32 band in place, in one launch (the
-// ring of band_lu_resident_kernel, or band_lu_global_kernel for wide bands).
-// Stores in *launches how many kernels it launched; returns the first error.
-extern "C" int ebv_band_lu_resident(void* band_ptr, int n, int bw, void* stream_ptr,
-                                    int* launches) {
-  float* band = static_cast<float*>(band_ptr);
-  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+// Factor `batch` row-aligned (n, 2bw+1) fp32 bands in place, in one launch
+// of one block per band (the ring of band_lu_resident_kernel, or
+// band_lu_global_kernel for wide bands).
+int band_lu_one_launch(float* band, int batch, int n, int bw, cudaStream_t stream, int* launches) {
   *launches = 0;
   cudaError_t err;
   int R = n, C = n;  // the whole band fits: one chunk
@@ -406,7 +424,7 @@ extern "C" int ebv_band_lu_resident(void* band_ptr, int n, int bw, void* stream_
     C = R - bw;  // pivots per chunk: rows p .. p+bw of each must be in the ring
   }
   if (C < 1) {
-    if ((err = launch_global(band, n, bw, 0, n, stream))) return err;
+    if ((err = launch_global(band, batch, n, bw, 0, n, stream))) return err;
     ++*launches;
     return 0;
   }
@@ -414,10 +432,54 @@ extern "C" int ebv_band_lu_resident(void* band_ptr, int n, int bw, void* stream_
   if ((err = cudaFuncSetAttribute(band_lu_resident_kernel,
                                   cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes)))
     return err;
-  band_lu_resident_kernel<<<1, factor_block(bw), bytes, stream>>>(band, n, bw, R, C);
+  band_lu_resident_kernel<<<batch, factor_block(bw), bytes, stream>>>(band, n, bw, R, C);
   if ((err = cudaGetLastError())) return err;
   ++*launches;
   return 0;
+}
+
+// x (batch, n, m) = (LU)^-1 b on the packed bands (batch, n, 2bw+1);
+// `cols` RHS columns (one warp each, at most 32) per block.
+int band_solve_launch(const void* lu, const void* b, void* x, int batch, int n, int bw, int m,
+                      int cols, cudaStream_t stream, int* launches) {
+  *launches = 0;
+  // a ring of the last min(bw, n) + 32 solved values per warp, fewer warps
+  // per block where the rings would not fit, none where one does not
+  int cap = (bw < n ? bw : n) + 32;
+  const int fit = kSmemBytes / (cap * (int)sizeof(float));
+  if (fit < 1) cap = 0;
+  else if (cols > fit) cols = fit;
+  const size_t bytes = (size_t)cols * cap * sizeof(float);
+  cudaError_t err;
+  if ((err = cudaFuncSetAttribute(band_solve_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  (int)bytes)))
+    return err;
+  const dim3 grid((m + cols - 1) / cols, batch);
+  band_solve_kernel<<<grid, 32 * cols, bytes, stream>>>(
+      static_cast<const float*>(lu), static_cast<const float*>(b), static_cast<float*>(x), n, bw,
+      m, cap);
+  if ((err = cudaGetLastError())) return err;
+  ++*launches;
+  return 0;
+}
+
+}  // namespace
+
+// Factor the row-aligned (n, 2bw+1) fp32 band in place, in one launch (the
+// ring of band_lu_resident_kernel, or band_lu_global_kernel for wide bands).
+// Stores in *launches how many kernels it launched; returns the first error.
+extern "C" int ebv_band_lu_resident(void* band_ptr, int n, int bw, void* stream_ptr,
+                                    int* launches) {
+  return band_lu_one_launch(static_cast<float*>(band_ptr), 1, n, bw,
+                            static_cast<cudaStream_t>(stream_ptr), launches);
+}
+
+// Factor `batch` bands (batch, n, 2bw+1) in place, one block per band, in
+// one launch.
+extern "C" int ebv_batched_band_lu(void* band_ptr, int batch, int n, int bw, void* stream_ptr,
+                                   int* launches) {
+  return band_lu_one_launch(static_cast<float*>(band_ptr), batch, n, bw,
+                            static_cast<cudaStream_t>(stream_ptr), launches);
 }
 
 // Factor the band in place in S = ceil(n/C) launches, one per block step of
@@ -439,7 +501,7 @@ extern "C" int ebv_band_lu_steps(void* band_ptr, int n, int bw, int C, void* str
       band_lu_slab_kernel<<<1, factor_block(bw), bytes, stream>>>(band, n, bw, k0, C);
       err = cudaGetLastError();
     } else {
-      err = launch_global(band, n, bw, k0, k0 + C < n ? k0 + C : n, stream);
+      err = launch_global(band, 1, n, bw, k0, k0 + C < n ? k0 + C : n, stream);
     }
     if (err) return err;
     ++*launches;
@@ -451,26 +513,16 @@ extern "C" int ebv_band_lu_steps(void* band_ptr, int n, int bw, int C, void* str
 // warp each, at most 32) per block.
 extern "C" int ebv_band_solve(const void* lu, const void* b, void* x, int n, int bw, int m,
                               int cols, void* stream_ptr, int* launches) {
-  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  *launches = 0;
-  // a ring of the last min(bw, n) + 32 solved values per warp, fewer warps
-  // per block where the rings would not fit, none where one does not
-  int cap = (bw < n ? bw : n) + 32;
-  const int fit = kSmemBytes / (cap * (int)sizeof(float));
-  if (fit < 1) cap = 0;
-  else if (cols > fit) cols = fit;
-  const size_t bytes = (size_t)cols * cap * sizeof(float);
-  cudaError_t err;
-  if ((err = cudaFuncSetAttribute(band_solve_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                  (int)bytes)))
-    return err;
-  band_solve_kernel<<<(m + cols - 1) / cols, 32 * cols, bytes, stream>>>(
-      static_cast<const float*>(lu), static_cast<const float*>(b), static_cast<float*>(x), n, bw,
-      m, cap);
-  err = cudaGetLastError();
-  if (err) return err;
-  ++*launches;
-  return 0;
+  return band_solve_launch(lu, b, x, 1, n, bw, m, cols, static_cast<cudaStream_t>(stream_ptr),
+                           launches);
+}
+
+// x (batch, n, m) = (LU)^-1 b per system on the packed bands (batch, n, 2bw+1);
+// one block per system and tile of `cols` RHS columns.
+extern "C" int ebv_batched_band_solve(const void* lu, const void* b, void* x, int batch, int n,
+                                      int bw, int m, int cols, void* stream_ptr, int* launches) {
+  return band_solve_launch(lu, b, x, batch, n, bw, m, cols, static_cast<cudaStream_t>(stream_ptr),
+                           launches);
 }
 
 // out (S, C, m) = the inverted-diagonal band solve of xb (S, C, m) from

@@ -14,9 +14,16 @@ their plain PyTorch versions.
                                     ``Factorization``'s inverses and transfer
                                     blocks: batched products and a tail
                                     recurrence, six launches.
+* :func:`batched_banded_lu_vmem`  — the one-launch walk of
+                                    :func:`banded_lu_blocked` with one block
+                                    per band of a ``(B, n, 2bw+1)`` stack.
+* :func:`batched_banded_solve_vmem` — the walk of
+                                    :func:`banded_solve_kernelized` with one
+                                    block per (system, RHS tile).
 
-Both factors compute the plain version's packed band factor
-(:func:`repro_torch.core.banded.banded_lu_blocked`) value for value: the
+The factors compute the plain version's packed band factor
+(:func:`repro_torch.core.banded.banded_lu_blocked`, over the stack for the
+batched one) value for value: the
 factor does not depend on the block size, and the kernels round every
 operation as the plain version does.  Each factor works on its own copy of
 the band; the caller's tensor is never written.
@@ -39,10 +46,11 @@ from .trsm import _as_matrix, _check_cuda, _f32
 
 __all__ = [
     "banded_lu_blocked", "banded_lu_tiled", "banded_solve_kernelized", "banded_solve_inverted",
-    "banded_lu_plain", "tiled_launches",
+    "batched_banded_lu_vmem", "batched_banded_solve_vmem", "banded_lu_plain", "tiled_launches",
 ]
 
 _WARP_COLS = 32  # RHS columns (one warp each) a banded_solve_kernelized block takes at most
+_MAX_SOLVE_BATCH = 65535  # systems of one batched solve launch (the grid's y extent)
 
 
 def _launch(wrapper, fn_name: str, device, *args) -> None:
@@ -55,11 +63,12 @@ def _launch(wrapper, fn_name: str, device, *args) -> None:
     _build.check(code, fn_name)
 
 
-def _band_copy(name: str, arow: torch.Tensor, bw: int) -> torch.Tensor:
-    """A contiguous fp32 copy of the band on the card, for the kernel to
-    factor in place."""
-    if bw < 1 or arow.ndim != 2 or arow.shape[1] != 2 * bw + 1:
-        raise ValueError(f"{name} expects a row-aligned band (n, 2bw+1) with bw >= 1, got "
+def _band_copy(name: str, arow: torch.Tensor, bw: int, ndim: int = 2) -> torch.Tensor:
+    """A contiguous fp32 copy of the band (``ndim=3``: the stack of bands)
+    on the card, for the kernel to factor in place."""
+    if bw < 1 or arow.ndim != ndim or arow.shape[-1] != 2 * bw + 1:
+        what = "(n, 2bw+1)" if ndim == 2 else "stack (B, n, 2bw+1)"
+        raise ValueError(f"{name} expects a row-aligned band {what} with bw >= 1, got "
                          f"{tuple(arow.shape)} and bw={bw}")
     if arow.dtype != torch.float32:
         raise TypeError(f"{name} supports float32 only, got {arow.dtype}")
@@ -179,3 +188,62 @@ def banded_solve_inverted(linv: torch.Tensor, uinv: torch.Tensor, tlo: torch.Ten
 
 
 banded_solve_inverted.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# batched band factor and solve (many independent systems, one block each)
+# ---------------------------------------------------------------------------
+def batched_banded_lu_vmem(arow: torch.Tensor, *, bw: int, block: int | None = None) -> torch.Tensor:
+    """Packed no-pivot LU of every band of a row-aligned ``(B, n, 2bw+1)``
+    stack in one launch, one block per band.  ``block`` sets the plain
+    version's window; the kernel's factor does not depend on it."""
+    if arow.device.type == "cpu":
+        if arow.ndim != 3:
+            raise ValueError(f"batched_banded_lu_vmem expects a stack (B, n, 2bw+1), got "
+                             f"{tuple(arow.shape)}")
+        return banded_lu_plain(arow, bw=bw, block=block)
+    work = _band_copy("batched_banded_lu_vmem", arow, bw, ndim=3)
+    if work.shape[0] and work.shape[1]:
+        _launch(batched_banded_lu_vmem, "ebv_batched_band_lu", arow.device, work.data_ptr(),
+                work.shape[0], work.shape[1], bw)
+    return work
+
+
+batched_banded_lu_vmem.launches = 0
+
+
+def batched_banded_solve_vmem(lu_band, b: torch.Tensor, *, bw: int, block: int | None = None,
+                              rhs_tile: int = 256) -> torch.Tensor:
+    """Solve ``(LU)_s x_s = b_s`` for every system of packed band factors
+    ``(B, n, 2bw+1)``; ``b`` is ``(B, n)`` or ``(B, n, m)`` and the result
+    has its shape and dtype.  On the card one warp sweeps each RHS column
+    of each system; a block takes one system and an equal tile of at most
+    ``min(rhs_tile, 32)`` columns.  ``block`` sets the plain version's
+    blocking."""
+    lu_band = packed_of(lu_band)
+    if lu_band.device.type == "cpu":
+        return banded_solve_blocked(lu_band, b, bw=bw, block=block)
+    name = "batched_banded_solve_vmem"
+    _check_cuda(name, lu_band, b)
+    squeeze = b.ndim == 2
+    bm = b[..., None] if squeeze else b
+    if (bw < 1 or lu_band.ndim != 3 or bm.ndim != 3 or lu_band.shape[-1] != 2 * bw + 1
+            or bm.shape[:2] != lu_band.shape[:2]):
+        raise ValueError(f"{name}: factors {tuple(lu_band.shape)} and RHS {tuple(b.shape)} are "
+                         f"not (B, n, 2bw+1) and (B, n[, m]) with bw={bw}")
+    bsz, n, m = bm.shape
+    if bsz > _MAX_SOLVE_BATCH:
+        raise ValueError(f"{name}: {bsz} systems in one launch, at most {_MAX_SOLVE_BATCH}")
+    if bsz == 0 or n == 0 or m == 0:  # nothing to launch
+        return torch.empty_like(b)
+    rt = max(1, min(rhs_tile, m, _WARP_COLS))
+    rt = -(-m // (-(-m // rt)))  # equal tiles
+    lu32, b32 = _f32(lu_band, name), _f32(bm, name)
+    x = torch.empty_like(b32)
+    _launch(batched_banded_solve_vmem, "ebv_batched_band_solve", lu_band.device, lu32.data_ptr(),
+            b32.data_ptr(), x.data_ptr(), bsz, n, bw, m, rt)
+    x = x.to(bm.dtype)
+    return x[..., 0] if squeeze else x
+
+
+batched_banded_solve_vmem.launches = 0

@@ -20,11 +20,24 @@ pivoting last resort).
 ``banded_solve``: ``"cuda"`` (the default for fp32), ``"cuda_inverted"`` /
 ``"torch_inverted"`` (enriched operands), ``"torch"``, ``"torch_scalar"``.
 
+Batching: a leading batch axis on the matrix operand (``(B, n, n)``, a
+stack of bands ``(B, n, 2bw+1)``) routes to the batched slots — the
+batched CUDA kernels (:mod:`repro_torch.kernels.batched_lu`,
+``batched_banded_*_vmem``), one launch per stack.  Further leading axes
+fold into the one batch axis and unfold after.  A forced ``impl`` maps to
+its batched counterpart: ``cuda_inverted`` keeps its name, a ``torch*``
+name becomes ``torch`` and any other name ``cuda_vmem``.  The reference
+also reroutes ``jax.vmap`` over these ops to the batched kernels
+(``_with_batch_rule``, a ``custom_vmap``); PyTorch has no counterpart for
+a ctypes kernel (``torch.vmap`` would need a batching rule per kernel), so
+here the leading axis is the batched entry, and mapping an op over a
+batch in Python runs one unbatched dispatch per system.
+
 Ops run where their tensors lie: on the card the ``cuda_*`` backends
 launch their kernels, on the CPU they run their plain versions.  Anything
-outside the ported slices (batched operands, ``mesh=``, a dense
-``tolerance > 0``, ``rank=``) raises ``NotImplementedError`` naming the
-slice that brings it.
+outside the ported slices (``mesh=``, a dense ``tolerance > 0``,
+``rank=``) raises ``NotImplementedError`` naming the slice that brings
+it.
 """
 from __future__ import annotations
 
@@ -39,14 +52,11 @@ from ..solvers.problem import dtype_name
 
 __all__ = ["lu", "lu_solve", "linear_solve", "banded_lu", "banded_solve", "banded_linear_solve"]
 
-_BATCHED = "batched operands arrive with the batched slice (ROADMAP queue A, item 9)"
 _MESH = "mesh= arrives with the multi-device slice (ROADMAP queue A, item 12)"
 _TIERS = "tolerance > 0 and rank= arrive with the accuracy tiers slice (ROADMAP queue A, item 10)"
 
 
-def _require_slice(a, *, mesh=None, tolerance: float = 0.0, rank=None) -> None:
-    if a.ndim != 2:
-        raise NotImplementedError(_BATCHED)
+def _require_slice(*, mesh=None, tolerance: float = 0.0, rank=None) -> None:
     if mesh is not None:
         raise NotImplementedError(_MESH)
     if tolerance > 0 or rank is not None:
@@ -74,6 +84,41 @@ def _health_validator(thresholds, ref_max, bw: int = 0):
     return validate
 
 
+def _batched_impl(op: str, structure: str, impl: str | None) -> str | None:
+    """The batched slot a forced unbatched ``impl`` name maps to, after
+    checking the name against the unbatched slot (an unknown or unported
+    name raises there)."""
+    if impl is None:
+        return None
+    _sol.get_backend(op, structure, impl)
+    if impl == "cuda_inverted":  # has a batched slot of its own
+        return impl
+    return "torch" if impl.startswith("torch") else "cuda_vmem"
+
+
+def _as_artifact(packed, *, structure: str, bw: int = 0, block=None, tier: float = 0.0,
+                 health_rec=None, enrich: bool = False):
+    """Wrap a packed factor into the ``Factorization`` artifact; pivoted
+    factors and deep-batched stacks (more than one leading axis) stay raw,
+    as in the reference."""
+    if isinstance(packed, PivotedFactors) or packed.ndim > 3:
+        return packed
+    if structure == "dense":
+        return factorize_dense(packed, block=block or 256, tier=tier, health=health_rec,
+                               enrich=enrich)
+    return factorize_banded(packed, bw=bw, block=block, tier=tier, health=health_rec,
+                            enrich=enrich)
+
+
+def _fold(x: torch.Tensor) -> torch.Tensor:
+    """A stack with any number of leading axes as ``(B, *tail)``."""
+    return x.reshape(-1, *x.shape[-2:])
+
+
+def _fold_rhs(lead, b: torch.Tensor) -> torch.Tensor:
+    return b.reshape(-1, *b.shape[len(lead):])
+
+
 def lu(a: torch.Tensor, *, impl: str | None = None, block: int = 256, tolerance: float = 0.0,
        rank: int | None = None, mesh=None, health=None, enrich: bool = False):
     """Packed EbV LU factorization (no pivoting — paper contract).
@@ -87,34 +132,60 @@ def lu(a: torch.Tensor, *, impl: str | None = None, block: int = 256, tolerance:
     and returns ``(factors, FactorHealth)``: a backend whose factors fail
     the screen is demoted and the registry escalates down the capable
     candidates, ending at ``pivoted``, and raises
-    :class:`~repro_torch.solvers.SolveFailure` when every candidate fails."""
-    _require_slice(a, mesh=mesh, tolerance=tolerance, rank=rank)
+    :class:`~repro_torch.solvers.SolveFailure` when every candidate fails.
+
+    A leading batch axis (``(B, n, n)``; more axes fold into one) runs the
+    batched slots; the health record of a stack is its worst system's."""
+    _require_slice(mesh=mesh, tolerance=tolerance, rank=rank)
     thresholds = _screen(health)
     ref_max = a.abs().max() if thresholds is not None else None
     validate = _health_validator(thresholds, ref_max) if thresholds is not None else None
-    problem = _sol.Problem.from_arrays("factor", a, tolerance=tolerance)
-    out = _sol.dispatch(problem, a, impl=impl, validate=validate, block=block)
+    if a.ndim >= 3:
+        a3 = _fold(a)
+        problem = _sol.Problem.from_arrays("factor", a3, tolerance=tolerance)
+        out = _sol.dispatch(problem, a3, impl=_batched_impl("factor", "dense", impl),
+                            validate=validate, block=block).reshape(a.shape)
+    else:
+        problem = _sol.Problem.from_arrays("factor", a, tolerance=tolerance)
+        out = _sol.dispatch(problem, a, impl=impl, validate=validate, block=block)
     rec = None if thresholds is None else _chealth.factor_health(out, ref_max=ref_max)
-    if not isinstance(out, PivotedFactors):
-        out = factorize_dense(out, block=block, tier=tolerance, health=rec, enrich=enrich)
+    out = _as_artifact(out, structure="dense", block=block, tier=tolerance, health_rec=rec,
+                       enrich=enrich)
     return out if thresholds is None else (out, rec)
+
+
+def _lu_solve_batched(lu_packed, b, *, impl, block, tolerance):
+    squeeze = b.ndim == 2  # (B, n): a vector per system
+    bm = b[..., None] if squeeze else b
+    problem = _sol.Problem.from_arrays("solve", lu_packed, bm, tolerance=tolerance)
+    x = _sol.dispatch(problem, lu_packed, bm, impl=_batched_impl("solve", "dense", impl),
+                      block=block)
+    return x[..., 0] if squeeze else x
 
 
 def lu_solve(lu_packed, b: torch.Tensor, *, impl: str | None = None, block: int = 256,
              rhs_tile: int = 256, tolerance: float = 0.0) -> torch.Tensor:
     """Forward + backward substitution on packed factors (a tensor, a
-    ``Factorization`` or ``PivotedFactors``)."""
+    ``Factorization`` or ``PivotedFactors``).  A stack of factors
+    ``(..., n, n)`` takes ``b`` ``(..., n)`` or ``(..., n, m)`` and runs the
+    batched slots."""
+    _require_slice(tolerance=tolerance)
     if isinstance(lu_packed, PivotedFactors):
         # row-permuted factors: only the pivoted backend applies the
         # permutation, so the dispatch is forced
-        _require_slice(lu_packed.lu, tolerance=tolerance)
         problem = _sol.Problem(
             op="solve", structure="dense", n=int(lu_packed.lu.shape[0]),
             dtype=dtype_name(lu_packed.lu.dtype),
             rhs=1 if b.ndim == 1 else int(b.shape[-1]), device=device_name(lu_packed.lu),
         )
         return _sol.dispatch(problem, lu_packed, b, impl="pivoted")
-    _require_slice(lu_packed, tolerance=tolerance)
+    if lu_packed.ndim > 3:  # fold the extra leading axes, like lu()
+        lead = lu_packed.shape[:-2]
+        x = _lu_solve_batched(_fold(packed_of(lu_packed)), _fold_rhs(lead, b), impl=impl,
+                              block=block, tolerance=tolerance)
+        return x.reshape(*lead, *x.shape[1:])
+    if lu_packed.ndim == 3:
+        return _lu_solve_batched(lu_packed, b, impl=impl, block=block, tolerance=tolerance)
     problem = _sol.Problem.from_arrays("solve", lu_packed, b, tolerance=tolerance)
     return _sol.dispatch(problem, lu_packed, b, impl=impl, block=block, rhs_tile=rhs_tile)
 
@@ -130,8 +201,9 @@ def linear_solve(a: torch.Tensor, b: torch.Tensor, *, impl: str | None = None,
     ``verify_residual=True`` measures ``|Ax-b|/|b|`` against
     ``VERIFY_RESIDUAL_DEFAULT_BOUND``; a miss falls over to the
     partial-pivoting backend once before raising
-    :class:`~repro_torch.solvers.SolveFailure`."""
-    _require_slice(a, mesh=mesh, tolerance=tolerance, rank=rank)
+    :class:`~repro_torch.solvers.SolveFailure` (a stack, which has no
+    batched pivoted backend, raises at once)."""
+    _require_slice(mesh=mesh, tolerance=tolerance, rank=rank)
     if solve_impl is None and impl == "torch":
         solve_impl = "torch"
     x = lu_solve(lu(a, impl=impl, block=block, enrich=enrich), b,
@@ -142,19 +214,20 @@ def linear_solve(a: torch.Tensor, b: torch.Tensor, *, impl: str | None = None,
 
 
 def _verify_composed(a, b, x, *, bw: int = 0, tolerance: float = 0.0):
-    """Post-hoc residual gate of the composed factor+solve path.  A dense
-    miss escalates once to the partial-pivoting last resort before raising
-    :class:`SolveFailure`; a band has no pivoted last resort and raises at
-    once."""
+    """Post-hoc residual gate of the composed factor+solve path (a stack is
+    held to its worst system's residual).  A dense miss escalates once to
+    the partial-pivoting last resort before raising :class:`SolveFailure`;
+    a band or a stack has no pivoted last resort and raises at once."""
     bound = tolerance if tolerance > 0 else _sol.VERIFY_RESIDUAL_DEFAULT_BOUND
     rel = float(_chealth.relative_residual(a, b, x, bw=bw))
     if rel <= bound:  # NaN compares False and falls through to escalation
         return x
-    problem = _sol.Problem.from_arrays("linear_solve", a, b, bw=bw, tolerance=tolerance,
+    a3, b3 = (_fold(a), _fold_rhs(a.shape[:-2], b)) if a.ndim > 3 else (a, b)
+    problem = _sol.Problem.from_arrays("linear_solve", a3, b3, bw=bw, tolerance=tolerance,
                                        verify_residual=True)
     reason = f"residual {rel:.3e} > bound {bound:.1e} from composed exact solve"
     chain = [{"backend": "composed", "reason": reason}]
-    if bw:
+    if bw or a.ndim > 2:
         _sol.registry._notify_escalation(problem, "composed", None, reason)
     else:
         _sol.registry._notify_escalation(problem, "composed", "pivoted", reason)
@@ -174,9 +247,7 @@ def _verify_composed(a, b, x, *, bw: int = 0, tolerance: float = 0.0):
 # ---------------------------------------------------------------------------
 # banded (row-aligned band, see repro_torch.core.banded)
 # ---------------------------------------------------------------------------
-def _require_band(arow, *, mesh=None) -> None:
-    if packed_of(arow).ndim != 2:
-        raise NotImplementedError(_BATCHED)
+def _require_band(*, mesh=None) -> None:
     if mesh is not None:
         raise NotImplementedError(_MESH)
 
@@ -195,15 +266,25 @@ def banded_lu(arow: torch.Tensor, *, bw: int, impl: str | None = None, block: in
     and returns ``(factors, FactorHealth)``: an unhealthy factor escalates
     through the remaining band backends (on the card only after a failed
     screen or an injected fault) and, the band having no pivoted last
-    resort, ends in :class:`~repro_torch.solvers.SolveFailure`."""
-    _require_band(arow, mesh=mesh)
+    resort, ends in :class:`~repro_torch.solvers.SolveFailure`.
+
+    A stack of bands ``(B, n, 2bw+1)`` (more leading axes fold into one)
+    runs the batched slots."""
+    _require_band(mesh=mesh)
     thresholds = _screen(health)
     ref_max = arow.abs().max() if thresholds is not None else None
     validate = _health_validator(thresholds, ref_max, bw=bw) if thresholds is not None else None
-    problem = _sol.Problem.from_arrays("factor", arow, bw=bw, tolerance=tolerance)
-    out = _sol.dispatch(problem, arow, impl=impl, validate=validate, bw=bw, block=block)
+    if arow.ndim >= 3:
+        a3 = _fold(arow)
+        problem = _sol.Problem.from_arrays("factor", a3, bw=bw, tolerance=tolerance)
+        out = _sol.dispatch(problem, a3, impl=_batched_impl("factor", "banded", impl),
+                            validate=validate, bw=bw, block=block).reshape(arow.shape)
+    else:
+        problem = _sol.Problem.from_arrays("factor", arow, bw=bw, tolerance=tolerance)
+        out = _sol.dispatch(problem, arow, impl=impl, validate=validate, bw=bw, block=block)
     rec = None if thresholds is None else _chealth.factor_health(out, ref_max=ref_max, bw=bw)
-    out = factorize_banded(out, bw=bw, block=block, tier=tolerance, health=rec, enrich=enrich)
+    out = _as_artifact(out, structure="banded", bw=bw, block=block, tier=tolerance,
+                       health_rec=rec, enrich=enrich)
     return out if thresholds is None else (out, rec)
 
 
@@ -211,8 +292,16 @@ def banded_solve(lu_band, b: torch.Tensor, *, bw: int, impl: str | None = None,
                  block: int | None = None, rhs_tile: int = 256, tolerance: float = 0.0,
                  mesh=None) -> torch.Tensor:
     """Forward + backward substitution on packed band factors (a tensor or
-    a banded ``Factorization``); ``b`` is ``(n,)`` or ``(n, m)``."""
-    _require_band(lu_band, mesh=mesh)
+    a banded ``Factorization``); ``b`` is ``(n,)`` or ``(n, m)``, or for a
+    stack of factors ``(..., n, 2bw+1)`` ``(..., n)`` or ``(..., n, m)``."""
+    _require_band(mesh=mesh)
+    if lu_band.ndim > 3:  # fold the extra leading axes, like banded_lu()
+        lead = lu_band.shape[:-2]
+        x = banded_solve(_fold(packed_of(lu_band)), _fold_rhs(lead, b), bw=bw, impl=impl,
+                         block=block, tolerance=tolerance)
+        return x.reshape(*lead, *x.shape[1:])
+    if lu_band.ndim == 3:
+        impl = _batched_impl("solve", "banded", impl)
     problem = _sol.Problem.from_arrays("solve", lu_band, b, bw=bw, tolerance=tolerance)
     return _sol.dispatch(problem, lu_band, b, impl=impl, bw=bw, block=block, rhs_tile=rhs_tile)
 
@@ -227,7 +316,7 @@ def banded_linear_solve(arow: torch.Tensor, b: torch.Tensor, *, bw: int, impl: s
     explicitly.  ``verify_residual=True`` measures ``|Ax-b|/|b|`` on the
     band against ``VERIFY_RESIDUAL_DEFAULT_BOUND`` (or ``tolerance``) and
     raises :class:`~repro_torch.solvers.SolveFailure` on a miss."""
-    _require_band(arow, mesh=mesh)
+    _require_band(mesh=mesh)
     if solve_impl is None and impl in ("torch", "torch_scalar"):
         solve_impl = impl
     f = banded_lu(arow, bw=bw, impl=impl, block=block, tolerance=tolerance)

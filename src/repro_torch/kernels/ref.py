@@ -1,4 +1,4 @@
-"""Pure oracles for the dense and banded kernels (numpy float64,
+"""Pure oracles for the dense, banded and batched kernels (numpy float64,
 loop-level naive).
 
 Deliberately the dumbest correct implementations — independent of both
@@ -10,7 +10,8 @@ from __future__ import annotations
 import numpy as np
 
 __all__ = ["lu_ref", "solve_ref", "forward_ref", "backward_ref", "banded_lu_ref",
-           "banded_solve_ref"]
+           "banded_solve_ref", "batched_lu_ref", "batched_solve_ref", "batched_banded_lu_ref",
+           "batched_banded_solve_ref"]
 
 
 def lu_ref(a) -> np.ndarray:
@@ -71,3 +72,26 @@ def banded_solve_ref(lu_band, b, bw: int) -> np.ndarray:
     """Substitution on packed band factors, through :func:`solve_ref` on
     the densified factors."""
     return solve_ref(_dense_of_band(lu_band, bw), b)
+
+
+# ---------------------------------------------------------------------------
+# batched: one oracle call per system of the stack
+# ---------------------------------------------------------------------------
+def batched_lu_ref(a) -> np.ndarray:
+    """:func:`lu_ref` of every system of a ``(B, n, n)`` stack."""
+    return np.stack([lu_ref(x) for x in np.asarray(a)])
+
+
+def batched_solve_ref(lu, b) -> np.ndarray:
+    """:func:`solve_ref` of every system; ``b`` is ``(B, n)`` or ``(B, n, m)``."""
+    return np.stack([solve_ref(x, y) for x, y in zip(np.asarray(lu), np.asarray(b))])
+
+
+def batched_banded_lu_ref(arow, bw: int) -> np.ndarray:
+    """:func:`banded_lu_ref` of every band of a ``(B, n, 2bw+1)`` stack."""
+    return np.stack([banded_lu_ref(x, bw) for x in np.asarray(arow)])
+
+
+def batched_banded_solve_ref(lu_band, b, bw: int) -> np.ndarray:
+    """:func:`banded_solve_ref` of every system of the stack."""
+    return np.stack([banded_solve_ref(x, y, bw) for x, y in zip(np.asarray(lu_band), np.asarray(b))])

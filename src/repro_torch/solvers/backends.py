@@ -1,4 +1,4 @@
-"""Backend registrations: the dense and banded slots.
+"""Backend registrations: the dense, banded and batched slots.
 
 The reference's ``pallas_*`` backends are the ``cuda_*`` backends here and
 its pure-jnp ``xla*`` mirrors are ``torch*``; ``pivoted`` keeps its name.
@@ -6,18 +6,26 @@ The static priorities are the reference's, so selection picks the
 counterpart of the reference's slot for the same :class:`Problem`.  They
 do not depend on the device: on the CPU the ``cuda_*`` wrappers run their
 plain versions, which keeps the CPU tests on the dispatch the card takes.
+
+The batched slots keep the reference's priorities but not its capability
+caps, which were sized for TPU VMEM (``BATCHED_VMEM_MAX_N = 1024``, an
+RHS of at most ``4n`` columns, the 6 MiB skewed-band budget): on the card
+each kernel's own design sets them (see the notes above the batched
+registrations).
 """
 from __future__ import annotations
 
 import torch
 
 from ..core import banded as _banded
+from ..core import batched as _batched
 from ..core import blocked as _blocked
 from ..core import factorization as _fz
 from ..core import pivoted as _pivoted
 from ..core import solve as _solve
 from ..core.factorization import packed_of as _packed
 from ..kernels import banded as _kbanded
+from ..kernels import batched_lu as _kbatched
 from ..kernels import ebv_lu as _k
 from ..kernels import trsm as _trsm
 from .problem import Problem
@@ -234,19 +242,118 @@ register(Backend(
 ))
 
 # ---------------------------------------------------------------------------
+# batched (the optimizer's many small systems, a CFD ensemble's bands)
+#
+# The reference caps its VMEM grid kernels at n <= 1024, an RHS of at most
+# 4n columns and 6 MiB of skewed band per system.  On the card:
+# * the batched factor (B9) walks a system in shared memory up to n = 240
+#   and in device memory above, and the band factor (B11) streams any band
+#   through its ring or walks device memory: neither has a size cap;
+# * the batched solve (B10) holds one (n, <=32)-column RHS tile in shared
+#   memory and walks the RHS tile by tile, so the RHS width has no cap and
+#   n has the one of a single column's tile (n <= 58080); the band solve
+#   (B12) keeps no operand whole on chip and has no cap.
+# Where the reference overflows to its vmapped mirror (n > 1024, rhs > 4n,
+# a skewed band over 6 MiB) the port stays on its kernels.
+# ---------------------------------------------------------------------------
+def _batched_torch_lu(a, *, block):
+    # the reference's vmapped fused_blocked_lu: one plain factor per system
+    return torch.stack([_blocked.fused_blocked_lu(m, block=block) for m in a])
+
+
+def _batched_inverted_call(lu, b, *, block):
+    # the reference's vmapped inverted-diagonal sweeps, system by system
+    art = _fz.dense_artifact(lu, block=block or 256)
+    return torch.stack([_fz.dense_inverted_solve(p, li, ui, r)
+                        for p, li, ui, r in zip(art.packed, art.linv, art.uinv, b)])
+
+
+def _batched_banded_inverted_call(lub, b, *, bw, block):
+    art = _fz.banded_artifact(lub, bw=bw, block=block)
+    return torch.stack([_fz.banded_inverted_solve(li, ui, lo, up, r, n=art.n, bw=art.bw)
+                        for li, ui, lo, up, r in zip(art.linv, art.uinv, art.tlo, art.tup, b)])
+
+
+register(Backend(
+    name="cuda_vmem", op="factor", structure="batched_dense",
+    call=lambda p, a, **_: _kbatched.batched_lu_vmem(a),
+    supports=lambda p: _is_f32(p) and _local(p),
+    priority=lambda p: 2.0,
+))
+register(Backend(
+    name="torch", op="factor", structure="batched_dense",
+    call=lambda p, a, *, block=256, **_: _batched_torch_lu(a, block=block),
+    supports=_local,
+    priority=lambda p: 1.0,
+))
+register(Backend(
+    name="cuda_vmem", op="solve", structure="batched_dense",
+    call=lambda p, lu, b, **_: _kbatched.batched_lu_solve_vmem(_packed(lu), b),
+    supports=lambda p: _is_f32(p) and _local(p) and _kbatched.solve_rhs_tile(p.n, 1) >= 1,
+    priority=lambda p: 2.0,
+))
+register(Backend(
+    name="torch", op="solve", structure="batched_dense",
+    call=lambda p, lu, b, **_: _batched.batched_lu_solve(_packed(lu), b),
+    supports=_local,
+    priority=lambda p: 1.0,
+))
+register(Backend(
+    name="cuda_inverted", op="solve", structure="batched_dense",
+    # the batched inverted-diagonal sweeps, reached by name (ops maps
+    # cuda_inverted to it) or measured; as in the reference, the batch runs
+    # the plain products system by system
+    call=lambda p, lu, b, *, block=None, **_: _batched_inverted_call(lu, b, block=block),
+    supports=lambda p: _local(p) and p.enriched,
+    priority=lambda p: 0.75,
+    autotune=False,
+))
+register(Backend(
+    name="cuda_vmem", op="factor", structure="batched_banded",
+    call=lambda p, arow, *, bw, block=None, **_:
+        _kbanded.batched_banded_lu_vmem(arow, bw=bw, block=block),
+    supports=lambda p: _is_f32(p) and _local(p),
+    priority=lambda p: 2.0,
+))
+register(Backend(
+    name="torch", op="factor", structure="batched_banded",
+    call=lambda p, arow, *, bw, block=None, **_: _banded.banded_lu_blocked(arow, bw=bw, block=block),
+    supports=_local,
+    priority=lambda p: 1.0,
+))
+register(Backend(
+    name="cuda_vmem", op="solve", structure="batched_banded",
+    call=lambda p, lub, b, *, bw, block=None, rhs_tile=256, **_:
+        _kbanded.batched_banded_solve_vmem(_packed(lub), b, bw=bw, block=block, rhs_tile=rhs_tile),
+    supports=lambda p: _is_f32(p) and _local(p),
+    priority=lambda p: 2.0,
+))
+register(Backend(
+    name="torch", op="solve", structure="batched_banded",
+    call=lambda p, lub, b, *, bw, block=None, **_:
+        _banded.banded_solve_blocked(_packed(lub), b, bw=bw, block=block),
+    supports=_local,
+    priority=lambda p: 1.0,
+))
+register(Backend(
+    name="cuda_inverted", op="solve", structure="batched_banded",
+    # the batched two-phase inverted band solve (the plain sweeps system by
+    # system, as the reference's vmapped mirror)
+    call=lambda p, lub, b, *, bw, block=None, **_:
+        _batched_banded_inverted_call(lub, b, bw=bw, block=block),
+    supports=lambda p: _local(p) and p.enriched,
+    priority=lambda p: 1.5,
+    autotune=False,
+))
+
+# ---------------------------------------------------------------------------
 # backends of the reference that later slices bring
 # ---------------------------------------------------------------------------
 _QUEUE_B = "its kernel is still to port (ROADMAP queue B)"
 _TIERS = "the accuracy tiers slice (ROADMAP queue A, item 10)"
 _MULTI = "the multi-device slice (ROADMAP queue A, item 12)"
-_BATCHED = "the batched slice (ROADMAP queue A, item 9)"
 NOT_PORTED.update({
     ("factor", "banded", "cuda_scalar"): f"banded.py:banded_lu_kernelized (B18): {_QUEUE_B}",
-    ("factor", "batched_banded", "cuda_vmem"): _BATCHED,
-    ("factor", "batched_banded", "torch"): _BATCHED,
-    ("solve", "batched_banded", "cuda_vmem"): _BATCHED,
-    ("solve", "batched_banded", "cuda_inverted"): _BATCHED,
-    ("solve", "batched_banded", "torch"): _BATCHED,
     ("factor", "banded", "spike"): _MULTI,
     ("factor", "banded", "replicated"): _MULTI,
     ("solve", "banded", "spike"): _MULTI,

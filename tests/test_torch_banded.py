@@ -390,10 +390,13 @@ def test_unported_slots_and_operands_raise_naming_their_slice():
         ops.banded_lu(a, bw=2, impl="spike")
     with pytest.raises(NotImplementedError, match="multi-device"):
         ops.banded_lu(a, bw=2, mesh=object())
-    with pytest.raises(NotImplementedError, match="batched"):
-        ops.banded_lu(a[None].expand(2, 32, 5), bw=2)
-    with pytest.raises(NotImplementedError, match="batched"):
-        solvers.get_backend("solve", "batched_banded", "cuda_vmem")
+    # a stack of bands runs the batched slots since the batched slice; an
+    # unported impl name still raises there, through its unbatched slot
+    with pytest.raises(NotImplementedError, match="B18"):
+        ops.banded_lu(a[None].expand(2, 32, 5), bw=2, impl="cuda_scalar")
+    with pytest.raises(NotImplementedError, match="multi-device"):
+        ops.banded_lu(a[None].expand(2, 32, 5), bw=2, mesh=object())
+    assert solvers.get_backend("solve", "batched_banded", "cuda_vmem").name == "cuda_vmem"
     with pytest.raises(ValueError, match="unknown impl"):  # the reference's old "pallas" alias
         ops.banded_lu(a, bw=2, impl="pallas")
 

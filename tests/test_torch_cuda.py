@@ -10,7 +10,10 @@ host with a card and no JAX (add ``--noconftest`` there, since
 
 Tolerance: normwise ``max|kernel - plain| <= 1e-4 * max|plain|`` — both
 fp32, but the kernels fuse multiply-adds and block the sweeps differently
-from the plain versions; measured <= 3e-6 at n = 2000 on an H100.  A
+from the plain versions; measured <= 3e-6 at n = 2000 on an H100.  The
+band factors and the batched factor and solve round every operation as
+their plain versions do and are held to bitwise equality; the batched
+band solve to 1e-5, as its unbatched twin measured <= 7.8e-7.  A
 packed factor is compared as its L (strictly lower) and its U (upper)
 apart, each against its own largest entry: U's diagonal is ~n/2 and L's
 entries ~1/n, so one norm over both would not see L.
@@ -19,7 +22,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch import solvers
+from repro_torch import solvers, train
 from repro_torch.core.factorization import (
     banded_inverted_solve,
     dense_block_inverses,
@@ -28,7 +31,7 @@ from repro_torch.core.factorization import (
 )
 from repro_torch.core.banded import banded_solve_blocked
 from repro_torch.core.health import relative_residual
-from repro_torch.kernels import _build, banded, ebv_lu, ops, ref, trsm
+from repro_torch.kernels import _build, banded, batched_lu, ebv_lu, ops, ref, trsm
 
 pytestmark = pytest.mark.cuda
 TOL = 1e-4
@@ -226,3 +229,135 @@ def test_a_band_kernel_that_fails_raises_instead_of_escalating(card, monkeypatch
     with solvers.record_escalations() as esc, pytest.raises(RuntimeError, match="failed to load") as ei:
         ops.banded_lu(a, bw=3, health=True)
     assert not isinstance(ei.value, solvers.SolveFailure) and esc == []
+
+
+# ---------------------------------------------------------------------------
+# the batched kernels (B9-B12)
+# ---------------------------------------------------------------------------
+def dd_stack(bsz, n, seed=0):
+    return np.stack([dd(n, seed + i) for i in range(bsz)])
+
+
+def band_stack(bsz, n, bw, seed=0):
+    return np.stack([band_dd(n, bw, seed + i) for i in range(bsz)])
+
+
+# (B, n): one system; a few; n = 240, the largest system staged in shared
+# memory; n = 241 and 384 (the optimizer's order at whisper-tiny width),
+# walked in device memory
+@pytest.mark.parametrize("bsz,n", [(1, 8), (5, 64), (3, 240), (2, 241), (2, 384)])
+def test_batched_factor_kernel_is_bitwise_its_plain_version(bsz, n, card):
+    a = torch.from_numpy(dd_stack(bsz, n, n)).to(card)
+    before = batched_lu.batched_lu_vmem.launches
+    got = batched_lu.batched_lu_vmem(a)
+    assert batched_lu.batched_lu_vmem.launches == before + 1
+    torch.cuda.synchronize()
+    assert torch.equal(got, batched_lu.batched_lu_plain(a))
+    close_lu(got[-1], torch.from_numpy(ref.lu_ref(dd(n, n + bsz - 1))))
+
+
+def test_batched_factor_leaves_its_input_alone(card):
+    a = torch.from_numpy(dd_stack(3, 64, 1)).to(card)
+    before = a.clone()
+    batched_lu.batched_lu_vmem(a)
+    torch.cuda.synchronize()
+    assert torch.equal(a, before)
+
+
+# (B, n, m): a vector per system; tiles of unequal width before the
+# equalization (70 columns in three tiles of 24); the optimizer's order
+@pytest.mark.parametrize("bsz,n,m", [(5, 64, None), (3, 100, 3), (2, 128, 70), (1, 33, 1),
+                                     (2, 384, 40)])
+def test_batched_solve_kernel_is_bitwise_its_plain_version(bsz, n, m, card):
+    lu = batched_lu.batched_lu_plain(torch.from_numpy(dd_stack(bsz, n, n)).to(card))
+    b = torch.from_numpy(np.stack([rhs(n, m, 7 + i) for i in range(bsz)])).to(card)
+    before = batched_lu.batched_lu_solve_vmem.launches
+    got = batched_lu.batched_lu_solve_vmem(lu, b)
+    assert batched_lu.batched_lu_solve_vmem.launches == before + 1
+    torch.cuda.synchronize()
+    assert got.shape == b.shape and torch.equal(got, batched_lu.batched_lu_solve_plain(lu, b))
+    close(got, torch.from_numpy(ref.batched_solve_ref(lu.cpu().numpy(), b.cpu().numpy())))
+
+
+def test_batched_solve_leaves_its_inputs_alone(card):
+    lu = batched_lu.batched_lu_plain(torch.from_numpy(dd_stack(2, 64, 2)).to(card))
+    b = torch.from_numpy(np.stack([rhs(64, 5, 3), rhs(64, 5, 4)])).to(card)
+    lu0, b0 = lu.clone(), b.clone()
+    batched_lu.batched_lu_solve_vmem(lu, b)
+    torch.cuda.synchronize()
+    assert torch.equal(lu, lu0) and torch.equal(b, b0)
+
+
+@pytest.mark.parametrize("n,bw", BAND_SHAPES)
+def test_batched_band_factor_kernel_is_bitwise_its_plain_version(n, bw, card):
+    a = torch.from_numpy(band_stack(3, n, bw, n + bw)).to(card)
+    before = banded.batched_banded_lu_vmem.launches
+    got = banded.batched_banded_lu_vmem(a, bw=bw)
+    assert banded.batched_banded_lu_vmem.launches == before + 1
+    torch.cuda.synchronize()
+    assert torch.equal(got, banded.banded_lu_plain(a, bw=bw))
+    # each system's factor is the unbatched kernel's
+    assert torch.equal(got[1], banded.banded_lu_blocked(a[1], bw=bw))
+
+
+def test_batched_band_factor_leaves_its_input_alone(card):
+    a = torch.from_numpy(band_stack(2, 300, 16, 3)).to(card)
+    before = a.clone()
+    banded.batched_banded_lu_vmem(a, bw=16)
+    torch.cuda.synchronize()
+    assert torch.equal(a, before)
+
+
+@pytest.mark.parametrize("m", [None, 3, 40])
+@pytest.mark.parametrize("n,bw", BAND_SHAPES)
+def test_batched_band_solve_kernel_matches_plain(n, bw, m, card):
+    lu = banded.banded_lu_plain(torch.from_numpy(band_stack(3, n, bw, n)).to(card), bw=bw)
+    b = torch.from_numpy(np.stack([rhs(n, m, 5 + i) for i in range(3)])).to(card)
+    lu0, b0 = lu.clone(), b.clone()
+    before = banded.batched_banded_solve_vmem.launches
+    got = banded.batched_banded_solve_vmem(lu, b, bw=bw)
+    assert banded.batched_banded_solve_vmem.launches == before + 1
+    close(got, banded_solve_blocked(lu, b, bw=bw), 1e-5)
+    assert torch.equal(lu, lu0) and torch.equal(b, b0)
+
+
+def test_batched_main_paths_dispatch_the_kernels(card):
+    a = torch.from_numpy(dd_stack(4, 100, 3)).to(card)
+    b = torch.from_numpy(np.stack([rhs(100, 2, i) for i in range(4)])).to(card)
+    ab = torch.from_numpy(band_stack(3, 500, 5, 4)).to(card)
+    bb = torch.from_numpy(np.stack([rhs(500, None, i) for i in range(3)])).to(card)
+    wrappers = (batched_lu.batched_lu_vmem, batched_lu.batched_lu_solve_vmem,
+                banded.batched_banded_lu_vmem, banded.batched_banded_solve_vmem)
+    before = [w.launches for w in wrappers]
+    with solvers.record_dispatches() as log:
+        x = ops.linear_solve(a, b)
+        xb = ops.banded_linear_solve(ab, bb, bw=5)
+    assert [name for _, name in log] == ["cuda_vmem"] * 4
+    assert [w.launches - c for w, c in zip(wrappers, before)] == [1, 1, 1, 1]
+    assert float(relative_residual(a, b, x)) < 1e-5
+    assert float(relative_residual(ab, bb, xb, bw=5)) < 1e-5
+
+
+def test_the_optimizer_step_runs_the_batched_kernels(card):
+    # two order-16 systems (left and right covariance) and an AdamW leaf;
+    # the step on the card matches the same step on the CPU
+    rng = np.random.default_rng(3)
+    shapes = {"w1": (16, 40), "w2": (64, 16), "bias": (16,)}
+    params = {k: rng.standard_normal(s).astype(np.float32) * 0.1 for k, s in shapes.items()}
+    grads = {k: rng.standard_normal(s).astype(np.float32) for k, s in shapes.items()}
+    steps = {}
+    for dev in ("cpu", card):
+        ps = {k: torch.nn.Parameter(torch.from_numpy(v.copy()).to(dev)) for k, v in params.items()}
+        opt = train.EbvPreconditioned(list(ps.values()), lr=1e-2)
+        for k, p in ps.items():
+            p.grad = torch.from_numpy(grads[k]).to(dev)
+        before = (batched_lu.batched_lu_vmem.launches, batched_lu.batched_lu_solve_vmem.launches)
+        with solvers.record_dispatches() as log:
+            opt.step()
+        steps[str(dev)] = {k: p.detach().cpu() for k, p in ps.items()}
+        assert [name for _, name in log] == ["cuda_vmem", "cuda_vmem"]
+        if dev == card:
+            assert (batched_lu.batched_lu_vmem.launches - before[0],
+                    batched_lu.batched_lu_solve_vmem.launches - before[1]) == (1, 1)
+    for k in shapes:
+        close(steps["cuda"][k], steps["cpu"][k])

@@ -237,15 +237,17 @@ def test_dispatch_hooks_record_and_detach():
     assert log2 == []
 
 
+# a stack runs the batched slots since the batched slice: the "batched" cases
+# are stacks with a request that is still out of slice
 @pytest.mark.parametrize("call", [
-    lambda a: ops.lu(a.expand(2, 8, 8)),
+    lambda a: ops.lu(a.expand(2, 8, 8), mesh=object()),
     lambda a: ops.lu(a, mesh=object()),
     lambda a: ops.lu(a, tolerance=1e-3),
     lambda a: ops.lu(a, rank=4),
     lambda a: ops.linear_solve(a, torch.ones(8), tolerance=1e-3),
     lambda a: ops.lu(a, impl="cuda_vmem"),
     lambda a: ops.lu(a, impl="cuda_blocked"),
-    lambda a: ops.lu_solve(ops.lu(a).packed.expand(2, 8, 8), torch.ones(2, 8)),
+    lambda a: ops.lu_solve(ops.lu(a).packed.expand(2, 8, 8), torch.ones(2, 8), tolerance=1e-3),
 ], ids=["batched", "mesh", "tolerance", "rank", "linear-tolerance", "lu_vmem", "blocked", "batched-solve"])
 def test_out_of_slice_requests_raise_not_implemented(call):
     with pytest.raises(NotImplementedError):
