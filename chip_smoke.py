@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's dense, banded and batched main paths and
-the EbV-preconditioned optimizer on one NVIDIA card.
+"""Drive the PyTorch/CUDA port's dense, banded and batched main paths, the
+EbV-preconditioned optimizer, the legacy dense factors, the accuracy tiers
+and the solve service on one NVIDIA card.
 
     python3 chip_smoke.py
 
@@ -9,7 +10,9 @@ Phases (any failure exits non-zero):
 1. card: name and power limit (``nvidia-smi``), torch and CUDA versions;
 2. build: the CUDA sources under ``src/repro_torch/csrc`` with ``nvcc``;
 3. kernels against their plain PyTorch versions on the card; 3c the
-   batched kernels (B9-B12) at the batched paths' shapes;
+   batched kernels (B9-B12) at the batched paths' shapes; 3d the legacy
+   dense kernels (B14-B17) at the legacy paths' shapes and the legacy
+   scalar band factor (B18) at the band the service escalates to it;
 4. the main paths, each with its kernels' launch counters set to 0 just
    before and read just after:
    - dense: ``repro_torch.kernels.ops.linear_solve`` at n = 500, 2000,
@@ -32,18 +35,36 @@ Phases (any failure exits non-zero):
    - batched banded (4e): ``ops.banded_linear_solve`` on 16 Table 1 bands
      (n = 16000, bw = 5) and a CFD ensemble of 32 five-point Poisson bands
      on a 64 x 64 grid (n = 4096, bw = 64), each with its own diagonal;
+   - the legacy forced factors (4f): ``ops.linear_solve(impl="cuda_vmem")``
+     at n = 500, 2000, 4096 and ``impl="cuda_blocked"`` at n = 500, 2000,
+     8000; the exported ``kernels.ebv_lu.update`` (no op of the reference
+     calls it) on the driver's first trailing block at n = 2000;
+   - the accuracy tiers (4g): ``linear_solve(tolerance=1e-5)`` at n = 4096
+     (``bf16_ir``), ``linear_solve(rank=256, tolerance=1e-3)`` on a rank-256
+     operand at n = 2048 (``rand_lu``), one whisper-tiny
+     ``EbvPreconditioned(solve_tolerance="auto")`` step (the batched
+     ``bf16_ir``);
+   - the solve service (4h): one ``SolveService`` on the card, four
+     flushes of 8 requests on each of dense n = 1024, 2000, 4096 and
+     Table 1's band n = 16000 (RHS widths 1 and 4 in turn), flush 2 mixed
+     with a 1e-5 request, a rank-256 request, a NaN-poisoned and a
+     zero-pivot n = 1024 matrix and a NaN-poisoned band (whose escalation
+     runs B18); its flush-mates against an undisturbed service, bit for bit;
    checks the dispatches, the counters, the residuals and small answers
    against the float64 oracles;
 5. times: each kernel, its plain version and a PyTorch library yardstick
    (where one exists) at the main paths' shapes (CUDA events, median of 5
    runs after one warm-up; the plain versions at the Poisson band one call,
-   timed in phase 3), the bound, launches per call and peak memory;
+   timed in phase 3, ``lu_vmem``'s at n = 4096 and the scalar band
+   factor's one call), the bound,
+   launches per call and peak memory;
    the ``cuda_vmem`` / ``cuda_tiled`` and ``cuda_blocked`` / ``cuda_tiled``
    crossovers; the optimizer step's time; device time by kernel;
 6. the ``kernels`` JSON line, the card line and the result line.
 
 It prints no result and exits 1 where ``torch.cuda.is_available()`` is false.
 """
+import dataclasses
 import json
 import os
 import statistics
@@ -84,6 +105,23 @@ OPT_D, OPT_LEAVES = 128, 4  # benchmarks/run.py:184-197, opt_step_d128
 # the Poisson ensemble, 32 members on a 64 x 64 grid (bw = 64)
 ENSEMBLE_T1 = (16, 16000, 5)
 ENSEMBLE_NX, ENSEMBLE_MEMBERS = 64, 32
+# the legacy kernels: B14 and B15 against their plain versions normwise
+# (their products sum in another order than cuBLAS); B16 and B17 bit for bit;
+# bf16 B14 at the reference test's absolute tolerance (tests/test_kernels.py)
+LEGACY_TOL = 1e-5
+BF16_UPDATE_ATOL = 0.5
+VMEM_SIZES = (500, 2000, 4096)   # lu_vmem up to the reference's cap
+BLOCKED_SIZES = (500, 2000, 8000)
+LEGACY_BLOCK, LEGACY_CT = 256, 256  # the driver's defaults (solvers/backends.py)
+# the tiers: Table 2's largest size under the cap; the reference's
+# rand_lu_n2048_k256 bench row
+IR_N, IR_TOL = 4096, 1e-5
+RANK_N, RANK_K = 2048, 256
+# the service: serve_bench's n = 1024, the paper's 2000, the cap 4096 and
+# Table 1's largest band; 8 requests each per flush, four flushes
+SERVE_DENSE = (1024, 2000, 4096)
+SERVE_BAND = (16000, 5)
+SERVE_REQS, SERVE_FLUSHES = 8, 4
 
 
 def fail(msg: str) -> None:
@@ -116,7 +154,10 @@ def main() -> int:
     from repro_torch.core.factorization import banded_inverted_solve, factorize_banded
     from repro_torch import train
     from repro_torch.kernels import _build, banded, batched_lu, ebv_lu, ops, ref, trsm
-    from repro_torch.solvers.backends import banded_static_impl
+    from repro_torch.core import refine
+    from repro_torch.core.pivoted import PivotedFactors
+    from repro_torch.serve import SolveService, fingerprint
+    from repro_torch.solvers.backends import RAND_LU_RESIDUAL_BOUND, banded_static_impl, blocked_launches
 
     dev = torch.device("cuda")
     card = card_line()
@@ -177,7 +218,7 @@ def main() -> int:
           f"tolerance {KERNEL_TOL:.0e})", flush=True)
     max_err = {}
 
-    def compare(name, shape, got, want):
+    def compare(name, shape, got, want, tol=KERNEL_TOL):
         torch.cuda.synchronize()
         if got.shape != want.shape or not bool(torch.isfinite(got).all()):
             fail(f"{name} {shape}: shape {tuple(got.shape)} or non-finite values")
@@ -185,7 +226,7 @@ def main() -> int:
         rel = abs_err / float(want.double().abs().max())
         max_err[name] = max(max_err.get(name, 0.0), abs_err)
         print(f"  {name:15s} {shape:14s} max_abs {abs_err:.3e}  rel {rel:.3e}", flush=True)
-        if not rel <= KERNEL_TOL:
+        if not rel <= tol:
             fail(f"{name} {shape}: kernel disagrees with its plain version ({rel:.3e})")
 
     def compare_lu(name, shape, got, want):
@@ -307,6 +348,56 @@ def main() -> int:
               f"rel {rel:.3e}", flush=True)
         if not (bool(torch.isfinite(got).all()) and rel <= BATCHED_SOLVE_TOL):
             fail(f"batched_banded_solve_vmem {shape}: kernel disagrees with its plain version ({rel:.3e})")
+
+    # ---- 3d. the legacy dense kernels against their plain versions --------
+    print(f"phase 3d: legacy kernels vs plain (B16, B17 bit for bit; B14, B15 normwise, "
+          f"tolerance {LEGACY_TOL:.0e}; bf16 B14 max_abs <= {BF16_UPDATE_ATOL})", flush=True)
+    legacy_plain_ms = {}  # the plain lu_vmem at n = 4096, one call; phase 5 reads it
+    for n in VMEM_SIZES:
+        a = matrix(n, 1100 + n)
+        plain, ms = once(lambda: ebv_lu.lu_vmem_plain(a))
+        if n == VMEM_SIZES[-1]:
+            legacy_plain_ms[f"n={n}"] = ms
+        compare_bitwise("lu_vmem", f"n={n}", ebv_lu.lu_vmem(a), plain)
+    print(f"  the plain lu_vmem at n={VMEM_SIZES[-1]}, one call: {legacy_plain_ms[f'n={VMEM_SIZES[-1]}']:.1f} ms",
+          flush=True)
+    for n in (2000, 8000):  # the driver's first panel
+        p = matrix(n, 1200 + n)[:, :LEGACY_BLOCK]
+        compare_bitwise("panel", f"m={n} b={LEGACY_BLOCK}", ebv_lu.panel(p), ebv_lu.panel_plain(p))
+    # the driver's first fused step at n = 2000: width 1744 padded to 1792, ct = 128
+    a = matrix(2000, 1300)
+    pan = ebv_lu.panel(a[:, :LEGACY_BLOCK])
+    wpad = -(-(2000 - LEGACY_BLOCK) // 128) * 128
+    top = torch.nn.functional.pad(a[:LEGACY_BLOCK, LEGACY_BLOCK:], (0, wpad - 2000 + LEGACY_BLOCK))
+    trail = torch.nn.functional.pad(a[LEGACY_BLOCK:, LEGACY_BLOCK:], (0, wpad - 2000 + LEGACY_BLOCK))
+    step_args = (pan, top, trail)
+    u12, new_trail = ebv_lu.fused_step(*step_args, col_tile=128)
+    pu12, pnew = ebv_lu.fused_step_plain(*step_args)
+    compare("fused_step", f"n=2000 U12", u12, pu12, LEGACY_TOL)
+    compare("fused_step", f"n=2000 A22", new_trail, pnew, LEGACY_TOL)
+    g = torch.Generator(device=dev).manual_seed(1400)
+    upd_args = tuple(torch.randn(shape, generator=g, device=dev)
+                     for shape in ((wpad, LEGACY_BLOCK), (LEGACY_BLOCK, wpad), (wpad, wpad)))
+    compare("update", f"{tuple(upd_args[0].shape[:1]) + tuple(upd_args[1].shape)}",
+            ebv_lu.update(*upd_args), ebv_lu.update_plain(*upd_args), LEGACY_TOL)
+    bargs = tuple(torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+                  for shape in ((128, 32), (32, 64), (128, 64)))
+    got = ebv_lu.update(*bargs, row_tile=64, col_tile=32)
+    want = ebv_lu.update_plain(*bargs)
+    torch.cuda.synchronize()
+    abs_err = float((got.double() - want.double()).abs().max())
+    print(f"  {'update':15s} (128, 32, 64) bf16 max_abs {abs_err:.3e}  rel "
+          f"{abs_err / float(want.double().abs().max()):.3e}", flush=True)
+    if got.dtype != torch.bfloat16 or not abs_err <= BF16_UPDATE_ATOL:
+        fail(f"update bf16: kernel disagrees with its plain version ({abs_err:.3e})")
+
+    # B18 at the band the service's escalation gives it (phase 4h), finite here
+    sband = band(*SERVE_BAND, 1870)
+    plain, legacy_plain_ms["scalar band"] = once(lambda: banded.banded_lu_scalar_plain(sband, bw=SERVE_BAND[1]))
+    compare_bitwise("banded_lu_kernelized", f"n={SERVE_BAND[0]} bw={SERVE_BAND[1]}",
+                    banded.banded_lu_kernelized(sband, bw=SERVE_BAND[1]), plain)
+    print(f"  the plain scalar band factor at n={SERVE_BAND[0]} bw={SERVE_BAND[1]}, one call: "
+          f"{legacy_plain_ms['scalar band']:.1f} ms", flush=True)
 
     # ---- 4. the main paths -----------------------------------------------
     print("phase 4: main path", flush=True)
@@ -599,6 +690,256 @@ def main() -> int:
     if not err <= 1e-5:
         fail(f"B={bsz} n={n} bw={bw} answer off the float64 oracle by {err:.3e}")
 
+    print("phase 4f: the legacy forced factors", flush=True)
+    lwrappers = {"lu_vmem": ebv_lu.lu_vmem, "panel": ebv_lu.panel, "fused_step": ebv_lu.fused_step}
+    fcases = ([("cuda_vmem", n, matrix(n, 1500 + n), rhs(n, 1, 1550 + n)) for n in VMEM_SIZES]
+              + [("cuda_blocked", n, matrix(n, 1600 + n), rhs(n, 1, 1650 + n)) for n in BLOCKED_SIZES])
+    zero(lwrappers)
+    fresults = []
+    with solvers.record_dispatches() as log:
+        for impl, n, a, b in fcases:
+            mark = len(log)
+            x = ops.linear_solve(a, b, impl=impl)
+            fresults.append((f"linear_solve(impl={impl}) n={n}", a, b, x, [nm for _, nm in log[mark:]],
+                             [impl, "cuda_vmem" if n <= 2048 else "cuda_tiled"]))
+    legacy_expected = {"lu_vmem": len(VMEM_SIZES),
+                       "panel": sum(-(-n // LEGACY_BLOCK) for n in BLOCKED_SIZES),
+                       "fused_step": sum(blocked_launches(n) - (-(-n // LEGACY_BLOCK)) for n in BLOCKED_SIZES)}
+    legacy_launches = read(lwrappers, legacy_expected, "legacy forced path (one cooperative launch per "
+                           "lu_vmem; 2S-1 per cuda_blocked)")
+    check_results(fresults)
+    _, n, a, b = fcases[0]
+    want = ref.solve_ref(ref.lu_ref(a.double().cpu().numpy()), b.double().cpu().numpy())
+    err = float(np.abs(fresults[0][3].double().cpu().numpy() - want).max() / np.abs(want).max())
+    print(f"  cuda_vmem n={n} against the float64 oracle (kernels/ref.py): normwise {err:.3e}", flush=True)
+    if not err <= 1e-5:
+        fail(f"cuda_vmem n={n} answer off the float64 oracle by {err:.3e}")
+    # the exported trailing update, which no op of the reference calls: the
+    # driver's first step's A22 - L21 U12 (n = 2000, phase 3d) done apart,
+    # against the fused step's own
+    uwrappers = {"update": ebv_lu.update}
+    zero(uwrappers)
+    upd = ebv_lu.update(pan[LEGACY_BLOCK:], u12, trail, row_tile=trail.shape[0], col_tile=128)
+    update_launches = read(uwrappers, {"update": 1}, "exported update path")
+    err = float((upd.double() - new_trail.double()).abs().max() / new_trail.double().abs().max())
+    print(f"  update(L21, U12, A22) of the driver's first step against the fused step's A22: "
+          f"normwise {err:.3e}", flush=True)
+    if not err <= LEGACY_TOL:
+        fail(f"update disagrees with the fused step's trailing update ({err:.3e})")
+
+    print("phase 4g: the accuracy tiers", flush=True)
+    twrappers = {"lu_fused": ebv_lu.lu_fused, "solve_inverted": trsm.solve_inverted}
+    a_ir, b_ir = matrix(IR_N, 1700), rhs(IR_N, 1, 1701)
+    g = torch.Generator(device=dev).manual_seed(1702)
+    a_rank = (torch.randn((RANK_N, RANK_K), generator=g, device=dev)
+              @ torch.randn((RANK_K, RANK_N), generator=g, device=dev)) / RANK_K
+    b_rank = a_rank @ torch.randn(RANK_N, generator=g, device=dev)
+    zero(twrappers)
+    with solvers.record_dispatches() as log:
+        t0 = time.perf_counter()
+        x_ir = ops.linear_solve(a_ir, b_ir, tolerance=IR_TOL)
+        torch.cuda.synchronize()
+        ir_ms = (time.perf_counter() - t0) * 1e3
+        sweeps = refine.last_refinement()
+        ir_launches = {k: w.launches for k, w in twrappers.items()}
+        mark = len(log)
+        x_rank = ops.linear_solve(a_rank, b_rank, rank=RANK_K, tolerance=RAND_LU_RESIDUAL_BOUND)
+        torch.cuda.synchronize()
+    tier_launches = {k: w.launches for k, w in twrappers.items()}
+    ir_names, rank_names = [nm for _, nm in log[:mark]], [nm for _, nm in log[mark:]]
+    res_ir = float(relative_residual(a_ir, b_ir, x_ir))
+    res_rank = float(relative_residual(a_rank, b_rank, x_rank))
+    rank_launches = {k: tier_launches[k] - ir_launches[k] for k in twrappers}
+    print(f"  linear_solve(tolerance={IR_TOL:g}) n={IR_N}: dispatch {ir_names}  residual {res_ir:.3e}  "
+          f"refinement sweeps {sweeps['iterations']}  {ir_ms:.1f} ms (host clock)  kernel launches "
+          f"{ir_launches}", flush=True)
+    print(f"  linear_solve(rank={RANK_K}, tolerance={RAND_LU_RESIDUAL_BOUND:g}) n={RANK_N} (rank-{RANK_K} "
+          f"operand): dispatch {rank_names}  residual {res_rank:.3e}  launches {rank_launches}", flush=True)
+    if ir_names != ["bf16_ir"] or not res_ir <= IR_TOL or min(ir_launches.values()) < 1:
+        fail(f"bf16_ir tier: dispatch {ir_names}, residual {res_ir:.3e}, launches {ir_launches}")
+    if rank_names != ["rand_lu"] or not res_rank <= RAND_LU_RESIDUAL_BOUND or rank_launches["lu_fused"] < 1:
+        fail(f"rand_lu tier: dispatch {rank_names}, residual {res_rank:.3e}, launches {rank_launches}")
+    tree = {k: torch.nn.Parameter(v) for k, v in whisper_tiny_tree(gen).items()}
+    topt = train.EbvPreconditioned(list(tree.values()), lr=train.warmup_cosine(3e-4, 2, OPT_STEPS),
+                                   solve_tolerance="auto")
+    draw_grads(tree, gen)
+    start_t = {k: p.detach().clone() for k, p in tree.items()}
+    solves.clear()
+    ops.linear_solve = recording(plain_ls)
+    zero(dwrappers)
+    try:
+        with solvers.record_dispatches() as log:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            topt.step()
+            torch.cuda.synchronize()
+            tier_step_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        ops.linear_solve = plain_ls
+    tier_opt_launches = {k: w.launches for k, w in dwrappers.items()}
+    got = [(p.op, p.n, p.batch, p.rhs, nm) for p, nm in log]
+    print(f"  whisper-tiny EbvPreconditioned(solve_tolerance='auto' = {topt.solve_tolerance:g}) step: "
+          f"dispatch {got}  {tier_step_ms:.1f} ms (host clock)  launches {tier_opt_launches}", flush=True)
+    if got != [("linear_solve", L, 5, d, "bf16_ir"), ("linear_solve", d, 2, vocab, "bf16_ir")] \
+            or min(tier_opt_launches.values()) < 2:
+        fail(f"the tiered optimizer step dispatched {got}, launches {tier_opt_launches}")
+    for a3, r3, x3 in solves:
+        res = float(relative_residual(a3, r3, x3))
+        print(f"  tiered preconditioner solve {tuple(r3.shape)}: worst system's residual {res:.3e}", flush=True)
+        if not bool(torch.isfinite(x3).all()) or not res <= topt.solve_tolerance:
+            fail(f"tiered preconditioner solve {tuple(r3.shape)}: residual {res:.3e}")
+    for k, p in tree.items():
+        if not bool(torch.isfinite(p).all()) or torch.equal(p.detach(), start_t[k]):
+            fail(f"tiered optimizer {k}: not finite or not updated")
+    del tree, topt, start_t
+    solves.clear()
+
+    print("phase 4h: the solve service", flush=True)
+    serve_mats = {("dense", n): matrix(n, 1800 + n) for n in SERVE_DENSE}
+    serve_mats[("band", SERVE_BAND[0])] = band(*SERVE_BAND, 1850)
+    nan_mat = matrix(1024, 1860)
+    nan_mat[0, 0] = float("nan")
+    zero_mat = matrix(1024, 1861)
+    zero_mat[0, 0] = 0.0
+    nan_band = band(*SERVE_BAND, 1862)
+    nan_band[5, SERVE_BAND[1]] = float("nan")
+
+    def serve_requests(flush):
+        out = []
+        for (kind, n), a in serve_mats.items():
+            for i in range(SERVE_REQS):
+                out.append((a, rhs(n, 1 if i % 2 == 0 else 4, 1900 + 97 * flush + 7 * i + n),
+                            SERVE_BAND[1] if kind == "band" else 0, {}))
+        return out
+
+    def extras():
+        a4 = serve_mats[("dense", 4096)]
+        return [(a4, rhs(4096, 1, 1990), 0, dict(tolerance=1e-5)),
+                (a_rank, b_rank, 0, dict(rank=RANK_K, tolerance=RAND_LU_RESIDUAL_BOUND))]
+
+    hostile = [(nan_mat, rhs(1024, 1, 1991), 0, {}), (zero_mat, rhs(1024, 1, 1992), 0, {}),
+               (nan_band, rhs(SERVE_BAND[0], 1, 1993), SERVE_BAND[1], {})]
+    qwrappers = {"banded_lu_kernelized": banded.banded_lu_kernelized}  # reached through escalation
+    swrappers = {**wrappers, "banded_lu_blocked": banded.banded_lu_blocked,
+                 "banded_solve_kernelized": banded.banded_solve_kernelized, **lwrappers, **qwrappers}
+    svc, undisturbed = SolveService(), SolveService()
+    zero(swrappers)
+    flush_rows, flush_out = [], []
+    with solvers.record_escalations() as esc:
+        for flush in range(SERVE_FLUSHES):
+            reqs = serve_requests(flush)
+            if flush == 1:
+                reqs = reqs + extras() + hostile
+            before = dataclasses.replace(svc.stats)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tickets = [svc.submit(a, b, bw=bw, **kw) for a, b, bw, kw in reqs]
+            out = svc.flush()
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            st = svc.stats
+            row = dict(requests=len(reqs), ms=ms, rps=len(reqs) / ms * 1e3,
+                       factor=st.factor_dispatches - before.factor_dispatches,
+                       solve=st.solve_dispatches - before.solve_dispatches,
+                       hits=st.cache_hits - before.cache_hits, misses=st.cache_misses - before.cache_misses)
+            flush_rows.append(row)
+            flush_out.append((reqs, tickets, out))
+            print(f"  flush {flush + 1}: {row['requests']} requests in {ms:.1f} ms = {row['rps']:.1f} requests/s; "
+                  f"factor dispatches {row['factor']}, solve dispatches {row['solve']}, hits {row['hits']}, "
+                  f"misses {row['misses']}", flush=True)
+    serve_launches = {k: w.launches for k, w in swrappers.items()}
+    torch.cuda.synchronize()
+    print(f"  launches on the service path: {serve_launches}", flush=True)
+    print(f"  stats: {dataclasses.asdict(svc.stats)}  hit rate {svc.stats.hit_rate:.3f}", flush=True)
+    groups = len(serve_mats)
+    if flush_rows[0]["factor"] != groups or flush_rows[0]["solve"] != groups:
+        fail(f"cold flush: {flush_rows[0]}, expected {groups} factor and {groups} solve dispatches")
+    for row in flush_rows[2:]:
+        if row["factor"] != 0 or row["solve"] != groups:
+            fail(f"warm flush: {row}, expected no factor and {groups} solve dispatches")
+    for k in ("lu_fused", "solve_vmem", "solve_tiled", "banded_lu_blocked", "banded_solve_kernelized",
+              "lu_vmem", "panel", "fused_step", "banded_lu_kernelized"):
+        if serve_launches[k] < 1:
+            fail(f"the service path launched no {k}")
+    reqs, tickets, out = flush_out[1]
+    nan_ticket, zero_ticket, nan_band_ticket = tickets[-3:]
+    failure = out[nan_ticket]
+    chain = [c["backend"] for c in getattr(failure, "chain", [])]
+    print(f"  NaN-poisoned n=1024: {type(failure).__name__} chain {chain}; quarantined "
+          f"{fingerprint(nan_mat) in svc.quarantined_fingerprints()}", flush=True)
+    if not isinstance(failure, solvers.SolveFailure) \
+            or chain != ["cuda_fused", "torch", "cuda_vmem", "pivoted", "cuda_blocked"] \
+            or fingerprint(nan_mat) not in svc.quarantined_fingerprints():
+        fail(f"the NaN-poisoned matrix: {failure!r}")
+    band_failure = out[nan_band_ticket]
+    band_chain = [c["backend"] for c in getattr(band_failure, "chain", [])]
+    band_quarantined = fingerprint(nan_band, bw=SERVE_BAND[1]) in svc.quarantined_fingerprints()
+    print(f"  NaN-poisoned band n={SERVE_BAND[0]} bw={SERVE_BAND[1]}: {type(band_failure).__name__} "
+          f"chain {band_chain}; quarantined {band_quarantined}", flush=True)
+    if not isinstance(band_failure, solvers.SolveFailure) or not band_quarantined \
+            or band_chain != ["cuda_blocked", "cuda_tiled", "torch", "cuda_scalar", "torch_scalar"]:
+        fail(f"the NaN-poisoned band: {band_failure!r}")
+    zero_chain = [(e[1], e[2]) for e in esc if e[0].op == "factor" and e[0].n == 1024][-3:]
+    zero_factors = svc._lru[fingerprint(zero_mat)][0.0]
+    print(f"  zero-pivot n=1024: escalations {zero_chain}, served by "
+          f"{type(zero_factors).__name__}", flush=True)
+    if zero_chain != [("cuda_fused", "torch"), ("torch", "cuda_vmem"), ("cuda_vmem", "pivoted")] \
+            or not isinstance(zero_factors, PivotedFactors):
+        fail(f"the zero-pivot matrix: escalations {zero_chain}, factors {type(zero_factors).__name__}")
+    rank_tiers = sorted(svc._lru[fingerprint(a_rank)])
+    print(f"  rank-{RANK_K} request: cached tiers {rank_tiers}, refinement sweeps "
+          f"{svc.stats.last_refine_iterations}", flush=True)
+    if rank_tiers != [RAND_LU_RESIDUAL_BOUND]:
+        fail(f"rank-k factors cached at tiers {rank_tiers}")
+    worst, worst_coalesced = 0.0, 0.0
+    fps = {}  # the fingerprint of each matrix, taken once
+    for reqs, tickets, out in flush_out:
+        for (a, b, bw, kw), tk in zip(reqs, tickets):
+            if tk in (nan_ticket, nan_band_ticket):
+                continue
+            x = out[tk]
+            # an exact answer is held to 1e-4, a tier's to its tolerance
+            bound = kw.get("tolerance") or solvers.VERIFY_RESIDUAL_DEFAULT_BOUND
+            res = float(relative_residual(a, b, x, bw=bw))
+            worst = max(worst, res)
+            if x.shape != b.shape or not res <= bound:
+                fail(f"service answer n={a.shape[0]} bw={bw} {kw}: residual {res:.3e} > {bound:g}")
+            if "rank" in kw:
+                continue
+            if id(a) not in fps:
+                fps[id(a)] = fingerprint(a, bw=bw)
+            factors = svc._lru[fps[id(a)]][0.0]
+            one = ops.banded_solve(factors, b, bw=bw) if bw else ops.lu_solve(factors, b)
+            err = float((x.double() - one.double()).abs().max() / one.double().abs().max())
+            worst_coalesced = max(worst_coalesced, err)
+            if not err <= 1e-5:
+                fail(f"coalesced answer n={a.shape[0]} bw={bw}: {err:.3e} from the per-request solve")
+    print(f"  every answer within its bound (worst residual {worst:.3e}); coalesced against per-request "
+          f"solves: worst normwise {worst_coalesced:.3e} (<= 1e-5)", flush=True)
+    solvers.clear_demotions()
+    for flush in range(2):  # the undisturbed service: flushes 1 and 2 without the hostile matrices
+        reqs, tickets, out = flush_out[flush]
+        calm = [r for r in reqs if not any(r[0] is h[0] for h in hostile)]
+        uticks = [undisturbed.submit(a, b, bw=bw, **kw) for a, b, bw, kw in calm]
+        uout = undisturbed.flush()
+    same = all(torch.equal(out[tk], uout[ut]) for tk, ut in zip(tickets, uticks))
+    print(f"  flush 2's flush-mates bitwise equal to an undisturbed service: {same}", flush=True)
+    if not same:
+        fail("a hostile matrix disturbed its flush-mates")
+    a4 = serve_mats[("dense", 4096)]
+    fp_ms = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fingerprint(a4)
+        fp_ms.append((time.perf_counter() - t0) * 1e3)
+    fp_ms = statistics.median(fp_ms)
+    print(f"  fingerprint of the n=4096 card matrix (64 MiB to the host + sha1), host clock, median of 3: "
+          f"{fp_ms:.1f} ms; flush 3: {flush_rows[2]['ms']:.1f} ms for {flush_rows[2]['requests']} requests "
+          f"(card: {card})", flush=True)
+    for k in lwrappers:
+        legacy_launches[k] += serve_launches[k]
+
     # ---- 5. times --------------------------------------------------------
     print(f"phase 5: times (ms, median of {REPS} after 1 warm-up; card: {card})", flush=True)
 
@@ -776,6 +1117,65 @@ def main() -> int:
         record("batched_banded_solve_vmem", shape + " m=1", timed(kernel), eplain_ms[shape + " m=1"],
                None, bsz * 4 * n * bw, bsz * (n * (2 * bw + 1) + 2 * n) * 4,
                per_call(banded.batched_banded_solve_vmem, kernel))
+    # the legacy kernels; library: lu_factor(pivot=False) for B17 and, on the
+    # (m, b) panel, for B16; two calls (solve_triangular + addmm) for B15;
+    # addmm for B14
+    print("  legacy: library lu_factor(pivot=False) (B17, B16 on the panel), solve_triangular + addmm "
+          "(B15, two calls), addmm (B14), none (B18: PyTorch has no band factor)", flush=True)
+    for n in VMEM_SIZES:
+        a = matrix(n, 2000 + n)
+        kernel = lambda: ebv_lu.lu_vmem(a)
+        plain = (timed(lambda: ebv_lu.lu_vmem_plain(a)) if n < VMEM_SIZES[-1]
+                 else legacy_plain_ms[f"n={n}"])
+        # 2n^3/3 flops; the matrix read once and its factor written once
+        record("lu_vmem", f"n={n}", timed(kernel), plain,
+               library(lambda: torch.linalg.lu_factor(a, pivot=False)), 2 * n ** 3 / 3, 2 * n * n * 4,
+               per_call(ebv_lu.lu_vmem, kernel))
+    for m in (2000, 8000):
+        b = LEGACY_BLOCK
+        p = matrix(m, 2100 + m)[:, :b].contiguous()
+        kernel = lambda: ebv_lu.panel(p)
+        # b steps: each divides the m-1-k rows below the pivot and updates
+        # their b-1-k trailing entries with a multiply and a subtract
+        flops = sum((m - 1 - k) * (1 + 2 * (b - 1 - k)) for k in range(b))
+        record("panel", f"m={m} b={b}", timed(kernel), timed(lambda: ebv_lu.panel_plain(p)),
+               library(lambda: torch.linalg.lu_factor(p, pivot=False)), flops, 2 * m * b * 4,
+               per_call(ebv_lu.panel, kernel))
+    n, bw = SERVE_BAND
+    kernel = lambda: banded.banded_lu_kernelized(sband, bw=bw)
+    # as B5: n (2bw^2 + bw) flops, the band read once and its factor written once
+    record("banded_lu_kernelized", f"n={n} bw={bw}", timed(kernel), legacy_plain_ms["scalar band"], None,
+           n * (2 * bw * bw + bw), 2 * n * (2 * bw + 1) * 4, per_call(banded.banded_lu_kernelized, kernel))
+    mb, wb = step_args[2].shape
+    bb = step_args[0].shape[1]
+    l11 = step_args[0][:bb]
+    l21 = step_args[0][bb:]
+
+    def two_calls():
+        u = torch.linalg.solve_triangular(l11, step_args[1], upper=False, unitriangular=True)
+        return torch.addmm(step_args[2], l21, u, alpha=-1)
+
+    kernel = lambda: ebv_lu.fused_step(*step_args, col_tile=128)
+    # the unit-lower solve b(b-1)W flops and the product 2(m-b)bW; pan, top
+    # and trail read once, U12 and A22 written once
+    record("fused_step", "n=2000 step 1", timed(kernel),
+           timed(lambda: ebv_lu.fused_step_plain(*step_args)), library(two_calls),
+           bb * (bb - 1) * wb + 2 * mb * bb * wb,
+           ((mb + bb) * bb + 2 * (bb * wb + mb * wb)) * 4, per_call(ebv_lu.fused_step, kernel))
+    ul, uu, uc = upd_args
+    kernel = lambda: ebv_lu.update(*upd_args)
+    mu, ku, wu = ul.shape[0], ul.shape[1], uu.shape[1]
+    record("update", f"({mu}, {ku}, {wu})", timed(kernel), timed(lambda: ebv_lu.update_plain(*upd_args)),
+           library(lambda: torch.addmm(uc, ul, uu, alpha=-1)), 2 * mu * ku * wu,
+           (mu * ku + ku * wu + 2 * mu * wu) * 4, per_call(ebv_lu.update, kernel))
+
+    for n in (2000, 8000):  # the legacy driver against the fused factor it was replaced by
+        a = matrix(n, 2200 + n)
+        tb = timed(lambda: ops.lu(a, impl="cuda_blocked"))
+        tf = timed(lambda: ops.lu(a))
+        print(f"  ops.lu(impl='cuda_blocked') n={n}: {tb:.4f} ms ({blocked_launches(n)} launches) against "
+              f"the default cuda_fused {tf:.4f} ms", flush=True)
+
     print("  optimizer step (host clock around a synchronized step, median of 3):", flush=True)
     opt_ms = {}
     for name, ps in trees.items():
@@ -838,12 +1238,19 @@ def main() -> int:
                   "banded_lu_blocked": "n=16000 bw=5", "banded_lu_tiled": shoot,
                   "banded_solve_kernelized": f"{shoot} m={WIDE}", "banded_solve_inverted": f"{shoot} m={WIDE}",
                   "batched_lu_vmem": f"B=2 n={d}", "batched_lu_solve_vmem": f"B=2 n={d} m={vocab}",
-                  "batched_banded_lu_vmem": ens, "batched_banded_solve_vmem": f"{ens} m=1"}
+                  "batched_banded_lu_vmem": ens, "batched_banded_solve_vmem": f"{ens} m=1",
+                  "lu_vmem": f"n={VMEM_SIZES[-1]}", "panel": f"m=2000 b={LEGACY_BLOCK}",
+                  "fused_step": "n=2000 step 1",
+                  "update": f"({wpad}, {LEGACY_BLOCK}, {wpad})",
+                  "banded_lu_kernelized": f"n={SERVE_BAND[0]} bw={SERVE_BAND[1]}"}
     source = {"lu_fused": "src/repro_torch/csrc/ebv_lu.cu", "solve_vmem": "src/repro_torch/csrc/trsm.cu",
               "solve_tiled": "src/repro_torch/csrc/trsm.cu", "solve_inverted": "src/repro_torch/csrc/trsm.cu",
               **dict.fromkeys(bwrappers, "src/repro_torch/csrc/banded.cu"),
               **dict.fromkeys(dwrappers, "src/repro_torch/csrc/batched_lu.cu"),
-              **dict.fromkeys(ewrappers, "src/repro_torch/csrc/banded.cu")}
+              **dict.fromkeys(ewrappers, "src/repro_torch/csrc/banded.cu"),
+              **dict.fromkeys(("lu_vmem", "panel", "fused_step", "update"),
+                              "src/repro_torch/csrc/legacy_lu.cu"),
+              "banded_lu_kernelized": "src/repro_torch/csrc/banded.cu"}
     replaces = {"lu_fused": "src/repro/kernels/ebv_lu.py:349", "solve_vmem": "src/repro/kernels/trsm.py:62",
                 "solve_tiled": "src/repro/kernels/trsm.py:160",
                 "solve_inverted": "src/repro/kernels/trsm.py:251",
@@ -854,10 +1261,22 @@ def main() -> int:
                 "batched_lu_vmem": "src/repro/kernels/batched_lu.py:28",
                 "batched_lu_solve_vmem": "src/repro/kernels/batched_lu.py:66",
                 "batched_banded_lu_vmem": "src/repro/kernels/banded.py:393",
-                "batched_banded_solve_vmem": "src/repro/kernels/banded.py:430"}
+                "batched_banded_solve_vmem": "src/repro/kernels/banded.py:430",
+                "lu_vmem": "src/repro/kernels/ebv_lu.py:96", "panel": "src/repro/kernels/ebv_lu.py:119",
+                "fused_step": "src/repro/kernels/ebv_lu.py:154",
+                "update": "src/repro/kernels/ebv_lu.py:407",
+                "banded_lu_kernelized": "src/repro/kernels/banded.py:102"}
     launches.update(batched_launches)
+    launches.update(legacy_launches)
+    launches.update(update_launches)
+    launches.update(dict.fromkeys(qwrappers, 0))  # B18 runs on the service path only
+    # the kernels the tiers and the service launched, beside their own paths'
+    for counts in (tier_launches, tier_opt_launches, serve_launches):
+        for k, v in counts.items():
+            if k not in lwrappers:  # the legacy kernels' service launches are in already
+                launches[k] += v
     kernels = []
-    for name in {**wrappers, **bwrappers, **dwrappers, **ewrappers}:
+    for name in {**wrappers, **bwrappers, **dwrappers, **ewrappers, **lwrappers, **uwrappers, **qwrappers}:
         row = rows[(name, line_shape[name])]
         kernels.append({
             "name": name, "route": "cuda", "source": source[name], "replaces": replaces[name],

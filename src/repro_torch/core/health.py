@@ -113,13 +113,25 @@ def _banded_health(packed: torch.Tensor, ref_max: torch.Tensor, bw: int) -> Fact
 def factor_health(factors, *, ref_max, bw: int = 0) -> FactorHealth:
     """Screening record for a packed dense ``(..., n, n)`` factor, a packed
     row-aligned band ``(..., n, 2bw+1)`` (``bw > 0``), a
-    :class:`~repro_torch.core.factorization.Factorization` or
-    :class:`~repro_torch.core.pivoted.PivotedFactors`; leading batch axes
+    :class:`~repro_torch.core.factorization.Factorization`,
+    :class:`~repro_torch.core.pivoted.PivotedFactors` or
+    :class:`~repro_torch.core.randomized.RankKFactors`; leading batch axes
     reduce to the worst system.  ``ref_max`` is ``max|A|`` of the operand
     that was factored."""
     from .pivoted import PivotedFactors
+    from .randomized import RankKFactors
 
     factors = getattr(factors, "packed", factors)
+    if isinstance(factors, RankKFactors):
+        # no square pivot sequence: the analogue of a vanished pivot is a
+        # collapsed coefficient row of u (its basis column spans nothing)
+        l, u = factors
+        ref_max = torch.as_tensor(ref_max, dtype=torch.float32, device=u.device)
+        amax = torch.maximum(l.abs().max(), u.abs().max()).to(torch.float32)
+        return FactorHealth(min_pivot=u.abs().max(dim=-1).values.min().to(torch.float32),
+                            growth=amax / torch.clamp(ref_max, min=_TINY),
+                            finite=torch.isfinite(l).all() & torch.isfinite(u).all(),
+                            ref_max=ref_max)
     if isinstance(factors, PivotedFactors):
         factors = factors.lu
     ref_max = torch.as_tensor(ref_max, dtype=torch.float32, device=factors.device)

@@ -64,6 +64,19 @@
 //   banded.py:batched_banded_solve_vmem, one grid program per system.  Here
 //   it is band_solve_kernel on a grid over (32-column RHS tile, system):
 //   blockIdx.y picks the system.  Bound and latency as for B7, per system.
+//
+// band_lu_resident_kernel<true> (ebv_band_lu_scalar) — replaces src/repro/
+//   kernels/banded.py:banded_lu_kernelized, the legacy scalar-sequential
+//   Pallas kernel: n-1 fori_loop steps on the VMEM-resident band, each
+//   updating the whole (bw, 2bw+1) window below the pivot, the pivot row's
+//   upper tail shifted into each row by a one-hot contraction (zero outside
+//   it).  Here it is the one-launch ring walk of B5 with that step body
+//   (retire_pivots_window): every window entry takes a - l*u with u = 0
+//   outside the tail, as the plain version (repro_torch.core.banded.
+//   banded_lu) computes it, so the factor is the plain one value for value;
+//   two barriers per pivot (multipliers first, then the window).  Bands too
+//   wide for the ring take the same step in device memory.  Bound and
+//   latency as for B5, with 2bw+1 entries per window row instead of bw.
 #include <cuda_runtime.h>
 
 #include <cstddef>
@@ -143,6 +156,35 @@ __device__ void retire_pivots_global(const GlobalRows& rows, float* lv, float* u
   }
 }
 
+// The step of the scalar-sequential factor (B18) for pivots [p0, p1):
+// the bw multipliers go to lv (bw floats), then every entry t of window
+// row r (band row p+1+r, rows at or past n absent) takes a - l*u, u the
+// pivot row's upper-tail entry that column t meets or 0 where it meets
+// none; the anti-diagonal entry takes its multiplier.  Two barriers per
+// pivot: the window update reads the raw L column only through lv.
+template <class Rows>
+__device__ void retire_pivots_window(const Rows& rows, float* lv, int p0, int p1, int n, int bw) {
+  const int tid = threadIdx.y * blockDim.x + threadIdx.x, nt = blockDim.x * blockDim.y;
+  const int W = 2 * bw + 1;
+  for (int p = p0; p < p1; ++p) {
+    const int nr = min(bw, n - 1 - p);  // rows below the pivot
+    if (nr <= 0) break;                 // the last pivot reaches no row
+    const float* prow = rows.row(p);
+    const float piv = prow[bw];
+    for (int r = tid; r < nr; r += nt) lv[r] = __fdiv_rn(rows.row(p + 1 + r)[bw - 1 - r], piv);
+    __syncthreads();
+    for (int idx = tid; idx < nr * W; idx += nt) {
+      const int r = idx / W, t = idx - r * W;
+      const int src = t - (bw - r);  // band row p+1+r, column t is A[p+1+r, p+1+src]
+      const float u = (src >= 0 && src < bw) ? prow[bw + 1 + src] : 0.0f;
+      float* a = rows.row(p + 1 + r) + t;
+      const float v = __fsub_rn(*a, __fmul_rn(lv[r], u));
+      *a = t == bw - 1 - r ? lv[r] : v;
+    }
+    __syncthreads();
+  }
+}
+
 // Store the multipliers of pivot p, held in lb, into column p (band column
 // bw-1-r of row p+1+r); the threads with threadIdx.x == 0 own the rows.
 __device__ void store_multipliers(const RingRows& rows, const float* lb, int p, int pslot, int n,
@@ -188,6 +230,8 @@ __device__ void retire_pivots_staged(const RingRows& rows, float* lbuf, int p0, 
 }
 
 // One block per system: blockIdx.x picks the band (one block when unbatched).
+// kWindow: the scalar-sequential step (B18) in place of the staged one.
+template <bool kWindow>
 __global__ void band_lu_resident_kernel(float* band, int n, int bw, int R, int C) {
   const int W = 2 * bw + 1;
   band += (size_t)blockIdx.x * n * W;
@@ -199,7 +243,8 @@ __global__ void band_lu_resident_kernel(float* band, int n, int bw, int R, int C
   __syncthreads();
   for (int k0 = 0; k0 < n; k0 += C) {
     const int k1 = min(k0 + C, n);
-    retire_pivots_staged(rows, lbuf, k0, k1, n, bw);
+    if (kWindow) retire_pivots_window(rows, lbuf, k0, k1, n, bw);
+    else retire_pivots_staged(rows, lbuf, k0, k1, n, bw);
     // rows k0..k1-1 are final (after the last chunk, every row is); their
     // slots take rows k0+R.., while the bw carry rows k1.. stay on chip.
     // One thread owns one slot element.
@@ -228,9 +273,12 @@ __global__ void band_lu_slab_kernel(float* band, int n, int bw, int k0, int C) {
   for (int idx = tid; idx < count; idx += nt) band[off + idx] = rows.row(k0 + idx / W)[idx % W];
 }
 
+template <bool kWindow>
 __global__ void band_lu_global_kernel(float* band, int n, int bw, int p0, int p1) {
   band += (size_t)blockIdx.x * n * (2 * bw + 1);  // the system (0 when unbatched)
-  retire_pivots_global(GlobalRows{band, 2 * bw + 1}, smem, smem + bw, p0, p1, n, bw);
+  const GlobalRows rows{band, 2 * bw + 1};
+  if (kWindow) retire_pivots_window(rows, smem, p0, p1, n, bw);
+  else retire_pivots_global(rows, smem, smem + bw, p0, p1, n, bw);
 }
 
 // x = (LU)^-1 b; one warp per RHS column, blockDim.x / 32 columns per block;
@@ -405,16 +453,18 @@ size_t ring_bytes(int rows, int bw) {
 }
 
 cudaError_t launch_global(float* band, int batch, int n, int bw, int p0, int p1,
-                          cudaStream_t stream) {
-  band_lu_global_kernel<<<batch, factor_block(bw), 2 * bw * sizeof(float), stream>>>(band, n, bw,
-                                                                                      p0, p1);
+                          cudaStream_t stream, bool window = false) {
+  auto kernel = window ? band_lu_global_kernel<true> : band_lu_global_kernel<false>;
+  kernel<<<batch, factor_block(bw), 2 * bw * sizeof(float), stream>>>(band, n, bw, p0, p1);
   return cudaGetLastError();
 }
 
 // Factor `batch` row-aligned (n, 2bw+1) fp32 bands in place, in one launch
 // of one block per band (the ring of band_lu_resident_kernel, or
-// band_lu_global_kernel for wide bands).
-int band_lu_one_launch(float* band, int batch, int n, int bw, cudaStream_t stream, int* launches) {
+// band_lu_global_kernel for wide bands); `window`: the scalar-sequential
+// step of B18.
+int band_lu_one_launch(float* band, int batch, int n, int bw, cudaStream_t stream, int* launches,
+                       bool window = false) {
   *launches = 0;
   cudaError_t err;
   int R = n, C = n;  // the whole band fits: one chunk
@@ -424,15 +474,15 @@ int band_lu_one_launch(float* band, int batch, int n, int bw, cudaStream_t strea
     C = R - bw;  // pivots per chunk: rows p .. p+bw of each must be in the ring
   }
   if (C < 1) {
-    if ((err = launch_global(band, batch, n, bw, 0, n, stream))) return err;
+    if ((err = launch_global(band, batch, n, bw, 0, n, stream, window))) return err;
     ++*launches;
     return 0;
   }
   const size_t bytes = ring_bytes(R, bw);
-  if ((err = cudaFuncSetAttribute(band_lu_resident_kernel,
-                                  cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes)))
+  auto kernel = window ? band_lu_resident_kernel<true> : band_lu_resident_kernel<false>;
+  if ((err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes)))
     return err;
-  band_lu_resident_kernel<<<batch, factor_block(bw), bytes, stream>>>(band, n, bw, R, C);
+  kernel<<<batch, factor_block(bw), bytes, stream>>>(band, n, bw, R, C);
   if ((err = cudaGetLastError())) return err;
   ++*launches;
   return 0;
@@ -472,6 +522,13 @@ extern "C" int ebv_band_lu_resident(void* band_ptr, int n, int bw, void* stream_
                                     int* launches) {
   return band_lu_one_launch(static_cast<float*>(band_ptr), 1, n, bw,
                             static_cast<cudaStream_t>(stream_ptr), launches);
+}
+
+// Factor the row-aligned (n, 2bw+1) fp32 band in place with the
+// scalar-sequential step of the legacy kernel (B18), in one launch.
+extern "C" int ebv_band_lu_scalar(void* band_ptr, int n, int bw, void* stream_ptr, int* launches) {
+  return band_lu_one_launch(static_cast<float*>(band_ptr), 1, n, bw,
+                            static_cast<cudaStream_t>(stream_ptr), launches, true);
 }
 
 // Factor `batch` bands (batch, n, 2bw+1) in place, one block per band, in

@@ -33,9 +33,9 @@ _lib: ctypes.CDLL | None = None
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _N = ctypes.POINTER(_I)
 # C entry points: name -> argument types.  Every entry returns the
-# cudaError_t of its launches as an int (0 = success); ebv_lu_fused and the
-# ebv_band_* and ebv_batched_* entries also report through their last
-# argument how many kernels they launched.
+# cudaError_t of its launches as an int (0 = success); ebv_lu_fused, the
+# ebv_band_* and ebv_batched_* entries and ebv_legacy_walk also report
+# through their last argument how many kernels they launched.
 _SIGNATURES = {
     "ebv_lu_fused": [_P, _I, _I, _P, _N],
     "ebv_solve_vmem": [_P, _P, _P, _I, _I, _I, _I, _P],
@@ -43,12 +43,16 @@ _SIGNATURES = {
     "ebv_solve_inverted": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "ebv_band_lu_resident": [_P, _I, _I, _P, _N],
     "ebv_band_lu_steps": [_P, _I, _I, _I, _P, _N],
+    "ebv_band_lu_scalar": [_P, _I, _I, _P, _N],
     "ebv_band_solve": [_P, _P, _P, _I, _I, _I, _I, _P, _N],
     "ebv_band_solve_inverted": [_P] * 9 + [_I] * 4 + [_P, _N],
     "ebv_batched_lu": [_P, _I, _I, _P, _N],
     "ebv_batched_lu_solve": [_P, _P, _P, _I, _I, _I, _I, _P, _N],
     "ebv_batched_band_lu": [_P, _I, _I, _I, _P, _N],
     "ebv_batched_band_solve": [_P, _P, _P, _I, _I, _I, _I, _I, _P, _N],
+    "ebv_legacy_walk": [_P, _I, _I, _I, _I, _P, _P, _N],
+    "ebv_legacy_fused_step": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "ebv_legacy_update": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
 }
 
 

@@ -8,6 +8,12 @@ their plain PyTorch versions.
 * :func:`banded_lu_tiled`         — one launch per block step of ``C``
                                     pivots, in stream order, each staging its
                                     slab of the band through shared memory.
+* :func:`banded_lu_kernelized`    — the legacy scalar-sequential factor:
+                                    the one-launch walk of
+                                    :func:`banded_lu_blocked` with each pivot
+                                    updating its whole ``(bw, 2bw+1)``
+                                    window, as the reference's
+                                    ``banded_lu_kernelized`` does.
 * :func:`banded_solve_kernelized` — forward and backward band substitution,
                                     one warp per RHS column.
 * :func:`banded_solve_inverted`   — the substitution from an enriched
@@ -23,7 +29,8 @@ their plain PyTorch versions.
 
 The factors compute the plain version's packed band factor
 (:func:`repro_torch.core.banded.banded_lu_blocked`, over the stack for the
-batched one) value for value: the
+batched one; :func:`repro_torch.core.banded.banded_lu` for the scalar
+one) value for value: the
 factor does not depend on the block size, and the kernels round every
 operation as the plain version does.  Each factor works on its own copy of
 the band; the caller's tensor is never written.
@@ -38,15 +45,17 @@ import ctypes
 
 import torch
 
-from ..core.banded import band_block_size, banded_lu_blocked as _banded_lu_plain
+from ..core.banded import band_block_size, banded_lu as banded_lu_scalar_plain
+from ..core.banded import banded_lu_blocked as _banded_lu_plain
 from ..core.banded import banded_solve_blocked
 from ..core.factorization import banded_inverted_solve, packed_of
 from . import _build
 from .trsm import _as_matrix, _check_cuda, _f32
 
 __all__ = [
-    "banded_lu_blocked", "banded_lu_tiled", "banded_solve_kernelized", "banded_solve_inverted",
-    "batched_banded_lu_vmem", "batched_banded_solve_vmem", "banded_lu_plain", "tiled_launches",
+    "banded_lu_blocked", "banded_lu_tiled", "banded_lu_kernelized", "banded_solve_kernelized",
+    "banded_solve_inverted", "batched_banded_lu_vmem", "batched_banded_solve_vmem",
+    "banded_lu_plain", "banded_lu_scalar_plain", "tiled_launches",
 ]
 
 _WARP_COLS = 32  # RHS columns (one warp each) a banded_solve_kernelized block takes at most
@@ -120,6 +129,22 @@ def banded_lu_tiled(arow: torch.Tensor, *, bw: int, block: int | None = None) ->
 
 
 banded_lu_tiled.launches = 0
+
+
+def banded_lu_kernelized(arow: torch.Tensor, *, bw: int) -> torch.Tensor:
+    """Packed no-pivot LU of the row-aligned band, one pivot at a time, in
+    one launch: each pivot updates the whole ``(bw, 2bw+1)`` window below
+    it (the legacy scalar-sequential factor; plain version
+    :func:`repro_torch.core.banded.banded_lu`)."""
+    if arow.device.type == "cpu":
+        return banded_lu_scalar_plain(arow, bw=bw)
+    work = _band_copy("banded_lu_kernelized", arow, bw)
+    _launch(banded_lu_kernelized, "ebv_band_lu_scalar", arow.device, work.data_ptr(),
+            work.shape[0], bw)
+    return work
+
+
+banded_lu_kernelized.launches = 0
 
 
 # ---------------------------------------------------------------------------

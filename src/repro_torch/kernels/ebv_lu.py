@@ -1,11 +1,25 @@
-"""The fused EbV LU factor: CUDA kernel (``csrc/ebv_lu.cu``) and its plain
-PyTorch version.
+"""The dense EbV LU kernels: CUDA kernels (``csrc/ebv_lu.cu``,
+``csrc/legacy_lu.cu``) and their plain PyTorch versions.
 
 :func:`lu_fused` replaces the reference's single-dispatch Pallas
 megakernel.  It pads the matrix to ``N = S·B`` with an identity tail, runs
 ``S`` steps of four launches each (diagonal-tile factor, L21 and U12 panel
 solves, trailing update; ``4S-3`` launches in all) on its own padded copy,
 and cuts the padding off.  The caller's tensor is never mutated.
+
+The legacy kernels behind the forced ``lu(impl="cuda_vmem")`` and
+``lu(impl="cuda_blocked")``:
+
+* :func:`lu_vmem`    — the paper-faithful unblocked factor, n-1 masked
+                       rank-1 steps on the whole matrix, one cooperative
+                       launch;
+* :func:`panel`      — the same steps on a tall (m, b) panel, pivots in
+                       the top b rows (the same kernel);
+* :func:`fused_step` — U12 = L11⁻¹ A12 and A22 − L21·U12 in one launch;
+* :func:`update`     — the rank-k trailing update A22 − L21·U12.
+
+They take fp32 or bf16; in bf16 every operation rounds to bf16 as
+PyTorch's elementwise bf16 ops do, and products accumulate in fp32.
 """
 from __future__ import annotations
 
@@ -16,7 +30,10 @@ import torch
 from ..core.blocked import fused_block_size, fused_blocked_lu, pad_identity_tail
 from . import _build
 
-__all__ = ["lu_fused", "lu_fused_plain", "fused_launches"]
+__all__ = ["lu_fused", "lu_fused_plain", "fused_launches", "lu_vmem", "lu_vmem_plain", "panel",
+           "panel_plain", "fused_step", "fused_step_plain", "update", "update_plain"]
+
+_LEGACY_DTYPES = (torch.float32, torch.bfloat16)
 
 
 def lu_fused_plain(a: torch.Tensor, *, block: int = 256) -> torch.Tensor:
@@ -64,3 +81,172 @@ def lu_fused(a: torch.Tensor, *, block: int = 256) -> torch.Tensor:
 
 
 lu_fused.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# the legacy kernels (csrc/legacy_lu.cu)
+# ---------------------------------------------------------------------------
+def _lu_steps_plain(a: torch.Tensor, steps: int) -> torch.Tensor:
+    """``steps`` steps of the reference's ``_lu_body`` on a copy of ``a``:
+    the masked column divided by the pivot, the masked row, ``a − l·u``
+    over the whole matrix, the multipliers written back into column k."""
+    m, n = a.shape
+    rows = torch.arange(m, device=a.device)[:, None]
+    cols = torch.arange(n, device=a.device)[None, :]
+    zero = torch.zeros((), dtype=a.dtype, device=a.device)
+    for k in range(steps):
+        col = a[:, k:k + 1]
+        l_col = torch.where(rows > k, col / a[k, k], zero)
+        u_row = torch.where(cols > k, a[k:k + 1, :], zero)
+        a = a - l_col * u_row
+        a[:, k:k + 1] = torch.where(rows > k, l_col, col)
+    return a
+
+
+def lu_vmem_plain(a: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of :func:`lu_vmem`: n−1 steps of ``_lu_body``."""
+    return _lu_steps_plain(a, a.shape[-1] - 1)
+
+
+def panel_plain(p: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of :func:`panel`: b steps of ``_lu_body`` on
+    the (m, b) panel."""
+    return _lu_steps_plain(p, p.shape[-1])
+
+
+def _check_legacy(name: str, *ts: torch.Tensor) -> None:
+    for t in ts:
+        if t.ndim != 2:
+            raise ValueError(f"{name} expects matrices, got shape {tuple(t.shape)}")
+        if t.dtype not in _LEGACY_DTYPES or t.dtype != ts[0].dtype:
+            raise TypeError(f"{name} supports one dtype of float32/bfloat16, got {t.dtype}")
+        if t.device != ts[0].device or t.device.type not in ("cpu", "cuda"):
+            raise ValueError(f"{name} runs on CPU or CUDA tensors on one device, got {t.device}")
+
+
+def _walk(a: torch.Tensor, steps: int, wrapper) -> torch.Tensor:
+    """The first ``steps`` EbV steps on a contiguous copy of the CUDA
+    matrix ``a`` (one cooperative launch, counted on ``wrapper``)."""
+    work = a.contiguous().clone()
+    m, ncols = work.shape
+    barrier = torch.zeros(2, dtype=torch.int32, device=a.device)
+    lib = _build.library()
+    launched = ctypes.c_int(0)
+    with torch.cuda.device(a.device):
+        code = lib.ebv_legacy_walk(work.data_ptr(), m, ncols, steps, int(a.dtype == torch.bfloat16),
+                                   barrier.data_ptr(), torch.cuda.current_stream().cuda_stream,
+                                   ctypes.byref(launched))
+    wrapper.launches += launched.value
+    _build.check(code, wrapper.__name__)
+    return work
+
+
+def lu_vmem(a: torch.Tensor) -> torch.Tensor:
+    """Paper-faithful unblocked EbV LU of a square matrix: n−1 masked
+    rank-1 steps, packed (unit L strictly below the diagonal, U on and
+    above).  A CPU tensor runs :func:`lu_vmem_plain`; a CUDA tensor is one
+    cooperative launch (none for n = 1), counted in ``lu_vmem.launches``."""
+    _check_legacy("lu_vmem", a)
+    if a.shape[0] != a.shape[1]:
+        raise ValueError(f"lu_vmem expects a square matrix, got shape {tuple(a.shape)}")
+    if a.device.type == "cpu":
+        return lu_vmem_plain(a)
+    return _walk(a, a.shape[-1] - 1, lu_vmem)
+
+
+def panel(p: torch.Tensor) -> torch.Tensor:
+    """Tall (m, b) panel factorization, pivots in the top b rows (m ≥ b).
+    A CPU tensor runs :func:`panel_plain`; a CUDA tensor is one cooperative
+    launch (none for m = 1), counted in ``panel.launches``."""
+    _check_legacy("panel", p)
+    if p.shape[0] < p.shape[1]:
+        raise ValueError(f"panel expects a tall (m, b) panel with m >= b, got {tuple(p.shape)}")
+    if p.device.type == "cpu":
+        return panel_plain(p)
+    return _walk(p, p.shape[-1], panel)
+
+
+def _product_f32(l: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    return torch.matmul(l.to(torch.float32), u.to(torch.float32))
+
+
+def fused_step_plain(pan: torch.Tensor, a_top: torch.Tensor, a_trail: torch.Tensor):
+    """Plain PyTorch version of :func:`fused_step`: b masked axpys against
+    the unit-lower L11 (every op in the operands' dtype), then
+    ``A22 − (L21 @ U12)`` with the product in fp32, rounded once."""
+    b = pan.shape[1]
+    rows = torch.arange(b, device=pan.device)[:, None]
+    zero = torch.zeros((), dtype=pan.dtype, device=pan.device)
+    y = a_top.clone()
+    for k in range(b):
+        lk = torch.where(rows > k, pan[:b, k:k + 1], zero)
+        y = y - lk * y[k:k + 1]
+    return y, a_trail - _product_f32(pan[b:], y).to(a_trail.dtype)
+
+
+def fused_step(pan: torch.Tensor, a_top: torch.Tensor, a_trail: torch.Tensor, *,
+               col_tile: int = 256):
+    """Fused bi-vector step.  ``pan``: (m, b) factored packed panel;
+    ``a_top``: (b, W) A12 rows; ``a_trail``: (m−b, W) A22, with
+    ``W % min(col_tile, W) == 0`` as in the reference.  Returns
+    ``(U12, updated A22)``.  A CUDA tensor is one launch, counted in
+    ``fused_step.launches``."""
+    _check_legacy("fused_step", pan, a_top, a_trail)
+    m, b = pan.shape
+    w = a_top.shape[1]
+    if a_top.shape[0] != b or a_trail.shape != (m - b, w):
+        raise ValueError(f"fused_step: shapes {tuple(pan.shape)}, {tuple(a_top.shape)}, "
+                         f"{tuple(a_trail.shape)} do not match")
+    ct = min(col_tile, w)
+    if w % ct:
+        raise ValueError(f"fused_step: width {w} is not a multiple of the column tile {ct}")
+    if pan.device.type == "cpu":
+        return fused_step_plain(pan, a_top, a_trail)
+    pan, top, trail = pan.contiguous(), a_top.contiguous(), a_trail.contiguous()
+    u12, out = torch.empty_like(top), torch.empty_like(trail)
+    with torch.cuda.device(pan.device):
+        code = _build.library().ebv_legacy_fused_step(
+            pan.data_ptr(), top.data_ptr(), trail.data_ptr(), u12.data_ptr(), out.data_ptr(),
+            m, b, w, int(pan.dtype == torch.bfloat16), torch.cuda.current_stream().cuda_stream)
+    fused_step.launches += 1
+    _build.check(code, "fused_step")
+    return u12, out
+
+
+def update_plain(l21: torch.Tensor, u12: torch.Tensor, a22: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of :func:`update`: ``A22 − (L21 @ U12)`` with
+    the product in fp32, rounded once to A22's dtype."""
+    return a22 - _product_f32(l21, u12).to(a22.dtype)
+
+
+def update(l21: torch.Tensor, u12: torch.Tensor, a22: torch.Tensor, *, row_tile: int = 256,
+           col_tile: int = 256) -> torch.Tensor:
+    """Rank-k trailing update ``A22 − L21 @ U12`` on a 2-D tile grid; the
+    reference's tiles must divide (m, W) as there.  A CUDA tensor is one
+    launch, counted in ``update.launches``."""
+    _check_legacy("update", l21, u12, a22)
+    m, k = l21.shape
+    w = u12.shape[1]
+    if u12.shape[0] != k or a22.shape != (m, w):
+        raise ValueError(f"update: shapes {tuple(l21.shape)}, {tuple(u12.shape)}, "
+                         f"{tuple(a22.shape)} do not match")
+    rt, ct = min(row_tile, m), min(col_tile, w)
+    if m % rt or w % ct:
+        raise ValueError(f"update: tiles ({rt}, {ct}) do not divide ({m}, {w})")
+    if l21.device.type == "cpu":
+        return update_plain(l21, u12, a22)
+    l21, u12, a22 = l21.contiguous(), u12.contiguous(), a22.contiguous()
+    out = torch.empty_like(a22)
+    with torch.cuda.device(l21.device):
+        code = _build.library().ebv_legacy_update(
+            l21.data_ptr(), u12.data_ptr(), a22.data_ptr(), out.data_ptr(), m, k, w,
+            int(l21.dtype == torch.bfloat16), torch.cuda.current_stream().cuda_stream)
+    update.launches += 1
+    _build.check(code, "update")
+    return out
+
+
+lu_vmem.launches = 0
+panel.launches = 0
+fused_step.launches = 0
+update.launches = 0

@@ -5,8 +5,11 @@ arguments and routes through the registry: capability filter → measured
 autotune cache → static priorities.  ``impl=`` forces a backend.
 
 ``lu``: ``"cuda_fused"`` (the default for fp32), ``"torch"`` (its plain
-version, the static winner for other dtypes), ``"pivoted"`` (the partial
-pivoting last resort).
+version, the static winner for other dtypes), ``"cuda_vmem"`` (the
+paper-faithful unblocked factor, n ≤ 4096), ``"cuda_blocked"`` (the legacy
+multi-launch panel / fused-step driver), ``"pivoted"`` (the partial
+pivoting last resort), ``"rand_lu"`` (the randomized rank-k tier, also
+chosen by ``rank=``).
 
 ``lu_solve``: ``"cuda_vmem"`` (the default for n ≤ 2048), ``"cuda_tiled"``
 (above), ``"cuda_inverted"`` / ``"torch_inverted"`` (enriched
@@ -15,7 +18,7 @@ pivoting last resort).
 ``banded_lu`` (row-aligned band ``(n, 2bw+1)``): ``"cuda_blocked"`` /
 ``"cuda_tiled"`` (the static split is
 :func:`repro_torch.solvers.backends.banded_static_impl`), ``"torch"``,
-``"torch_scalar"``.
+``"cuda_scalar"`` (the legacy scalar-sequential factor), ``"torch_scalar"``.
 
 ``banded_solve``: ``"cuda"`` (the default for fp32), ``"cuda_inverted"`` /
 ``"torch_inverted"`` (enriched operands), ``"torch"``, ``"torch_scalar"``.
@@ -33,11 +36,20 @@ a ctypes kernel (``torch.vmap`` would need a batching rule per kernel), so
 here the leading axis is the batched entry, and mapping an op over a
 batch in Python runs one unbatched dispatch per system.
 
+Accuracy tiers: ``tolerance`` (the largest acceptable relative residual)
+keys selection and the autotune cache; ``linear_solve(tolerance > 0)``
+first consults the ``linear_solve`` slot, whose approximate backends
+(``bf16_ir``, ``bf16_ir_torch``, ``rand_lu``) the registry admits when the
+tolerance covers their residual bound, and composes the exact factor and
+solve when none is admitted.  ``rank=`` forces the randomized rank-k tier:
+``lu`` then returns :class:`~repro_torch.core.randomized.RankKFactors`,
+which ``lu_solve`` recognises.  Its Gaussian sketch comes from
+``generator=`` (a ``torch.Generator``; seed 0 when None) or is given as
+``sketch=``.
+
 Ops run where their tensors lie: on the card the ``cuda_*`` backends
-launch their kernels, on the CPU they run their plain versions.  Anything
-outside the ported slices (``mesh=``, a dense ``tolerance > 0``,
-``rank=``) raises ``NotImplementedError`` naming the slice that brings
-it.
+launch their kernels, on the CPU they run their plain versions.
+``mesh=`` raises ``NotImplementedError`` naming the multi-device slice.
 """
 from __future__ import annotations
 
@@ -47,20 +59,22 @@ from .. import solvers as _sol
 from ..core import health as _chealth
 from ..core.factorization import factorize_banded, factorize_dense, packed_of
 from ..core.pivoted import PivotedFactors
+from ..core.randomized import RankKFactors
 from ..device import device_name
 from ..solvers.problem import dtype_name
 
 __all__ = ["lu", "lu_solve", "linear_solve", "banded_lu", "banded_solve", "banded_linear_solve"]
 
 _MESH = "mesh= arrives with the multi-device slice (ROADMAP queue A, item 12)"
-_TIERS = "tolerance > 0 and rank= arrive with the accuracy tiers slice (ROADMAP queue A, item 10)"
+
+# linear_solve slot backends that fuse factor and solve (the approximate
+# tiers need the full operand)
+_FUSED_LINEAR_IMPLS = ("bf16_ir", "bf16_ir_torch", "rand_lu")
 
 
-def _require_slice(*, mesh=None, tolerance: float = 0.0, rank=None) -> None:
+def _require_local(mesh=None) -> None:
     if mesh is not None:
         raise NotImplementedError(_MESH)
-    if tolerance > 0 or rank is not None:
-        raise NotImplementedError(_TIERS)
 
 
 def _screen(health):
@@ -99,9 +113,9 @@ def _batched_impl(op: str, structure: str, impl: str | None) -> str | None:
 def _as_artifact(packed, *, structure: str, bw: int = 0, block=None, tier: float = 0.0,
                  health_rec=None, enrich: bool = False):
     """Wrap a packed factor into the ``Factorization`` artifact; pivoted
-    factors and deep-batched stacks (more than one leading axis) stay raw,
-    as in the reference."""
-    if isinstance(packed, PivotedFactors) or packed.ndim > 3:
+    and rank-k factors and deep-batched stacks (more than one leading axis)
+    stay raw, as in the reference."""
+    if isinstance(packed, (PivotedFactors, RankKFactors)) or packed.ndim > 3:
         return packed
     if structure == "dense":
         return factorize_dense(packed, block=block or 256, tier=tier, health=health_rec,
@@ -119,14 +133,19 @@ def _fold_rhs(lead, b: torch.Tensor) -> torch.Tensor:
     return b.reshape(-1, *b.shape[len(lead):])
 
 
-def lu(a: torch.Tensor, *, impl: str | None = None, block: int = 256, tolerance: float = 0.0,
-       rank: int | None = None, mesh=None, health=None, enrich: bool = False):
+def lu(a: torch.Tensor, *, impl: str | None = None, block: int = 256, col_tile: int = 256,
+       tolerance: float = 0.0, rank: int | None = None, oversample: int = 8,
+       generator: torch.Generator | None = None, sketch: torch.Tensor | None = None, mesh=None,
+       health=None, enrich: bool = False):
     """Packed EbV LU factorization (no pivoting — paper contract).
 
     Returns a :class:`~repro_torch.core.factorization.Factorization`
     wrapping the packed factor (or :class:`PivotedFactors` when the pivoted
-    last resort ran); ``enrich=True`` also pre-inverts the diagonal solve
-    blocks for the ``cuda_inverted`` solve.
+    last resort ran, :class:`RankKFactors` for ``rank=``); ``enrich=True``
+    also pre-inverts the diagonal solve blocks for the ``cuda_inverted``
+    solve.  ``block`` and ``col_tile`` shape the blocked factors (the
+    legacy ``cuda_blocked`` driver takes both).  ``tolerance`` keys
+    selection and becomes the artifact's tier.
 
     ``health=True`` (or a :class:`HealthThresholds`) screens the factors
     and returns ``(factors, FactorHealth)``: a backend whose factors fail
@@ -136,18 +155,24 @@ def lu(a: torch.Tensor, *, impl: str | None = None, block: int = 256, tolerance:
 
     A leading batch axis (``(B, n, n)``; more axes fold into one) runs the
     batched slots; the health record of a stack is its worst system's."""
-    _require_slice(mesh=mesh, tolerance=tolerance, rank=rank)
+    _require_local(mesh)
     thresholds = _screen(health)
     ref_max = a.abs().max() if thresholds is not None else None
     validate = _health_validator(thresholds, ref_max) if thresholds is not None else None
     if a.ndim >= 3:
+        if rank is not None:
+            raise ValueError("rank= (the randomized tier) supports 2-D operands only")
         a3 = _fold(a)
         problem = _sol.Problem.from_arrays("factor", a3, tolerance=tolerance)
         out = _sol.dispatch(problem, a3, impl=_batched_impl("factor", "dense", impl),
                             validate=validate, block=block).reshape(a.shape)
     else:
+        if rank is not None and impl is None:
+            impl = "rand_lu"  # an explicit rank is a request for the rank-k tier
         problem = _sol.Problem.from_arrays("factor", a, tolerance=tolerance)
-        out = _sol.dispatch(problem, a, impl=impl, validate=validate, block=block)
+        out = _sol.dispatch(problem, a, impl=impl, validate=validate, block=block,
+                            col_tile=col_tile, rank=rank, oversample=oversample,
+                            generator=generator, sketch=sketch)
     rec = None if thresholds is None else _chealth.factor_health(out, ref_max=ref_max)
     out = _as_artifact(out, structure="dense", block=block, tier=tolerance, health_rec=rec,
                        enrich=enrich)
@@ -168,17 +193,18 @@ def lu_solve(lu_packed, b: torch.Tensor, *, impl: str | None = None, block: int 
     """Forward + backward substitution on packed factors (a tensor, a
     ``Factorization`` or ``PivotedFactors``).  A stack of factors
     ``(..., n, n)`` takes ``b`` ``(..., n)`` or ``(..., n, m)`` and runs the
-    batched slots."""
-    _require_slice(tolerance=tolerance)
-    if isinstance(lu_packed, PivotedFactors):
-        # row-permuted factors: only the pivoted backend applies the
-        # permutation, so the dispatch is forced
+    batched slots.  Rank-k factors run the ``rand_lu`` solve."""
+    if isinstance(lu_packed, (PivotedFactors, RankKFactors)):
+        # row-permuted or rank-k factors: only the pivoted / rand_lu backend
+        # consumes them, so the dispatch is forced
+        rank_k = isinstance(lu_packed, RankKFactors)
+        ref = lu_packed.l if rank_k else lu_packed.lu
         problem = _sol.Problem(
-            op="solve", structure="dense", n=int(lu_packed.lu.shape[0]),
-            dtype=dtype_name(lu_packed.lu.dtype),
-            rhs=1 if b.ndim == 1 else int(b.shape[-1]), device=device_name(lu_packed.lu),
+            op="solve", structure="dense", n=int(ref.shape[0]), dtype=dtype_name(ref.dtype),
+            rhs=1 if b.ndim == 1 else int(b.shape[-1]), tolerance=float(tolerance),
+            device=device_name(ref),
         )
-        return _sol.dispatch(problem, lu_packed, b, impl="pivoted")
+        return _sol.dispatch(problem, lu_packed, b, impl="rand_lu" if rank_k else "pivoted")
     if lu_packed.ndim > 3:  # fold the extra leading axes, like lu()
         lead = lu_packed.shape[:-2]
         x = _lu_solve_batched(_fold(packed_of(lu_packed)), _fold_rhs(lead, b), impl=impl,
@@ -191,25 +217,48 @@ def lu_solve(lu_packed, b: torch.Tensor, *, impl: str | None = None, block: int 
 
 
 def linear_solve(a: torch.Tensor, b: torch.Tensor, *, impl: str | None = None,
-                 solve_impl: str | None = None, block: int = 256, rhs_tile: int = 256,
-                 enrich: bool = False, tolerance: float = 0.0, rank: int | None = None,
+                 solve_impl: str | None = None, block: int = 256, col_tile: int = 256,
+                 rhs_tile: int = 256, enrich: bool = False, tolerance: float = 0.0,
+                 rank: int | None = None, oversample: int = 8,
+                 generator: torch.Generator | None = None, sketch: torch.Tensor | None = None,
                  mesh=None, verify_residual: bool = False) -> torch.Tensor:
     """Factor + solve.  ``impl`` routes both phases: the factor gets it
     verbatim, the solve runs ``"torch"`` when the factor does and is
     auto-selected otherwise; ``solve_impl`` sets the solve phase explicitly.
 
-    ``verify_residual=True`` measures ``|Ax-b|/|b|`` against
-    ``VERIFY_RESIDUAL_DEFAULT_BOUND``; a miss falls over to the
+    ``tolerance > 0`` first consults the ``linear_solve`` slot, where the
+    tolerance gate admits the approximate tiers whose residual bound it
+    covers (``bf16_ir`` — a bf16 factor refined in fp32 — from 1e-6 on; a
+    stack runs the batched ``bf16_ir``); with none admitted the exact
+    factor and solve are composed as before.  ``rank=`` (or
+    ``impl="rand_lu"``) forces the randomized rank-k tier.
+
+    ``verify_residual=True`` measures ``|Ax-b|/|b|`` against ``tolerance``
+    when set, else ``VERIFY_RESIDUAL_DEFAULT_BOUND``: a tier's miss feeds
+    the escalation funnel, and the composed path falls over to the
     partial-pivoting backend once before raising
     :class:`~repro_torch.solvers.SolveFailure` (a stack, which has no
     batched pivoted backend, raises at once)."""
-    _require_slice(mesh=mesh, tolerance=tolerance, rank=rank)
+    _require_local(mesh)
+    if rank is not None and impl is None:
+        impl = "rand_lu"
+    if impl in _FUSED_LINEAR_IMPLS or (impl is None and tolerance > 0):
+        bm = b[..., None] if b.ndim == a.ndim - 1 else b
+        problem = _sol.Problem.from_arrays("linear_solve", a, bm, tolerance=tolerance,
+                                           verify_residual=verify_residual)
+        if impl is not None or _sol.candidates(problem):
+            x = _sol.dispatch(problem, a, bm, impl=impl, block=block, rank=rank,
+                              oversample=oversample, generator=generator, sketch=sketch)
+            return x[..., 0] if bm is not b else x
+        # tolerance tighter than every tier's guarantee: compose the exact
+        # factor and solve (the tolerance still keys their selection)
     if solve_impl is None and impl == "torch":
         solve_impl = "torch"
-    x = lu_solve(lu(a, impl=impl, block=block, enrich=enrich), b,
-                 impl=solve_impl, block=block, rhs_tile=rhs_tile)
+    x = lu_solve(lu(a, impl=impl, block=block, col_tile=col_tile, enrich=enrich,
+                    tolerance=tolerance), b,
+                 impl=solve_impl, block=block, rhs_tile=rhs_tile, tolerance=tolerance)
     if verify_residual:
-        return _verify_composed(a, b, x)
+        return _verify_composed(a, b, x, tolerance=tolerance)
     return x
 
 
@@ -247,11 +296,6 @@ def _verify_composed(a, b, x, *, bw: int = 0, tolerance: float = 0.0):
 # ---------------------------------------------------------------------------
 # banded (row-aligned band, see repro_torch.core.banded)
 # ---------------------------------------------------------------------------
-def _require_band(*, mesh=None) -> None:
-    if mesh is not None:
-        raise NotImplementedError(_MESH)
-
-
 def banded_lu(arow: torch.Tensor, *, bw: int, impl: str | None = None, block: int | None = None,
               tolerance: float = 0.0, health=None, enrich: bool = False, mesh=None):
     """Packed band LU on the row-aligned band ``(n, 2bw+1)`` (no pivoting).
@@ -270,7 +314,7 @@ def banded_lu(arow: torch.Tensor, *, bw: int, impl: str | None = None, block: in
 
     A stack of bands ``(B, n, 2bw+1)`` (more leading axes fold into one)
     runs the batched slots."""
-    _require_band(mesh=mesh)
+    _require_local(mesh)
     thresholds = _screen(health)
     ref_max = arow.abs().max() if thresholds is not None else None
     validate = _health_validator(thresholds, ref_max, bw=bw) if thresholds is not None else None
@@ -294,7 +338,7 @@ def banded_solve(lu_band, b: torch.Tensor, *, bw: int, impl: str | None = None,
     """Forward + backward substitution on packed band factors (a tensor or
     a banded ``Factorization``); ``b`` is ``(n,)`` or ``(n, m)``, or for a
     stack of factors ``(..., n, 2bw+1)`` ``(..., n)`` or ``(..., n, m)``."""
-    _require_band(mesh=mesh)
+    _require_local(mesh)
     if lu_band.ndim > 3:  # fold the extra leading axes, like banded_lu()
         lead = lu_band.shape[:-2]
         x = banded_solve(_fold(packed_of(lu_band)), _fold_rhs(lead, b), bw=bw, impl=impl,
@@ -316,7 +360,7 @@ def banded_linear_solve(arow: torch.Tensor, b: torch.Tensor, *, bw: int, impl: s
     explicitly.  ``verify_residual=True`` measures ``|Ax-b|/|b|`` on the
     band against ``VERIFY_RESIDUAL_DEFAULT_BOUND`` (or ``tolerance``) and
     raises :class:`~repro_torch.solvers.SolveFailure` on a miss."""
-    _require_band(mesh=mesh)
+    _require_local(mesh)
     if solve_impl is None and impl in ("torch", "torch_scalar"):
         solve_impl = impl
     f = banded_lu(arow, bw=bw, impl=impl, block=block, tolerance=tolerance)

@@ -1,5 +1,5 @@
-"""Pure oracles for the dense, banded and batched kernels (numpy float64,
-loop-level naive).
+"""Pure oracles for the dense (fused and legacy), banded and batched
+kernels (numpy float64, loop-level naive).
 
 Deliberately the dumbest correct implementations — independent of both
 the CUDA kernels and the vectorized :mod:`repro_torch.core` paths — so the
@@ -9,9 +9,9 @@ from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["lu_ref", "solve_ref", "forward_ref", "backward_ref", "banded_lu_ref",
-           "banded_solve_ref", "batched_lu_ref", "batched_solve_ref", "batched_banded_lu_ref",
-           "batched_banded_solve_ref"]
+__all__ = ["lu_ref", "panel_ref", "update_ref", "fused_step_ref", "solve_ref", "forward_ref",
+           "backward_ref", "banded_lu_ref", "banded_solve_ref", "batched_lu_ref",
+           "batched_solve_ref", "batched_banded_lu_ref", "batched_banded_solve_ref"]
 
 
 def lu_ref(a) -> np.ndarray:
@@ -22,6 +22,30 @@ def lu_ref(a) -> np.ndarray:
         a[k + 1:, k] /= a[k, k]
         a[k + 1:, k + 1:] -= np.outer(a[k + 1:, k], a[k, k + 1:])
     return a
+
+
+def panel_ref(p) -> np.ndarray:
+    """Tall-panel LU: pivots in the top b rows."""
+    p = np.array(p, dtype=np.float64)
+    m, b = p.shape
+    for k in range(min(b, m - 1)):
+        p[k + 1:, k] /= p[k, k]
+        p[k + 1:, k + 1:b] -= np.outer(p[k + 1:, k], p[k, k + 1:b])
+    return p
+
+
+def update_ref(l21, u12, a22) -> np.ndarray:
+    """``A22 - L21 @ U12``."""
+    return np.asarray(a22, np.float64) - np.asarray(l21, np.float64) @ np.asarray(u12, np.float64)
+
+
+def fused_step_ref(panel, a_top, a_trail):
+    """U12 = L11^{-1} A12 (unit-lower) then A22 - L21 @ U12."""
+    panel = np.asarray(panel, np.float64)
+    b = panel.shape[1]
+    l11 = np.tril(panel[:b], -1) + np.eye(b)
+    u12 = np.linalg.solve(l11, np.asarray(a_top, np.float64))
+    return u12, update_ref(panel[b:], u12, a_trail)
 
 
 def forward_ref(lu, b) -> np.ndarray:

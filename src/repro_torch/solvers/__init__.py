@@ -1,4 +1,4 @@
-"""`repro_torch.solvers` — the solver dispatch registry (dense slice).
+"""`repro_torch.solvers` — the solver dispatch registry.
 
 * :class:`Problem` (``problem.py``) — shape-level descriptor of a call;
 * :class:`Backend` (``registry.py``) — callable + capability predicate +

@@ -12,6 +12,10 @@ caps, which were sized for TPU VMEM (``BATCHED_VMEM_MAX_N = 1024``, an
 RHS of at most ``4n`` columns, the 6 MiB skewed-band budget): on the card
 each kernel's own design sets them (see the notes above the batched
 registrations).
+
+The approximate tiers (``bf16_ir``, ``bf16_ir_torch``, ``rand_lu``) declare
+a ``residual_bound``, so the registry admits them only to a problem whose
+``tolerance`` covers it.
 """
 from __future__ import annotations
 
@@ -22,6 +26,8 @@ from ..core import batched as _batched
 from ..core import blocked as _blocked
 from ..core import factorization as _fz
 from ..core import pivoted as _pivoted
+from ..core import randomized as _rand
+from ..core import refine as _refine
 from ..core import solve as _solve
 from ..core.factorization import packed_of as _packed
 from ..kernels import banded as _kbanded
@@ -31,7 +37,8 @@ from ..kernels import trsm as _trsm
 from .problem import Problem
 from .registry import NOT_PORTED, Backend, register
 
-__all__ = ["SOLVE_VMEM_MAX_N", "BANDED_TILED_MIN_BW", "banded_static_impl"]
+__all__ = ["SOLVE_VMEM_MAX_N", "BANDED_TILED_MIN_BW", "LU_VMEM_MAX_N", "BF16_IR_RESIDUAL_FLOOR",
+           "RAND_LU_RESIDUAL_BOUND", "IR_MAX_ITERS", "banded_static_impl", "blocked_launches"]
 
 # Static split between the two default solves, kept at the reference's
 # value so selection matches it.  On the card the packed LU at n = 2048 is
@@ -52,6 +59,23 @@ SOLVE_VMEM_MAX_N = 2048
 BANDED_TILED_MIN_BW = 12
 
 
+# Largest order the unblocked cuda_vmem factor takes: the reference's VMEM
+# cap, kept although the port's kernel walks device memory and has no such
+# budget, so that the escalation funnel offers the same backends in the
+# same order as the reference's at every n, and because the unblocked walk
+# moves the whole trailing block once per pivot (~8n^3/3 bytes).
+LU_VMEM_MAX_N = 4096
+
+# The accuracy tiers' residual guarantees (the reference's values): the
+# bf16-factor + fp32-refinement tier reaches 1e-6 on diagonally dominant
+# fp32 operands in a few sweeps; the randomized rank-k tier guarantees 1e-3
+# for operands of numerical rank <= k with range-consistent RHS.
+BF16_IR_RESIDUAL_FLOOR = 1e-6
+RAND_LU_RESIDUAL_BOUND = 1e-3
+# refinement-sweep cap; the count taken surfaces in core.refine.last_refinement()
+IR_MAX_ITERS = _refine.DEFAULT_MAX_ITERS
+
+
 def banded_static_impl(bw: int) -> str:
     """The band factor static selection picks: ``cuda_blocked`` below
     :data:`BANDED_TILED_MIN_BW`, ``cuda_tiled`` from it on (the order n
@@ -61,6 +85,10 @@ def banded_static_impl(bw: int) -> str:
 
 def _is_f32(p: Problem) -> bool:
     return p.dtype == "float32"
+
+
+def _f32_or_bf16(p: Problem) -> bool:
+    return p.dtype in ("float32", "bfloat16")
 
 
 def _local(p: Problem) -> bool:
@@ -77,6 +105,44 @@ def _inverted_plain_call(lu, b, *, block):
     return _fz.dense_inverted_solve(art.packed, art.linv, art.uinv, b)
 
 
+def blocked_launches(n: int, block: int = 256) -> int:
+    """Kernel launches of :func:`_cuda_blocked_lu` for an (n, n) matrix: a
+    panel per block column and a fused step per block column but the last."""
+    return 2 * (-(-n // min(block, n))) - 1
+
+
+def _cuda_blocked_lu(a: torch.Tensor, *, block: int, col_tile: int) -> torch.Tensor:
+    """The reference's legacy multi-launch blocked driver: one panel kernel
+    and one fused bi-vector step kernel per block column (2S-1 launches for
+    S block columns) on a copy of ``a``."""
+    n = a.shape[-1]
+    block = min(block, n)
+    a = a.clone()
+    for k0 in range(0, n, block):
+        b = min(block, n - k0)
+        pan = _k.panel(a[k0:, k0:k0 + b])
+        a[k0:, k0:k0 + b] = pan
+        w = n - k0 - b
+        if w > 0:
+            ct = min(col_tile, w)
+            if w % ct:
+                # pad the trailing width to the next tile multiple (tiles
+                # capped at 128 columns); zero columns are inert through the
+                # solve and the rank-b update
+                ct = min(col_tile, 128)
+                pad = -(-w // ct) * ct - w
+                top = torch.nn.functional.pad(a[k0:k0 + b, k0 + b:], (0, pad))
+                trail = torch.nn.functional.pad(a[k0 + b:, k0 + b:], (0, pad))
+                u12, new_trail = _k.fused_step(pan, top, trail, col_tile=ct)
+                u12, new_trail = u12[:, :w], new_trail[:, :w]
+            else:
+                u12, new_trail = _k.fused_step(pan, a[k0:k0 + b, k0 + b:], a[k0 + b:, k0 + b:],
+                                               col_tile=ct)
+            a[k0:k0 + b, k0 + b:] = u12
+            a[k0 + b:, k0 + b:] = new_trail
+    return a
+
+
 # ---------------------------------------------------------------------------
 # dense factor
 # ---------------------------------------------------------------------------
@@ -91,6 +157,23 @@ register(Backend(
     call=lambda p, a, *, block=256, **_: _blocked.fused_blocked_lu(a, block=block),
     supports=_local,
     priority=lambda p: 2.0,  # static winner for non-fp32 (cuda_fused is fp32-only)
+))
+register(Backend(
+    name="cuda_vmem", op="factor", structure="dense",
+    call=lambda p, a, **_: _k.lu_vmem(a),
+    supports=lambda p: _is_f32(p) and _local(p) and p.n <= LU_VMEM_MAX_N,
+    priority=lambda p: 1.0,
+    autotune=False,  # not value-identical to the fused / torch factors
+))
+register(Backend(
+    name="cuda_blocked", op="factor", structure="dense",
+    call=lambda p, a, *, block=256, col_tile=256, **_:
+        _cuda_blocked_lu(a, block=block, col_tile=col_tile),
+    # the reference's driver takes any dtype; the port's kernels take fp32
+    # and bf16
+    supports=lambda p: _f32_or_bf16(p) and _local(p),
+    priority=lambda p: 0.0,
+    autotune=False,  # dominated multi-launch legacy driver (forced or escalated to)
 ))
 register(Backend(
     name="pivoted", op="factor", structure="dense",
@@ -191,6 +274,13 @@ register(Backend(
     call=lambda p, arow, *, bw, block=None, **_: _banded.banded_lu_blocked(arow, bw=bw, block=block),
     supports=_local,
     priority=lambda p: 0.5,
+))
+register(Backend(
+    name="cuda_scalar", op="factor", structure="banded",
+    call=lambda p, arow, *, bw, **_: _kbanded.banded_lu_kernelized(arow, bw=bw),
+    supports=lambda p: _is_f32(p) and _local(p),
+    priority=lambda p: 0.2,
+    autotune=False,  # the legacy scalar-sequential kernel: forced-impl only
 ))
 register(Backend(
     name="torch_scalar", op="factor", structure="banded",
@@ -347,24 +437,128 @@ register(Backend(
 ))
 
 # ---------------------------------------------------------------------------
+# approximate tiers: admitted by the tolerance gate only (residual_bound
+# set), so default-tolerance problems never see them.  A tolerance-carrying
+# ops.linear_solve consults the linear_solve slot first: the tiers need the
+# full operand (bf16_ir refines against it, rand_lu sketches it).
+# ---------------------------------------------------------------------------
+def _ir_tolerance(p: Problem) -> float:
+    # refine to the caller's tolerance, never past the tier's floor
+    return max(p.tolerance, BF16_IR_RESIDUAL_FLOOR)
+
+
+def _bf16_ir_solve(a, b, *, block, tolerance, use_kernel):
+    """Factor the bf16-rounded operand in fp32, refine the solution in fp32
+    against the full operand.  The correction runs through the factor's
+    inverted diagonal blocks: B4 (``trsm.solve_inverted``) on the card, its
+    plain version (``dense_inverted_solve``) for ``bf16_ir_torch`` and on
+    the CPU."""
+    a16 = a.to(torch.bfloat16).to(torch.float32)
+    lu16 = (_k.lu_fused(a16, block=block) if use_kernel
+            else _blocked.fused_blocked_lu(a16, block=block))
+    linv, uinv = _fz.dense_block_inverses(lu16, block=block)
+    if use_kernel:
+        correct = lambda r: _trsm.solve_inverted(lu16, linv, uinv, r)
+    else:
+        correct = lambda r: _fz.dense_inverted_solve(lu16, linv, uinv, r)
+    x, _info = _refine.iterative_refinement(a, b, correct(b.to(torch.float32)), correct,
+                                            tolerance=tolerance, max_iters=IR_MAX_ITERS)
+    return x.to(a.dtype)
+
+
+def _bf16_ir_solve_batched(a, b, *, tolerance):
+    """The stacked tier (the optimizer's grouped systems): the bf16-rounded
+    stack factored by B9 and every correction by B10 (their plain versions
+    on the CPU).  The reference runs its vmapped plain factor and solve
+    here; the port keeps the stack on its batched kernels."""
+    lu16 = _kbatched.batched_lu_vmem(a.to(torch.bfloat16).to(torch.float32))
+    correct = lambda r: _kbatched.batched_lu_solve_vmem(lu16, r)
+    x, _info = _refine.iterative_refinement(a, b, correct(b.to(torch.float32)), correct,
+                                            tolerance=tolerance, max_iters=IR_MAX_ITERS)
+    return x.to(a.dtype)
+
+
+register(Backend(
+    name="bf16_ir", op="linear_solve", structure="dense",
+    call=lambda p, a, b, *, block=256, **_: _bf16_ir_solve(
+        a, b, block=block, tolerance=_ir_tolerance(p), use_kernel=True),
+    supports=lambda p: _is_f32(p) and _local(p),
+    priority=lambda p: 5.0,  # the preferred approximate tier once admitted
+    autotune=False,  # not value-identical to the exact tier
+    residual_bound=lambda p: BF16_IR_RESIDUAL_FLOOR,
+))
+register(Backend(
+    name="bf16_ir_torch", op="linear_solve", structure="dense",
+    call=lambda p, a, b, *, block=256, **_: _bf16_ir_solve(
+        a, b, block=block, tolerance=_ir_tolerance(p), use_kernel=False),
+    supports=lambda p: _is_f32(p) and _local(p),
+    priority=lambda p: 4.0,
+    autotune=False,
+    residual_bound=lambda p: BF16_IR_RESIDUAL_FLOOR,
+))
+register(Backend(
+    name="bf16_ir", op="linear_solve", structure="batched_dense",
+    call=lambda p, a, b, **_: _bf16_ir_solve_batched(a, b, tolerance=_ir_tolerance(p)),
+    supports=lambda p: _is_f32(p) and _local(p),
+    priority=lambda p: 5.0,
+    autotune=False,
+    residual_bound=lambda p: BF16_IR_RESIDUAL_FLOOR,
+))
+
+
+def _rand_rank(p: Problem, rank) -> int:
+    # rank= comes through the public ops; an admitted auto-selection without
+    # one sketches at n/8
+    return int(rank) if rank else max(1, p.n // 8)
+
+
+def _randomized_kw(p: Problem, rank, oversample, generator, sketch) -> dict:
+    return dict(rank=_rand_rank(p, rank), oversample=oversample, generator=generator,
+                sketch=sketch, lu_impl=lambda m: _k.lu_fused(m))
+
+
+register(Backend(
+    name="rand_lu", op="factor", structure="dense",
+    call=lambda p, a, *, rank=None, oversample=8, generator=None, sketch=None, **_:
+        _rand.randomized_lu(a, **_randomized_kw(p, rank, oversample, generator, sketch)),
+    supports=lambda p: _is_f32(p) and _local(p),
+    priority=lambda p: 0.1,  # statically dominated: reached through rank= or impl=
+    autotune=False,
+    residual_bound=lambda p: RAND_LU_RESIDUAL_BOUND,
+))
+register(Backend(
+    name="rand_lu", op="solve", structure="dense",
+    # consumes RankKFactors, never auto-selected: ops.lu_solve forces it
+    # when handed rank-k factors
+    call=lambda p, factors, b, **_: _rand.randomized_solve(factors, b),
+    supports=lambda p: False,
+    priority=lambda p: 0.0,
+    autotune=False,
+    residual_bound=lambda p: RAND_LU_RESIDUAL_BOUND,
+))
+register(Backend(
+    name="rand_lu", op="linear_solve", structure="dense",
+    call=lambda p, a, b, *, rank=None, oversample=8, generator=None, sketch=None, **_:
+        _rand.randomized_linear_solve(
+            a, b, **_randomized_kw(p, rank, oversample, generator, sketch),
+            tolerance=(min(p.tolerance, RAND_LU_RESIDUAL_BOUND) if p.tolerance > 0
+                       else RAND_LU_RESIDUAL_BOUND)),
+    supports=lambda p: _is_f32(p) and _local(p),
+    priority=lambda p: 0.5,  # below bf16_ir: admitted is not preferred
+    autotune=False,
+    residual_bound=lambda p: RAND_LU_RESIDUAL_BOUND,
+))
+
+# ---------------------------------------------------------------------------
 # backends of the reference that later slices bring
 # ---------------------------------------------------------------------------
-_QUEUE_B = "its kernel is still to port (ROADMAP queue B)"
-_TIERS = "the accuracy tiers slice (ROADMAP queue A, item 10)"
 _MULTI = "the multi-device slice (ROADMAP queue A, item 12)"
 NOT_PORTED.update({
-    ("factor", "banded", "cuda_scalar"): f"banded.py:banded_lu_kernelized (B18): {_QUEUE_B}",
     ("factor", "banded", "spike"): _MULTI,
     ("factor", "banded", "replicated"): _MULTI,
     ("solve", "banded", "spike"): _MULTI,
     ("linear_solve", "banded", "spike"): _MULTI,
     ("linear_solve", "banded", "replicated"): _MULTI,
-    ("factor", "dense", "cuda_vmem"): f"ebv_lu.py:lu_vmem (B17): {_QUEUE_B}",
-    ("factor", "dense", "cuda_blocked"): f"the multi-launch driver (B14-B16): {_QUEUE_B}",
     ("factor", "dense", "distributed"): _MULTI,
-    ("factor", "dense", "rand_lu"): _TIERS,
-    ("linear_solve", "dense", "bf16_ir"): _TIERS,
-    ("linear_solve", "dense", "bf16_ir_torch"): _TIERS,
-    ("linear_solve", "dense", "rand_lu"): _TIERS,
     ("linear_solve", "dense", "distributed"): _MULTI,
 })

@@ -72,6 +72,8 @@ class AutotuneCache:
             with open(path) as f:
                 raw = json.load(f)
             for e in raw.get("entries", []):
+                e.setdefault("tolerance", 0.0)  # rows without a tolerance are exact rows
+                e.setdefault("devices", 1)  # rows without a device count are local rows
                 if all(f in e for f in _KEY_FIELDS) and isinstance(e.get("times_us"), dict):
                     entries.append(e)
         except FileNotFoundError:
@@ -117,6 +119,19 @@ class AutotuneCache:
         self.entries.append(entry)
         return entry
 
+    def record_widths(self, problem: Problem, width_us: dict[int, float]) -> dict:
+        """Merge stacked-RHS coalescing-width timings (width → measured µs
+        per dispatch at that width) into ``problem``'s entry; read by
+        :meth:`best_width`, the solve service's coalescing cap."""
+        entry = self.lookup(problem)
+        if entry is None:
+            entry = dict(zip(_KEY_FIELDS, _problem_key(problem)))
+            entry["times_us"] = {}
+            self.entries.append(entry)
+        entry.setdefault("width_us", {}).update(
+            {str(int(w)): round(float(v), 2) for w, v in width_us.items()})
+        return entry
+
     def lookup(self, problem: Problem) -> dict | None:
         key = _problem_key(problem)
         return next((e for e in self.entries if _entry_key(e) == key), None)
@@ -145,6 +160,17 @@ class AutotuneCache:
             times = {k: v for k, v in e["times_us"].items() if k in candidates}
             if times:
                 return min(times, key=times.get)
+        return None
+
+
+    def best_width(self, problem: Problem) -> int | None:
+        """Measured most µs-per-column-efficient coalescing width for the
+        nearest matching stacked-RHS sweep, or None when nothing
+        transferable was measured (callers then coalesce fully)."""
+        for _, e in self._matches(problem):
+            wu = e.get("width_us")
+            if wu:
+                return int(min(wu, key=lambda w: wu[w] / int(w)))
         return None
 
 

@@ -4,7 +4,11 @@ Every implementation registers a :class:`Backend` under its
 ``(op, structure)`` slot.  Selection is a three-stage funnel:
 
 1. **capability filter** — ``Backend.supports(problem)`` prunes backends
-   that cannot run the problem (dtype, device count, enrichment);
+   that cannot run the problem (dtype, device count, enrichment), and the
+   **tolerance gate** prunes approximate backends (those declaring a
+   ``residual_bound``) unless the problem carries a tolerance that bound
+   meets, so a default (``tolerance == 0``) problem sees the exact tier
+   only;
 2. **measured selection** — the autotune cache (:mod:`.cache`) picks the
    fastest *measured* capable backend among those flagged ``autotune``,
    measured on the same device;
@@ -17,7 +21,9 @@ Every implementation registers a :class:`Backend` under its
 ``impl=`` on the public ops is a forced override that bypasses stages 2-3.
 
 **Escalation funnel**: a dispatch that carries a *validator* (a factor
-health screen from ``ops.lu(..., health=)``) or an injected fault plan
+health screen from ``ops.lu(..., health=)``, or the relative-residual
+check that ``Problem.verify_residual`` arms on a ``linear_solve``
+dispatch) or an injected fault plan
 becomes a retry loop over the capable candidates, best-first.  A backend
 whose result fails validation, or whose call raises, is *demoted* for that
 problem shape for the next ``DEMOTION_TTL`` screened dispatches, an
@@ -71,9 +77,10 @@ class Backend:
     ``priority``  static rank (higher wins) used when no measurement
                   transfers.
     ``autotune``  whether the backend competes in measured selection.
-
-    The reference's ``residual_bound`` (the tolerance gate of approximate
-    backends) arrives with the accuracy tiers slice.
+    ``residual_bound`` relative residual ``|Ax-b|/|b|`` the backend
+                  guarantees for its operand class, or None for exact
+                  backends; an approximate backend is a candidate only
+                  when ``0 < residual_bound(problem) <= problem.tolerance``.
     """
 
     name: str
@@ -83,6 +90,7 @@ class Backend:
     supports: Callable[[Problem], bool] = lambda p: True
     priority: Callable[[Problem], float] = lambda p: 0.0
     autotune: bool = True
+    residual_bound: Callable[[Problem], float] | None = None
 
 
 _REGISTRY: dict[tuple[str, str], dict[str, Backend]] = {}
@@ -118,9 +126,18 @@ def get_backend(op: str, structure: str, name: str) -> Backend:
     raise ValueError(f"unknown impl {name!r} for ({op}, {structure}); registered: {sorted(slot)}")
 
 
+def _tolerance_admits(backend: Backend, problem: Problem) -> bool:
+    """The accuracy gate: exact backends always pass; an approximate one
+    only when the caller's tolerance is at least as loose as its bound."""
+    if backend.residual_bound is None:
+        return True
+    return problem.tolerance > 0 and backend.residual_bound(problem) <= problem.tolerance
+
+
 def candidates(problem: Problem) -> list[Backend]:
-    """Capability-filtered backends for ``problem``."""
-    return [b for b in backends_for(problem.op, problem.structure) if b.supports(problem)]
+    """Capability- and tolerance-filtered backends for ``problem``."""
+    return [b for b in backends_for(problem.op, problem.structure)
+            if b.supports(problem) and _tolerance_admits(b, problem)]
 
 
 def select(problem: Problem, *, impl: str | None = None,
@@ -272,6 +289,24 @@ class record_escalations:
         return False
 
 
+def _residual_validator(arrays):
+    """Validator of a ``verify_residual`` linear_solve dispatch: the
+    result's ``|Ax-b|/|b|`` against ``tolerance`` when set, else
+    :data:`VERIFY_RESIDUAL_DEFAULT_BOUND`."""
+    from ..core import health as _health
+
+    a, b = arrays[0], arrays[1]
+
+    def validate(problem, backend, result):
+        bound = problem.tolerance if problem.tolerance > 0 else VERIFY_RESIDUAL_DEFAULT_BOUND
+        rel = float(_health.relative_residual(a, b, result, bw=problem.bw))
+        if not rel <= bound:  # NaN-safe
+            return f"residual {rel:.3e} > bound {bound:.1e} from {backend.name}", None
+        return None
+
+    return validate
+
+
 def _run_attempt(plans, problem, backend, arrays, kw):
     """One dispatch attempt with fault plans applied around the call."""
     matched = [p for p in plans if p.matches(problem, backend.name)]
@@ -295,6 +330,8 @@ def dispatch(problem: Problem, *arrays, impl: str | None = None,
     from . import faults as _faults
 
     plans = _faults.active_plans()
+    if validate is None and problem.verify_residual and problem.op == "linear_solve":
+        validate = _residual_validator(arrays)
 
     if impl is not None:
         # forced override: no escalation target, but faults still apply and

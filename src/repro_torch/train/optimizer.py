@@ -30,10 +30,6 @@ __all__ = [
     "get_optimizer",
 ]
 
-_TIERS = ("solve_tolerance opens the accuracy tiers, which arrive with their slice "
-          "(ROADMAP queue A, item 10)")
-
-
 # ---------------------------------------------------------------------------
 # schedules
 # ---------------------------------------------------------------------------
@@ -165,22 +161,31 @@ class EbvPreconditioned(torch.optim.Optimizer):
     with ``enrich=True``: on the card the batched CUDA factor and solve
     (:mod:`repro_torch.kernels.batched_lu`), one launch each per group.
     ``solver_impl`` forces a backend (``"torch"`` for the plain versions).
-    ``solve_tolerance`` (the reference's approximate solver tiers) is not
-    ported yet and raises."""
+
+    ``solve_tolerance`` opens the registry's approximate tiers for the
+    preconditioner solves: a float is the largest acceptable relative
+    residual; ``"auto"`` derives it from the EMA noise floor — each update
+    replaces a fraction ``1 − b2`` of ``C`` with one sample's ``G Gᵀ``, so
+    the solve is taken one decade past that noise, and never below the
+    ``bf16_ir`` tier's 1e-6 floor.  On the card a group then runs the
+    batched ``bf16_ir`` tier (B9 on the bf16-rounded stack, B10 for every
+    refinement sweep).  ``None`` (the default) keeps the exact tier."""
 
     def __init__(self, params, lr=1e-3, *, b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
                  weight_decay: float = 0.1, max_grad_norm: float | None = 1.0,
                  damping: float = 1e-3, max_precond_dim: int = 1024, solver_block: int = 128,
                  graft_scale: float = 0.3, solver_impl: str | None = None,
                  solve_tolerance: float | str | None = None):
-        if solve_tolerance is not None:
-            raise NotImplementedError(_TIERS)
         super().__init__(params, dict(lr=lr, b1=b1, b2=b2, eps=eps, weight_decay=weight_decay,
                                       damping=damping, max_precond_dim=max_precond_dim,
                                       graft_scale=graft_scale))
         self.max_grad_norm = max_grad_norm
         self.solver_block = solver_block
         self.solver_impl = solver_impl
+        if solve_tolerance == "auto":
+            self.solve_tolerance = max(1e-6, (1.0 - b2) * 0.1)
+        else:
+            self.solve_tolerance = float(solve_tolerance) if solve_tolerance else 0.0
         self.last_grad_norm: torch.Tensor | None = None
 
     @staticmethod
@@ -241,7 +246,7 @@ class EbvPreconditioned(torch.optim.Optimizer):
             r3 = torch.stack([torch.nn.functional.pad(r, (0, mmax - r.shape[1]))
                               for _, _, r in items])
             x3 = ops.linear_solve(a3, r3, impl=self.solver_impl, block=min(self.solver_block, n),
-                                  enrich=True)
+                                  tolerance=self.solve_tolerance, enrich=True)
             for j, (i, _, r) in enumerate(items):
                 solved[i] = x3[j, :, :r.shape[1]]
 

@@ -150,7 +150,7 @@ def test_skew_pad_and_window_steps_match_the_reference_exactly():
 
 
 # ---------------------------------------------------------------------------
-# band LU: kernels B5 / B6 (plain on the CPU), the mirror and the scalar path
+# band LU: kernels B5 / B6 / B18 (plain on the CPU), the mirror and the scalar path
 # ---------------------------------------------------------------------------
 @pytest.mark.parametrize("n,bw,block", SWEEP)
 def test_band_lu_matches_the_reference_kernels(n, bw, block):
@@ -159,9 +159,11 @@ def test_band_lu_matches_the_reference_kernels(n, bw, block):
     want = np.asarray(jkband.banded_lu_blocked(ja, bw=bw, block=block, interpret=True))
     close_lu(np.asarray(jkband.banded_lu_tiled(ja, bw=bw, block=block, interpret=True)), want, bw)
     close_lu(np.asarray(jband.banded_lu(ja, bw=bw)), want, bw)
+    close_lu(np.asarray(jkband.banded_lu_kernelized(ja, bw=bw, interpret=True)), want, bw)
     port = {
         "cuda_blocked": kband.banded_lu_blocked(cpu(a), bw=bw, block=block),
         "cuda_tiled": kband.banded_lu_tiled(cpu(a), bw=bw, block=block),
+        "cuda_scalar": kband.banded_lu_kernelized(cpu(a), bw=bw),
         "mirror": band.banded_lu_blocked(cpu(a), bw=bw, block=block),
         "scalar": band.banded_lu(cpu(a), bw=bw),
     }
@@ -177,6 +179,7 @@ def test_band_lu_never_writes_the_callers_band():
     before = a.clone()
     kband.banded_lu_blocked(a, bw=3)
     kband.banded_lu_tiled(a, bw=3)
+    kband.banded_lu_kernelized(a, bw=3)
     assert torch.equal(a, before)
 
 
@@ -357,7 +360,7 @@ def test_the_cuda_slots_declare_fp32_only():
     assert "torch_scalar" not in {b.name for b in solvers.candidates(wide)}
 
 
-@pytest.mark.parametrize("impl", ["cuda_blocked", "cuda_tiled", "torch", "torch_scalar"])
+@pytest.mark.parametrize("impl", ["cuda_blocked", "cuda_tiled", "torch", "cuda_scalar", "torch_scalar"])
 def test_forced_factor_impls_match_the_reference(impl):
     n, bw = 96, 5
     a = band_dd(n, bw, 4)
@@ -384,16 +387,16 @@ def test_forced_solve_impls_match_the_reference(impl):
 
 def test_unported_slots_and_operands_raise_naming_their_slice():
     a = cpu(band_dd(32, 2, 1))
-    with pytest.raises(NotImplementedError, match="B18"):
-        ops.banded_lu(a, bw=2, impl="cuda_scalar")
+    with pytest.raises(NotImplementedError, match="multi-device"):
+        ops.banded_lu(a, bw=2, impl="replicated")
     with pytest.raises(NotImplementedError, match="multi-device"):
         ops.banded_lu(a, bw=2, impl="spike")
     with pytest.raises(NotImplementedError, match="multi-device"):
         ops.banded_lu(a, bw=2, mesh=object())
     # a stack of bands runs the batched slots since the batched slice; an
     # unported impl name still raises there, through its unbatched slot
-    with pytest.raises(NotImplementedError, match="B18"):
-        ops.banded_lu(a[None].expand(2, 32, 5), bw=2, impl="cuda_scalar")
+    with pytest.raises(NotImplementedError, match="multi-device"):
+        ops.banded_lu(a[None].expand(2, 32, 5), bw=2, impl="replicated")
     with pytest.raises(NotImplementedError, match="multi-device"):
         ops.banded_lu(a[None].expand(2, 32, 5), bw=2, mesh=object())
     assert solvers.get_backend("solve", "batched_banded", "cuda_vmem").name == "cuda_vmem"

@@ -13,7 +13,12 @@ fp32, but the kernels fuse multiply-adds and block the sweeps differently
 from the plain versions; measured <= 3e-6 at n = 2000 on an H100.  The
 band factors and the batched factor and solve round every operation as
 their plain versions do and are held to bitwise equality; the batched
-band solve to 1e-5, as its unbatched twin measured <= 7.8e-7.  A
+band solve to 1e-5, as its unbatched twin measured <= 7.8e-7.  The
+legacy unblocked factor and panel (B17, B16) round every operation as
+their plain versions do and are held to bitwise equality, in fp32 and in
+bf16; the fused step and the trailing update (B14, B15) sum their products
+in another order than cuBLAS and are held to 1e-5 in fp32 and to 2e-2
+(a few bf16 units) in bf16.  A
 packed factor is compared as its L (strictly lower) and its U (upper)
 apart, each against its own largest entry: U's diagonal is ~n/2 and L's
 entries ~1/n, so one norm over both would not see L.
@@ -23,6 +28,7 @@ import pytest
 import torch
 
 from repro_torch import solvers, train
+from repro_torch.serve import SolveService
 from repro_torch.core.factorization import (
     banded_inverted_solve,
     dense_block_inverses,
@@ -169,11 +175,24 @@ def test_band_factor_kernels_match_plain(n, bw, card):
     assert torch.equal(got_blocked, plain) and torch.equal(got_tiled, plain)
 
 
+@pytest.mark.parametrize("n,bw", BAND_SHAPES + [(16000, 5)])
+def test_scalar_band_factor_kernel_is_bitwise_its_plain_version(n, bw, card):
+    """B18, one launch (the ring walk; device memory for bw = 200)."""
+    a = torch.from_numpy(band_dd(n, bw, 5 * n + bw)).to(card)
+    plain = banded.banded_lu_scalar_plain(a, bw=bw)
+    before = banded.banded_lu_kernelized.launches
+    got = banded.banded_lu_kernelized(a, bw=bw)
+    assert banded.banded_lu_kernelized.launches - before == 1
+    close_band_lu(got, plain, bw)
+    assert torch.equal(got, plain)
+
+
 def test_band_factors_leave_their_input_alone(card):
     a = torch.from_numpy(band_dd(300, 16, 3)).to(card)
     before = a.clone()
     banded.banded_lu_blocked(a, bw=16)
     banded.banded_lu_tiled(a, bw=16)
+    banded.banded_lu_kernelized(a, bw=16)
     torch.cuda.synchronize()
     assert torch.equal(a, before)
 
@@ -361,3 +380,156 @@ def test_the_optimizer_step_runs_the_batched_kernels(card):
                     batched_lu.batched_lu_solve_vmem.launches - before[1]) == (1, 1)
     for k in shapes:
         close(steps["cuda"][k], steps["cpu"][k])
+
+
+# ---------------------------------------------------------------------------
+# the legacy dense kernels (B14-B17) and the paths that reach them
+# ---------------------------------------------------------------------------
+LEGACY_F32_TOL, LEGACY_BF16_TOL = 1e-5, 2e-2
+
+
+def legacy_panel(m, b, seed, dtype):
+    p = dd(m, seed)[:, :b].copy()
+    p[:b, :b] = dd(b, seed + 1)
+    return torch.from_numpy(p).to(dtype)
+
+
+@pytest.mark.parametrize("n", [2, 64, 500, 2000])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_lu_vmem_kernel_is_bitwise_its_plain_version(n, dtype, card):
+    a = torch.from_numpy(dd(n, n)).to(dtype).to(card)
+    keep = a.clone()
+    before = ebv_lu.lu_vmem.launches
+    got = ebv_lu.lu_vmem(a)
+    torch.cuda.synchronize()
+    assert ebv_lu.lu_vmem.launches - before == 1  # one cooperative launch
+    assert torch.equal(got, ebv_lu.lu_vmem_plain(a)) and torch.equal(a, keep)
+
+
+def test_the_cooperative_walk_at_the_reference_cap(card):
+    a = torch.from_numpy(dd(4096, 5)).to(card)
+    before = ebv_lu.lu_vmem.launches
+    got = ebv_lu.lu_vmem(a)
+    torch.cuda.synchronize()
+    assert ebv_lu.lu_vmem.launches - before == 1
+    assert torch.equal(got, ebv_lu.lu_vmem_plain(a))
+
+
+@pytest.mark.parametrize("m,b", [(2000, 256), (8000, 256), (100, 32), (64, 64)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_panel_kernel_is_bitwise_its_plain_version(m, b, dtype, card):
+    p = legacy_panel(m, b, m + b, dtype).to(card)
+    before = ebv_lu.panel.launches
+    got = ebv_lu.panel(p)
+    torch.cuda.synchronize()
+    assert ebv_lu.panel.launches - before == 1
+    assert torch.equal(got, ebv_lu.panel_plain(p))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_step_kernel_matches_plain(dtype, card):
+    # the driver's first step at n = 2000: width 1744 padded to 1792, ct = 128
+    a = torch.from_numpy(dd(2000, 7)).to(dtype).to(card)
+    pan = ebv_lu.panel(a[:, :256])
+    top = torch.nn.functional.pad(a[:256, 256:], (0, 48))
+    trail = torch.nn.functional.pad(a[256:, 256:], (0, 48))
+    before = ebv_lu.fused_step.launches
+    u12, new = ebv_lu.fused_step(pan, top, trail, col_tile=128)
+    pu12, pnew = ebv_lu.fused_step_plain(pan, top, trail)
+    assert ebv_lu.fused_step.launches - before == 1
+    tol = LEGACY_F32_TOL if dtype == torch.float32 else LEGACY_BF16_TOL
+    assert u12.dtype == new.dtype == dtype
+    close(u12.float(), pu12.float(), tol)
+    close(new.float(), pnew.float(), tol)
+
+
+@pytest.mark.parametrize("m,k,w", [(1792, 256, 1792), (128, 32, 64), (100, 7, 33)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_update_kernel_matches_plain(m, k, w, dtype, card):
+    g = torch.Generator(device=card).manual_seed(m + k)
+    l21, u12, a22 = (torch.randn(s, generator=g, device=card).to(dtype) for s in ((m, k), (k, w), (m, w)))
+    keep = a22.clone()
+    before = ebv_lu.update.launches
+    got = ebv_lu.update(l21, u12, a22, row_tile=m, col_tile=w)
+    assert ebv_lu.update.launches - before == 1 and torch.equal(a22, keep)
+    tol = LEGACY_F32_TOL if dtype == torch.float32 else LEGACY_BF16_TOL
+    close(got.float(), ebv_lu.update_plain(l21, u12, a22).float(), tol)
+
+
+@pytest.mark.parametrize("impl,n", [("cuda_vmem", 300), ("cuda_blocked", 300), ("cuda_blocked", 1000)])
+def test_forced_legacy_impls_launch_their_kernels(impl, n, card):
+    a = torch.from_numpy(dd(n, 9)).to(card)
+    b = torch.from_numpy(rhs(n, 2)).to(card)
+    counters = (ebv_lu.lu_vmem, ebv_lu.panel, ebv_lu.fused_step)
+    before = [w.launches for w in counters]
+    with solvers.record_dispatches() as log:
+        x = ops.lu_solve(ops.lu(a, impl=impl), b)
+    torch.cuda.synchronize()
+    assert [name for _, name in log][0] == impl
+    blocks = -(-n // 256)
+    want = [1, 0, 0] if impl == "cuda_vmem" else [0, blocks, blocks - 1]
+    assert [w.launches - c for w, c in zip(counters, before)] == want
+    assert float(relative_residual(a, b, x)) < 1e-5
+
+
+def test_the_escalation_chain_on_the_card(card):
+    a = dd(64, 14)
+    a[0, 0] = np.nan
+    with pytest.raises(solvers.SolveFailure) as err:
+        ops.lu(torch.from_numpy(a).to(card), health=True)
+    assert [c["backend"] for c in err.value.chain] == [
+        "cuda_fused", "torch", "cuda_vmem", "pivoted", "cuda_blocked"]
+    solvers.clear_demotions()
+    band = band_dd(300, 5, 15)
+    band[7, 5] = np.nan
+    before = banded.banded_lu_kernelized.launches
+    with pytest.raises(solvers.SolveFailure) as err:
+        ops.banded_lu(torch.from_numpy(band).to(card), bw=5, health=True)
+    assert [c["backend"] for c in err.value.chain] == [
+        "cuda_blocked", "cuda_tiled", "torch", "cuda_scalar", "torch_scalar"]
+    assert banded.banded_lu_kernelized.launches == before + 1
+    solvers.clear_demotions()
+
+
+def test_the_tiers_run_the_kernels(card):
+    a = torch.from_numpy(dd(512, 10)).to(card)
+    b = torch.from_numpy(rhs(512, 3)).to(card)
+    before = (ebv_lu.lu_fused.launches, trsm.solve_inverted.launches)
+    with solvers.record_dispatches() as log:
+        x = ops.linear_solve(a, b, tolerance=1e-5)
+    torch.cuda.synchronize()
+    assert [name for _, name in log] == ["bf16_ir"]
+    assert ebv_lu.lu_fused.launches > before[0] and trsm.solve_inverted.launches >= before[1] + 2
+    assert float(relative_residual(a, b, x)) <= 1e-5
+    rng = np.random.default_rng(11)
+    low = (rng.standard_normal((256, 32)) @ rng.standard_normal((32, 256)) / 32).astype(np.float32)
+    al = torch.from_numpy(low).to(card)
+    bl = al @ torch.from_numpy(rng.standard_normal(256).astype(np.float32)).to(card)
+    xl = ops.linear_solve(al, bl, rank=32, tolerance=1e-3)
+    assert float(relative_residual(al, bl, xl)) <= 1e-3
+
+
+def test_a_service_flush_on_the_card(card):
+    svc = SolveService()
+    mats = {n: dd(n, n) for n in (300, 700)}
+    band = torch.from_numpy(band_dd(2000, 5, 3)).to(card)
+    reqs = []
+    for i in range(4):
+        for n, a in mats.items():
+            reqs.append((a, rhs(n, 1 if i % 2 == 0 else 4, 30 + i), 0))
+        reqs.append((band, torch.from_numpy(rhs(2000, None, 40 + i)).to(card), 5))
+    before = ebv_lu.lu_fused.launches
+    tickets = [svc.submit(a, b, bw=bw) for a, b, bw in reqs]
+    out = svc.flush()
+    torch.cuda.synchronize()
+    assert ebv_lu.lu_fused.launches > before
+    assert (svc.stats.factor_dispatches, svc.stats.solve_dispatches) == (3, 3)
+    for tk, (a, b, bw) in zip(tickets, reqs):
+        at = a if isinstance(a, torch.Tensor) else torch.from_numpy(a).to(card)
+        bt = b if isinstance(b, torch.Tensor) else torch.from_numpy(b).to(card)
+        assert out[tk].device.type == "cuda"
+        assert float(relative_residual(at, bt, out[tk], bw=bw)) < 1e-5
+    tk = svc.submit(mats[300], rhs(300, None, 50))
+    svc.flush()
+    assert svc.stats.factor_dispatches == 3 and svc.stats.cache_hits > svc.stats.cache_misses
+    svc.result(tk)

@@ -178,8 +178,11 @@ def test_a_whisper_like_group_is_one_wide_dispatch():
 
 @pytest.mark.parametrize("tolerance", ["auto", 1e-3, 0.0])
 def test_solve_tolerance_raises_until_the_accuracy_tiers_arrive(tolerance):
-    with pytest.raises(NotImplementedError, match="item 10"):
-        topt.EbvPreconditioned([torch.nn.Parameter(torch.zeros(4, 4))], solve_tolerance=tolerance)
+    # the accuracy tiers have arrived: solve_tolerance is taken as the
+    # reference takes it ("auto" = max(1e-6, (1 - b2) / 10)) and no longer raises
+    opt = topt.EbvPreconditioned([torch.nn.Parameter(torch.zeros(4, 4))], b2=0.95,
+                                 solve_tolerance=tolerance)
+    assert opt.solve_tolerance == pytest.approx({"auto": 0.005, 1e-3: 1e-3, 0.0: 0.0}[tolerance])
 
 
 def test_schedules_and_clipping_match_the_reference():

@@ -143,7 +143,8 @@ def test_importing_the_port_loads_neither_jax_nor_the_reference():
         "import sys, repro_torch.kernels.ops, repro_torch.kernels.banded, repro_torch.core.banded, "
         "repro_torch.core.factorization, repro_torch.convert, repro_torch.solvers, "
         "repro_torch.kernels.batched_lu, repro_torch.core.batched, repro_torch.train, "
-        "repro_torch.train.optimizer; "
+        "repro_torch.train.optimizer, repro_torch.serve, repro_torch.serve.solve_service, "
+        "repro_torch.serve.scheduler, repro_torch.core.refine, repro_torch.core.randomized; "
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m == 'repro' or m.startswith('repro.')); print(bad); sys.exit(1 if bad else 0)"
     )

@@ -201,7 +201,10 @@ def test_every_backend_failing_raises_a_structured_failure():
     with solvers.inject(backend_raises=True, op="factor"):
         with pytest.raises(solvers.SolveFailure) as ei:
             ops.lu(a, health=True)
-    assert [c["backend"] for c in ei.value.chain] == ["cuda_fused", "torch", "pivoted"]
+    # the reference's chain under the names of the port: pallas_fused, xla,
+    # pallas_vmem, pivoted, pallas_blocked
+    assert [c["backend"] for c in ei.value.chain] == ["cuda_fused", "torch", "cuda_vmem", "pivoted",
+                                                       "cuda_blocked"]
     assert ei.value.problem.op == "factor"
 
 
@@ -237,21 +240,39 @@ def test_dispatch_hooks_record_and_detach():
     assert log2 == []
 
 
-# a stack runs the batched slots since the batched slice: the "batched" cases
-# are stacks with a request that is still out of slice
+# a stack runs the batched slots since the batched slice, and the tiers and
+# the legacy factors run since the fourth slice: what stays out of slice is
+# the multi-device path (mesh=, the distributed and replicated slots)
 @pytest.mark.parametrize("call", [
     lambda a: ops.lu(a.expand(2, 8, 8), mesh=object()),
     lambda a: ops.lu(a, mesh=object()),
-    lambda a: ops.lu(a, tolerance=1e-3),
-    lambda a: ops.lu(a, rank=4),
-    lambda a: ops.linear_solve(a, torch.ones(8), tolerance=1e-3),
-    lambda a: ops.lu(a, impl="cuda_vmem"),
-    lambda a: ops.lu(a, impl="cuda_blocked"),
-    lambda a: ops.lu_solve(ops.lu(a).packed.expand(2, 8, 8), torch.ones(2, 8), tolerance=1e-3),
-], ids=["batched", "mesh", "tolerance", "rank", "linear-tolerance", "lu_vmem", "blocked", "batched-solve"])
+    lambda a: ops.linear_solve(a, torch.ones(8), mesh=object()),
+    lambda a: ops.lu(a, impl="distributed"),
+    lambda a: ops.linear_solve(a, torch.ones(8), impl="distributed"),
+    lambda a: ops.banded_lu(a[:, :3], bw=1, impl="replicated"),
+    lambda a: ops.banded_lu(a[:, :3], bw=1, mesh=object()),
+    lambda a: ops.banded_solve(a[:, :3], torch.ones(8), bw=1, mesh=object()),
+], ids=["batched", "mesh", "linear-mesh", "distributed", "linear-distributed", "replicated-band",
+        "band-mesh", "band-solve-mesh"])
 def test_out_of_slice_requests_raise_not_implemented(call):
     with pytest.raises(NotImplementedError):
         call(torch.from_numpy(dd(8, 10)))
+
+
+# the requests the first three slices refused, which the fourth slice runs
+@pytest.mark.parametrize("call,kind", [
+    (lambda a: ops.lu(a, tolerance=1e-3), "Factorization"),
+    (lambda a: ops.lu(a, rank=4), "RankKFactors"),
+    (lambda a: ops.linear_solve(a, torch.ones(8), tolerance=1e-3), "Tensor"),
+    (lambda a: ops.lu(a, impl="cuda_vmem"), "Factorization"),
+    (lambda a: ops.lu(a, impl="cuda_blocked"), "Factorization"),
+    (lambda a: ops.lu_solve(ops.lu(a).packed.expand(2, 8, 8), torch.ones(2, 8), tolerance=1e-3),
+     "Tensor"),
+    (lambda a: ops.banded_lu(a[:, :3], bw=1, impl="cuda_scalar"), "Factorization"),
+], ids=["tolerance", "rank", "linear-tolerance", "lu_vmem", "blocked", "batched-solve",
+        "scalar-band"])
+def test_requests_of_the_tiers_and_legacy_slice_run(call, kind):
+    assert type(call(torch.from_numpy(dd(8, 10)))).__name__ == kind
 
 
 def test_unknown_impl_is_a_value_error():
