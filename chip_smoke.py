@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's dense, banded and batched main paths, the
-EbV-preconditioned optimizer, the legacy dense factors, the accuracy tiers
-and the solve service on one NVIDIA card.
+EbV-preconditioned optimizer, the legacy dense factors, the accuracy tiers,
+the solve service and the LM serving engine on one NVIDIA card.
 
     python3 chip_smoke.py
 
@@ -12,7 +12,9 @@ Phases (any failure exits non-zero):
 3. kernels against their plain PyTorch versions on the card; 3c the
    batched kernels (B9-B12) at the batched paths' shapes; 3d the legacy
    dense kernels (B14-B17) at the legacy paths' shapes and the legacy
-   scalar band factor (B18) at the band the service escalates to it;
+   scalar band factor (B18) at the band the service escalates to it; 3e the
+   paged decode attention (B13) at the served shape and at a decode-heavy
+   one (32 rows of 4096 positions), fp32 and bf16, with holes;
 4. the main paths, each with its kernels' launch counters set to 0 just
    before and read just after:
    - dense: ``repro_torch.kernels.ops.linear_solve`` at n = 500, 2000,
@@ -30,8 +32,8 @@ Phases (any failure exits non-zero):
      tree of whisper-tiny (``configs/whisper_tiny.py`` as
      ``models/lm.py:init_params`` lays it out: one order-384 group of two
      systems with a (2, 384, 51968) RHS) and on the reference benchmark's
-     four (128, 128) leaves; the model's forward pass is not ported yet
-     (ROADMAP A13), so the gradients are drawn from a seeded generator;
+     four (128, 128) leaves; the training loss is not ported yet
+     (ROADMAP A15), so the gradients are drawn from a seeded generator;
    - batched banded (4e): ``ops.banded_linear_solve`` on 16 Table 1 bands
      (n = 16000, bw = 5) and a CFD ensemble of 32 five-point Poisson bands
      on a 64 x 64 grid (n = 4096, bw = 64), each with its own diagonal;
@@ -50,6 +52,13 @@ Phases (any failure exits non-zero):
      with a 1e-5 request, a rank-256 request, a NaN-poisoned and a
      zero-pivot n = 1024 matrix and a NaN-poisoned band (whose escalation
      runs B18); its flush-mates against an undisturbed service, bit for bit;
+   - serving (4i): llama3-8b at full width (``configs/llama3_8b.py``, weights
+     drawn on the card from a seed) through ``serve.Engine`` dense and paged
+     (pages of 16) on the same 8 greedy requests (4 slots, bucket 16,
+     prompts of 64-512 tokens, two sharing a 256-token prefix, one with an
+     EOS token), the paged decode step's logits against the dense one's
+     teacher-forced over 8 steps, and ``python -m repro_torch.launch.serve
+     --arch llama3_8b --paged``;
    checks the dispatches, the counters, the residuals and small answers
    against the float64 oracles;
 5. times: each kernel, its plain version and a PyTorch library yardstick
@@ -59,7 +68,9 @@ Phases (any failure exits non-zero):
    factor's one call), the bound,
    launches per call and peak memory;
    the ``cuda_vmem`` / ``cuda_tiled`` and ``cuda_blocked`` / ``cuda_tiled``
-   crossovers; the optimizer step's time; device time by kernel;
+   crossovers; the optimizer step's time; device time by kernel; B13 at the
+   served and the decode-heavy shape; one full-width decode step against
+   its weight-bytes bound, with its device idle share;
 6. the ``kernels`` JSON line, the card line and the result line.
 
 It prints no result and exits 1 where ``torch.cuda.is_available()`` is false.
@@ -122,6 +133,18 @@ RANK_N, RANK_K = 2048, 256
 SERVE_DENSE = (1024, 2000, 4096)
 SERVE_BAND = (16000, 5)
 SERVE_REQS, SERVE_FLUSHES = 8, 4
+# serving (3e, 4i, 5): llama3-8b at full width on 4 slots, bucket 16, pages
+# of 16; 8 greedy requests of 64-512 prompt tokens and 32-64 new tokens,
+# two sharing a 256-token prefix; max_len 512 + 64
+LM_ARCH, LM_SLOTS, LM_BUCKET, PAGE = "llama3_8b", 4, 16, 16
+LM_REQS, LM_MAX_LEN, SHARED_PREFIX, TEACHER_STEPS = 8, 576, 256, 8
+DECODE_HEAVY = (32, 256)  # rows x pages: 4096 positions a row
+# B13 against its plain version, normwise: the sums run in another order;
+# in bf16 p and the output round to bf16 (one unit 2^-8)
+PAGED_TOL = {"float32": 1e-5, "bfloat16": 1e-2}
+# the paged decode step's logits against the dense one's, normwise: bf16
+# attention outputs that differ by a rounding, carried through 32 layers
+LOGITS_TOL = 5e-2
 
 
 def fail(msg: str) -> None:
@@ -156,7 +179,10 @@ def main() -> int:
     from repro_torch.kernels import _build, banded, batched_lu, ebv_lu, ops, ref, trsm
     from repro_torch.core import refine
     from repro_torch.core.pivoted import PivotedFactors
-    from repro_torch.serve import SolveService, fingerprint
+    from repro_torch.serve import Engine, GenRequest, SolveService, bucket_length, fingerprint
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import paged_attn
+    from repro_torch.models import lm
     from repro_torch.solvers.backends import RAND_LU_RESIDUAL_BOUND, banded_static_impl, blocked_launches
 
     dev = torch.device("cuda")
@@ -398,6 +424,42 @@ def main() -> int:
                     banded.banded_lu_kernelized(sband, bw=SERVE_BAND[1]), plain)
     print(f"  the plain scalar band factor at n={SERVE_BAND[0]} bw={SERVE_BAND[1]}, one call: "
           f"{legacy_plain_ms['scalar band']:.1f} ms", flush=True)
+
+    # ---- 3e. the paged decode attention against its plain version ---------
+    print(f"phase 3e: paged decode attention (B13) vs plain (normwise, tolerance {PAGED_TOL})", flush=True)
+    mcfg = get_config(LM_ARCH)
+    kvh, dh = mcfg.num_kv_heads, mcfg.resolved_head_dim
+    served_np = LM_MAX_LEN // PAGE
+
+    def paged_case(b, h, np_, dtype, seed, holes=True):
+        """B13's inputs: b rows of np_ distinct pages of 16 over a pool of
+        b * np_ + 1 pages; with ``holes``, a -1 inside row 0's length and one
+        past the last row's; row 0 ends mid-page."""
+        g = torch.Generator(device=dev).manual_seed(seed)
+        pool = b * np_ + 1
+        q = torch.randn((b, h, dh), generator=g, device=dev).to(dtype)
+        kp = torch.randn((pool, PAGE, kvh, dh), generator=g, device=dev).to(dtype)
+        vp = torch.randn((pool, PAGE, kvh, dh), generator=g, device=dev).to(dtype)
+        table = (1 + torch.randperm(pool - 1, generator=g, device=dev)).reshape(b, np_).to(torch.int32)
+        lengths = torch.full((b,), np_ * PAGE, dtype=torch.int32, device=dev)
+        if holes:
+            lengths[0] = (np_ - 3) * PAGE + 7
+            lengths[-1] = (np_ - 2) * PAGE + 5
+            table[0, 1] = -1
+            table[-1, -1] = -1
+        return q, kp, vp, table, lengths
+
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).removeprefix("torch.")
+        for h in (mcfg.num_heads, kvh):  # rep 4 and rep 1
+            for b, np_ in ((LM_SLOTS, served_np), DECODE_HEAVY):
+                if np_ != served_np and h != mcfg.num_heads:
+                    continue
+                args = paged_case(b, h, np_, dtype, 1500 + b + h)
+                compare("paged_decode_attention", f"B={b} NP={np_} rep={h // kvh} {dname}",
+                        paged_attn.paged_decode_attention(*args),
+                        paged_attn.paged_decode_attention_plain(*args), PAGED_TOL[dname])
+                del args
 
     # ---- 4. the main paths -----------------------------------------------
     print("phase 4: main path", flush=True)
@@ -940,6 +1002,126 @@ def main() -> int:
     for k in lwrappers:
         legacy_launches[k] += serve_launches[k]
 
+    print(f"phase 4i: the serving path, {LM_ARCH} at full width", flush=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model = lm.init_params(torch.Generator(device=dev).manual_seed(0), mcfg)
+    torch.cuda.synchronize()
+    nparams = sum(p.numel() for p in model.parameters())
+    wbytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    print(f"  {mcfg.name}: {mcfg.num_layers} layers, d={mcfg.d_model}, {mcfg.num_heads} heads, {kvh} KV "
+          f"heads, Dh={dh}, d_ff={mcfg.d_ff}, vocab {mcfg.vocab_size}, {mcfg.dtype}: "
+          f"{nparams / 1e9:.3f} G parameters, {wbytes / 1e9:.2f} GB, drawn on the card in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    rng = np.random.default_rng(1600)
+    shared = rng.integers(0, mcfg.vocab_size, SHARED_PREFIX)
+    prompts = [rng.integers(0, mcfg.vocab_size, n).astype(np.int32) for n in rng.integers(64, 513, LM_REQS)]
+    for i in (1, 5):  # two requests share a 256-token prefix (and a bucket: 320 tokens each)
+        prompts[i] = np.concatenate([shared, rng.integers(0, mcfg.vocab_size, 64)]).astype(np.int32)
+    news = [int(n) for n in rng.integers(32, 65, LM_REQS)]
+    eos_rid = 3
+    # the EOS request stops at its third greedy token, read from a short serve
+    probe = Engine(model, mcfg, max_len=LM_MAX_LEN, slots=1, bucket=LM_BUCKET)
+    eos_tok = int(probe.serve([GenRequest(prompts[eos_rid], 4)])[0][len(prompts[eos_rid]) + 2])
+    lm_reqs = [GenRequest(p, n, eos_token=eos_tok if i == eos_rid else None)
+               for i, (p, n) in enumerate(zip(prompts, news))]
+    pwrappers = {"paged_decode_attention": paged_attn.paged_decode_attention}
+    served, engines, lm_launches = {}, {}, {}
+    for paged in (False, True):
+        label = "paged" if paged else "dense"
+        eng = Engine(model, mcfg, max_len=LM_MAX_LEN, slots=LM_SLOTS, bucket=LM_BUCKET,
+                     **(dict(paged=True, page_size=PAGE) if paged else {}))
+        zero(pwrappers)
+        t0 = time.perf_counter()
+        served[label] = eng.serve(lm_reqs)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        lm_launches[label] = paged_attn.paged_decode_attention.launches
+        engines[label] = eng
+        st = eng.stats
+        line = (f"  {label}: {len(lm_reqs)} requests, {st.generated_tokens} new tokens in {dt * 1e3:.1f} ms "
+                f"(host clock) = {len(lm_reqs) / dt:.2f} requests/s, {st.generated_tokens / dt:.1f} tokens/s; "
+                f"{st.prefill_dispatches} prefill + {st.decode_dispatches} decode dispatches, "
+                f"{dt * 1e3 / st.decode_dispatches:.2f} ms per decode step with the prefills; "
+                f"B13 launches {lm_launches[label]}; early exits {st.early_exits}")
+        if paged:
+            line += (f"; prefix hits {st.prefix_hits} ({st.prefix_hit_tokens} tokens); pool peak "
+                     f"{st.pool_peak_pages}/{eng.pool.capacity} pages of {PAGE}")
+        print(line + f" (card: {card})", flush=True)
+    pst = engines["paged"].stats
+    if lm_launches["dense"] != 0 or lm_launches["paged"] != mcfg.num_layers * pst.decode_dispatches:
+        fail(f"B13 launches {lm_launches}: expected none dense and {mcfg.num_layers} per paged decode step")
+    if pst.prefix_hits < 1:
+        fail("the paged serve made no warm admission")
+    # a warm admission prefills the suffix alone, so its first token comes
+    # from another prefill; every other first token comes from the same one
+    order = [rid for kind, rid in pst.events if kind == "prefill"]
+    warm_rid = max((1, 5), key=order.index)
+    agree = total = 0
+    for i, (a, b) in enumerate(zip(served["dense"], served["paged"])):
+        s0 = len(prompts[i])
+        if len(a) < s0 + 1 or len(b) < s0 + 1 or (a[s0] != b[s0] and i != warm_rid):
+            fail(f"request {i}: first tokens {a[s0:s0 + 1]} (dense) and {b[s0:s0 + 1]} (paged)")
+        n = min(len(a), len(b)) - s0
+        agree += int((a[s0:s0 + n] == b[s0:s0 + n]).sum())
+        total += max(len(a), len(b)) - s0
+        if not (np.array_equal(a[:s0], prompts[i]) and np.array_equal(b[:s0], prompts[i])):
+            fail(f"request {i}: the prompt does not lead the output")
+    print(f"  first tokens equal (the warm request {warm_rid}: "
+          f"{served['dense'][warm_rid][len(prompts[warm_rid])] == served['paged'][warm_rid][len(prompts[warm_rid])]}); "
+          f"served tokens that agree: {agree}/{total} = {agree / total:.3f}", flush=True)
+
+    # the paged decode step against the dense one, teacher-forced on the dense
+    # engine's tokens over 8 steps, from the same prefills
+    tf_rows = [i for i in range(LM_REQS) if i != eos_rid][:LM_SLOTS]
+    nrow, L = len(tf_rows), mcfg.num_layers
+    dcache = lm.init_caches(mcfg, nrow, LM_MAX_LEN)
+    pcache = lm.init_paged_caches(mcfg, nrow, nrow * served_np + 1, PAGE)
+    table = (1 + torch.arange(nrow * served_np, device=dev, dtype=torch.int32)).reshape(nrow, served_np)
+    for r, i in enumerate(tf_rows):
+        s0 = len(prompts[i])
+        lb = bucket_length(s0, LM_BUCKET)
+        toks = np.zeros((1, lb), np.int32)
+        toks[0, :s0] = prompts[i]
+        raw, _ = lm.prefill(model, {"tokens": toks}, mcfg, last=[s0 - 1], raw_kv=True)
+        npg = -(-lb // PAGE)
+        for key in ("k", "v"):
+            fresh = raw["attn"][key][:, 0]  # (L, lb, KV, Dh)
+            dcache["attn"][key][:, r, :lb] = fresh
+            pages = torch.nn.functional.pad(fresh, (0, 0, 0, 0, 0, npg * PAGE - lb))
+            pcache["attn"][f"{key}_pages"][:, table[r, :npg].long()] = pages.reshape(L, npg, PAGE, kvh, dh)
+        dcache["attn"]["pos"][:, r] = torch.where(torch.arange(LM_MAX_LEN, device=dev) < s0,
+                                                  torch.arange(LM_MAX_LEN, device=dev), -1).to(torch.int32)
+    pos = torch.tensor([len(prompts[i]) for i in tf_rows], dtype=torch.int32, device=dev)
+    worst_logits = 0.0
+    for t in range(TEACHER_STEPS):
+        tok = torch.tensor([[int(served["dense"][i][len(prompts[i]) + t])] for i in tf_rows], device=dev)
+        _, dl = lm.decode_step(model, dcache, tok, pos, mcfg)
+        _, pl = lm.decode_step(model, pcache, tok, pos, mcfg, page_table=table)
+        if not bool(torch.isfinite(pl).all()) or pl.shape != dl.shape:
+            fail(f"paged logits at step {t}: shape {tuple(pl.shape)} or non-finite")
+        worst_logits = max(worst_logits, float((pl - dl).abs().max() / dl.abs().max()))
+        if t < TEACHER_STEPS - 1:
+            pos += 1
+    print(f"  teacher-forced over {TEACHER_STEPS} steps, {nrow} rows: paged against dense logits, worst "
+          f"normwise {worst_logits:.3e} (tolerance {LOGITS_TOL:.0e})", flush=True)
+    if not worst_logits <= LOGITS_TOL:
+        fail(f"paged decode logits {worst_logits:.3e} from the dense ones")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--arch", LM_ARCH, "--paged", "--batch", "4",
+           "--new-tokens", "16"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, env=dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src")),
+                          capture_output=True, text=True, timeout=600)
+    print(f"  python -m repro_torch.launch.serve --arch {LM_ARCH} --paged --batch 4 --new-tokens 16: exit "
+          f"{proc.returncode} in {time.perf_counter() - t0:.1f} s (process start and weight draw included)",
+          flush=True)
+    for out_line in proc.stdout.strip().splitlines():
+        print(f"    {out_line}", flush=True)
+    if proc.returncode or "served 4 requests (64 new tokens)" not in proc.stdout:
+        fail(f"the serving launcher: {proc.stderr.strip()[-2000:]}")
+
     # ---- 5. times --------------------------------------------------------
     print(f"phase 5: times (ms, median of {REPS} after 1 warm-up; card: {card})", flush=True)
 
@@ -1230,6 +1412,70 @@ def main() -> int:
                   f"faster: {'cuda_blocked' if tb <= tt else 'cuda_tiled'}  "
                   f"static rule: {banded_static_impl(bw)}", flush=True)
 
+    print("  paged decode attention (B13); library: the page gather + scaled_dot_product_attention"
+          "(enable_gqa=True) with a length mask, two calls", flush=True)
+
+    def gather_sdpa(q, kp, vp, table, lengths):
+        b, h, _ = q.shape
+        np_, page = table.shape[1], kp.shape[1]
+        safe = table.clamp_min(0).long()
+        k = kp[safe].reshape(b, np_ * page, kvh, dh).transpose(1, 2)
+        v = vp[safe].reshape(b, np_ * page, kvh, dh).transpose(1, 2)
+        mask = (torch.arange(np_ * page, device=dev) < lengths[:, None])[:, None, None, :]
+        return torch.nn.functional.scaled_dot_product_attention(q[:, :, None], k, v, attn_mask=mask,
+                                                                enable_gqa=True)
+
+    def record_b13(shape, args):
+        q, kp, vp, table, lengths = args
+        b, h, _ = q.shape
+        np_, page, es = table.shape[1], kp.shape[1], q.element_size()
+        live = lengths.clamp(0, np_ * page)
+        read = (torch.arange(np_, device=dev)[None] < (live[:, None] + page - 1) // page) & (table >= 0)
+        # the live pages' K and V once, q in and the output out, the table and lengths
+        nbytes = 2 * int(read.sum()) * page * kvh * dh * es + 2 * b * h * dh * es + (table.numel() + b) * 4
+        kernel = lambda: paged_attn.paged_decode_attention(*args)
+        record("paged_decode_attention", shape, timed(kernel),
+               timed(lambda: paged_attn.paged_decode_attention_plain(*args)),
+               library(lambda: gather_sdpa(*args)), 4 * int(live.sum()) * h * dh, nbytes,
+               per_call(paged_attn.paged_decode_attention, kernel))
+
+    g = torch.Generator(device=dev).manual_seed(1700)
+    served_args = (torch.randn((nrow, mcfg.num_heads, dh), generator=g, device=dev).to(torch.bfloat16),
+                   pcache["attn"]["k_pages"][0], pcache["attn"]["v_pages"][0], table, pos + 1)
+    served_shape = f"B={nrow} NP={served_np} bf16"
+    record_b13(served_shape, served_args)
+    heavy_shape = f"B={DECODE_HEAVY[0]} NP={DECODE_HEAVY[1]} bf16"
+    record_b13(heavy_shape, paged_case(DECODE_HEAVY[0], mcfg.num_heads, DECODE_HEAVY[1], torch.bfloat16,
+                                       1800, holes=False))
+
+    kv_bytes = 2 * L * int(pos.sum()) * kvh * dh * 2  # the live K/V a step reads
+    step_bound = (wbytes + kv_bytes) / PEAK_BYTES * 1e3
+    print(f"  one {LM_ARCH} decode step, {nrow} rows at positions {pos.tolist()} (CUDA events, median of "
+          f"{REPS}); bound: the weights' {wbytes / 1e9:.2f} GB and the live K/V's {kv_bytes / 1e6:.1f} MB "
+          f"over 3.35 TB/s = {step_bound:.3f} ms", flush=True)
+    tok = torch.zeros((nrow, 1), dtype=torch.long, device=dev)
+    steps = {"dense": lambda: lm.decode_step(model, dcache, tok, pos, mcfg),
+             "paged": lambda: lm.decode_step(model, pcache, tok, pos, mcfg, page_table=table)}
+    for label, fn in steps.items():
+        ms = timed(fn)
+        host = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            host.append((time.perf_counter() - t0) * 1e3)
+        host = statistics.median(host)
+        rows_k = kernel_breakdown(fn)
+        busy = sum(us for _, us, _ in rows_k) / 1e3
+        nk = sum(c for _, _, c in rows_k)
+        idle = f"{max(0.0, 1 - busy / host):.3f}" if busy > 0 else "not measured"
+        print(f"    {label}: {ms:.3f} ms (events), {host:.3f} ms (host clock, median of 3), "
+              f"{ms / step_bound:.2f}x the bound; device busy {busy:.3f} ms over {nk} device "
+              f"operations, idle share {idle} (card: {card})", flush=True)
+        for name, us, count in rows_k[:6]:
+            print(f"      {name[:60]:60s} {us / 1e3:9.3f} ms  x{count}", flush=True)
+
     # ---- 6. kernels line + result ----------------------------------------
     shoot = f"n={SHOOTOUT[0]} bw={SHOOTOUT[1]}"
     ens = f"B={ENSEMBLE_MEMBERS} n={ENSEMBLE_NX ** 2} bw={ENSEMBLE_NX}"
@@ -1242,7 +1488,8 @@ def main() -> int:
                   "lu_vmem": f"n={VMEM_SIZES[-1]}", "panel": f"m=2000 b={LEGACY_BLOCK}",
                   "fused_step": "n=2000 step 1",
                   "update": f"({wpad}, {LEGACY_BLOCK}, {wpad})",
-                  "banded_lu_kernelized": f"n={SERVE_BAND[0]} bw={SERVE_BAND[1]}"}
+                  "banded_lu_kernelized": f"n={SERVE_BAND[0]} bw={SERVE_BAND[1]}",
+                  "paged_decode_attention": served_shape}
     source = {"lu_fused": "src/repro_torch/csrc/ebv_lu.cu", "solve_vmem": "src/repro_torch/csrc/trsm.cu",
               "solve_tiled": "src/repro_torch/csrc/trsm.cu", "solve_inverted": "src/repro_torch/csrc/trsm.cu",
               **dict.fromkeys(bwrappers, "src/repro_torch/csrc/banded.cu"),
@@ -1250,7 +1497,8 @@ def main() -> int:
               **dict.fromkeys(ewrappers, "src/repro_torch/csrc/banded.cu"),
               **dict.fromkeys(("lu_vmem", "panel", "fused_step", "update"),
                               "src/repro_torch/csrc/legacy_lu.cu"),
-              "banded_lu_kernelized": "src/repro_torch/csrc/banded.cu"}
+              "banded_lu_kernelized": "src/repro_torch/csrc/banded.cu",
+              "paged_decode_attention": "src/repro_torch/csrc/paged_attn.cu"}
     replaces = {"lu_fused": "src/repro/kernels/ebv_lu.py:349", "solve_vmem": "src/repro/kernels/trsm.py:62",
                 "solve_tiled": "src/repro/kernels/trsm.py:160",
                 "solve_inverted": "src/repro/kernels/trsm.py:251",
@@ -1265,18 +1513,21 @@ def main() -> int:
                 "lu_vmem": "src/repro/kernels/ebv_lu.py:96", "panel": "src/repro/kernels/ebv_lu.py:119",
                 "fused_step": "src/repro/kernels/ebv_lu.py:154",
                 "update": "src/repro/kernels/ebv_lu.py:407",
-                "banded_lu_kernelized": "src/repro/kernels/banded.py:102"}
+                "banded_lu_kernelized": "src/repro/kernels/banded.py:102",
+                "paged_decode_attention": "src/repro/kernels/paged_attn.py:87"}
     launches.update(batched_launches)
     launches.update(legacy_launches)
     launches.update(update_launches)
     launches.update(dict.fromkeys(qwrappers, 0))  # B18 runs on the service path only
+    launches["paged_decode_attention"] = lm_launches["paged"]  # B13 runs on the serving path only
     # the kernels the tiers and the service launched, beside their own paths'
     for counts in (tier_launches, tier_opt_launches, serve_launches):
         for k, v in counts.items():
             if k not in lwrappers:  # the legacy kernels' service launches are in already
                 launches[k] += v
     kernels = []
-    for name in {**wrappers, **bwrappers, **dwrappers, **ewrappers, **lwrappers, **uwrappers, **qwrappers}:
+    for name in {**wrappers, **bwrappers, **dwrappers, **ewrappers, **lwrappers, **uwrappers, **qwrappers,
+                 **pwrappers}:
         row = rows[(name, line_shape[name])]
         kernels.append({
             "name": name, "route": "cuda", "source": source[name], "replaces": replaces[name],

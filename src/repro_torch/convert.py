@@ -3,9 +3,10 @@
 The solver's state is the matrix, the right-hand sides and the
 ``Factorization`` artifact (a stack of them for the batched path); the
 optimizer's is the parameter tree and its ``step``/``mu``/``nu``/``cov``
-state.  These helpers take the numpy arrays ``np.asarray`` gives of the
-reference's tensors and rebuild them here, on the card unless
-``device="cpu"`` is asked for.
+state; the language model's is its parameter tree.  These helpers take the
+numpy arrays ``np.asarray`` gives of the reference's tensors (bfloat16
+ones included) and rebuild them here, on the card unless ``device="cpu"``
+is asked for.
 """
 from __future__ import annotations
 
@@ -16,12 +17,16 @@ from . import device as _device
 from .core.factorization import Factorization
 
 __all__ = ["tensor_from_numpy", "factorization_from_numpy", "named_leaves",
-           "optimizer_from_numpy"]
+           "optimizer_from_numpy", "lm_params_from_numpy"]
 
 
 def tensor_from_numpy(x, *, device=None) -> torch.Tensor:
-    """A numpy matrix or RHS as a tensor of the same dtype on ``device``."""
-    return torch.from_numpy(np.array(x)).to(_device.resolve(device))  # a writable copy
+    """A numpy array as a tensor of the same dtype on ``device``; a
+    bfloat16 array (numpy's ``ml_dtypes`` extension type) as bfloat16."""
+    x = np.array(x)  # a writable copy
+    if x.dtype.name == "bfloat16":
+        return torch.from_numpy(x.view(np.uint16)).view(torch.bfloat16).to(_device.resolve(device))
+    return torch.from_numpy(x).to(_device.resolve(device))
 
 
 def factorization_from_numpy(packed, linv=None, uinv=None, tlo=None, tup=None, *, block: int,
@@ -81,3 +86,28 @@ def optimizer_from_numpy(params, state, make_optimizer, *, device=None):
             for key, leaves in parts.items():
                 st[key] = tensor_from_numpy(leaves[name], device=dev)
     return named, opt
+
+
+def lm_params_from_numpy(tree, cfg, *, device=None):
+    """The reference's language-model parameter tree (``models/lm.py:
+    init_params`` as numpy arrays: ``embed``, ``ln_f.scale``, ``unembed``
+    and ``blocks`` stacked on a leading layer axis) as this package's
+    :class:`repro_torch.models.lm.LM`, so both compute the same function."""
+    from .models import lm
+
+    dev = _device.resolve(device)
+    model = lm.init_params(0, cfg, device=dev)
+    leaves = named_leaves(tree)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            parts = name.split(".")
+            if parts[0] == "blocks":  # blocks.<layer>.<path> ← blocks.<path>[layer]
+                x = np.asarray(leaves[".".join(["blocks"] + parts[2:])])[int(parts[1])]
+            else:
+                x = leaves[name]
+            t = tensor_from_numpy(x, device=dev)
+            if t.shape != p.shape or t.dtype != p.dtype:
+                raise ValueError(f"{name}: the tree holds {tuple(t.shape)} {t.dtype}, the model "
+                                 f"{tuple(p.shape)} {p.dtype}")
+            p.copy_(t)
+    return model

@@ -53,6 +53,7 @@ _SIGNATURES = {
     "ebv_legacy_walk": [_P, _I, _I, _I, _I, _P, _P, _N],
     "ebv_legacy_fused_step": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "ebv_legacy_update": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "ebv_paged_decode_attention": [_P] * 7 + [_I] * 8 + [ctypes.c_float, _I, _P],
 }
 
 

@@ -1,7 +1,7 @@
 """Shape-bucketed request queue with EBV-style equalized slot filling.
 
 The scheduler is the admission layer shared by the generation engine
-(the reference's ``serve/engine.py``, not ported yet) and the linear-system
+(:mod:`repro_torch.serve.engine`) and the linear-system
 front end (:mod:`repro_torch.serve.solve_service`).  It is the reference's
 ``serve/scheduler.py`` as it is: plain Python, no tensors.  It is
 payload-agnostic: callers submit opaque payloads tagged with a *bucket*

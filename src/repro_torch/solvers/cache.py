@@ -132,6 +132,20 @@ class AutotuneCache:
             {str(int(w)): round(float(v), 2) for w, v in width_us.items()})
         return entry
 
+    def record_page_sizes(self, problem: Problem, page_us: dict[int, float]) -> dict:
+        """Merge KV-cache page-size timings (page size → measured paged-serve
+        µs at that size) into ``problem``'s entry (op="decode",
+        structure="paged_kv", n=max_len); read by :meth:`best_page_size`,
+        the serving engine's default page size."""
+        entry = self.lookup(problem)
+        if entry is None:
+            entry = dict(zip(_KEY_FIELDS, _problem_key(problem)))
+            entry["times_us"] = {}
+            self.entries.append(entry)
+        entry.setdefault("page_us", {}).update(
+            {str(int(p)): round(float(v), 2) for p, v in page_us.items()})
+        return entry
+
     def lookup(self, problem: Problem) -> dict | None:
         key = _problem_key(problem)
         return next((e for e in self.entries if _entry_key(e) == key), None)
@@ -162,7 +176,6 @@ class AutotuneCache:
                 return min(times, key=times.get)
         return None
 
-
     def best_width(self, problem: Problem) -> int | None:
         """Measured most µs-per-column-efficient coalescing width for the
         nearest matching stacked-RHS sweep, or None when nothing
@@ -171,6 +184,16 @@ class AutotuneCache:
             wu = e.get("width_us")
             if wu:
                 return int(min(wu, key=lambda w: wu[w] / int(w)))
+        return None
+
+    def best_page_size(self, problem: Problem) -> int | None:
+        """Measured fastest KV page size for the nearest matching paged-serve
+        sweep, or None when nothing transferable was measured (the engine
+        then takes its default, 16)."""
+        for _, e in self._matches(problem):
+            pu = e.get("page_us")
+            if pu:
+                return int(min(pu, key=pu.get))
         return None
 
 

@@ -21,7 +21,10 @@ in another order than cuBLAS and are held to 1e-5 in fp32 and to 2e-2
 (a few bf16 units) in bf16.  A
 packed factor is compared as its L (strictly lower) and its U (upper)
 apart, each against its own largest entry: U's diagonal is ~n/2 and L's
-entries ~1/n, so one norm over both would not see L.
+entries ~1/n, so one norm over both would not see L.  The paged decode
+attention (B13) is held to 1e-5 in fp32 and 1e-2 in bf16 (its sums run in
+another order; ``chip_smoke.py`` measured <= 2.4e-6 and <= 2.7e-3 on an
+H100).
 """
 import numpy as np
 import pytest
@@ -37,7 +40,7 @@ from repro_torch.core.factorization import (
 )
 from repro_torch.core.banded import banded_solve_blocked
 from repro_torch.core.health import relative_residual
-from repro_torch.kernels import _build, banded, batched_lu, ebv_lu, ops, ref, trsm
+from repro_torch.kernels import _build, banded, batched_lu, ebv_lu, ops, paged_attn, ref, trsm
 
 pytestmark = pytest.mark.cuda
 TOL = 1e-4
@@ -533,3 +536,85 @@ def test_a_service_flush_on_the_card(card):
     svc.flush()
     assert svc.stats.factor_dispatches == 3 and svc.stats.cache_hits > svc.stats.cache_misses
     svc.result(tk)
+
+
+# ---------------------------------------------------------------------------
+# the paged decode attention (B13) and the serving path
+# ---------------------------------------------------------------------------
+PAGED_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+
+
+def paged_inputs(b, h, kv, dh, page, np_, pool, dtype, card, seed=0):
+    rng = np.random.default_rng(seed)
+    q = torch.from_numpy(rng.standard_normal((b, h, dh)).astype(np.float32)).to(card, dtype)
+    kp = torch.from_numpy(rng.standard_normal((pool, page, kv, dh)).astype(np.float32)).to(card, dtype)
+    vp = torch.from_numpy(rng.standard_normal((pool, page, kv, dh)).astype(np.float32)).to(card, dtype)
+    table = rng.integers(1, pool, (b, np_)).astype(np.int32)
+    table[0, 0] = -1          # a hole inside the live length
+    table[-1, np_ // 2] = -1  # another, mid-row
+    table[:, -1] = -1         # holes at and past the end
+    lengths = rng.integers(1, np_ * page + 1, b).astype(np.int32)
+    lengths[0] = np_ * page - page // 2  # ends mid-page
+    return q, kp, vp, torch.from_numpy(table).to(card), torch.from_numpy(lengths).to(card)
+
+
+# (B, H, KV, Dh, page, NP, pool): llama3-8b's served shape (rep 4); rep 1;
+# the reduced config; a row too long for its scores in shared memory
+PAGED_SHAPES = [(4, 32, 8, 128, 16, 37, 149), (4, 8, 8, 128, 16, 37, 149), (3, 4, 2, 16, 8, 8, 30),
+                (2, 4, 1, 64, 16, 600, 1300)]
+
+
+@pytest.mark.parametrize("shape", PAGED_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_attention_kernel_matches_plain(shape, dtype, card):
+    args = paged_inputs(*shape, dtype, card, seed=sum(shape))
+    before = paged_attn.paged_decode_attention.launches
+    got = paged_attn.paged_decode_attention(*args)
+    assert paged_attn.paged_decode_attention.launches == before + 1
+    assert got.dtype == dtype and got.shape == (shape[0], shape[1] * shape[3])
+    close(got, paged_attn.paged_decode_attention_plain(*args), PAGED_TOL[dtype])
+
+
+def test_a_paged_attention_launch_that_fails_raises(card, monkeypatch):
+    args = paged_inputs(*PAGED_SHAPES[2], torch.float32, card)
+
+    class Refusing:  # a library whose launch reports cudaErrorInvalidConfiguration
+        def ebv_paged_decode_attention(self, *a):
+            return 9
+
+        def ebv_error_string(self, code):
+            return b"invalid configuration argument"
+
+    before = paged_attn.paged_decode_attention.launches
+    monkeypatch.setattr(_build, "library", lambda: Refusing())
+    with pytest.raises(RuntimeError, match="CUDA error 9"):
+        paged_attn.paged_decode_attention(*args)
+    assert paged_attn.paged_decode_attention.launches == before
+
+    def broken():
+        raise RuntimeError("kernel library failed to load")
+
+    monkeypatch.setattr(_build, "library", broken)
+    with pytest.raises(RuntimeError, match="failed to load"):
+        paged_attn.paged_decode_attention(*args)
+
+
+def test_a_paged_serve_on_the_card_equals_the_dense_one(card):
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+    from repro_torch.serve import Engine, GenRequest
+
+    cfg = get_config("llama3_8b").reduced()
+    model = lm.init_params(0, cfg, device=card)
+    rng = np.random.default_rng(42)
+    reqs = [GenRequest(rng.integers(0, cfg.vocab_size, (s,)).astype(np.int32), n, seed=i)
+            for i, (s, n) in enumerate(zip([3, 9, 5, 12, 2, 7], [9, 2, 5, 3, 11, 4]))]
+    dense = Engine(model, cfg, max_len=64, slots=4, bucket=4)
+    want = dense.serve(reqs)
+    paged = Engine(model, cfg, max_len=64, slots=4, bucket=4, paged=True, page_size=8)
+    before = paged_attn.paged_decode_attention.launches
+    got = paged.serve(reqs)
+    assert paged_attn.paged_decode_attention.launches - before == \
+        cfg.num_layers * paged.stats.decode_dispatches
+    for a, b in zip(want, got):
+        np.testing.assert_array_equal(a, b)
