@@ -9,7 +9,8 @@ Phases (any failure exits non-zero):
 
 1. card: name and power limit (``nvidia-smi``), torch and CUDA versions;
 2. build: the CUDA sources under ``src/repro_torch/csrc`` with ``nvcc``;
-3. kernels against their plain PyTorch versions on the card; 3c the
+3. kernels against their plain PyTorch versions on the card (B3 and B4 also
+   at n = 1, 100 and 2049 with 1, 33 and 300 RHS columns); 3c the
    batched kernels (B9-B12) at the batched paths' shapes; 3d the legacy
    dense kernels (B14-B17) at the legacy paths' shapes and the legacy
    scalar band factor (B18) at the band the service escalates to it; 3e the
@@ -68,7 +69,9 @@ Phases (any failure exits non-zero):
    factor's one call), the bound,
    launches per call and peak memory;
    the ``cuda_vmem`` / ``cuda_tiled`` and ``cuda_blocked`` / ``cuda_tiled``
-   crossovers; the optimizer step's time; device time by kernel; B13 at the
+   crossovers; the optimizer step's time; device time by kernel (B3 and B4
+   at n = 8000 among them) and each dense solve step's time beside the
+   host's enqueue time per launch; B13 at the
    served and the decode-heavy shape; one full-width decode step against
    its weight-bytes bound, with its device idle share;
 6. the ``kernels`` JSON line, the card line and the result line.
@@ -94,6 +97,9 @@ PEAK_BYTES = 3.35e12
 KERNEL_TOL = 1e-4
 SIZES = (500, 2000, 8000)
 WIDE = 64
+# B3 and B4 at shapes across their tiles (phase 3): n = 1, under one tile,
+# ragged; RHS widths narrow (<= 4 columns), wide (<= 64) and several tiles
+RAGGED_N, RAGGED_M = (1, 100, 2049), (1, 33, 300)
 REPS = 5
 # (n, bw) of the banded main path: the paper's Table 1 bands
 # (benchmarks/table1_sparse.py), the reference's banded shootout
@@ -278,6 +284,18 @@ def main() -> int:
                     trsm.solve_tiled_plain(lus[n], b))
             compare("solve_inverted", f"n={n} m={m}", trsm.solve_inverted(lus[n], linv, uinv, b),
                     dense_inverted_solve(lus[n], linv, uinv, b))
+    # B3 and B4 across their splits: n = 1, n under one 128-tile, a ragged
+    # n = 2049 (B4 also from 128- and 512-blocks, the latter in two passes);
+    # narrow, wide and several wide tiles
+    for n in RAGGED_N:
+        lu = ebv_lu.lu_fused(matrix(n, 900 + n))
+        for m in RAGGED_M:
+            b = rhs(n, m, 910 + m)
+            compare("solve_tiled", f"n={n} m={m}", trsm.solve_tiled(lu, b), trsm.solve_tiled_plain(lu, b))
+            for blk in (128, 256, 512) if n > 128 else (256,):
+                linv, uinv = dense_block_inverses(lu, block=blk)
+                compare("solve_inverted", f"n={n} m={m} B={linv.shape[1]}",
+                        trsm.solve_inverted(lu, linv, uinv, b), dense_inverted_solve(lu, linv, uinv, b))
 
     def compare_band_lu(name, shape, got, want, bw):
         # L (columns 0..bw-1) and U (bw..2bw) of the packed band apart
@@ -494,10 +512,14 @@ def main() -> int:
             fail(f"{label}: result of shape {tuple(x.shape)} or non-finite")
         if not res <= solvers.VERIFY_RESIDUAL_DEFAULT_BOUND:
             fail(f"{label}: residual {res:.3e} > {solvers.VERIFY_RESIDUAL_DEFAULT_BOUND}")
-    # the C driver reports what it launched; 4S-3 per factor is what it should launch
-    expected_lu = sum(ebv_lu.fused_launches(n) for n, _, _, _ in cases) + ebv_lu.fused_launches(8000)
-    if launches["lu_fused"] != expected_lu or min(launches.values()) < 1:
-        fail(f"launch counters {launches} (lu_fused expected {expected_lu})")
+    # the C drivers report what they launched: 4S-3 per factor, one step per
+    # launch of solve_tiled (2S), two of solve_inverted (4S-2)
+    expected = {"lu_fused": sum(ebv_lu.fused_launches(n) for n, _, _, _ in cases) + ebv_lu.fused_launches(8000),
+                "solve_vmem": sum(1 for n, _, _, _ in cases if n <= 2048),
+                "solve_tiled": sum(trsm.tiled_launches(n) for n, _, _, _ in cases if n > 2048),
+                "solve_inverted": trsm.inverted_launches(8000, f.linv.shape[1])}
+    if launches != expected:
+        fail(f"launch counters {launches}, expected {expected}")
     a5, b5, x5 = cases[0][2], cases[0][3], results[0][3]
     want5 = ref.solve_ref(ref.lu_ref(a5.double().cpu().numpy()), b5.double().cpu().numpy())
     err5 = float(np.abs(x5.double().cpu().numpy() - want5).max() / np.abs(want5).max())
@@ -1379,6 +1401,7 @@ def main() -> int:
     pfactor = bwrappers[factor_wrapper[banded_static_impl(POISSON_NX)]]
     for label, fn in (("lu_fused n=8000", lambda: ebv_lu.lu_fused(a8)),
                       ("solve_tiled n=8000 m=1", lambda: trsm.solve_tiled(lus[8000], b8)),
+                      ("solve_inverted n=8000 m=1", lambda: trsm.solve_inverted(lus[8000], *inverses[8000], b8)),
                       (f"{pfactor.__name__} n={pn} bw={POISSON_NX}", lambda: pfactor(ap, bw=POISSON_NX)),
                       ("whisper-tiny optimizer step", lambda: opts["whisper-tiny"].step())):
         rows_k = kernel_breakdown(fn)
@@ -1391,6 +1414,27 @@ def main() -> int:
                   f"{max(0.0, 1 - busy / step):.3f}", flush=True)
         for name, us, count in rows_k[:12]:
             print(f"    {label:24s} {name[:48]:48s} {us / 1e3:9.3f} ms  x{count}", flush=True)
+
+    # a step of B3 / B4 is one / two launches in stream order: the step's time
+    # on the card beside the host's time to enqueue a launch, below which no
+    # step can go (the steps' only sync is the launch boundary)
+    print(f"  the steps of the dense solves at n=8000 (card: {card}):", flush=True)
+    linv8, uinv8 = inverses[8000]
+    for name, call, nl in (("solve_tiled", lambda b: trsm.solve_tiled(lus[8000], b), trsm.tiled_launches(8000)),
+                           ("solve_inverted", lambda b: trsm.solve_inverted(lus[8000], linv8, uinv8, b),
+                            trsm.inverted_launches(8000, linv8.shape[1]))):
+        for m in (1, WIDE):
+            b = rhs(8000, m, 12)
+            host = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                call(b)  # returns once every launch is queued
+                host.append((time.perf_counter() - t0) * 1e3)
+            torch.cuda.synchronize()
+            ms = rows[(name, f"n=8000 m={m}")]["ms"]
+            print(f"    {name:15s} m={m:3d}: {nl} launches, {1e3 * ms / nl:.2f} us per launch on the card "
+                  f"(events), host enqueue {1e3 * statistics.median(host) / nl:.2f} us per launch", flush=True)
 
     print("  cuda_vmem / cuda_tiled crossover (kernel ms):", flush=True)
     for n in (500, 1000, 2000, 4000, 8000):

@@ -59,7 +59,8 @@ def _packed_block_inverses(diags: torch.Tensor) -> tuple[torch.Tensor, torch.Ten
     eye = torch.eye(b, dtype=diags.dtype, device=diags.device).expand(diags.shape)
     linv = torch.linalg.solve_triangular(diags, eye, upper=False, unitriangular=True)
     uinv = torch.linalg.solve_triangular(diags, eye, upper=True)
-    return linv, uinv
+    # row-major once here, so that no kernel call copies them again
+    return linv.contiguous(), uinv.contiguous()
 
 
 def dense_block_inverses(lu: torch.Tensor, *, block: int) -> tuple[torch.Tensor, torch.Tensor]:

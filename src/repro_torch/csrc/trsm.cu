@@ -1,48 +1,76 @@
 // Forward (unit-lower) and backward (upper) substitution on a packed no-pivot
-// LU, fp32, for Hopper (sm_90a).  Three kernels, one block per RHS tile:
+// LU, fp32, for Hopper (sm_90a).
 //
 // solve_vmem_kernel — replaces src/repro/kernels/trsm.py:solve_vmem.
-//   The block's (n, rt) RHS tile lives in shared memory (column-major, so
-//   a row sweep is free of bank conflicts); the packed LU is read from L2.
-//   The column-oriented sweep of the TPU kernel would read the row-major LU
-//   down a column, one 32-byte sector per element.  Instead the sweep goes
-//   in 32-row strips: one warp per RHS column solves the strip's (32, 32)
-//   triangle with each lane holding one row in a register and the solved
-//   value passed by __shfl_sync, then every thread retires one row below
-//   (above, backward) the strip with a 32-wide dot product whose LU row
-//   segment is one 128-byte line.  Bound: the LU's n^2 * 4 bytes, read once
-//   per RHS tile; at small n the 2 * n/32 strip steps (each a barrier) bound
-//   it instead.
+//   One block per RHS tile.  The block's (n, rt) RHS tile lives in shared
+//   memory (column-major, so a row sweep is free of bank conflicts); the
+//   packed LU is read from L2.  The column-oriented sweep of the TPU kernel
+//   would read the row-major LU down a column, one 32-byte sector per
+//   element.  Instead the sweep goes in 32-row strips: one warp per RHS
+//   column solves the strip's (32, 32) triangle with each lane holding one
+//   row in a register and the solved value passed by __shfl_sync, then every
+//   thread retires one row below (above, backward) the strip with a 32-wide
+//   dot product whose LU row segment is one 128-byte line.  Bound: the LU's
+//   n^2 * 4 bytes, read once per RHS tile; at small n the 2 * n/32 strip
+//   steps (each a barrier) bound it instead.
 //
-// solve_tiled_kernel — replaces src/repro/kernels/trsm.py:solve_tiled.
-//   The LU stays in device memory; the (B, B) diagonal tile is staged in
-//   shared memory for the in-tile sweep, and each off-diagonal tile is
-//   streamed through shared memory 32 rows at a time and retired against
-//   the solved (B, <=32) block of x with one small product.  x lives in
-//   device memory.  Bound: the LU's bytes; one RHS tile runs on one SM, so
-//   a single RHS reads the whole LU through one SM (a later split of the
-//   sweep across blocks lifts that).
+// step_kernel — replaces src/repro/kernels/trsm.py:solve_tiled (B3) and
+//   solve_inverted (B4).  Both sweep S = ceil(n/B) diagonal blocks forward
+//   and S backward; step k solves block k and retires the trailing rows:
+//   x[rows] -= L[rows, k-block] x_k forward, U[rows, k-block] x_k backward.
+//   The TPU kernels walk all of a RHS tile's steps in one program; here
+//   that would push the whole factor through one SM of 132.
+//   What bounds it on this card: the 2S steps form a chain, each waiting
+//   for the one before, and a step moves little (about n*B*4 bytes of the
+//   factor); the n^2 * 4 bytes and 2 n^2 m operations of the whole solve
+//   take under 0.13 ms at n = 8000.  So the design keeps the chain short
+//   and each link cheap:
+//   - Every step is one launch in stream order (B4: two), the launch
+//     boundary its only grid-wide sync.  Each launch after the first is a
+//     programmatic dependent launch: its blocks copy their (immutable) slice
+//     of the factor while the step before still runs, then wait
+//     (griddepcontrol) before they read x or y, and read those past L1.
+//   - A step's trailing rows split into equal chunks of at most kRows rows
+//     (the paper's equalization applied to the solve: every block retires
+//     the same number of rows) over about one block per SM, times the RHS
+//     column tiles.  A block copies its (rows, B) slice into shared memory
+//     with 16-byte cp.async, all in flight at once, and multiplies: a wide
+//     tile (up to 64 columns) gives each thread a 4 x 4 register tile of
+//     outputs, a narrow one (up to 4 columns) gives each warp whole rows,
+//     splits the depth over its lanes and sums them with a reduce-scatter
+//     over the warp.  IEEE fp32 FMAs on the CUDA cores: wgmma would round
+//     the operands to TF32.
+//   - solve_tiled (B <= 128): every block first solves block k's triangle
+//     itself (the "head"), in 32-row strips: per strip one row per lane,
+//     each solved row passed to the rows below by __shfl_sync (one column
+//     per warp) or a shared-memory broadcast (eight), then the rows below
+//     the strip retired in register tiles; the tile's strips stream through
+//     a ring of two shared-memory buffers.  Every block of a column tile
+//     then holds the solved block and writes its share of it out.  One
+//     launch per step, 2S in all.  The head repeats in every block; at m =
+//     1 its 32-step chains are most of a step.
+//   - solve_inverted (B from the artifact, 256 by default): the diagonal
+//     step is a product with linv[k] / uinv[k] split over blocks as the
+//     retirement is, so no chain runs inside a step.  Two launches per step
+//     (the inverse product, then the retirement), none for the retirement
+//     of the last step of a sweep: 4S-2 in all.  Depths past 256 stream in
+//     passes.
+//   A solved block goes to a second buffer (y forward, x backward), so no
+//   block reads what another block of the same launch writes.
 //
-// solve_inverted_kernel — replaces src/repro/kernels/trsm.py:solve_inverted.
-//   The same sweep with every diagonal step one product against the
-//   factor-time inverse linv[i] / uinv[i] (streamed 32 rows at a time) in
-//   place of the in-tile recurrence.  One block per equalized RHS tile; the
-//   block walks its tile in 32-column groups.  Bound and single-SM limit as
-//   for solve_tiled.
-//
-// All three treat rows and columns past n as the identity tail of the
+// All kernels treat rows and columns past n as the identity tail of the
 // reference's padding, without materialising a padded copy of the LU.
 #include <cuda_runtime.h>
 
+#include <atomic>
 #include <cstddef>
+#include <cstdint>
 
 namespace {
 
-constexpr int kStrip = 32;    // strip height of solve_vmem
-constexpr int kCols = 32;     // RHS columns a solve_tiled/inverted block holds at once
-constexpr int kChunk = 32;    // rows of a (B, B) operand staged per product step
+constexpr int kStrip = 32;    // strip height of solve_vmem and of a step's diagonal solve
 
-extern __shared__ float smem[];
+extern __shared__ __align__(16) float smem[];  // 16 bytes for cp.async and float4
 
 // ---------------------------------------------------------------------------
 // solve_vmem
@@ -128,188 +156,391 @@ __global__ void solve_vmem_kernel(const float* __restrict__ lu, const float* __r
 }
 
 // ---------------------------------------------------------------------------
-// shared pieces of solve_tiled and solve_inverted
+// solve_tiled and solve_inverted: one step per launch
 // ---------------------------------------------------------------------------
-__device__ __forceinline__ int pow2_at_least(int w) {
-  int p = 1;
-  while (p < w) p <<= 1;
-  return p;
+constexpr int kThreads = 256;     // threads of a step block (8 warps)
+constexpr int kRows = 64;         // most trailing rows one step block retires
+constexpr int kDepth = 256;       // factor columns a launch without a head stages per pass
+constexpr int kHeadDepth = 128;   // solve_tiled's largest B: a head holds the whole diagonal block
+constexpr int kRingLd = kStrip + 4;  // row stride of a head's strip buffer
+constexpr int kNarrow = 4;        // RHS columns of a narrow tile (the depth split over a warp)
+constexpr int kWide = 64;         // RHS columns of a wide tile (register tiles, 16 threads across)
+
+// Geometry of a BN-column tile.  With register tiles (BN > kNarrow) kTx
+// threads go across the columns, 4 columns each, and kTy down the rows,
+// thread ty taking rows ty + kTy*i; the operand is row-major with stride
+// BN + 4.  A narrow tile gives warp w the rows w + 8i and splits the depth
+// over its lanes; its operand is column-major.
+template <int BN>
+struct Tile {
+  static constexpr bool kSplit = BN == kNarrow;
+  static constexpr int kTx = kSplit ? 1 : BN / 4, kTy = kThreads / kTx;
+  static constexpr int kI = kSplit ? kRows / 8 : kRows / kTy, kJ = kSplit ? kNarrow : 4;
+};
+
+enum Head { kNoHead, kLowerHead, kUpperHead };
+
+// One launch's product: dst[r] = src[r] - a[r, :depth] @ xk (dst[r] = a[r] @ xk
+// where src is null) for the launch's rows r; with a head, xk is first solved
+// against the (depth, depth) triangle `diag`, and the blocks of a column tile
+// write it to `solved`, each a share of its rows.
+struct Step {
+  const float* a;     // row 0, column 0 of the product's left operand
+  int lda;            // its row stride
+  int rows, chunk;    // rows of the product; rows per block (blockIdx.x)
+  int depth;          // columns of `a`, rows of xk
+  const float* xk;    // the (depth, m) right operand, row stride m
+  const float* diag;  // the diagonal tile a head solves against, row stride lda
+  float* solved;      // where a head launch writes the solved xk (row stride m)
+  const float* src;   // the rows updated (row stride m), or null
+  float* dst;
+  int m, tile;        // RHS width; RHS columns per block (blockIdx.y)
+  int vec;            // rows of `a` and `diag` start 16-byte aligned and depth % 4 == 0
+};
+
+__device__ __forceinline__ unsigned smem_addr(const float* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
 }
 
-// dst[r * lds + k] = A[row0 + r][col0 + k] for r < rows, k < K, where A is
-// row-major with stride ld and is the identity past `lim` in either index.
-__device__ void stage_rows(float* dst, int lds, const float* src, int ld, int lim,
-                           int row0, int col0, int rows, int K) {
-  const int total = rows * K;
-  for (int base = threadIdx.x; base < total; base += 4 * blockDim.x) {
-    float v[4];
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)), "l"(src));
+}
+
+// Copies `bytes` (4 or 0) of src and zero-fills the rest of the 4-byte word.
+__device__ __forceinline__ void cp_async4(float* dst, const float* src, int bytes = 4) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
+               "r"(bytes));
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+
+// Wait until at most `kPending` of the committed copy groups are in flight.
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending));
+}
+
+// dst[r * ld + k] = a[r][k] for r < R, k < kc, copied asynchronously.
+template <int ld>
+__device__ void stage_slice(float* dst, const float* a, int lda, int R, int kc, bool vec) {
+  if (vec) {
+    const int q = kc / 4;
+    for (int idx = threadIdx.x; idx < R * q; idx += kThreads) {
+      const int r = idx / q, k = 4 * (idx % q);
+      cp_async16(dst + r * ld + k, a + (size_t)r * lda + k);
+    }
+  } else {
+    for (int idx = threadIdx.x; idx < R * kc; idx += kThreads) {
+      const int r = idx / kc, k = idx % kc;
+      cp_async4(dst + r * ld + k, a + (size_t)r * lda + k);
+    }
+  }
+}
+
+// The (kP, BN) right operand in shared memory: row-major for register
+// tiles (float4 rows), column-major for a narrow tile (a warp's lanes read
+// consecutive depths).
+template <int BN, int kP>
+struct Operand {
+  static constexpr int kFloats = BN == kNarrow ? kP * kNarrow : kP * (BN + 4);
+  float* p;
+  __device__ float& operator()(int i, int c) const {
+    return BN == kNarrow ? p[c * kP + i] : p[i * (BN + 4) + c];
+  }
+};
+
+// Programmatic dependent launch: the next step may start its prologue (its
+// copies of the factor, which no step writes), and this step waits for the
+// one before it to finish before it touches x or y.
+__device__ __forceinline__ void allow_next_step() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wait_prior_step() { asm volatile("griddepcontrol.wait;\n" ::: "memory"); }
+
+// xs(i, c) = xk[k0 + i][c0 + c] for i < kc, c < BN, zero for c >= w; read
+// past L1, which may hold lines an earlier step overwrote.  A wide tile of
+// 16-byte rows loads float4s, many in flight at once.
+template <int BN, class X>
+__device__ void load_operand(X xs, const float* xk, int m, int c0, int w, int k0, int kc) {
+  const float* x0 = xk + (size_t)k0 * m + c0;
+  if (BN > kNarrow && w == BN && m % 4 == 0 && reinterpret_cast<uintptr_t>(x0) % 16 == 0) {
+#pragma unroll 8
+    for (int idx = threadIdx.x; idx < kc * (BN / 4); idx += kThreads) {
+      const int i = idx / (BN / 4), c = 4 * (idx % (BN / 4));
+      *reinterpret_cast<float4*>(&xs(i, c)) = __ldcg(reinterpret_cast<const float4*>(x0 + (size_t)i * m + c));
+    }
+    return;
+  }
+#pragma unroll 8
+  for (int idx = threadIdx.x; idx < kc * BN; idx += kThreads) {
+    const int i = idx / BN, c = idx % BN;
+    xs(i, c) = c < w ? __ldcg(x0 + (size_t)i * m + c) : 0.f;
+  }
+}
+
+// The rows of strip t (columns s0 .. s0+32 of the (kw, kw) diagonal tile
+// `diag`, row stride lda) that a head reads, copied to ring[r * kRingLd + l]:
+// rows s0 .. kw for the lower triangle, 0 .. s0+32 for the upper.
+template <int kHead>
+__device__ void stage_strip(float* ring, const float* diag, int lda, int kw, int t, bool vec) {
+  const int nstrips = (kw + kStrip - 1) / kStrip;
+  if (t >= nstrips) return;
+  const int s0 = (kHead == kLowerHead ? t : nstrips - 1 - t) * kStrip;
+  const int lo = kHead == kLowerHead ? s0 : 0, hi = kHead == kLowerHead ? kw : min(kw, s0 + kStrip);
+  float* buf = ring + (t % 2) * kHeadDepth * kRingLd;
+  stage_slice<kRingLd>(buf + lo * kRingLd, diag + (size_t)lo * lda + s0, lda, hi - lo,
+                       min(kStrip, kw - s0), vec);
+}
+
+// Solve X (kw, w) in place against the unit-lower (kHead == kLowerHead) or
+// upper triangle of the (kw, kw) diagonal tile, in 32-row strips whose
+// columns stream through a ring of two shared-memory buffers (strips 0 and
+// 1 were staged by the caller, before its copy of the factor slice): each
+// warp takes columns warp, warp + 8, ... and solves a strip's triangle with
+// one row per lane, each solved row passed to the lanes below (above) it;
+// then the rows below (above) the strip are retired, in 4 x 4 register
+// tiles for a wide tile.
+template <int kHead, int BN, class X>
+__device__ void solve_head(X xs, float* ring, const float* diag, int lda, int kw, int w, bool vec) {
+  constexpr int kCols = (BN + 7) / 8;  // columns per warp
+  constexpr int ld = kRingLd;
+  __shared__ __align__(16) float bc[kThreads / 32][kCols];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const bool lower = kHead == kLowerHead;
+  const int nstrips = (kw + kStrip - 1) / kStrip;
+  for (int t = 0; t < nstrips; ++t) {
+    // copy groups committed so far: strips 0 and 1, the slice, then strip u + 1 after strip u
+    if (t < 2) cp_async_wait<2>();
+    else cp_async_wait<1>();
+    __syncthreads();
+    const int s0 = (lower ? t : nstrips - 1 - t) * kStrip;
+    const float* d = ring + (t % 2) * kHeadDepth * ld - s0;  // d[r * ld + s0 + l] = diag[r][s0 + l]
+    const int depth = min(kStrip, kw - s0);
+    const int row = s0 + lane;
+    if (warp < w) {
+      float tr[kStrip];
 #pragma unroll
-    for (int u = 0; u < 4; ++u) {
-      const int idx = base + u * blockDim.x;
-      const int r = row0 + idx / K, c = col0 + idx % K;
-      v[u] = idx >= total ? 0.f
-           : (r < lim && c < lim) ? src[(size_t)r * ld + c] : (r == c ? 1.f : 0.f);
-    }
+      for (int l = 0; l < kStrip; ++l)
+        tr[l] = (lane < depth && (lower ? l < lane : (l > lane && l < depth))) ? d[row * ld + s0 + l] : 0.f;
+      // a reciprocal keeps the division off the chain
+      const float rpiv = (!lower && lane < depth) ? 1.f / d[row * ld + row] : 1.f;
+      float v[kCols];
 #pragma unroll
-    for (int u = 0; u < 4; ++u) {
-      const int idx = base + u * blockDim.x;
-      if (idx < total) dst[(idx / K) * lds + idx % K] = v[u];
-    }
-  }
-}
-
-// Y[r][c] = x[row0 + r][col0 + c] for the (B, w) block; rows past n read 0.
-__device__ void load_x(float* Y, const float* x, int n, int m, int row0, int B, int col0, int w) {
-  for (int idx = threadIdx.x; idx < B * kCols; idx += blockDim.x) {
-    const int r = idx / kCols, c = idx % kCols;
-    Y[idx] = (c < w && row0 + r < n) ? x[(size_t)(row0 + r) * m + col0 + c] : 0.f;
-  }
-}
-
-__device__ void store_x(const float* Y, float* x, int n, int m, int row0, int B, int col0, int w) {
-  for (int idx = threadIdx.x; idx < B * kCols; idx += blockDim.x) {
-    const int r = idx / kCols, c = idx % kCols;
-    if (c < w && row0 + r < n) x[(size_t)(row0 + r) * m + col0 + c] = Y[idx];
-  }
-}
-
-// For each output (r, c), r < rows, c < w: acc = sum_k A[r][k] * Y[k][c],
-// then emit(r, c, acc).  `cw` (a power of two >= w) lanes share one row of
-// A, so a row read is a broadcast and rows differ by the odd stride lds.
-template <class Emit>
-__device__ void product(const float* A, int lds, int rows, int K, const float* Y, int w, int cw,
-                        Emit emit) {
-  for (int idx = threadIdx.x; idx < rows * cw; idx += blockDim.x) {
-    const int r = idx / cw, c = idx % cw;
-    if (c >= w) continue;
-    const float* ar = A + r * lds;
-    float acc = 0.f;
-    for (int k = 0; k < K; ++k) acc += ar[k] * Y[k * kCols + c];
-    emit(r, c, acc);
-  }
-}
-
-// x[rows rb .. rb+B) -= A_tile(rb, cb) * Y, the tile streamed from `src`
-// kChunk rows at a time through `A`; rows past n are skipped.
-__device__ void retire(float* A, const float* lu, int n, int rb, int cb, int B,
-                       const float* Y, float* x, int m, int col0, int w, int cw) {
-  const int lds = B + 1;
-  for (int ch = 0; ch < B && rb + ch < n; ch += kChunk) {
-    const int rows = min(kChunk, min(B - ch, n - rb - ch));
-    stage_rows(A, lds, lu, n, n, rb + ch, cb, rows, B);
-    __syncthreads();
-    product(A, lds, rows, B, Y, w, cw, [&](int r, int c, float acc) {
-      x[(size_t)(rb + ch + r) * m + col0 + c] -= acc;
-    });
-    __syncthreads();
-  }
-}
-
-__device__ void copy_columns(const float* b, float* x, int n, int m, int c_begin, int c_end) {
-  const int w = c_end - c_begin;
-  for (int idx = threadIdx.x; idx < n * w; idx += blockDim.x) {
-    const size_t at = (size_t)(idx / w) * m + c_begin + idx % w;
-    x[at] = b[at];
-  }
-  __syncthreads();
-}
-
-// ---------------------------------------------------------------------------
-// solve_tiled
-// ---------------------------------------------------------------------------
-__global__ void solve_tiled_kernel(const float* __restrict__ lu, const float* __restrict__ b,
-                                   float* __restrict__ x, int n, int m, int B, int S) {
-  const int ldt = B + 1;
-  float* T = smem;              // (B, B+1) diagonal tile
-  float* Y = T + B * ldt;       // (B, kCols) block of x
-  float* A = Y + B * kCols;     // (kChunk, B+1) staged rows of an off-diagonal tile
-  const int col0 = blockIdx.x * kCols;
-  const int w = min(kCols, m - col0);
-  const int cw = pow2_at_least(w);
-  copy_columns(b, x, n, m, col0, col0 + w);
-
-  for (int i = 0; i < S; ++i) {
-    stage_rows(T, ldt, lu, n, n, i * B, i * B, B, B);
-    load_x(Y, x, n, m, i * B, B, col0, w);
-    __syncthreads();
-    for (int k = 0; k < B - 1; ++k) {
-      for (int idx = threadIdx.x; idx < (B - k - 1) * cw; idx += blockDim.x) {
-        const int r = k + 1 + idx / cw, c = idx % cw;
-        if (c < w) Y[r * kCols + c] -= T[r * ldt + k] * Y[k * kCols + c];
+      for (int j = 0; j < kCols; ++j) {
+        const int c = warp + 8 * j;
+        v[j] = (c < w && lane < depth) ? xs(row, c) : 0.f;
       }
-      __syncthreads();
-    }
-    store_x(Y, x, n, m, i * B, B, col0, w);
-    for (int r = i + 1; r < S; ++r) retire(A, lu, n, r * B, i * B, B, Y, x, m, col0, w, cw);
-    __syncthreads();
-  }
-
-  for (int i = S - 1; i >= 0; --i) {
-    stage_rows(T, ldt, lu, n, n, i * B, i * B, B, B);
-    load_x(Y, x, n, m, i * B, B, col0, w);
-    __syncthreads();
-    for (int k = B - 1; k >= 0; --k) {
-      if (threadIdx.x < w) Y[k * kCols + threadIdx.x] /= T[k * ldt + k];
-      __syncthreads();
-      for (int idx = threadIdx.x; idx < k * cw; idx += blockDim.x) {
-        const int r = idx / cw, c = idx % cw;
-        if (c < w) Y[r * kCols + c] -= T[r * ldt + k] * Y[k * kCols + c];
+      // row l of the strip, once solved, to every lane: a shuffle for one
+      // column, one shared-memory broadcast for a warp's kCols columns
+      auto retire_row = [&](int l) {
+        float p[kCols];
+        if constexpr (kCols == 1) {
+          p[0] = __shfl_sync(0xffffffffu, v[0], l);
+        } else {
+          if (lane == l)
+#pragma unroll
+            for (int j = 0; j < kCols; ++j) bc[warp][j] = v[j];
+          __syncwarp();
+#pragma unroll
+          for (int j = 0; j < kCols; ++j) p[j] = bc[warp][j];
+          __syncwarp();
+        }
+#pragma unroll
+        for (int j = 0; j < kCols; ++j) v[j] -= tr[l] * p[j];
+      };
+      if (lower) {
+#pragma unroll
+        for (int l = 0; l < kStrip - 1; ++l) retire_row(l);
+      } else {
+#pragma unroll
+        for (int l = kStrip - 1; l >= 0; --l) {
+          if (lane == l)
+#pragma unroll
+            for (int j = 0; j < kCols; ++j) v[j] *= rpiv;
+          retire_row(l);
+        }
       }
-      __syncthreads();
+#pragma unroll
+      for (int j = 0; j < kCols; ++j) {
+        const int c = warp + 8 * j;
+        if (c < w && lane < depth) xs(row, c) = v[j];
+      }
     }
-    store_x(Y, x, n, m, i * B, B, col0, w);
-    for (int r = 0; r < i; ++r) retire(A, lu, n, r * B, i * B, B, Y, x, m, col0, w, cw);
     __syncthreads();
+    const int lo = lower ? s0 + kStrip : 0, hi = lower ? kw : s0;
+    if constexpr (BN > kNarrow) {
+      using T = Tile<BN>;
+      const int tx = threadIdx.x % T::kTx, ty = threadIdx.x / T::kTx;
+      for (int base = lo; base < hi; base += kRows) {
+        float acc[T::kI][4] = {};
+#pragma unroll 8
+        for (int l = 0; l < depth; ++l) {
+          const float4 b = *reinterpret_cast<const float4*>(&xs(s0 + l, 4 * tx));
+#pragma unroll
+          for (int i = 0; i < T::kI; ++i) {
+            const int r = base + ty + T::kTy * i;
+            const float a = r < hi ? d[r * ld + s0 + l] : 0.f;
+            acc[i][0] += a * b.x;
+            acc[i][1] += a * b.y;
+            acc[i][2] += a * b.z;
+            acc[i][3] += a * b.w;
+          }
+        }
+#pragma unroll
+        for (int i = 0; i < T::kI; ++i)
+          if (base + ty + T::kTy * i < hi)
+#pragma unroll
+            for (int j = 0; j < 4; ++j) xs(base + ty + T::kTy * i, 4 * tx + j) -= acc[i][j];
+      }
+    } else {
+      for (int idx = threadIdx.x; idx < (hi - lo) * w; idx += kThreads) {
+        const int i = lo + idx / w, c = idx % w;
+        const float* di = d + i * ld + s0;
+        float acc = 0.f;
+#pragma unroll
+        for (int l = 0; l < kStrip; ++l)
+          if (l < depth) acc += di[l] * xs(s0 + l, c);
+        xs(i, c) -= acc;
+      }
+    }
+    __syncthreads();
+    stage_strip<kHead>(ring, diag, lda, kw, t + 2, vec);  // into the buffer strip t used
+    cp_async_commit();
   }
 }
 
-// ---------------------------------------------------------------------------
-// solve_inverted
-// ---------------------------------------------------------------------------
-// Y = inv * X for one (B, B) inverse, streamed kChunk rows at a time.
-__device__ void apply_inverse(float* A, const float* inv, int B, const float* X, float* Y,
-                              int w, int cw) {
-  for (int ch = 0; ch < B; ch += kChunk) {
-    const int rows = min(kChunk, B - ch);
-    stage_rows(A, B + 1, inv, B, B, ch, 0, rows, B);
-    __syncthreads();
-    product(A, B + 1, rows, B, X, w, cw, [&](int r, int c, float acc) {
-      Y[(ch + r) * kCols + c] = acc;
-    });
-    __syncthreads();
-  }
+// One stage of a reduce-scatter over the warp: out[k] = the sum over lanes
+// l and l ^ N of in[k + N] where this lane has bit N, of in[k] where not.
+template <int N>
+__device__ __forceinline__ void fold(const float (&in)[2 * N], float (&out)[N], int lane) {
+  const bool up = lane & N;
+#pragma unroll
+  for (int k = 0; k < N; ++k)
+    out[k] = (up ? in[k + N] : in[k]) + __shfl_xor_sync(0xffffffffu, up ? in[k] : in[k + N], N);
 }
 
-__global__ void solve_inverted_kernel(const float* __restrict__ lu, const float* __restrict__ linv,
-                                      const float* __restrict__ uinv, const float* __restrict__ b,
-                                      float* __restrict__ x, int n, int m, int B, int S, int rt) {
-  float* X = smem;              // (B, kCols) block of x
-  float* Y = X + B * kCols;     // (B, kCols) solved block
-  float* A = Y + B * kCols;     // (kChunk, B+1) staged rows
-  const int c_begin = blockIdx.x * rt;
-  const int c_end = min(m, c_begin + rt);
-  const size_t bb = (size_t)B * B;
-  copy_columns(b, x, n, m, c_begin, c_end);
+template <int BN, int kHead>
+__global__ void __launch_bounds__(kThreads) step_kernel(Step s) {
+  using T = Tile<BN>;
+  constexpr bool kSolve = kHead != kNoHead;
+  constexpr int kP = kSolve ? kHeadDepth : kDepth;  // depth of one pass
+  constexpr int kLd = kP + 4;  // row stride of a staged slice: 16-byte rows, rows 4 banks apart
+  float* As = smem;                            // (kRows, kLd) slice of the left operand
+  const Operand<BN, kP> xs{As + kRows * kLd};  // (kP, BN) right operand
+  float* ring = xs.p + xs.kFloats;             // a head's two (kP, kRingLd) strip buffers
+  const int c0 = blockIdx.y * s.tile;
+  const int w = min(s.tile, s.m - c0);
+  const int r0 = blockIdx.x * s.chunk;
+  const int R = max(0, min(s.chunk, s.rows - r0));
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int tx = threadIdx.x % T::kTx, ty = threadIdx.x / T::kTx;
+  // register tiles: rows ty + kTy*i, columns 4tx + j; narrow: rows warp + 8i, column j
+  constexpr int kI = T::kI, kJ = T::kJ, kTy = T::kTy;
+  float acc[kI][kJ] = {};
+  // src at this thread's outputs: all of them for register tiles; for a
+  // narrow tile lane kJ*i + j holds output (i, j) of its warp
+  float old[T::kSplit ? 1 : kI][T::kSplit ? 1 : kJ] = {};
+  const float* row0 = s.src ? s.src + (size_t)r0 * s.m + c0 : nullptr;
+  float* out0 = s.dst + (size_t)r0 * s.m + c0;
 
-  for (int col0 = c_begin; col0 < c_end; col0 += kCols) {
-    const int w = min(kCols, c_end - col0);
-    const int cw = pow2_at_least(w);
-    for (int i = 0; i < S; ++i) {
-      load_x(X, x, n, m, i * B, B, col0, w);
-      __syncthreads();
-      apply_inverse(A, linv + i * bb, B, X, Y, w, cw);
-      store_x(Y, x, n, m, i * B, B, col0, w);
-      for (int r = i + 1; r < S; ++r) retire(A, lu, n, r * B, i * B, B, Y, x, m, col0, w, cw);
-      __syncthreads();
+  // prologue, before the prior step ends: copy groups [strip 0] [strip 1] of
+  // a head's diagonal tile, then [slice of pass 0]
+  if constexpr (kSolve) {
+    for (int t = 0; t < 2; ++t) {
+      stage_strip<kHead>(ring, s.diag, s.lda, s.depth, t, s.vec);
+      cp_async_commit();
     }
-    for (int i = S - 1; i >= 0; --i) {
-      load_x(X, x, n, m, i * B, B, col0, w);
-      __syncthreads();
-      apply_inverse(A, uinv + i * bb, B, X, Y, w, cw);
-      store_x(Y, x, n, m, i * B, B, col0, w);
-      for (int r = 0; r < i; ++r) retire(A, lu, n, r * B, i * B, B, Y, x, m, col0, w, cw);
-      __syncthreads();
+  }
+  for (int k0 = 0; k0 < s.depth; k0 += kP) {  // one pass with a head (depth <= kHeadDepth)
+    const int kc = min(kP, s.depth - k0);
+    if (R) stage_slice<kLd>(As, s.a + (size_t)r0 * s.lda + k0, s.lda, R, kc, s.vec);
+    cp_async_commit();
+    if (k0 == 0) {
+      allow_next_step();
+      wait_prior_step();
     }
+    load_operand<BN>(xs, s.xk, s.m, c0, w, k0, kc);
+    if (k0 == 0 && s.src) {  // the rows this block updates, in flight beside the head and the product
+      if constexpr (!T::kSplit) {
+#pragma unroll
+        for (int i = 0; i < kI; ++i)
+#pragma unroll
+          for (int j = 0; j < kJ; ++j)
+            if (ty + kTy * i < R && 4 * tx + j < w) old[i][j] = __ldcg(row0 + (ty + kTy * i) * s.m + 4 * tx + j);
+      } else if (warp + 8 * (lane / kJ) < R && lane % kJ < w) {
+        old[0][0] = __ldcg(row0 + (warp + 8 * (lane / kJ)) * s.m + lane % kJ);
+      }
+    }
+    if constexpr (kSolve) {
+      solve_head<kHead, BN>(xs, ring, s.diag, s.lda, kc, w, s.vec);
+      // the solved block out, rows blockIdx.x, blockIdx.x + gridDim.x, ...
+      const int mine = blockIdx.x < kc ? (kc - blockIdx.x + gridDim.x - 1) / gridDim.x : 0;
+      for (int idx = threadIdx.x; idx < mine * w; idx += kThreads) {
+        const int i = blockIdx.x + (idx / w) * gridDim.x, c = idx % w;
+        s.solved[(size_t)i * s.m + c0 + c] = xs(i, c);
+      }
+    }
+    cp_async_wait<0>();
+    __syncthreads();
+    if (R) {
+      if constexpr (!T::kSplit) {
+#pragma unroll 4
+        for (int k = 0; k < kc; ++k) {
+          const float4 b = *reinterpret_cast<const float4*>(&xs(k, 4 * tx));
+#pragma unroll
+          for (int i = 0; i < kI; ++i) {
+            const float a = As[(ty + kTy * i) * kLd + k];
+            acc[i][0] += a * b.x;
+            acc[i][1] += a * b.y;
+            acc[i][2] += a * b.z;
+            acc[i][3] += a * b.w;
+          }
+        }
+      } else {
+        for (int k = lane; k < kc; k += 32) {
+          float b[kJ];
+#pragma unroll
+          for (int j = 0; j < kJ; ++j) b[j] = xs(k, j);
+#pragma unroll
+          for (int i = 0; i < kI; ++i)
+            if (warp + 8 * i < R) {
+              const float a = As[(warp + 8 * i) * kLd + k];
+#pragma unroll
+              for (int j = 0; j < kJ; ++j) acc[i][j] += a * b[j];
+            }
+        }
+      }
+    }
+    __syncthreads();
+  }
+  if (!R) return;
+
+  const bool update = s.src != nullptr;
+  if constexpr (!T::kSplit) {
+#pragma unroll
+    for (int i = 0; i < kI; ++i)
+#pragma unroll
+      for (int j = 0; j < kJ; ++j)
+        if (ty + kTy * i < R && 4 * tx + j < w)
+          out0[(ty + kTy * i) * s.m + 4 * tx + j] = update ? old[i][j] - acc[i][j] : acc[i][j];
+  } else {
+    // reduce-scatter over the warp: after the stage of offset o a lane keeps
+    // the half of its partial sums whose index has o's bit equal to its own,
+    // so lane l ends with the sum of output l = (l / kJ, l % kJ)
+    static_assert(kI * kJ == 32, "one output per lane");
+    float v32[32], v16[16], v8[8], v4[4], v2[2], v1[1];
+#pragma unroll
+    for (int i = 0; i < kI; ++i)
+#pragma unroll
+      for (int j = 0; j < kJ; ++j) v32[kJ * i + j] = acc[i][j];
+    fold(v32, v16, lane);
+    fold(v16, v8, lane);
+    fold(v8, v4, lane);
+    fold(v4, v2, lane);
+    fold(v2, v1, lane);
+    const int i = lane / kJ, j = lane % kJ;
+    if (warp + 8 * i < R && j < w) out0[(warp + 8 * i) * s.m + j] = update ? old[0][0] - v1[0] : v1[0];
   }
 }
 
@@ -318,6 +549,79 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(bytes));
 }
+
+constexpr size_t step_smem(int bn, bool head) {
+  const size_t p = head ? kHeadDepth : kDepth;
+  const size_t operand = bn == kNarrow ? p * kNarrow : p * (bn + 4);
+  return (kRows * (p + 4) + operand + (head ? 2 * p * kRingLd : 0)) * sizeof(float);
+}
+
+template <int BN>
+cudaError_t allow_variant() {
+  cudaError_t err;
+  if ((err = allow_smem(step_kernel<BN, kNoHead>, step_smem(BN, false)))) return err;
+  if ((err = allow_smem(step_kernel<BN, kLowerHead>, step_smem(BN, true)))) return err;
+  return allow_smem(step_kernel<BN, kUpperHead>, step_smem(BN, true));
+}
+
+bool aligned(const float* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
+
+// The shared memory attributes of the step kernels, set once per device
+// (a host call each, and the same for every solve); returns the SM count.
+constexpr int kMaxDevices = 64;
+std::atomic<int> device_sms[kMaxDevices];
+
+cudaError_t prepare_steps(int* sms) {
+  int dev = 0;
+  cudaError_t err;
+  if ((err = cudaGetDevice(&dev))) return err;
+  if (dev < kMaxDevices && (*sms = device_sms[dev].load())) return cudaSuccess;
+  if ((err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev))) return err;
+  if ((err = allow_variant<kNarrow>()) || (err = allow_variant<kWide>())) return err;
+  if (dev < kMaxDevices) device_sms[dev].store(*sms);
+  return cudaSuccess;
+}
+
+// Launches the steps of one solve on `stream`, counting them in *launches.
+// Every launch after the first is a programmatic dependent launch: it may
+// start while the step before it runs (see allow_next_step).  The first
+// waits for whatever ran before it in full, since that may have written the
+// factor.
+struct Sweep {
+  cudaStream_t stream;
+  int* launches;
+  int m, tile, tiles, sms;
+
+  // One launch of s over equal row chunks: about one block per SM over the
+  // column tiles, each chunk of rmin..kRows rows.
+  template <int kHead>
+  cudaError_t run(Step s, int rmin) {
+    const int per_tile = (sms + tiles - 1) / tiles;
+    int chunk = (s.rows + per_tile - 1) / per_tile;
+    chunk = min(kRows, max(rmin, chunk));
+    const int blocks = s.rows > 0 ? (s.rows + chunk - 1) / chunk : 1;
+    s.chunk = s.rows > 0 ? (s.rows + blocks - 1) / blocks : 1;
+    s.m = m;
+    s.tile = tile;
+    s.vec = aligned(s.a) && aligned(s.diag) && s.lda % 4 == 0 && s.depth % 4 == 0;
+    const int bn = tile <= kNarrow ? kNarrow : kWide;
+    cudaLaunchAttribute chained[1];
+    chained[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+    chained[0].val.programmaticStreamSerializationAllowed = 1;
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(blocks, tiles);
+    cfg.blockDim = dim3(kThreads);
+    cfg.dynamicSmemBytes = step_smem(bn, kHead != kNoHead);
+    cfg.stream = stream;
+    cfg.attrs = chained;
+    cfg.numAttrs = *launches ? 1 : 0;
+    cudaError_t err = bn == kNarrow ? cudaLaunchKernelEx(&cfg, step_kernel<kNarrow, kHead>, s)
+                                    : cudaLaunchKernelEx(&cfg, step_kernel<kWide, kHead>, s);
+    if (!err) err = cudaGetLastError();
+    if (!err) ++*launches;
+    return err;
+  }
+};
 
 }  // namespace
 
@@ -334,28 +638,81 @@ extern "C" int ebv_solve_vmem(const void* lu, const void* b, void* x, int n, int
   return cudaGetLastError();
 }
 
-// Same solve with (B, B) LU tiles, S = ceil(n / B); one block per kCols columns.
-extern "C" int ebv_solve_tiled(const void* lu, const void* b, void* x, int n, int m, int B,
-                               int threads, void* stream) {
-  const int S = (n + B - 1) / B;
-  const size_t bytes = ((size_t)B * (B + 1) + (size_t)B * kCols + (size_t)kChunk * (B + 1)) * sizeof(float);
-  cudaError_t err = allow_smem(solve_tiled_kernel, bytes);
+// Same solve with (B, B) LU tiles, B <= 128, S = ceil(n / B): one launch per
+// diagonal step, 2S in all, counted in *launches.  RHS columns go in tiles
+// of `tile` (<= 64); y is an (n, m) scratch buffer.
+extern "C" int ebv_solve_tiled(const void* lu_ptr, const void* b_ptr, void* x_ptr, void* y_ptr, int n,
+                               int m, int B, int tile, void* stream, int* launches) {
+  *launches = 0;
+  if (B < 1 || B > kHeadDepth || tile < 1 || tile > kWide) return cudaErrorInvalidValue;
+  if (n < 1 || m < 1) return 0;
+  const float* lu = static_cast<const float*>(lu_ptr);
+  const float* b = static_cast<const float*>(b_ptr);
+  float* x = static_cast<float*>(x_ptr);
+  float* y = static_cast<float*>(y_ptr);
+  Sweep sw{static_cast<cudaStream_t>(stream), launches, m, tile, (m + tile - 1) / tile, 0};
+  cudaError_t err = prepare_steps(&sw.sms);
   if (err) return err;
-  solve_tiled_kernel<<<(m + kCols - 1) / kCols, threads, bytes, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(lu), static_cast<const float*>(b), static_cast<float*>(x), n, m, B, S);
-  return cudaGetLastError();
+  const int S = (n + B - 1) / B;
+  for (int k = 0; k < S; ++k) {  // L y = b: block k solved into y, rows below retired in x
+    const size_t kb = (size_t)k * B;
+    const int kw = min(B, n - (int)kb), r0 = (int)kb + kw;
+    const float* cur = k ? x : b;
+    Step s{lu + (size_t)r0 * n + kb, n, n - r0, 0, kw, cur + kb * m, lu + kb * n + kb, y + kb * m,
+           cur + (size_t)r0 * m, x + (size_t)r0 * m};
+    if ((err = sw.run<kLowerHead>(s, kRows / 2))) return err;
+  }
+  for (int k = S - 1; k >= 0; --k) {  // U x = y: block k solved into x, rows above retired in y
+    const size_t kb = (size_t)k * B;
+    const int kw = min(B, n - (int)kb);
+    Step s{lu + kb, n, (int)kb, 0, kw, y + kb * m, lu + kb * n + kb, x + kb * m, y, y};
+    if ((err = sw.run<kUpperHead>(s, kRows / 2))) return err;
+  }
+  return 0;
 }
 
-// Same solve from the (S, B, B) inverses of the identity-padded LU's diagonal
-// blocks; one block per `rt` RHS columns.
-extern "C" int ebv_solve_inverted(const void* lu, const void* linv, const void* uinv, const void* b,
-                                  void* x, int n, int m, int B, int S, int rt, int threads,
-                                  void* stream) {
-  const size_t bytes = (2 * (size_t)B * kCols + (size_t)kChunk * (B + 1)) * sizeof(float);
-  cudaError_t err = allow_smem(solve_inverted_kernel, bytes);
+// Same solve from the (S', B, B) inverses (S' >= ceil(n / B)) of the
+// identity-padded LU's diagonal blocks: per step one launch for the inverse
+// product and one for the retirement, 4S-2 in all (S = ceil(n / B)), counted
+// in *launches.  Only the inverses' leading (kw, kw) corner is read: past n
+// they are the identity acting on zero rows.
+extern "C" int ebv_solve_inverted(const void* lu_ptr, const void* linv_ptr, const void* uinv_ptr,
+                                  const void* b_ptr, void* x_ptr, void* y_ptr, int n, int m, int B,
+                                  int tile, void* stream, int* launches) {
+  *launches = 0;
+  if (B < 1 || tile < 1 || tile > kWide) return cudaErrorInvalidValue;
+  if (n < 1 || m < 1) return 0;
+  const float* lu = static_cast<const float*>(lu_ptr);
+  const float* linv = static_cast<const float*>(linv_ptr);
+  const float* uinv = static_cast<const float*>(uinv_ptr);
+  const float* b = static_cast<const float*>(b_ptr);
+  float* x = static_cast<float*>(x_ptr);
+  float* y = static_cast<float*>(y_ptr);
+  Sweep sw{static_cast<cudaStream_t>(stream), launches, m, tile, (m + tile - 1) / tile, 0};
+  cudaError_t err = prepare_steps(&sw.sms);
   if (err) return err;
-  solve_inverted_kernel<<<(m + rt - 1) / rt, threads, bytes, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(lu), static_cast<const float*>(linv), static_cast<const float*>(uinv),
-      static_cast<const float*>(b), static_cast<float*>(x), n, m, B, S, rt);
-  return cudaGetLastError();
+  const int S = (n + B - 1) / B;
+  const size_t bb = (size_t)B * B;
+  const int rmin = tile > kNarrow ? 16 : 8;
+  for (int k = 0; k < S; ++k) {  // y_k = linv[k] cur_k; x[below] = cur[below] - L y_k
+    const size_t kb = (size_t)k * B;
+    const int kw = min(B, n - (int)kb), r0 = (int)kb + kw;
+    const float* cur = k ? x : b;
+    Step inv{linv + k * bb, B, kw, 0, kw, cur + kb * m, nullptr, nullptr, nullptr, y + kb * m};
+    if ((err = sw.run<kNoHead>(inv, rmin))) return err;
+    if (r0 == n) break;
+    Step ret{lu + (size_t)r0 * n + kb, n, n - r0, 0, kw, y + kb * m, nullptr, nullptr,
+             cur + (size_t)r0 * m, x + (size_t)r0 * m};
+    if ((err = sw.run<kNoHead>(ret, rmin))) return err;
+  }
+  for (int k = S - 1; k >= 0; --k) {  // x_k = uinv[k] y_k; y[above] -= U x_k
+    const size_t kb = (size_t)k * B;
+    const int kw = min(B, n - (int)kb);
+    Step inv{uinv + k * bb, B, kw, 0, kw, y + kb * m, nullptr, nullptr, nullptr, x + kb * m};
+    if ((err = sw.run<kNoHead>(inv, rmin))) return err;
+    if (!kb) break;
+    Step ret{lu + kb, n, (int)kb, 0, kw, x + kb * m, nullptr, nullptr, y, y};
+    if ((err = sw.run<kNoHead>(ret, rmin))) return err;
+  }
+  return 0;
 }

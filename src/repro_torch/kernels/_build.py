@@ -33,14 +33,15 @@ _lib: ctypes.CDLL | None = None
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _N = ctypes.POINTER(_I)
 # C entry points: name -> argument types.  Every entry returns the
-# cudaError_t of its launches as an int (0 = success); ebv_lu_fused, the
-# ebv_band_* and ebv_batched_* entries and ebv_legacy_walk also report
-# through their last argument how many kernels they launched.
+# cudaError_t of its launches as an int (0 = success); ebv_lu_fused,
+# ebv_solve_tiled, ebv_solve_inverted, the ebv_band_* and ebv_batched_*
+# entries and ebv_legacy_walk also report through their last argument how
+# many kernels they launched.
 _SIGNATURES = {
     "ebv_lu_fused": [_P, _I, _I, _P, _N],
     "ebv_solve_vmem": [_P, _P, _P, _I, _I, _I, _I, _P],
-    "ebv_solve_tiled": [_P, _P, _P, _I, _I, _I, _I, _P],
-    "ebv_solve_inverted": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "ebv_solve_tiled": [_P] * 4 + [_I] * 4 + [_P, _N],
+    "ebv_solve_inverted": [_P] * 6 + [_I] * 4 + [_P, _N],
     "ebv_band_lu_resident": [_P, _I, _I, _P, _N],
     "ebv_band_lu_steps": [_P, _I, _I, _I, _P, _N],
     "ebv_band_lu_scalar": [_P, _I, _I, _P, _N],

@@ -4,18 +4,23 @@
 * :func:`solve_vmem`     — one block per RHS tile, the (n, rt) tile held in
                            shared memory, the LU read from L2; the sweep
                            goes in 32-row strips (see the source's note).
-* :func:`solve_tiled`    — x in device memory, one (B, B) LU tile at a
-                           time through shared memory; B ≤ 128 so the
-                           diagonal tile, the x block and a staged 32-row
-                           slice of an off-diagonal tile fit one block.
-* :func:`solve_inverted` — the tiled sweep with every diagonal step one
+* :func:`solve_tiled`    — x in device memory, (B, B) LU tiles with
+                           B ≤ 128; one launch per diagonal step (2S in
+                           all), each spread over every SM: its blocks solve
+                           the diagonal tile and retire equal chunks of the
+                           trailing rows.
+* :func:`solve_inverted` — the same sweep with every diagonal step one
                            product against the artifact's pre-inverted
-                           ``(S, B, B)`` blocks.
+                           ``(S, B, B)`` blocks: two launches per step
+                           (4S-2 in all).
 
 Each wrapper runs its plain version for tensors on the CPU and launches its
-kernel (counting the launch) for tensors on the card.
+kernel for tensors on the card, counting the launches the C entry reports.
+An (n, 0) right-hand side returns an (n, 0) result and launches nothing.
 """
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -26,13 +31,13 @@ from . import _build
 
 __all__ = [
     "solve_vmem", "solve_tiled", "solve_inverted",
-    "solve_vmem_plain", "solve_tiled_plain",
+    "solve_vmem_plain", "solve_tiled_plain", "tiled_launches", "inverted_launches",
     "SMEM_BYTES", "TILED_MAX_BLOCK", "RHS_COLS",
 ]
 
 SMEM_BYTES = 232_448    # dynamic shared memory one H100 block may use
-TILED_MAX_BLOCK = 128   # largest (B, B) tile solve_tiled stages
-RHS_COLS = 32           # RHS columns a solve_tiled / solve_inverted block holds at once
+TILED_MAX_BLOCK = 128   # solve_tiled's largest (B, B) tile: a head's strip retirements grow as B^2
+RHS_COLS = 64           # most RHS columns a solve_tiled / solve_inverted block holds (kWide)
 _THREADS = 512
 
 
@@ -61,6 +66,25 @@ def _launch(fn_name: str, *args) -> None:
     _build.check(code, fn_name)
 
 
+def _launch_counted(wrapper, fn_name: str, *args) -> None:
+    """Call a C entry that reports its launches; add them to ``wrapper.launches``."""
+    lib = _build.library()
+    launched = ctypes.c_int(0)
+    code = getattr(lib, fn_name)(*args, torch.cuda.current_stream().cuda_stream,
+                                 ctypes.byref(launched))
+    wrapper.launches += launched.value
+    _build.check(code, fn_name)
+
+
+def _rhs(name: str, lu: torch.Tensor, b: torch.Tensor) -> tuple[torch.Tensor, bool]:
+    """``b`` as an (n, m) matrix, checked against the (n, n) factor."""
+    bm, squeeze = _as_matrix(b)
+    n = lu.shape[-1]
+    if lu.shape != (n, n) or bm.ndim != 2 or bm.shape[0] != n:
+        raise ValueError(f"{name}: factor {tuple(lu.shape)} and RHS {tuple(b.shape)} do not match")
+    return bm, squeeze
+
+
 def _f32(t: torch.Tensor, name: str) -> torch.Tensor:
     if t.dtype == torch.float64:
         raise TypeError(f"{name}: the CUDA kernel computes in float32; got float64")
@@ -84,8 +108,10 @@ def solve_vmem(lu, b: torch.Tensor, *, rhs_tile: int = 256) -> torch.Tensor:
     if lu.device.type == "cpu":
         return solve_vmem_plain(lu, b)
     _check_cuda("solve_vmem", lu, b)
-    bm, squeeze = _as_matrix(b)
+    bm, squeeze = _rhs("solve_vmem", lu, b)
     n, m = bm.shape
+    if m == 0:
+        return torch.empty_like(bm)  # an (n, 0) RHS: nothing to launch
     n32 = -(-n // 32) * 32
     cap = SMEM_BYTES // (n32 * 4)
     if cap < 1:
@@ -110,6 +136,26 @@ solve_vmem.launches = 0
 def tiled_block(n: int, block: int) -> int:
     """Tile size of :func:`solve_tiled` (and of its plain version)."""
     return min(block, n, TILED_MAX_BLOCK)
+
+
+def tiled_launches(n: int, block: int = 256) -> int:
+    """Kernel launches :func:`solve_tiled` makes for an (n, n) factor and a
+    non-empty RHS: one per diagonal step of each sweep."""
+    return 2 * (-(-n // tiled_block(n, block)))
+
+
+def inverted_launches(n: int, block: int) -> int:
+    """Kernel launches :func:`solve_inverted` makes for an (n, n) factor
+    with ``(S, block, block)`` inverses and a non-empty RHS: per step the
+    inverse product and the retirement, none of the last step's retirement
+    in either sweep."""
+    return 4 * (-(-n // block)) - 2
+
+
+def _rhs_tile(m: int, rhs_tile: int) -> int:
+    """RHS columns per block: equal tiles of at most ``rhs_tile`` and
+    :data:`RHS_COLS` columns."""
+    return equalized_rhs_tile(m, max(1, min(rhs_tile, RHS_COLS)))
 
 
 def solve_tiled_plain(lu: torch.Tensor, b: torch.Tensor, *, block: int = 256) -> torch.Tensor:
@@ -141,22 +187,25 @@ def solve_tiled_plain(lu: torch.Tensor, b: torch.Tensor, *, block: int = 256) ->
 
 
 def solve_tiled(lu, b: torch.Tensor, *, block: int = 256) -> torch.Tensor:
-    """Blocked ``(LU) x = b`` with the LU in device memory and one
-    ``(B, B)`` tile, ``B = min(block, n, 128)``, in shared memory at a time.
-    Computes at fp32 and casts back to the RHS dtype; one block per
-    32-column RHS tile."""
+    """Blocked ``(LU) x = b`` with the LU in device memory, in
+    ``(B, B)`` tiles, ``B = min(block, n, 128)``: one launch per diagonal
+    step, whose blocks each solve the diagonal tile and retire an equal
+    chunk of the trailing rows.  Computes at fp32 and casts back to the RHS
+    dtype; RHS columns go in equal tiles of at most 64."""
     lu = packed_of(lu)
     if lu.device.type == "cpu":
         return solve_tiled_plain(lu, b, block=block)
     _check_cuda("solve_tiled", lu, b)
-    bm, squeeze = _as_matrix(b)
+    bm, squeeze = _rhs("solve_tiled", lu, b)
     n, m = bm.shape
+    if m == 0:
+        return torch.empty_like(bm)  # an (n, 0) RHS: nothing to launch
     lu32, b32 = _f32(lu, "solve_tiled"), _f32(bm, "solve_tiled")
-    x = torch.empty_like(b32)
+    x, y = torch.empty_like(b32), torch.empty_like(b32)
     with torch.cuda.device(lu.device):
-        _launch("ebv_solve_tiled", lu32.data_ptr(), b32.data_ptr(), x.data_ptr(), n, m,
-                tiled_block(n, block), _THREADS)
-    solve_tiled.launches += 1
+        _launch_counted(solve_tiled, "ebv_solve_tiled", lu32.data_ptr(), b32.data_ptr(),
+                        x.data_ptr(), y.data_ptr(), n, m, tiled_block(n, block),
+                        _rhs_tile(m, RHS_COLS))
     x = x.to(bm.dtype)
     return x[:, 0] if squeeze else x
 
@@ -171,25 +220,28 @@ def solve_inverted(lu, linv: torch.Tensor, uinv: torch.Tensor, b: torch.Tensor, 
                    rhs_tile: int = 512) -> torch.Tensor:
     """Blocked ``(LU) x = b`` from a ``Factorization``'s pre-inverted
     ``(S, B, B)`` diagonal blocks: every diagonal step is one product
-    against the stored inverse, then a rank-B retirement.  One block per
-    equalized RHS tile (:func:`~repro_torch.core.factorization.equalized_rhs_tile`)."""
+    against the stored inverse, then a rank-B retirement, each one launch
+    spread over every SM.  RHS columns go in equal tiles of at most
+    ``min(rhs_tile, 64)``
+    (:func:`~repro_torch.core.factorization.equalized_rhs_tile`)."""
     lu = packed_of(lu)
     if lu.device.type == "cpu":
         return dense_inverted_solve(lu, linv, uinv, b)
     _check_cuda("solve_inverted", lu, linv, uinv, b)
-    bm, squeeze = _as_matrix(b)
+    bm, squeeze = _rhs("solve_inverted", lu, b)
     n, m = bm.shape
     S, B = linv.shape[0], linv.shape[1]
-    if S * B < n or uinv.shape != linv.shape:
+    if linv.shape != (S, B, B) or S * B < n or uinv.shape != linv.shape:
         raise ValueError(f"solve_inverted: inverses {tuple(linv.shape)} do not cover n={n}")
-    rt = equalized_rhs_tile(m, rhs_tile)
+    if m == 0:
+        return torch.empty_like(bm)  # an (n, 0) RHS: nothing to launch
     lu32, b32 = _f32(lu, "solve_inverted"), _f32(bm, "solve_inverted")
     li32, ui32 = _f32(linv, "solve_inverted"), _f32(uinv, "solve_inverted")
-    x = torch.empty_like(b32)
+    x, y = torch.empty_like(b32), torch.empty_like(b32)
     with torch.cuda.device(lu.device):
-        _launch("ebv_solve_inverted", lu32.data_ptr(), li32.data_ptr(), ui32.data_ptr(),
-                b32.data_ptr(), x.data_ptr(), n, m, B, S, rt, _THREADS)
-    solve_inverted.launches += 1
+        _launch_counted(solve_inverted, "ebv_solve_inverted", lu32.data_ptr(), li32.data_ptr(),
+                        ui32.data_ptr(), b32.data_ptr(), x.data_ptr(), y.data_ptr(), n, m, B,
+                        _rhs_tile(m, rhs_tile))
     x = x.to(bm.dtype)
     return x[:, 0] if squeeze else x
 

@@ -130,7 +130,53 @@ def test_solve_kernels_match_plain(n, m, card):
     close(trsm.solve_tiled(lu, b), trsm.solve_tiled_plain(lu, b))
     close(trsm.solve_inverted(lu, linv, uinv, b), dense_inverted_solve(lu, linv, uinv, b))
     after = (trsm.solve_vmem.launches, trsm.solve_tiled.launches, trsm.solve_inverted.launches)
-    assert [y - x for x, y in zip(counts, after)] == [1, 1, 1]
+    # as the C entries counted: one launch per step of solve_tiled, two of solve_inverted
+    assert [y - x for x, y in zip(counts, after)] == [
+        1, trsm.tiled_launches(n), trsm.inverted_launches(n, linv.shape[1])]
+
+
+@pytest.fixture(scope="module")
+def factors_on_card():
+    """Packed LU on the card per n, made once per module."""
+    cache = {}
+
+    def get(n):
+        if n not in cache:
+            cache[n] = ebv_lu.lu_fused(torch.from_numpy(dd(n, n + 5)).to("cuda"))
+        return cache[n]
+
+    return get
+
+
+# n = 1; n under one 128-tile; ragged n = 2049 (one row past 16 tiles of 128,
+# a 1-row last tile of 256); n = 8000 (63 tiles of 128, 32 of 256, a 64-row
+# last one): each with the RHS widths on both sides of a narrow tile (4
+# columns) and a wide one (64), and past it
+@pytest.mark.parametrize("m", [1, 33, 64, 300])
+@pytest.mark.parametrize("n", [1, 100, 2049, 8000])
+def test_tiled_and_inverted_kernels_across_the_split(n, m, card, factors_on_card):
+    lu = factors_on_card(n)
+    b = torch.from_numpy(rhs(n, m, n + m)).to(card)
+    before = trsm.solve_tiled.launches
+    close(trsm.solve_tiled(lu, b, block=128), trsm.solve_tiled_plain(lu, b, block=128))
+    assert trsm.solve_tiled.launches - before == trsm.tiled_launches(n, 128)
+    for block in (128, 256, 512):  # 512: the kernel stages the inverses' depth in two passes
+        linv, uinv = dense_block_inverses(lu, block=block)
+        before = trsm.solve_inverted.launches
+        close(trsm.solve_inverted(lu, linv, uinv, b), dense_inverted_solve(lu, linv, uinv, b))
+        assert trsm.solve_inverted.launches - before == trsm.inverted_launches(n, linv.shape[1])
+
+
+def test_dense_solves_take_an_empty_rhs_without_a_launch(card):
+    lu = torch.from_numpy(ref.lu_ref(dd(40, 3)).astype(np.float32)).to(card)
+    linv, uinv = dense_block_inverses(lu, block=16)
+    b = torch.zeros((40, 0), device=card)
+    wrappers = (trsm.solve_vmem, trsm.solve_tiled, trsm.solve_inverted)
+    before = [w.launches for w in wrappers]
+    outs = (trsm.solve_vmem(lu, b), trsm.solve_tiled(lu, b), trsm.solve_inverted(lu, linv, uinv, b))
+    assert [w.launches for w in wrappers] == before
+    for x in outs:
+        assert x.shape == (40, 0) and x.dtype == b.dtype and x.device == b.device
 
 
 def test_main_path_dispatches_the_kernels(card):
@@ -502,7 +548,9 @@ def test_the_tiers_run_the_kernels(card):
         x = ops.linear_solve(a, b, tolerance=1e-5)
     torch.cuda.synchronize()
     assert [name for _, name in log] == ["bf16_ir"]
-    assert ebv_lu.lu_fused.launches > before[0] and trsm.solve_inverted.launches >= before[1] + 2
+    # the first answer and at least one refinement sweep, each a full inverted solve
+    assert ebv_lu.lu_fused.launches > before[0]
+    assert trsm.solve_inverted.launches >= before[1] + 2 * trsm.inverted_launches(512, 256)
     assert float(relative_residual(a, b, x)) <= 1e-5
     rng = np.random.default_rng(11)
     low = (rng.standard_normal((256, 32)) @ rng.standard_normal((32, 256)) / 32).astype(np.float32)

@@ -129,6 +129,30 @@ def test_wrappers_count_launches_and_not_on_the_cpu():
     assert [w.launches for w in wrappers] == [0, 0, 0, 0]  # the plain versions ran
 
 
+@pytest.mark.parametrize("n", [1, 40])
+def test_dense_solves_of_an_empty_rhs_return_it_without_a_launch(n):
+    wrappers = (trsm.solve_vmem, trsm.solve_tiled, trsm.solve_inverted)
+    before = [w.launches for w in wrappers]
+    lu = ebv_lu.lu_fused(torch.from_numpy(dd(n, 2)))
+    linv, uinv = dense_block_inverses(lu, block=16)
+    b = torch.zeros((n, 0))
+    for x in (trsm.solve_vmem(lu, b), trsm.solve_tiled(lu, b, block=16),
+              trsm.solve_inverted(lu, linv, uinv, b)):
+        assert x.shape == (n, 0) and x.dtype == b.dtype
+    assert [w.launches for w in wrappers] == before
+
+
+@pytest.mark.parametrize("n,block,tiled,inverted", [
+    (1, 256, 2, 2), (100, 256, 2, 2), (2049, 128, 34, 66), (2049, 256, 34, 34),
+    (8000, 128, 126, 250), (8000, 256, 126, 126)])
+def test_solve_launch_counts(n, block, tiled, inverted):
+    # solve_tiled: one launch per diagonal step of each sweep (B <= 128);
+    # solve_inverted: the inverse product and the retirement per step, no
+    # retirement after either sweep's last step
+    assert trsm.tiled_launches(n, block) == tiled
+    assert trsm.inverted_launches(n, min(block, n)) == inverted
+
+
 def test_lu_fused_rejects_what_the_kernel_does_not_take():
     with pytest.raises(TypeError):
         ebv_lu.lu_fused(torch.eye(8, dtype=torch.float64))
