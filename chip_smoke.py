@@ -9,8 +9,12 @@ Phases (any failure exits non-zero):
 
 1. card: name and power limit (``nvidia-smi``), torch and CUDA versions;
 2. build: the CUDA sources under ``src/repro_torch/csrc`` with ``nvcc``;
-3. kernels against their plain PyTorch versions on the card (B3 and B4 also
-   at n = 1, 100 and 2049 with 1, 33 and 300 RHS columns); 3c the
+3. kernels against their plain PyTorch versions on the card (B1 at every
+   size the dense paths factor, n = 500, 1024, 2000 and 4096, also at
+   n = 1, 100, 255 and 2049 and with ``block=50``, and at n = 8000 against
+   the plain version or, if that would take over about a minute,
+   ``lu_factor(pivot=False)``; B3 and
+   B4 also at n = 1, 100 and 2049 with 1, 33 and 300 RHS columns); 3c the
    batched kernels (B9-B12) at the batched paths' shapes; 3d the legacy
    dense kernels (B14-B17) at the legacy paths' shapes and the legacy
    scalar band factor (B18) at the band the service escalates to it; 3e the
@@ -69,9 +73,9 @@ Phases (any failure exits non-zero):
    factor's one call), the bound,
    launches per call and peak memory;
    the ``cuda_vmem`` / ``cuda_tiled`` and ``cuda_blocked`` / ``cuda_tiled``
-   crossovers; the optimizer step's time; device time by kernel (B3 and B4
-   at n = 8000 among them) and each dense solve step's time beside the
-   host's enqueue time per launch; B13 at the
+   crossovers; the optimizer step's time; device time by kernel (B1, B3 and
+   B4 at n = 8000 among them) and each dense factor and solve step's time
+   beside the host's enqueue time per launch; B13 at the
    served and the decode-heavy shape; one full-width decode step against
    its weight-bytes bound, with its device idle share;
 6. the ``kernels`` JSON line, the card line and the result line.
@@ -180,6 +184,7 @@ def main() -> int:
     from repro_torch.core.factorization import dense_block_inverses, dense_inverted_solve
     from repro_torch.core.health import relative_residual
     from repro_torch.core.banded import banded_solve_blocked, make_banded_dd
+    from repro_torch.core.blocked import fused_block_size
     from repro_torch.core.factorization import banded_inverted_solve, factorize_banded
     from repro_torch import train
     from repro_torch.kernels import _build, banded, batched_lu, ebv_lu, ops, ref, trsm
@@ -255,7 +260,9 @@ def main() -> int:
         if got.shape != want.shape or not bool(torch.isfinite(got).all()):
             fail(f"{name} {shape}: shape {tuple(got.shape)} or non-finite values")
         abs_err = float((got.double() - want.double()).abs().max())
-        rel = abs_err / float(want.double().abs().max())
+        scale = float(want.double().abs().max())
+        # nothing to scale by (L of a 1 x 1 factor): only equality passes
+        rel = abs_err / scale if scale else (0.0 if abs_err == 0 else float("inf"))
         max_err[name] = max(max_err.get(name, 0.0), abs_err)
         print(f"  {name:15s} {shape:14s} max_abs {abs_err:.3e}  rel {rel:.3e}", flush=True)
         if not rel <= tol:
@@ -267,11 +274,43 @@ def main() -> int:
         compare(name, f"{shape} L", got.tril(-1), want.tril(-1))
         compare(name, f"{shape} U", got.triu(), want.triu())
 
-    lus = {}
-    for n in SIZES:
-        lus[n] = ebv_lu.lu_fused(matrix(n, n))
-    a2 = matrix(2000, 2000)
-    compare_lu("lu_fused", "n=2000", lus[2000], ebv_lu.lu_fused_plain(a2))
+    def once(fn):
+        """``fn()`` and its time in ms on the card, one call."""
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn()
+        end.record()
+        end.synchronize()
+        return out, start.elapsed_time(end)
+
+    lus = {n: ebv_lu.lu_fused(matrix(n, n)) for n in SIZES}
+    fused_plain_ms = {}
+    for n in SIZES[:-1]:
+        want, fused_plain_ms[n] = once(lambda: ebv_lu.lu_fused_plain(matrix(n, n)))
+        compare_lu("lu_fused", f"n={n}", lus[n], want)
+    # the service's n = 1024 and the bf16_ir tier's and the service's
+    # n = 4096 (phases 4g, 4h); n = 255, a step of 128 and a ragged one;
+    # block=50, which steps by 48 columns, a width no update tile divides
+    for n, blk in ((SERVE_DENSE[0], 256), (IR_N, 256), (255, 256), (600, 50)):
+        a = matrix(n, 950 + n)
+        compare_lu("lu_fused", f"n={n}" + (f" block={blk}" if blk != 256 else ""),
+                   ebv_lu.lu_fused(a, block=blk), ebv_lu.lu_fused_plain(a, block=blk))
+    # n = 8000 against an independent factor: the plain version, one call, if
+    # its host-bound loop (~S^2 small launches, S = n / B) should end within
+    # about a minute by the n = 2000 call's time; lu_factor(pivot=False) if not
+    steps = {n: -(-n // fused_block_size(n, 256)) for n in (2000, 8000)}
+    plain8_est = fused_plain_ms[2000] * (steps[8000] / steps[2000]) ** 2 / 1e3
+    plain8_ms = None  # phase 5 reads it
+    if plain8_est <= 60:
+        want8, plain8_ms = once(lambda: ebv_lu.lu_fused_plain(matrix(8000, 8000)))
+        print(f"  lu_fused n=8000 against the plain version (estimated {plain8_est:.0f} s from n=2000; "
+              f"took {plain8_ms / 1e3:.1f} s)", flush=True)
+    else:
+        want8 = torch.linalg.lu_factor(matrix(8000, 8000), pivot=False)[0]
+        print(f"  lu_fused n=8000 against torch.linalg.lu_factor(pivot=False) (the plain version estimated "
+              f"at {plain8_est:.0f} s from n=2000)", flush=True)
+    compare_lu("lu_fused", "n=8000", lus[8000], want8)
+    del want8
     inverses = {n: dense_block_inverses(lus[n], block=256) for n in SIZES}
     for m in (1, WIDE):
         b = rhs(2000, m, 7)
@@ -288,7 +327,9 @@ def main() -> int:
     # n = 2049 (B4 also from 128- and 512-blocks, the latter in two passes);
     # narrow, wide and several wide tiles
     for n in RAGGED_N:
-        lu = ebv_lu.lu_fused(matrix(n, 900 + n))
+        a = matrix(n, 900 + n)
+        lu = ebv_lu.lu_fused(a)
+        compare_lu("lu_fused", f"n={n}", lu, ebv_lu.lu_fused_plain(a))
         for m in RAGGED_M:
             b = rhs(n, m, 910 + m)
             compare("solve_tiled", f"n={n} m={m}", trsm.solve_tiled(lu, b), trsm.solve_tiled_plain(lu, b))
@@ -301,15 +342,6 @@ def main() -> int:
         # L (columns 0..bw-1) and U (bw..2bw) of the packed band apart
         compare(name, f"{shape} L", got[:, :bw], want[:, :bw])
         compare(name, f"{shape} U", got[:, bw:], want[:, bw:])
-
-    def once(fn):
-        """``fn()`` and its time in ms on the card, one call."""
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        out = fn()
-        end.record()
-        end.synchronize()
-        return out, start.elapsed_time(end)
 
     # (n, bw, factor kernels, RHS widths, B8 too): each banded kernel at the
     # shapes the banded main path gives it (Table 1's largest band for
@@ -512,7 +544,7 @@ def main() -> int:
             fail(f"{label}: result of shape {tuple(x.shape)} or non-finite")
         if not res <= solvers.VERIFY_RESIDUAL_DEFAULT_BOUND:
             fail(f"{label}: residual {res:.3e} > {solvers.VERIFY_RESIDUAL_DEFAULT_BOUND}")
-    # the C drivers report what they launched: 4S-3 per factor, one step per
+    # the C drivers report what they launched: 4S-4 per factor, one step per
     # launch of solve_tiled (2S), two of solve_inverted (4S-2)
     expected = {"lu_fused": sum(ebv_lu.fused_launches(n) for n, _, _, _ in cases) + ebv_lu.fused_launches(8000),
                 "solve_vmem": sum(1 for n, _, _, _ in cases if n <= 2048),
@@ -1212,7 +1244,7 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats()
     for n in SIZES:
         a = matrix(n, n)
-        plain = timed(lambda: ebv_lu.lu_fused_plain(a)) if n <= 2000 else None
+        plain = timed(lambda: ebv_lu.lu_fused_plain(a)) if n <= 2000 else plain8_ms  # n = 8000: phase 3's call
         lib = library(lambda: torch.linalg.lu_factor(a, pivot=False))
         kernel = lambda: ebv_lu.lu_fused(a)
         record("lu_fused", f"n={n}", timed(kernel), plain, lib,
@@ -1394,7 +1426,10 @@ def main() -> int:
         opt_ms[name] = statistics.median(times)
         print(f"    {name:16s} {opt_ms[name]:.3f} ms (card: {card})", flush=True)
 
-    print("  device time by kernel (torch.profiler, one call after a warm-up):", flush=True)
+    print("  device time by kernel (torch.profiler, one call after a warm-up; under programmatic dependent "
+          "launch a kernel's blocks start before the launch before them ends and their wait counts, so the "
+          "sums of lu_fused, solve_tiled and solve_inverted over-count their calls: the CUDA-event times "
+          "and steps below are theirs):", flush=True)
     a8 = matrix(8000, 8000)
     b8 = rhs(8000, 1, 11)
     ap = bands[(pn, POISSON_NX)]
@@ -1415,9 +1450,32 @@ def main() -> int:
         for name, us, count in rows_k[:12]:
             print(f"    {label:24s} {name[:48]:48s} {us / 1e3:9.3f} ms  x{count}", flush=True)
 
-    # a step of B3 / B4 is one / two launches in stream order: the step's time
-    # on the card beside the host's time to enqueue a launch, below which no
-    # step can go (the steps' only sync is the launch boundary)
+    # a step of B1 is four launches in stream order (the panels, the next
+    # block row and column, the next diagonal tile beside the rest of the
+    # update), of B3 / B4 one / two: the step's time on the card beside the
+    # host's time to enqueue a launch, below which no step can go
+    def host_per_launch(call, nl):
+        host = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            call()  # returns once every launch is queued
+            host.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+        return 1e3 * statistics.median(host) / nl
+
+    print(f"  the steps of the dense factor (card: {card}):", flush=True)
+    a = matrix(128, 128)  # one step: the diagonal tile alone (and the copy of the matrix)
+    tile_us = 1e3 * timed(lambda: [ebv_lu.lu_fused(a) for _ in range(20)]) / 20
+    print(f"    lu_fused n=  128: one launch, {tile_us:.2f} us a call over 20 calls back to back (events)",
+          flush=True)
+    for n in SIZES:
+        a = matrix(n, n)
+        nl, S = ebv_lu.fused_launches(n), -(-n // ebv_lu.fused_step_width(n))
+        ms = rows[("lu_fused", f"n={n}")]["ms"]
+        print(f"    lu_fused n={n:5d}: {nl} launches over {S} steps, {1e3 * ms / S:.2f} us per step on the card "
+              f"(events), host enqueue {host_per_launch(lambda: ebv_lu.lu_fused(a), nl):.2f} us per launch",
+              flush=True)
     print(f"  the steps of the dense solves at n=8000 (card: {card}):", flush=True)
     linv8, uinv8 = inverses[8000]
     for name, call, nl in (("solve_tiled", lambda b: trsm.solve_tiled(lus[8000], b), trsm.tiled_launches(8000)),
@@ -1425,16 +1483,9 @@ def main() -> int:
                             trsm.inverted_launches(8000, linv8.shape[1]))):
         for m in (1, WIDE):
             b = rhs(8000, m, 12)
-            host = []
-            for _ in range(3):
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                call(b)  # returns once every launch is queued
-                host.append((time.perf_counter() - t0) * 1e3)
-            torch.cuda.synchronize()
             ms = rows[(name, f"n=8000 m={m}")]["ms"]
             print(f"    {name:15s} m={m:3d}: {nl} launches, {1e3 * ms / nl:.2f} us per launch on the card "
-                  f"(events), host enqueue {1e3 * statistics.median(host) / nl:.2f} us per launch", flush=True)
+                  f"(events), host enqueue {host_per_launch(lambda: call(b), nl):.2f} us per launch", flush=True)
 
     print("  cuda_vmem / cuda_tiled crossover (kernel ms):", flush=True)
     for n in (500, 1000, 2000, 4000, 8000):

@@ -33,8 +33,9 @@ __all__ = [
     "FACTOR_SMEM_BYTES",
 ]
 
-# Dynamic shared memory one H100 block may use (232,448 bytes).  The CUDA
-# factor's diagonal-block kernel holds one (B, B+1) fp32 tile there.
+# Dynamic shared memory one H100 block may use (232,448 bytes):
+# fused_block_size keeps a (B, B+1) fp32 tile within it, the rule of the
+# port's first CUDA factor, which still pins the plain version's B.
 FACTOR_SMEM_BYTES = 232_448
 
 
@@ -109,12 +110,12 @@ def fused_block_size(n: int, block: int) -> int:
       block multiple (n=257, block=256) that nearly doubles the matrix.  At
       the same step count ``S``, ``B = ceil(n/S)`` rounded up to a 32
       multiple pads least — pick whichever candidate pads less.
-    * **the card**: the CUDA diagonal-block kernel factors one (B, B) tile
-      in one block's shared memory, stored with a row stride of ``B+1``
-      floats so column reads are free of bank conflicts.  ``B·(B+1)·4``
-      bytes must fit the 227 KB a Hopper block can address, so ``B`` is
-      halved until it does (256 → 128; 224 fits).  Nothing else bounds
-      ``B``: the other kernels stream tiles and never hold (N, B) slabs.
+    * **the card**: ``B`` is halved until ``B·(B+1)·4`` bytes fit the
+      227 KB one Hopper block can address (256 → 128; 224 fits), so
+      ``B = 128`` at the paper's dense sizes: the rule of the port's first
+      CUDA factor, which held the diagonal tile there.  It now fixes only
+      this plain version's blocking; the CUDA factor pads nothing and
+      steps by its own width (``kernels/ebv_lu.py:fused_step_width``).
     """
     B = min(block, n)
     S = -(-n // B)

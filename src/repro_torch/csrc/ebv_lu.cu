@@ -4,173 +4,509 @@
 // megakernel whose grid (step s, program p) relied on the TPU running grid
 // programs in order: program 0 of step s factored the panel into scratch
 // that every later program of the step read.  CUDA blocks run in no order,
-// so here each step is four launches in stream order on the identity-padded
-// (N, N) matrix, N = S*B:
-//   1. diag_factor_kernel     one block factors the (B, B) diagonal tile in
-//                             shared memory (rank-1 bi-vector steps);
-//   2. lower_panel_kernel     L21 = A21 * U11^-1, one block per 32 rows;
-//   3. upper_panel_kernel     U12 = L11^-1 * A12, one block per 64 columns;
-//   4. trailing_update_kernel A22 -= L21 * U12, one block per 64x64 tile.
-// That is 4S-3 launches (the last step has no trailing matrix).
+// so here each step of W <= 128 columns (a multiple of 4 past one step, so
+// that the update's 16-byte copies start aligned) is a few launches in
+// stream order on the caller's (n, n) matrix, row stride n:
+//   diag_kernel    one block factors the (W, W) diagonal tile;
+//   panel_kernel   L21 = A21 U11^-1 and U12 = L11^-1 A12 in one launch;
+//   update_kernel  A22 -= L21 U12, in two launches with one step of
+//                  lookahead: first the next step's block row and block
+//                  column, then the rest of A22, which runs beside the
+//                  next step's diagonal tile (the launch between them).
+// That is 4S-4 launches for S = ceil(n / W) >= 2 steps (one for S = 1): the
+// first diagonal tile, then per step but the last the panels, the next
+// block row and column, the next diagonal tile and the rest (none after the
+// last panels, where nothing is left).  The last step's tile may be
+// narrower than W; the kernels mask it, so the matrix is never padded (the
+// reference's identity tail is inert, and rows and columns past n simply do
+// not exist here).  Every launch after the first is a programmatic
+// dependent launch (pdl.cuh) and waits for the one before it before it
+// reads anything of `a` or of the scratch, which every step rewrites; those
+// reads go past L1.  The exception is the rest of A22: it reads nothing the
+// diagonal tile writes, so it waits only at the end of its last block, and
+// its completion implies the tile's for the panels after it; for that the
+// diagonal tile signals its dependents only after its own wait, once the
+// panels the rest reads are complete.
+//
+// What bounds each launch kind on this card:
+//   - diag_kernel is one block on one SM of 132, a chain of W-1 pivots; it
+//     bounds the latency of every step whose update is short.  The tile
+//     lives in registers: 32 warps own 4 rows each, a lane 4 columns of
+//     each (16 values a thread).  A pivot costs one block barrier: the row
+//     that will be the next pivot row is published into one of two
+//     shared-memory rows (with the reciprocal of its diagonal), so the
+//     barrier of pivot k+1 also ends the reads of pivot k's buffer.  Each
+//     warp owns the equalized pairs (q, 127-q) and (63-q, 64+q): row r
+//     takes r updates, so each pair takes 127 and every warp the same 254,
+//     and each warp holds one row in every band of 32 rows, so at a pivot in
+//     band kb the bands below are skipped at compile time and the work per
+//     pivot shrinks as evenly as the tile's.  This is the paper's eq.-7
+//     pairing (core/ebv.py:equalized_pairing pairs the elimination vectors
+//     r and n-2-r) applied to the tile's rows.  What remains bounds it: the
+//     instructions every warp issues per pivot (shuffle, scale and masked
+//     update of each live row) on one SM.
+//   - panel_kernel solves each row of L21 and each column of U12 as an
+//     independent chain of W steps: one warp takes 8 rows (or 8 adjacent
+//     columns), a lane 4 elements of each, and carries each chain's solved
+//     value to the lanes by __shfl_sync, with no barrier inside the chain.
+//     Every block first stages the triangle it solves against into shared
+//     memory once (U11 scaled by its reciprocal diagonal, or L11
+//     transposed), all its loads in flight together.  Row and column groups
+//     split evenly over about one block per SM.  Bound: the chain (~W
+//     shuffle-and-FMA steps) at small n, the shuffles and FMAs issued per
+//     SM at large n.  Both panels are also written, as (W, ldt) row-major
+//     copies, to the scratch the update reads.
+//   - update_kernel is an fp32 SGEMM of depth W on the CUDA cores (IEEE
+//     FMAs: there is no fp32 wgmma, and TF32 stays off), bound by the card's
+//     fp32 operations at large n: 128x128, 128x64 or 64x64 output tiles, an
+//     8x8, 8x4 or 4x4 register micro-tile per thread, k-chunks of 16 copied
+//     by 16-byte cp.async into a two-stage ring, and the A22 tile copied into shared
+//     memory at the start so that its device-memory read overlaps the
+//     product.  L21 arrives transposed from the panel scratch, so both
+//     operands are k-major rows read as float4, free of bank conflicts.  The
+//     rest of A22 takes the tile that splits it most evenly over the SMs, so
+//     the late, small steps still fill the card; the block row and column
+//     take 64x64 tiles, many blocks of a short chain.
 //
 // The TPU kernel's eq.-7 fold (program p owns trailing tiles p+1 and S-1-p,
-// so each program's lifetime work is the constant S) only balances an
-// executor that persists across steps.  With one launch per step every
-// block of a launch has the same work, so the fold has nothing to do here;
-// a persistent kernel with a grid barrier per step would use it.
+// so each program's lifetime work is the constant S) balances programs that
+// persist across steps.  Here every step is its own launches and every
+// block of a launch gets an equal share of that step, so the fold has
+// nothing left to balance; the pairing lives in the diagonal tile instead.
 //
-// What bounds it: the trailing updates do almost all of the 2n^3/3 flops, so
-// at large n the bound is fp32 operations (67 TFLOP/s outside the tensor
-// cores); the diagonal tile factor and the two panel solves are short
-// serial chains on few SMs and set a floor per step.  The design
-// keeps every step's tile in shared memory (the diagonal tile with a row
-// stride of B+1 so column reads are free of bank conflicts) and runs the
-// update as a register-blocked 64x64 SGEMM tile per block.  No wgmma/TMA:
-// making it fast is later work.
+// Summation order against the plain version (core/blocked.py:
+// fused_lu_steps): the plain version factors each tile in 32-column strips,
+// retiring each strip by a rank-32 product; this kernel factors the whole
+// tile by W-1 rank-1 steps, solves the panels by rank-1 sweeps (the lower
+// panel with U11's rows prescaled by their reciprocal pivot, divided out at
+// the end as a product with the reciprocal), and sums each trailing update
+// in k order 0..W-1 before subtracting it.  The results agree to fp32
+// rounding, not bit for bit.
 #include <cuda_runtime.h>
 
 #include <cstddef>
+#include <type_traits>
+
+#include "async_copy.cuh"
+#include "pdl.cuh"
 
 namespace {
 
-constexpr int kDiagThreads = 1024;
-constexpr int kPanelThreads = 256;
-constexpr int kLowerRows = 32;   // rows of L21 per block
-constexpr int kUpperCols = 64;   // columns of U12 per block
-constexpr int kTile = 64;        // trailing-update output tile
-constexpr int kDepth = 16;       // trailing-update k step
+constexpr int kTileMax = 128;            // widest step: the diagonal tile in registers
+constexpr int kSlots = kTileMax / 32;    // columns a lane holds of each row
+constexpr int kDiagThreads = 1024;       // 32 warps, 4 rows each
+constexpr int kGroup = 8;                // panel rows (or columns) a warp solves together
+constexpr int kPanelWarps = 16;
+constexpr int kTld = kTileMax + 1;       // row stride of a staged triangle
+constexpr int kUpdateThreads = 256;      // 16 x 16 threads over an update tile
+constexpr int kDepth = 16;               // k-chunk of the update's ring
 
-extern __shared__ float smem[];
+extern __shared__ __align__(16) float smem[];
 
-__global__ void diag_factor_kernel(float* a, int N, int base, int B) {
-  float* t = smem;
-  const int ld = B + 1;
-  for (int idx = threadIdx.x; idx < B * B; idx += blockDim.x) {
-    const int i = idx / B, j = idx % B;
-    t[i * ld + j] = a[(size_t)(base + i) * N + base + j];
-  }
-  __syncthreads();
-  for (int k = 0; k < B - 1; ++k) {
-    const float piv = t[k * ld + k];
-    for (int i = k + 1 + threadIdx.x; i < B; i += blockDim.x) t[i * ld + k] /= piv;
-    __syncthreads();
-    const int w = B - k - 1;
-    for (int idx = threadIdx.x; idx < w * w; idx += blockDim.x) {
-      const int i = k + 1 + idx / w, j = k + 1 + idx % w;
-      t[i * ld + j] -= t[i * ld + k] * t[k * ld + j];
-    }
-    __syncthreads();
-  }
-  for (int idx = threadIdx.x; idx < B * B; idx += blockDim.x) {
-    const int i = idx / B, j = idx % B;
-    a[(size_t)(base + i) * N + base + j] = t[i * ld + j];
-  }
+// f(std::integral_constant<int, kb>) for kb = 0 .. kSlots-1: a slot index
+// known at compile time keeps the per-lane arrays in registers.
+template <class F>
+__device__ __forceinline__ void for_each_slot(F f) {
+  static_assert(kSlots == 4, "four slots of 32 lanes");
+  f(std::integral_constant<int, 0>{});
+  f(std::integral_constant<int, 1>{});
+  f(std::integral_constant<int, 2>{});
+  f(std::integral_constant<int, 3>{});
 }
 
-// Rows below the diagonal tile: solve x * U11 = a for each row (right
-// solve against the upper triangle, diagonal division included).
-__global__ void lower_panel_kernel(float* a, int N, int base, int B) {
-  float* s = smem;
-  const int ld = B + 1;
-  const int row0 = base + B + blockIdx.x * kLowerRows;
-  const int rows = min(kLowerRows, N - row0);
-  for (int idx = threadIdx.x; idx < rows * B; idx += blockDim.x) {
-    const int r = idx / B, j = idx % B;
-    s[r * ld + j] = a[(size_t)(row0 + r) * N + base + j];
-  }
-  __syncthreads();
-  const float* urow = a + (size_t)base * N + base;  // U11, row stride N
-  for (int k = 0; k < B; ++k) {
-    const float ukk = urow[(size_t)k * N + k];
-    for (int r = threadIdx.x; r < rows; r += blockDim.x) s[r * ld + k] /= ukk;
-    __syncthreads();
-    const int w = B - k - 1;
-    for (int idx = threadIdx.x; idx < rows * w; idx += blockDim.x) {
-      const int r = idx / w, j = k + 1 + idx % w;
-      s[r * ld + j] -= s[r * ld + k] * urow[(size_t)k * N + j];
+// ---------------------------------------------------------------------------
+// 1. the diagonal tile
+// ---------------------------------------------------------------------------
+__global__ void __launch_bounds__(kDiagThreads, 1) diag_kernel(float* a, int n, int base, int w, float* rdiag) {
+  __shared__ float prow[2][kTileMax];  // the pivot row, double-buffered
+  __shared__ float prinv[2];           // and the reciprocal of its diagonal
+  const int lane = threadIdx.x & 31, q = threadIdx.x >> 5;
+  const int rows[4] = {q, 63 - q, 64 + q, 127 - q};  // the pairs (q, 127-q), (63-q, 64+q)
+  float* t = a + (size_t)base * n + base;
+  float v[4][kSlots];
+  wait_prior_step();
+  allow_next_step();  // after the wait: the launch after this one relies on it (ebv_lu_fused)
+#pragma unroll
+  for (int r = 0; r < 4; ++r)
+#pragma unroll
+    for (int c = 0; c < kSlots; ++c) {
+      const int j = 32 * c + lane;
+      v[r][c] = rows[r] < w && j < w ? __ldcg(t + (size_t)rows[r] * n + j) : 0.f;
     }
-    __syncthreads();
+  if (q == 0) {  // row 0 is the first pivot row
+#pragma unroll
+    for (int c = 0; c < kSlots; ++c) prow[0][32 * c + lane] = v[0][c];
+    if (lane == 0) {
+      prinv[0] = 1.f / v[0][0];
+      if (rdiag) rdiag[0] = prinv[0];
+    }
   }
-  for (int idx = threadIdx.x; idx < rows * B; idx += blockDim.x) {
-    const int r = idx / B, j = idx % B;
-    a[(size_t)(row0 + r) * N + base + j] = s[r * ld + j];
-  }
+  // Row r of a warp lies in band r (rows 32r .. 32r+31), so at a pivot of
+  // slot kb the bands below kb are done: the loops start at kb, and the
+  // work per pivot shrinks with the trailing tile.  No branch per row: the
+  // finished rows of band kb are masked by predicates.
+  for_each_slot([&](auto slot) {  // pivot k = 32*kb + kl: column k is slot kb of lane kl
+    constexpr int kb = decltype(slot)::value;
+    const int kend = min(32, w - 1 - 32 * kb);
+    for (int kl = 0; kl < kend; ++kl) {
+      const int k = 32 * kb + kl;
+      float m[4];  // each row's entry in column k, final since pivot k-1
+#pragma unroll
+      for (int r = kb; r < 4; ++r) m[r] = __shfl_sync(0xffffffffu, v[r][kb], kl);
+      __syncthreads();  // row k is published
+      const int cur = k & 1;
+      const float rp = prinv[cur];
+      float u[kSlots];
+#pragma unroll
+      for (int c = kb; c < kSlots; ++c) u[c] = prow[cur][32 * c + lane];
+      // row i -= l_i * row k on columns past k; l_i into column k
+#pragma unroll
+      for (int r = kb; r < 4; ++r) {
+        const bool live = r > kb || rows[r] > k;
+        const float l = m[r] * rp;
+#pragma unroll
+        for (int c = kb; c < kSlots; ++c)
+          if (live && (c > kb || lane > kl)) v[r][c] = fmaf(-l, u[c], v[r][c]);
+        if (live && lane == kl) v[r][kb] = l;
+      }
+      // publish row k+1: band kb, or band kb+1 after the slot's last pivot
+#pragma unroll
+      for (int r = kb; r < (kb + 2 < 4 ? kb + 2 : 4); ++r)
+        if (rows[r] == k + 1) {
+#pragma unroll
+          for (int c = kb; c < kSlots; ++c) prow[cur ^ 1][32 * c + lane] = v[r][c];
+          const float dkk = kl == 31 ? v[r][kb + 1 < kSlots ? kb + 1 : kb] : v[r][kb];
+          if (lane == ((kl + 1) & 31)) {
+            prinv[cur ^ 1] = 1.f / dkk;
+            if (rdiag) rdiag[k + 1] = prinv[cur ^ 1];  // for the panels
+          }
+        }
+    }
+  });
+#pragma unroll
+  for (int r = 0; r < 4; ++r)
+#pragma unroll
+    for (int c = 0; c < kSlots; ++c) {
+      const int j = 32 * c + lane;
+      if (rows[r] < w && j < w) t[(size_t)rows[r] * n + j] = v[r][c];
+    }
 }
 
-// Columns right of the diagonal tile: forward-substitute each column
-// against the unit-lower triangle of the factored diagonal tile.
-__global__ void upper_panel_kernel(float* a, int N, int base, int B) {
-  float* s = smem;  // B x kUpperCols
-  const int col0 = base + B + blockIdx.x * kUpperCols;
-  const int cols = min(kUpperCols, N - col0);
-  for (int idx = threadIdx.x; idx < B * kUpperCols; idx += blockDim.x) {
-    const int i = idx / kUpperCols, c = idx % kUpperCols;
-    s[idx] = c < cols ? a[(size_t)(base + i) * N + col0 + c] : 0.f;
+// ---------------------------------------------------------------------------
+// 2. the panels
+// ---------------------------------------------------------------------------
+constexpr size_t kPanelSmem = (size_t)(kTileMax * kTld + kTileMax) * sizeof(float);
+
+// Blocks [0, lower_blocks) solve rows of L21, the rest columns of U12; each
+// warp of a block takes kGroup rows (columns), per_block warps a block.
+// Every chain runs over W positions held as 4 slots of 32 lanes: position
+// j = 32c + lane is slot c of that lane.  A lower chain solves x U11 = a:
+// with T[k][j] = U11[k][j] / U11[k][k] it carries y (x = y / U11 diagonal,
+// applied at the end); an upper chain solves L11 y = a with T[k][j] =
+// L11[j][k].  `rdiag` holds the reciprocal diagonal of U11 (diag_kernel
+// writes it); `lt` / `ut` take L21 transposed and U12, (W, ldt) row-major.
+__global__ void __launch_bounds__(kPanelWarps * 32) panel_kernel(float* a, int n, int base, int w,
+                                                                 const float* rdiag, float* lt, float* ut,
+                                                                 int ldt, int lower_blocks, int per_block,
+                                                                 int vec) {
+  float* T = smem;                  // (kTileMax, kTld)
+  float* d = T + kTileMax * kTld;   // reciprocal diagonal (lower), ones (upper)
+  allow_next_step();
+  const bool lower = blockIdx.x < lower_blocks;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int t0 = base + w, M = n - t0;
+  const int g0 = kGroup * ((lower ? blockIdx.x : blockIdx.x - lower_blocks) * per_block + warp);
+  const bool solves = warp < per_block && g0 < M;
+  const float* d11 = a + (size_t)base * n + base;
+  wait_prior_step();
+
+  // the triangle once per block, every load in flight together: thread q of
+  // a pass reads row q % 128 of the factored tile at columns lo .. lo+3 (a
+  // float4 where aligned; none where T takes no entry of them), so that both
+  // its stores into T, straight (lower) or transposed (upper), go to
+  // consecutive banks across the lanes
+  constexpr int kPasses = kTileMax * kTileMax / 4 / (kPanelWarps * 32);
+  float4 tri[kPasses];
+#pragma unroll
+  for (int i = 0; i < kPasses; ++i) {
+    const int q = threadIdx.x + i * kPanelWarps * 32, hi = q % kTileMax, lo = 4 * (q / kTileMax);
+    const float* p = d11 + (size_t)hi * n + lo;
+    if (hi >= w || (lower ? lo + 3 <= hi : lo >= hi)) tri[i] = make_float4(0.f, 0.f, 0.f, 0.f);  // not read
+    else if (vec && lo + 3 < w) tri[i] = __ldcg(reinterpret_cast<const float4*>(p));
+    else tri[i] = make_float4(lo < w ? __ldcg(p) : 0.f, lo + 1 < w ? __ldcg(p + 1) : 0.f,
+                              lo + 2 < w ? __ldcg(p + 2) : 0.f, lo + 3 < w ? __ldcg(p + 3) : 0.f);
+  }
+  if (threadIdx.x < kTileMax) d[threadIdx.x] = lower && threadIdx.x < w ? __ldcg(rdiag + threadIdx.x) : 1.f;
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < kPasses; ++i) {
+    const int q = threadIdx.x + i * kPanelWarps * 32, hi = q % kTileMax, lo = 4 * (q / kTileMax);
+    const float e[4] = {tri[i].x, tri[i].y, tri[i].z, tri[i].w};
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      if (lower) T[hi * kTld + lo + c] = lo + c > hi ? e[c] * d[hi] : 0.f;  // k = hi, j = lo + c
+      else T[(lo + c) * kTld + hi] = hi > lo + c ? e[c] : 0.f;               // k = lo + c, j = hi
+    }
   }
   __syncthreads();
-  const float* lcol = a + (size_t)base * N + base;  // L11, row stride N
-  for (int k = 0; k < B - 1; ++k) {
-    const int w = B - k - 1;
-    for (int idx = threadIdx.x; idx < w * kUpperCols; idx += blockDim.x) {
-      const int i = k + 1 + idx / kUpperCols, c = idx % kUpperCols;
-      s[i * kUpperCols + c] -= lcol[(size_t)i * N + k] * s[k * kUpperCols + c];
-    }
-    __syncthreads();
-  }
-  for (int idx = threadIdx.x; idx < B * kUpperCols; idx += blockDim.x) {
-    const int i = idx / kUpperCols, c = idx % kUpperCols;
-    if (c < cols) a[(size_t)(base + i) * N + col0 + c] = s[idx];
-  }
-}
+  if (!solves) return;
 
-// A22 -= L21 * U12 over the trailing (M, M) matrix, M = N - base - B.
-// 256 threads, each accumulating a 4x4 block of one 64x64 output tile.
-__global__ void trailing_update_kernel(float* a, int N, int base, int B) {
-  __shared__ float As[kDepth][kTile + 4];
-  __shared__ __align__(16) float Bs[kDepth][kTile];
-  const int t0 = base + B;
-  const int M = N - t0;
-  const int bi = blockIdx.y * kTile, bj = blockIdx.x * kTile;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  float acc[4][4] = {};
-  for (int k0 = 0; k0 < B; k0 += kDepth) {
-    for (int l = threadIdx.x; l < kTile * kDepth; l += blockDim.x) {
-      const int r = l / kDepth, kk = l % kDepth;
-      const bool ok = bi + r < M && k0 + kk < B;
-      As[kk][r] = ok ? a[(size_t)(t0 + bi + r) * N + base + k0 + kk] : 0.f;
-    }
-    for (int l = threadIdx.x; l < kDepth * kTile; l += blockDim.x) {
-      const int kk = l / kTile, c = l % kTile;
-      const bool ok = bj + c < M && k0 + kk < B;
-      Bs[kk][c] = ok ? a[(size_t)(base + k0 + kk) * N + t0 + bj + c] : 0.f;
-    }
-    __syncthreads();
+  // the group: rows t0+g0.. of A21 (lower) or columns t0+g0.. of A12
+  const bool full = g0 + kGroup <= M;
+  const bool wide = !lower && vec && full;  // 8 columns as two aligned float4s
+  float v[kGroup][kSlots];
 #pragma unroll
-    for (int kk = 0; kk < kDepth; ++kk) {
-      float ar[4];
+  for (int c = 0; c < kSlots; ++c) {
+    const int j = 32 * c + lane;
+    if (wide) {
+      const float* p = a + (size_t)(base + j) * n + t0 + g0;
+      const float4 lo = j < w ? __ldcg(reinterpret_cast<const float4*>(p)) : make_float4(0.f, 0.f, 0.f, 0.f);
+      const float4 hi = j < w ? __ldcg(reinterpret_cast<const float4*>(p + 4)) : make_float4(0.f, 0.f, 0.f, 0.f);
+      v[0][c] = lo.x, v[1][c] = lo.y, v[2][c] = lo.z, v[3][c] = lo.w;
+      v[4][c] = hi.x, v[5][c] = hi.y, v[6][c] = hi.z, v[7][c] = hi.w;
+    } else {
 #pragma unroll
-      for (int i = 0; i < 4; ++i) ar[i] = As[kk][ty * 4 + i];
-      const float4 br = *reinterpret_cast<const float4*>(&Bs[kk][tx * 4]);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        acc[i][0] += ar[i] * br.x;
-        acc[i][1] += ar[i] * br.y;
-        acc[i][2] += ar[i] * br.z;
-        acc[i][3] += ar[i] * br.w;
+      for (int r = 0; r < kGroup; ++r) {
+        const bool ok = g0 + r < M && j < w;
+        const float* p = lower ? a + (size_t)(t0 + g0 + r) * n + base + j : a + (size_t)(base + j) * n + t0 + g0 + r;
+        v[r][c] = ok ? __ldcg(p) : 0.f;
       }
     }
-    __syncthreads();
   }
+  for_each_slot([&](auto slot) {  // position k = 32*kb + kl: slot kb of lane kl
+    constexpr int kb = decltype(slot)::value;
+    const int kend = min(32, w - 1 - 32 * kb);
+#pragma unroll 4
+    for (int kl = 0; kl < kend; ++kl) {
+      const int k = 32 * kb + kl;
+      float x[kGroup];  // each chain's solved position k
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int gi = bi + ty * 4 + i;
-    if (gi >= M) continue;
+      for (int r = 0; r < kGroup; ++r) x[r] = __shfl_sync(0xffffffffu, v[r][kb], kl);
+      const float* tk = T + k * kTld + lane;  // zero at positions <= k
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int gj = bj + tx * 4 + j;
-      if (gj < M) a[(size_t)(t0 + gi) * N + t0 + gj] -= acc[i][j];
+      for (int c = kb; c < kSlots; ++c) {
+        const float tc = tk[32 * c];
+#pragma unroll
+        for (int r = 0; r < kGroup; ++r) v[r][c] = fmaf(-x[r], tc, v[r][c]);
+      }
+    }
+  });
+  if (lower)
+#pragma unroll
+    for (int c = 0; c < kSlots; ++c)
+#pragma unroll
+      for (int r = 0; r < kGroup; ++r) v[r][c] *= d[32 * c + lane];
+
+  float* s = lower ? lt : ut;
+#pragma unroll
+  for (int c = 0; c < kSlots; ++c) {
+    const int j = 32 * c + lane;
+    if (j >= w) continue;
+    // the scratch row j, positions g0..g0+7 (past M: zeros into the padding)
+    const float4 lo = make_float4(v[0][c], v[1][c], v[2][c], v[3][c]);
+    const float4 hi = make_float4(v[4][c], v[5][c], v[6][c], v[7][c]);
+    float4* p = reinterpret_cast<float4*>(s + (size_t)j * ldt + g0);
+    p[0] = lo;
+    p[1] = hi;
+    if (wide) {
+      float4* q = reinterpret_cast<float4*>(a + (size_t)(base + j) * n + t0 + g0);
+      q[0] = lo;
+      q[1] = hi;
+    } else {
+#pragma unroll
+      for (int r = 0; r < kGroup; ++r)
+        if (g0 + r < M) {
+          float* o = lower ? a + (size_t)(t0 + g0 + r) * n + base + j : a + (size_t)(base + j) * n + t0 + g0 + r;
+          *o = v[r][c];
+        }
     }
   }
+}
+
+// ---------------------------------------------------------------------------
+// 3. the trailing update
+// ---------------------------------------------------------------------------
+constexpr int kStages = 2;  // the ring: a chunk's copy hides behind the product of the one before
+
+template <int BM, int BN>
+constexpr size_t update_smem() {
+  return (size_t)(kStages * kDepth * (BM + BN) + BM * BN) * sizeof(float);
+}
+
+// A rectangle of the trailing matrix that one update launch covers, in
+// (BM, BN) tiles: rows ro .. ro+rows-1, columns co .. co+cols-1.
+struct Rect {
+  int ro, co, rows, cols;
+  int tiles_x, tiles;  // tiles across, tiles in all
+};
+
+template <int BM, int BN>
+Rect rect(int ro, int co, int rows, int cols) {
+  const int tx = (cols + BN - 1) / BN;
+  return Rect{ro, co, rows, cols, tx, rows > 0 && cols > 0 ? tx * ((rows + BM - 1) / BM) : 0};
+}
+
+// A22 -= L21 U12 on rectangles r0, r1 of the (M, M) trailing matrix at
+// (t0, t0), M = n - t0, depth w: block b the b-th (BM, BN) tile of r0, then
+// of r1.  Thread (tx, ty) of 16 x 16 (a warp is 8 x 4 of them) owns rows
+// 64i + 4ty + (0..3) and columns 64j + 4tx + (0..3) of its tile.  `lt` (L21
+// transposed) and `ut` (U12) are (w, ldt) row-major, ldt a multiple of 4
+// past every tile's last row and column.  `vec`: n, t0 and the rectangles'
+// edges are multiples of 4, so A22's rows are copied as float4s.
+// `wait_last`: the launch reads nothing the launch before it writes (see
+// ebv_lu_fused), so it waits for that launch only at the end of its last
+// block, which makes its completion imply that launch's.
+template <int BM, int BN>
+__global__ void __launch_bounds__(kUpdateThreads, 2)
+    update_kernel(float* a, int n, int t0, const float* lt, const float* ut, int ldt, int w, int vec, Rect r0,
+                  Rect r1, int wait_last) {
+  constexpr int TM = BM / 16, TN = BN / 16;  // 8 or 4
+  constexpr int P = kStages;
+  float* As = smem;                          // [P][kDepth][BM]
+  float* Bs = As + P * kDepth * BM;          // [P][kDepth][BN]
+  float* Cs = Bs + P * kDepth * BN;          // [BM][BN]
+  allow_next_step();
+  const bool first = blockIdx.x < r0.tiles;
+  const Rect& R = first ? r0 : r1;
+  const int b = first ? blockIdx.x : blockIdx.x - r0.tiles;
+  const int bi = R.ro + b / R.tiles_x * BM, bj = R.co + b % R.tiles_x * BN;
+  const int rlim = R.ro + R.rows, clim = R.co + R.cols;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int tx = (warp & 1) * 8 + (lane & 7), ty = (warp >> 1) * 4 + (lane >> 3);
+  float* c0 = a + (size_t)t0 * n + t0;
+  if (!wait_last) wait_prior_step();
+
+  auto stage = [&](int chunk) {  // rows k0..k0+15 of both operands; zeros past w
+    const int k0 = chunk * kDepth;
+    float* as = As + (chunk % P) * kDepth * BM;
+    float* bs = Bs + (chunk % P) * kDepth * BN;
+    for (int idx = threadIdx.x; idx < kDepth * BM / 4; idx += kUpdateThreads) {
+      const int k = idx / (BM / 4), m = 4 * (idx % (BM / 4));
+      const bool ok = k0 + k < w;
+      cp_async16(as + k * BM + m, lt + (size_t)(ok ? k0 + k : 0) * ldt + bi + m, ok ? 16 : 0);
+    }
+    for (int idx = threadIdx.x; idx < kDepth * BN / 4; idx += kUpdateThreads) {
+      const int k = idx / (BN / 4), m = 4 * (idx % (BN / 4));
+      const bool ok = k0 + k < w;
+      cp_async16(bs + k * BN + m, ut + (size_t)(ok ? k0 + k : 0) * ldt + bj + m, ok ? 16 : 0);
+    }
+  };
+  const int chunks = (w + kDepth - 1) / kDepth;
+  // copy groups: [chunk 0] .. [chunk P-1] [A22 tile], then chunk c+P after chunk c
+#pragma unroll
+  for (int c = 0; c < P; ++c) {
+    if (c < chunks) stage(c);
+    cp_async_commit();
+  }
+  if (vec)
+    for (int idx = threadIdx.x; idx < BM * BN / 4; idx += kUpdateThreads) {
+      const int r = idx / (BN / 4), c = 4 * (idx % (BN / 4));
+      if (bi + r < rlim && bj + c < clim) cp_async16(Cs + r * BN + c, c0 + (size_t)(bi + r) * n + bj + c);
+    }
+  cp_async_commit();
+
+  float acc[TM][TN] = {};
+  for (int chunk = 0; chunk < chunks; ++chunk) {
+    if (chunk < P) cp_async_wait<P>();
+    else cp_async_wait<P - 1>();
+    __syncthreads();
+    const float* as = As + (chunk % P) * kDepth * BM;
+    const float* bs = Bs + (chunk % P) * kDepth * BN;
+#pragma unroll
+    for (int k = 0; k < kDepth; ++k) {
+      float af[TM], bf[TN];
+#pragma unroll
+      for (int i = 0; i < TM / 4; ++i)
+        *reinterpret_cast<float4*>(&af[4 * i]) = *reinterpret_cast<const float4*>(as + k * BM + 64 * i + 4 * ty);
+#pragma unroll
+      for (int j = 0; j < TN / 4; ++j)
+        *reinterpret_cast<float4*>(&bf[4 * j]) = *reinterpret_cast<const float4*>(bs + k * BN + 64 * j + 4 * tx);
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+#pragma unroll
+        for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(af[i], bf[j], acc[i][j]);
+    }
+    __syncthreads();
+    if (chunk + P < chunks) stage(chunk + P);  // into the buffer just read
+    cp_async_commit();
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    const int r = 64 * (i / 4) + 4 * ty + i % 4;
+    if (bi + r >= rlim) continue;
+    float* out = c0 + (size_t)(bi + r) * n + bj;
+#pragma unroll
+    for (int j = 0; j < TN / 4; ++j) {
+      const int c = 64 * j + 4 * tx;
+      if (vec) {
+        if (bj + c >= clim) continue;
+        float4 o = *reinterpret_cast<const float4*>(Cs + r * BN + c);
+        o.x -= acc[i][4 * j];
+        o.y -= acc[i][4 * j + 1];
+        o.z -= acc[i][4 * j + 2];
+        o.w -= acc[i][4 * j + 3];
+        *reinterpret_cast<float4*>(out + c) = o;
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (bj + c + e < clim) out[c + e] = __ldcg(out + c + e) - acc[i][4 * j + e];
+      }
+    }
+  }
+  if (wait_last && blockIdx.x == gridDim.x - 1) wait_prior_step();
+}
+
+struct Shape {
+  int bm, bn;
+  // the tile's FMA rate against the 128 x 128 tile's on a large trailing
+  // matrix: about what the update alone reached on an H100 at 700 W (M =
+  // 7872: 36.9, 32.1 and 25.6 TF/s)
+  float eff;
+};
+constexpr Shape kShapes[] = {{128, 128, 1.f}, {128, 64, 0.85f}, {64, 64, 0.7f}};
+
+// The tile whose count splits most evenly over the SMs: least tiles per SM
+// times a tile's work over its rate.
+int pick_shape(int M, int sms) {
+  int best = 0;
+  double best_cost = 0;
+  for (int i = 0; i < 3; ++i) {
+    const Shape& s = kShapes[i];
+    const long tiles = (long)((M + s.bm - 1) / s.bm) * ((M + s.bn - 1) / s.bn);
+    const double cost = (double)((tiles + sms - 1) / sms) * s.bm * s.bn / s.eff;
+    if (i == 0 || cost < best_cost) best = i, best_cost = cost;
+  }
+  return best;
+}
+
+template <int BM, int BN>
+cudaError_t launch_update(float* a, int n, int t0, const float* lt, const float* ut, int ldt, int w, int vec,
+                          Rect r0, Rect r1, int wait_last, cudaStream_t stream) {
+  return launch_step(update_kernel<BM, BN>, dim3(r0.tiles + r1.tiles), dim3(kUpdateThreads), update_smem<BM, BN>(),
+                     stream, true, a, n, t0, lt, ut, ldt, w, vec, r0, r1, wait_last);
+}
+
+// The update of the (m, m) rectangle at (o, o) of the trailing matrix, in
+// the tile that splits it most evenly over the SMs.
+cudaError_t launch_rest(float* a, int n, int t0, const float* lt, const float* ut, int ldt, int w, int vec, int o,
+                        int m, int sms, cudaStream_t stream) {
+  switch (pick_shape(m, sms)) {
+    case 0: return launch_update<128, 128>(a, n, t0, lt, ut, ldt, w, vec, rect<128, 128>(o, o, m, m), Rect{}, 1, stream);
+    case 1: return launch_update<128, 64>(a, n, t0, lt, ut, ldt, w, vec, rect<128, 64>(o, o, m, m), Rect{}, 1, stream);
+    default: return launch_update<64, 64>(a, n, t0, lt, ut, ldt, w, vec, rect<64, 64>(o, o, m, m), Rect{}, 1, stream);
+  }
+}
+
+// The shared memory attributes, set once per device.
+cudaError_t allow_kernels_smem() {
+  cudaError_t err;
+  if ((err = allow_smem(panel_kernel, kPanelSmem))) return err;
+  if ((err = allow_smem(update_kernel<128, 128>, update_smem<128, 128>()))) return err;
+  if ((err = allow_smem(update_kernel<128, 64>, update_smem<128, 64>()))) return err;
+  return allow_smem(update_kernel<64, 64>, update_smem<64, 64>());
 }
 
 }  // namespace
@@ -179,43 +515,55 @@ extern "C" const char* ebv_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// Factor the identity-padded (N, N) row-major fp32 matrix `a` in place, in
-// S = N / B steps.  Launches 4S-3 kernels on `stream` and stores in
-// `*launches` how many it launched; returns the first launch error, or 0.
-extern "C" int ebv_lu_fused(void* a_ptr, int N, int B, void* stream_ptr, int* launches) {
-  float* a = static_cast<float*>(a_ptr);
-  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+// Factor the (n, n) row-major fp32 matrix `a` in place, in steps of W
+// columns (1 <= W <= 128; a multiple of 4 when n > W, since the update
+// copies its operands from the scratch in 16-byte pieces at the step's
+// offsets): 4S-4 launches on `stream` for S = ceil(n / W) >= 2 (one for
+// S = 1), counted in *launches.  `scratch` holds 2 * W * ldt + W floats (ldt
+// a multiple of 4, at least n - W + 128; unused when n <= W): the panels'
+// copies and the diagonal tile's reciprocal pivots.  Returns the first
+// launch error, or 0.
+extern "C" int ebv_lu_fused(void* a_ptr, int n, int W, void* scratch, int ldt, void* stream_ptr, int* launches) {
   *launches = 0;
-  const int S = N / B;
-  const int diag_smem = B * (B + 1) * static_cast<int>(sizeof(float));
-  const int lower_smem = kLowerRows * (B + 1) * static_cast<int>(sizeof(float));
-  const int upper_smem = B * kUpperCols * static_cast<int>(sizeof(float));
-  cudaError_t err;
-  if ((err = cudaFuncSetAttribute(diag_factor_kernel,
-                                  cudaFuncAttributeMaxDynamicSharedMemorySize, diag_smem)))
+  if (n < 1 || W < 1 || W > kTileMax) return cudaErrorInvalidValue;
+  if (n > W && (W % 4 || ldt % 4 || ldt < n - W + kTileMax)) return cudaErrorInvalidValue;
+  float* a = static_cast<float*>(a_ptr);
+  float* lt = static_cast<float*>(scratch);
+  float* ut = lt + (size_t)W * ldt;
+  float* rdiag = n > W ? ut + (size_t)W * ldt : nullptr;
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  int sms = 0;
+  cudaError_t err = device_sms<allow_kernels_smem>(&sms);
+  if (err) return err;
+  const int vec = n % 4 == 0;
+  const int S = (n + W - 1) / W;
+  // the first launch waits for all before it in the stream: they wrote `a`
+  if ((err = launch_step(diag_kernel, dim3(1), dim3(kDiagThreads), 0, stream, false, a, n, 0, min(W, n), rdiag)))
     return err;
-  if ((err = cudaFuncSetAttribute(upper_panel_kernel,
-                                  cudaFuncAttributeMaxDynamicSharedMemorySize, upper_smem)))
-    return err;
-  for (int s = 0; s < S; ++s) {
-    const int base = s * B;
-    diag_factor_kernel<<<1, kDiagThreads, diag_smem, stream>>>(a, N, base, B);
-    if ((err = cudaGetLastError())) return err;
+  ++*launches;
+  for (int s = 0; s + 1 < S; ++s) {
+    const int t0 = (s + 1) * W, M = n - t0, wn = min(W, M);
+    const int groups = (M + kGroup - 1) / kGroup;
+    const int half = max(1, sms / 2);
+    const int per_block = min(kPanelWarps, max(1, (groups + half - 1) / half));
+    const int blocks = (groups + per_block - 1) / per_block;
+    if ((err = launch_step(panel_kernel, dim3(2 * blocks), dim3(kPanelWarps * 32), kPanelSmem, stream, true, a, n,
+                           s * W, W, rdiag, lt, ut, ldt, blocks, per_block, vec)))
+      return err;
     ++*launches;
-    if (s == S - 1) break;
-    const int M = N - base - B;
-    lower_panel_kernel<<<(M + kLowerRows - 1) / kLowerRows, kPanelThreads, lower_smem, stream>>>(
-        a, N, base, B);
-    if ((err = cudaGetLastError())) return err;
+    // lookahead: the next step's block row and block column first, then its
+    // diagonal tile beside the update of the rest
+    if ((err = launch_update<64, 64>(a, n, t0, lt, ut, ldt, W, vec, rect<64, 64>(0, 0, wn, M),
+                                     rect<64, 64>(wn, 0, M - wn, wn), 0, stream)))
+      return err;
     ++*launches;
-    upper_panel_kernel<<<(M + kUpperCols - 1) / kUpperCols, kPanelThreads, upper_smem, stream>>>(
-        a, N, base, B);
-    if ((err = cudaGetLastError())) return err;
+    if ((err = launch_step(diag_kernel, dim3(1), dim3(kDiagThreads), 0, stream, true, a, n, t0, wn, rdiag)))
+      return err;
     ++*launches;
-    const dim3 grid((M + kTile - 1) / kTile, (M + kTile - 1) / kTile);
-    trailing_update_kernel<<<grid, 256, 0, stream>>>(a, N, base, B);
-    if ((err = cudaGetLastError())) return err;
-    ++*launches;
+    if (M > wn) {
+      if ((err = launch_rest(a, n, t0, lt, ut, ldt, W, vec, wn, M - wn, sms, stream))) return err;
+      ++*launches;
+    }
   }
   return 0;
 }

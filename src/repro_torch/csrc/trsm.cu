@@ -62,9 +62,11 @@
 // reference's padding, without materialising a padded copy of the LU.
 #include <cuda_runtime.h>
 
-#include <atomic>
 #include <cstddef>
 #include <cstdint>
+
+#include "async_copy.cuh"
+#include "pdl.cuh"
 
 namespace {
 
@@ -198,28 +200,6 @@ struct Step {
   int vec;            // rows of `a` and `diag` start 16-byte aligned and depth % 4 == 0
 };
 
-__device__ __forceinline__ unsigned smem_addr(const float* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)), "l"(src));
-}
-
-// Copies `bytes` (4 or 0) of src and zero-fills the rest of the 4-byte word.
-__device__ __forceinline__ void cp_async4(float* dst, const float* src, int bytes = 4) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
-               "r"(bytes));
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-// Wait until at most `kPending` of the committed copy groups are in flight.
-template <int kPending>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending));
-}
-
 // dst[r * ld + k] = a[r][k] for r < R, k < kc, copied asynchronously.
 template <int ld>
 __device__ void stage_slice(float* dst, const float* a, int lda, int R, int kc, bool vec) {
@@ -248,15 +228,6 @@ struct Operand {
     return BN == kNarrow ? p[c * kP + i] : p[i * (BN + 4) + c];
   }
 };
-
-// Programmatic dependent launch: the next step may start its prologue (its
-// copies of the factor, which no step writes), and this step waits for the
-// one before it to finish before it touches x or y.
-__device__ __forceinline__ void allow_next_step() {
-  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wait_prior_step() { asm volatile("griddepcontrol.wait;\n" ::: "memory"); }
 
 // xs(i, c) = xk[k0 + i][c0 + c] for i < kc, c < BN, zero for c >= w; read
 // past L1, which may hold lines an earlier step overwrote.  A wide tile of
@@ -544,12 +515,6 @@ __global__ void __launch_bounds__(kThreads) step_kernel(Step s) {
   }
 }
 
-template <class Kernel>
-cudaError_t allow_smem(Kernel kernel, size_t bytes) {
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(bytes));
-}
-
 constexpr size_t step_smem(int bn, bool head) {
   const size_t p = head ? kHeadDepth : kDepth;
   const size_t operand = bn == kNarrow ? p * kNarrow : p * (bn + 4);
@@ -567,19 +532,11 @@ cudaError_t allow_variant() {
 bool aligned(const float* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
 // The shared memory attributes of the step kernels, set once per device
-// (a host call each, and the same for every solve); returns the SM count.
-constexpr int kMaxDevices = 64;
-std::atomic<int> device_sms[kMaxDevices];
-
-cudaError_t prepare_steps(int* sms) {
-  int dev = 0;
+// (device_sms).
+cudaError_t allow_steps_smem() {
   cudaError_t err;
-  if ((err = cudaGetDevice(&dev))) return err;
-  if (dev < kMaxDevices && (*sms = device_sms[dev].load())) return cudaSuccess;
-  if ((err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev))) return err;
-  if ((err = allow_variant<kNarrow>()) || (err = allow_variant<kWide>())) return err;
-  if (dev < kMaxDevices) device_sms[dev].store(*sms);
-  return cudaSuccess;
+  if ((err = allow_variant<kNarrow>())) return err;
+  return allow_variant<kWide>();
 }
 
 // Launches the steps of one solve on `stream`, counting them in *launches.
@@ -605,19 +562,11 @@ struct Sweep {
     s.tile = tile;
     s.vec = aligned(s.a) && aligned(s.diag) && s.lda % 4 == 0 && s.depth % 4 == 0;
     const int bn = tile <= kNarrow ? kNarrow : kWide;
-    cudaLaunchAttribute chained[1];
-    chained[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
-    chained[0].val.programmaticStreamSerializationAllowed = 1;
-    cudaLaunchConfig_t cfg = {};
-    cfg.gridDim = dim3(blocks, tiles);
-    cfg.blockDim = dim3(kThreads);
-    cfg.dynamicSmemBytes = step_smem(bn, kHead != kNoHead);
-    cfg.stream = stream;
-    cfg.attrs = chained;
-    cfg.numAttrs = *launches ? 1 : 0;
-    cudaError_t err = bn == kNarrow ? cudaLaunchKernelEx(&cfg, step_kernel<kNarrow, kHead>, s)
-                                    : cudaLaunchKernelEx(&cfg, step_kernel<kWide, kHead>, s);
-    if (!err) err = cudaGetLastError();
+    const size_t smem = step_smem(bn, kHead != kNoHead);
+    const bool chained = *launches > 0;
+    cudaError_t err = bn == kNarrow
+        ? launch_step(step_kernel<kNarrow, kHead>, dim3(blocks, tiles), dim3(kThreads), smem, stream, chained, s)
+        : launch_step(step_kernel<kWide, kHead>, dim3(blocks, tiles), dim3(kThreads), smem, stream, chained, s);
     if (!err) ++*launches;
     return err;
   }
@@ -651,7 +600,7 @@ extern "C" int ebv_solve_tiled(const void* lu_ptr, const void* b_ptr, void* x_pt
   float* x = static_cast<float*>(x_ptr);
   float* y = static_cast<float*>(y_ptr);
   Sweep sw{static_cast<cudaStream_t>(stream), launches, m, tile, (m + tile - 1) / tile, 0};
-  cudaError_t err = prepare_steps(&sw.sms);
+  cudaError_t err = device_sms<allow_steps_smem>(&sw.sms);
   if (err) return err;
   const int S = (n + B - 1) / B;
   for (int k = 0; k < S; ++k) {  // L y = b: block k solved into y, rows below retired in x
@@ -689,7 +638,7 @@ extern "C" int ebv_solve_inverted(const void* lu_ptr, const void* linv_ptr, cons
   float* x = static_cast<float*>(x_ptr);
   float* y = static_cast<float*>(y_ptr);
   Sweep sw{static_cast<cudaStream_t>(stream), launches, m, tile, (m + tile - 1) / tile, 0};
-  cudaError_t err = prepare_steps(&sw.sms);
+  cudaError_t err = device_sms<allow_steps_smem>(&sw.sms);
   if (err) return err;
   const int S = (n + B - 1) / B;
   const size_t bb = (size_t)B * B;

@@ -38,7 +38,7 @@ _N = ctypes.POINTER(_I)
 # entries and ebv_legacy_walk also report through their last argument how
 # many kernels they launched.
 _SIGNATURES = {
-    "ebv_lu_fused": [_P, _I, _I, _P, _N],
+    "ebv_lu_fused": [_P, _I, _I, _P, _I, _P, _N],
     "ebv_solve_vmem": [_P, _P, _P, _I, _I, _I, _I, _P],
     "ebv_solve_tiled": [_P] * 4 + [_I] * 4 + [_P, _N],
     "ebv_solve_inverted": [_P] * 6 + [_I] * 4 + [_P, _N],

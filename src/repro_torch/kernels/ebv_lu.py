@@ -2,10 +2,13 @@
 ``csrc/legacy_lu.cu``) and their plain PyTorch versions.
 
 :func:`lu_fused` replaces the reference's single-dispatch Pallas
-megakernel.  It pads the matrix to ``N = S·B`` with an identity tail, runs
-``S`` steps of four launches each (diagonal-tile factor, L21 and U12 panel
-solves, trailing update; ``4S-3`` launches in all) on its own padded copy,
-and cuts the padding off.  The caller's tensor is never mutated.
+megakernel.  It factors one copy of the caller's matrix in steps of
+``W`` columns (:func:`fused_step_width`: ``block``, at most the 128 of the
+diagonal tile the kernel holds in registers): the first
+diagonal tile, then per step the panels, the next step's block row and
+column, the next diagonal tile and, beside it, the rest of the trailing
+update (:func:`fused_launches`).  The kernels mask the ragged last step, so
+the matrix is never padded.  The caller's tensor is never mutated.
 
 The legacy kernels behind the forced ``lu(impl="cuda_vmem")`` and
 ``lu(impl="cuda_blocked")``:
@@ -27,13 +30,14 @@ import ctypes
 
 import torch
 
-from ..core.blocked import fused_block_size, fused_blocked_lu, pad_identity_tail
+from ..core.blocked import fused_blocked_lu
 from . import _build
 
-__all__ = ["lu_fused", "lu_fused_plain", "fused_launches", "lu_vmem", "lu_vmem_plain", "panel",
-           "panel_plain", "fused_step", "fused_step_plain", "update", "update_plain"]
+__all__ = ["lu_fused", "lu_fused_plain", "fused_launches", "fused_step_width", "lu_vmem", "lu_vmem_plain",
+           "panel", "panel_plain", "fused_step", "fused_step_plain", "update", "update_plain"]
 
 _LEGACY_DTYPES = (torch.float32, torch.bfloat16)
+FUSED_TILE_MAX = 128  # csrc/ebv_lu.cu: the diagonal tile in registers, 16 values a thread
 
 
 def lu_fused_plain(a: torch.Tensor, *, block: int = 256) -> torch.Tensor:
@@ -42,12 +46,25 @@ def lu_fused_plain(a: torch.Tensor, *, block: int = 256) -> torch.Tensor:
     return fused_blocked_lu(a, block=block)
 
 
+def fused_step_width(n: int, block: int = 256) -> int:
+    """Columns one step of :func:`lu_fused`'s kernels factors: ``block``,
+    at most the 128 of the kernel's register tile and, where the matrix
+    takes more than one step, a multiple of 4 (the trailing update copies
+    its operands in 16-byte pieces from the step's offsets).  The kernels
+    mask the ragged last step, so the plain version's padding rule
+    (:func:`repro_torch.core.blocked.fused_block_size`) has no part in it."""
+    width = min(block, n, FUSED_TILE_MAX)
+    return width if width == n else max(4, width - width % 4)
+
+
 def fused_launches(n: int, block: int = 256) -> int:
     """Kernel launches :func:`lu_fused` should make for an (n, n) matrix
     (the count it adds to ``lu_fused.launches`` is the one the C driver
-    reports)."""
-    B = fused_block_size(n, block)
-    return 4 * (-(-n // B)) - 3
+    reports): per step but the last the panels, the next step's block row
+    and column, the next diagonal tile and the rest of the trailing update
+    (none after the last panels), plus the first diagonal tile."""
+    steps = -(-n // fused_step_width(n, block))
+    return 4 * steps - 4 if steps > 1 else 1
 
 
 def lu_fused(a: torch.Tensor, *, block: int = 256) -> torch.Tensor:
@@ -65,19 +82,21 @@ def lu_fused(a: torch.Tensor, *, block: int = 256) -> torch.Tensor:
     if a.device.type != "cuda":
         raise ValueError(f"lu_fused runs on CPU or CUDA tensors, got {a.device}")
     n = a.shape[-1]
-    B = fused_block_size(n, block)
-    N = -(-n // B) * B
-    work = pad_identity_tail(a.contiguous(), N)
-    if work.data_ptr() == a.data_ptr():  # no padding and no copy yet: never factor the caller's tensor
-        work = work.clone()
+    width = fused_step_width(n, block)
+    work = a.clone(memory_format=torch.contiguous_format)
+    # the panels' copies, (W, ldt) each, for the trailing updates (a row
+    # holds the trailing width and one tile past it), and the W reciprocal
+    # pivots of the diagonal tile
+    ldt = 4 * -(-(n - width + FUSED_TILE_MAX) // 4)
+    scratch = torch.empty(2 * width * ldt + width if n > width else 0, dtype=a.dtype, device=a.device)
     lib = _build.library()
     launched = ctypes.c_int(0)
     with torch.cuda.device(a.device):
-        code = lib.ebv_lu_fused(work.data_ptr(), N, B, torch.cuda.current_stream().cuda_stream,
-                                ctypes.byref(launched))
+        code = lib.ebv_lu_fused(work.data_ptr(), n, width, scratch.data_ptr(), ldt,
+                                torch.cuda.current_stream().cuda_stream, ctypes.byref(launched))
     lu_fused.launches += launched.value
     _build.check(code, "lu_fused")
-    return work[:n, :n].contiguous() if N != n else work
+    return work
 
 
 lu_fused.launches = 0

@@ -62,7 +62,11 @@ def close(got, want, tol=TOL):
     torch.cuda.synchronize()
     got, want = got.double().cpu(), want.double().cpu()
     assert got.shape == want.shape and bool(torch.isfinite(got).all())
-    err = float((got - want).abs().max() / want.abs().max())
+    scale = float(want.abs().max()) if want.numel() else 0.0
+    if scale == 0.0:  # nothing to scale by (L of a 1 x 1 factor): exactly equal
+        assert torch.equal(got, want)
+        return
+    err = float((got - want).abs().max() / scale)
     assert err <= tol, f"normwise error {err:.2e} > {tol:.0e}"
 
 
@@ -101,13 +105,28 @@ def card():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("n", [40, 257, 600, 1000])
+# n = 1; one partial tile; exactly one tile (one step: no panel or update
+# launch); one row past a tile; B = 160 and 224 at 257 and 600 (steps of
+# 128); a ragged multi-step n; B = 121 and 127 at 243 and 255 (steps of 128)
+@pytest.mark.parametrize("n", [40, 257, 600, 1000, 1, 127, 128, 129, 2049, 243, 255])
 def test_lu_fused_kernel_matches_plain(n, card):
     a = torch.from_numpy(dd(n, n)).to(card)
     before = ebv_lu.lu_fused.launches
     got = ebv_lu.lu_fused(a)
     assert ebv_lu.lu_fused.launches == before + ebv_lu.fused_launches(n)  # as the C driver counted
     close_lu(got, ebv_lu.lu_fused_plain(a))
+    close_lu(got, torch.from_numpy(ref.lu_ref(dd(n, n))))
+
+
+@pytest.mark.parametrize("n,block", [(600, 50), (300, 30), (200, 6)])
+def test_lu_fused_kernel_matches_plain_at_a_narrow_block(n, block, card):
+    # steps of 48, 28 and 4 columns: the width rounded down to a multiple of
+    # 4, so that the update's 16-byte copies start aligned at every step
+    a = torch.from_numpy(dd(n, n)).to(card)
+    before = ebv_lu.lu_fused.launches
+    got = ebv_lu.lu_fused(a, block=block)
+    assert ebv_lu.lu_fused.launches == before + ebv_lu.fused_launches(n, block)
+    close_lu(got, ebv_lu.lu_fused_plain(a, block=block))
     close_lu(got, torch.from_numpy(ref.lu_ref(dd(n, n))))
 
 

@@ -19,7 +19,6 @@ import torch
 from repro.core.factorization import dense_block_inverses as jdense_block_inverses
 from repro.kernels import ebv_lu as jebv_lu
 from repro.kernels import trsm as jtrsm
-from repro_torch.core.blocked import fused_block_size
 from repro_torch.core.factorization import dense_block_inverses
 from repro_torch.kernels import ebv_lu, ref, trsm
 
@@ -50,7 +49,11 @@ def close(port, want, tol=TOL):
     port = np.asarray(port, np.float64)
     want = np.asarray(want, np.float64)
     assert port.shape == want.shape
-    err = np.abs(port - want).max() / np.abs(want).max()
+    scale = np.abs(want).max() if want.size else 0.0
+    if scale == 0.0:  # nothing to scale by (L of a 1 x 1 factor): exactly equal
+        assert np.array_equal(port, want)
+        return
+    err = np.abs(port - want).max() / scale
     assert err <= tol, f"normwise error {err:.2e} > {tol:.0e}"
 
 
@@ -160,9 +163,46 @@ def test_lu_fused_rejects_what_the_kernel_does_not_take():
         ebv_lu.lu_fused(torch.ones(4, 5))
 
 
+@pytest.mark.parametrize("n", [1, 127, 128, 129])
+def test_lu_fused_matches_reference_kernel_at_the_step_edges(n):
+    # one element, one partial tile, exactly one tile, one row past a tile
+    a = dd(n, n)
+    lu = ebv_lu.lu_fused(torch.from_numpy(a))
+    close_lu(lu, jebv_lu.lu_fused(jnp.asarray(a)))
+    close_lu(lu, ref.lu_ref(a))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_lu_fused_takes_float32_only(dtype):
+    # the reference's lu_fused also takes bf16; no dispatch sends it one
+    with pytest.raises(TypeError):
+        ebv_lu.lu_fused(torch.eye(8, dtype=dtype))
+
+
+@pytest.mark.parametrize("n,launches", [(1, 1), (128, 1), (129, 4), (257, 8), (2049, 64)])
+def test_fused_launches_at_the_step_edges(n, launches):
+    # steps of 128 columns (B = 160 at n = 257 steps by 128 too)
+    assert ebv_lu.fused_step_width(n) == min(n, 128)
+    assert ebv_lu.fused_launches(n) == launches
+
+
 @pytest.mark.parametrize("n,block", [(64, 256), (257, 256), (2000, 256), (8000, 256)])
 def test_fused_launch_count(n, block):
-    # four launches per step (diagonal tile, two panel solves, trailing
-    # update), none of the last three on the last step
-    S = -(-n // fused_block_size(n, block))
-    assert ebv_lu.fused_launches(n, block) == 4 * S - 3
+    # the first diagonal tile, then per step but the last: both panels, the
+    # next step's block row and column, the next diagonal tile and the rest
+    # of the trailing update (none after the last panels); a step is at most
+    # 128 columns (the kernel's register tile), B = 160 at n = 257 included
+    S = -(-n // min(block, n, 128))
+    assert ebv_lu.fused_launches(n, block) == (4 * S - 4 if S > 1 else 1)
+
+
+@pytest.mark.parametrize("n,block,width", [
+    (243, 256, 128), (255, 256, 128), (600, 50, 48), (300, 30, 28), (200, 6, 4), (200, 2, 4),
+    (40, 256, 40), (100, 100, 100), (101, 100, 100), (50, 50, 50)])
+def test_fused_step_width_keeps_the_update_aligned(n, block, width):
+    # at most 128 columns (the register tile), the whole matrix in one step,
+    # else a multiple of 4 (the update's 16-byte copies start at each step's
+    # offset); the plain version's halving (B = 121 at n = 243) plays no part
+    assert ebv_lu.fused_step_width(n, block) == width
+    S = -(-n // width)
+    assert ebv_lu.fused_launches(n, block) == (4 * S - 4 if S > 1 else 1)
