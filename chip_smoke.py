@@ -15,8 +15,11 @@ Phases (any failure exits non-zero):
    the plain version or, if that would take over about a minute,
    ``lu_factor(pivot=False)``; B3 and
    B4 also at n = 1, 100 and 2049 with 1, 33 and 300 RHS columns); 3c the
-   batched kernels (B9-B12) at the batched paths' shapes; 3d the legacy
-   dense kernels (B14-B17) at the legacy paths' shapes and the legacy
+   batched kernels (B9-B12) at the batched paths' shapes, B9 also where its
+   plan changes (each plan checked against its Python mirror); 3d the legacy
+   dense kernels (B14-B17) at the legacy paths' shapes, B17 also at odd n,
+   on each side of its resident/streamed split and on zero pivots (NaN and
+   inf positions against the plain version's), and the legacy
    scalar band factor (B18) at the band the service escalates to it; 3e the
    paged decode attention (B13) at the served shape and at a decode-heavy
    one (32 rows of 4096 positions), fp32 and bf16, with holes;
@@ -73,7 +76,8 @@ Phases (any failure exits non-zero):
    factor's one call), the bound,
    launches per call and peak memory;
    the ``cuda_vmem`` / ``cuda_tiled`` and ``cuda_blocked`` / ``cuda_tiled``
-   crossovers; the optimizer step's time; device time by kernel (B1, B3 and
+   crossovers; B17's, B16's and B9's time a pivot and resident share; the
+   optimizer step's time; device time by kernel (B1, B3 and
    B4 at n = 8000 among them) and each dense factor and solve step's time
    beside the host's enqueue time per launch; B13 at the
    served and the decode-heavy shape; one full-width decode step against
@@ -117,6 +121,11 @@ BATCHED_SOLVE_TOL = 1e-5
 # (B, n) of the batched dense path: scripts/autotune.py's batched grid and
 # the reference's BATCHED_VMEM_MAX_N
 BATCHED_DENSE = ((8, 128), (32, 256), (8, 1024))
+# B9 also where its plan changes (kernels/batched_lu.py:batched_lu_plan): the
+# first n past one block's shared memory, odd n, n = 1000 with rows streamed
+# below theta, 100 systems of 2-CTA clusters (more than the card holds at
+# once) and 133 systems of one block each
+BATCHED_EDGES = ((1, 241), (3, 385), (5, 1000), (100, 384), (133, 384))
 # whisper-tiny: d_model 384, 4 + 4 layers, d_ff 1536 (configs/whisper_tiny.py);
 # vocab 51865 padded to a multiple of 128 (models/lm.py:30-31)
 WHISPER = dict(d=384, vocab=51968, layers=4, ff=1536)
@@ -132,6 +141,16 @@ ENSEMBLE_NX, ENSEMBLE_MEMBERS = 64, 32
 LEGACY_TOL = 1e-5
 BF16_UPDATE_ATOL = 0.5
 VMEM_SIZES = (500, 2000, 4096)   # lu_vmem up to the reference's cap
+# B17 also at odd n, at the cap less one, on each side of the resident /
+# streamed split (every row in shared memory up to n = 2641 in fp32 and 3698
+# in bf16), and on zero pivots: (n, row p made equal to row p-1, so pivot p
+# is exactly zero; p = 0: a zero first pivot)
+VMEM_EDGES = ((3, "float32"), (263, "float32"), (1001, "float32"), (4095, "float32"), (2641, "float32"),
+              (2642, "float32"), (263, "bfloat16"), (1001, "bfloat16"), (3698, "bfloat16"),
+              (3699, "bfloat16"), (4096, "bfloat16"))
+VMEM_ZERO_PIVOTS = ((263, 0, "float32"), (1001, 700, "bfloat16"), (4096, 2000, "float32"))
+# the whisper-tiny optimizer step before B9's cluster kernel (PERF.md section 5)
+OPT_STEP_BEFORE_MS = 20.9
 BLOCKED_SIZES = (500, 2000, 8000)
 LEGACY_BLOCK, LEGACY_CT = 256, 256  # the driver's defaults (solvers/backends.py)
 # the tiers: Table 2's largest size under the cap; the reference's
@@ -398,6 +417,32 @@ def main() -> int:
         blus[(bsz, n)] = batched_lu.batched_lu_vmem(a)
         compare_bitwise("batched_lu_vmem", f"B={bsz} n={n}", blus[(bsz, n)],
                         batched_lu.batched_lu_plain(a))
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    room = batched_lu.cluster_room(dev)
+    print(f"  clusters of 2 / 4 / 8 / 16 CTAs of B9's cluster kernel the card holds at once: "
+          f"{' / '.join(str(room[c]) for c in batched_lu.CLUSTER_SIZES)}", flush=True)
+
+    def batched_plan_line(bsz, n):
+        """The plan the C entry launched, checked against its Python mirror."""
+        kind, ctas, theta, nbytes, active = batched_lu.batched_lu_vmem.last_plan
+        want = batched_lu.batched_lu_plan(bsz, n, sms, room)
+        kind = ("staged", "global", "cluster")[kind]
+        extra = (f", theta {theta}, {nbytes} B of shared memory a CTA, resident share "
+                 f"{want.walk.resident:.3f}, {active} such clusters at once" if kind == "cluster" else "")
+        print(f"    plan B={bsz} n={n}: {kind}, {ctas} CTA(s) a system{extra}", flush=True)
+        if (kind, ctas) != (want.kind, want.ctas) or (
+                kind == "cluster" and (theta, nbytes) != (want.walk.theta, want.walk.bytes)):
+            fail(f"batched_lu_vmem B={bsz} n={n}: plan {batched_lu.batched_lu_vmem.last_plan} "
+                 f"differs from the mirror's {want}")
+
+    for (bsz, n), a in bstacks.items():
+        batched_lu.batched_lu_vmem(a)
+        batched_plan_line(bsz, n)
+    for bsz, n in BATCHED_EDGES:
+        a = stack(bsz, n, 860 + n)
+        compare_bitwise("batched_lu_vmem", f"B={bsz} n={n}", batched_lu.batched_lu_vmem(a),
+                        batched_lu.batched_lu_plain(a))
+        batched_plan_line(bsz, n)
     for (bsz, n), lu in blus.items():
         for m in ((vocab,) if n == d else (1, n)):
             b = rhs_stack(bsz, n, m, 870 + n + m)
@@ -437,9 +482,44 @@ def main() -> int:
         compare_bitwise("lu_vmem", f"n={n}", ebv_lu.lu_vmem(a), plain)
     print(f"  the plain lu_vmem at n={VMEM_SIZES[-1]}, one call: {legacy_plain_ms[f'n={VMEM_SIZES[-1]}']:.1f} ms",
           flush=True)
+
+    def walk_plan_line(wrapper, m, ncols, dtype):
+        """The plan the C entry launched, checked against its Python mirror."""
+        want = ebv_lu.legacy_walk_plan(m, ncols, dtype, sms)
+        print(f"    plan {wrapper.__name__} ({m}, {ncols}) {str(dtype)[6:]}: {want.parts} blocks, theta "
+              f"{want.theta}, {want.bytes} B of shared memory a block, resident share {want.resident:.3f}",
+              flush=True)
+        if wrapper.last_plan != (want.parts, want.theta, want.bytes):
+            fail(f"{wrapper.__name__} ({m}, {ncols}): plan {wrapper.last_plan} differs from the mirror's {want}")
+
+    walk_plan_line(ebv_lu.lu_vmem, VMEM_SIZES[-1], VMEM_SIZES[-1], torch.float32)
+    for n, dname in VMEM_EDGES:
+        dtype = getattr(torch, dname)
+        a = matrix(n, 1150 + n).to(dtype)
+        compare_bitwise("lu_vmem", f"n={n} {dname}", ebv_lu.lu_vmem(a), ebv_lu.lu_vmem_plain(a))
+        walk_plan_line(ebv_lu.lu_vmem, n, n, dtype)
+    for n, p, dname in VMEM_ZERO_PIVOTS:
+        a = matrix(n, 1180 + n).to(getattr(torch, dname))
+        if p == 0:
+            a[0, 0] = 0
+        else:
+            a[p] = a[p - 1]
+        got, want = ebv_lu.lu_vmem(a), ebv_lu.lu_vmem_plain(a)
+        torch.cuda.synchronize()
+        gnan, wnan = torch.isnan(got), torch.isnan(want)
+        same = bool(torch.equal(gnan, wnan)) and bool(torch.equal(got.masked_fill(gnan, 0),
+                                                                  want.masked_fill(wnan, 0)))
+        print(f"  {'lu_vmem':25s} {f'n={n} zero pivot {p} {dname}':24s} NaN {int(wnan.sum())}, inf "
+              f"{int(torch.isinf(want).sum())} in the plain version; NaN and inf positions and the finite "
+              f"values equal: {same}", flush=True)
+        if not same or bool(torch.isfinite(want).all()):
+            fail(f"lu_vmem n={n} zero pivot {p} {dname}: kernel differs from its plain version")
     for n in (2000, 8000):  # the driver's first panel
         p = matrix(n, 1200 + n)[:, :LEGACY_BLOCK]
         compare_bitwise("panel", f"m={n} b={LEGACY_BLOCK}", ebv_lu.panel(p), ebv_lu.panel_plain(p))
+        walk_plan_line(ebv_lu.panel, n, LEGACY_BLOCK, torch.float32)
+        p = p.to(torch.bfloat16)
+        compare_bitwise("panel", f"m={n} b={LEGACY_BLOCK} bf16", ebv_lu.panel(p), ebv_lu.panel_plain(p))
     # the driver's first fused step at n = 2000: width 1744 padded to 1792, ct = 128
     a = matrix(2000, 1300)
     pan = ebv_lu.panel(a[:, :LEGACY_BLOCK])
@@ -1224,6 +1304,15 @@ def main() -> int:
 
     rows = {}
 
+    def walk_rate(name, shape, pivots, plan):
+        """A walk's time per pivot beside its library call's and its bound's."""
+        row = rows[(name, shape)]
+        lib = row["library_ms"]
+        share = f", resident share {plan.resident:.3f} (theta {plan.theta})" if plan is not None else ""
+        print(f"    {name} {shape}: {1e3 * row['ms'] / pivots:.3f} us a pivot over {pivots} pivots "
+              f"({row['ms']:.4f} ms; library {'not measured' if lib is None else f'{lib:.4f}'} ms; bound "
+              f"{row['bound_ms']:.4f} ms){share}", flush=True)
+
     def record(name, shape, ms, plain_ms, lib_ms, flops, nbytes, per_call):
         torch.cuda.synchronize()
         peak = torch.cuda.max_memory_allocated() / 2**20
@@ -1324,6 +1413,8 @@ def main() -> int:
         record("batched_lu_vmem", f"B={bsz} n={n}", timed(kernel), plain,
                library(lambda: torch.linalg.lu_factor(a, pivot=False)), *work,
                per_call(batched_lu.batched_lu_vmem, kernel))
+        walk_rate("batched_lu_vmem", f"B={bsz} n={n}", n - 1,
+                  batched_lu.batched_lu_plan(bsz, n, sms, room).walk)
     for (bsz, n), lu in blus.items():
         piv = torch.arange(1, n + 1, dtype=torch.int32, device=dev).expand(bsz, n).contiguous()
         for m in ((vocab,) if n == d else (1, n)):
@@ -1367,6 +1458,7 @@ def main() -> int:
         record("lu_vmem", f"n={n}", timed(kernel), plain,
                library(lambda: torch.linalg.lu_factor(a, pivot=False)), 2 * n ** 3 / 3, 2 * n * n * 4,
                per_call(ebv_lu.lu_vmem, kernel))
+        walk_rate("lu_vmem", f"n={n}", n - 1, ebv_lu.legacy_walk_plan(n, n, torch.float32, sms))
     for m in (2000, 8000):
         b = LEGACY_BLOCK
         p = matrix(m, 2100 + m)[:, :b].contiguous()
@@ -1377,6 +1469,7 @@ def main() -> int:
         record("panel", f"m={m} b={b}", timed(kernel), timed(lambda: ebv_lu.panel_plain(p)),
                library(lambda: torch.linalg.lu_factor(p, pivot=False)), flops, 2 * m * b * 4,
                per_call(ebv_lu.panel, kernel))
+        walk_rate("panel", f"m={m} b={b}", b, ebv_lu.legacy_walk_plan(m, b, torch.float32, sms))
     n, bw = SERVE_BAND
     kernel = lambda: banded.banded_lu_kernelized(sband, bw=bw)
     # as B5: n (2bw^2 + bw) flops, the band read once and its factor written once
@@ -1424,7 +1517,8 @@ def main() -> int:
             torch.cuda.synchronize()
             times.append((time.perf_counter() - t0) * 1e3)
         opt_ms[name] = statistics.median(times)
-        print(f"    {name:16s} {opt_ms[name]:.3f} ms (card: {card})", flush=True)
+        before = f" (before B9's cluster kernel: {OPT_STEP_BEFORE_MS} ms)" if name == "whisper-tiny" else ""
+        print(f"    {name:16s} {opt_ms[name]:.3f} ms{before} (card: {card})", flush=True)
 
     print("  device time by kernel (torch.profiler, one call after a warm-up; under programmatic dependent "
           "launch a kernel's blocks start before the launch before them ends and their wait counts, so the "

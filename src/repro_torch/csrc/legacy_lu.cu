@@ -7,30 +7,29 @@
 //
 // ebv_walk_kernel — replaces src/repro/kernels/ebv_lu.py:lu_vmem (n-1 steps
 //   on the whole (n, n) matrix) and :panel (b steps on a tall (m, b) panel,
-//   pivots in the top b rows).  Both run the step body _lu_body of that file:
-//   for pivot k, the column below the pivot divided by it, the rank-1 Schur
-//   update of the block right of and below it, the multipliers written back
-//   into column k.  The TPU kernel holds the whole matrix in VMEM (64 MB at
-//   n = 4096); one H100 block has 227 KB of shared memory and the 50 MB L2
-//   does not hold that matrix either, so the kernel walks device memory.
-//   It is ONE cooperative launch (cudaLaunchCooperativeKernel, grid sized by
-//   the occupancy calculator so that every block is resident) with a grid
-//   barrier per step.  Rows are owned for the whole factorization by the
-//   paper's equalized pairing (core/ebv.py:equalized_pairing): vector r
-//   (0 <= r <= m-2) is row r+1, which is live for r+1 steps, and unit
-//   (r, m-2-r) pairs it with row m-1-r, live for m-1-r steps, so every unit
-//   carries the same m row-steps.  Block c owns units c, c+G, c+2G, ...;
-//   its rows, taken in decreasing order, are live as a prefix of that list.
-//   Only the owner writes a row; every block reads the pivot row, which no
-//   block writes during its step, through L2 (__ldcg: another SM wrote it a
-//   step ago) into shared memory.  The barrier is a generation counter in
-//   device memory (two unsigned ints the wrapper zeroes before the launch).
-//   IEEE divide, multiply and subtract with no contraction into fused
-//   multiply-adds make the factor equal, value for value, to the plain
-//   version (kernels/ebv_lu.py:lu_vmem_plain / panel_plain) on finite input.
-//   Bound: 2n^3/3 flops in 2n^3/3 separately rounded operations; the walk
-//   moves the trailing block through L2 or HBM once a step (~8n^3/3 bytes),
-//   so it is bound by that traffic and by n-1 grid barriers.
+//   pivots in the top b rows).  Both run the step body _lu_body of that file
+//   (csrc/ebv_walk.cuh has the walk, its row ownership and its residency).
+//   The TPU kernel holds the whole matrix in VMEM (64 MB at n = 4096).
+//   Here it is ONE cooperative launch of one block per SM (at most m/2),
+//   every block resident: the rows, owned by equalized pairs, stay in the
+//   blocks' shared memory from step to step (all of them up to n = 2641 in
+//   fp32 and 3698 in bf16; at n = 4096 the rows above theta = 1519 keep
+//   columns [theta, n), and the rest streams through L2, eight steps' updates
+//   a pass), so a step moves the pivot row and little else.  A pivot waits on one handoff instead of a barrier over
+//   the card: the owner of row k+1 updates that row first (one pivot of
+//   lookahead), stores it to the matrix and release-stores its ready flag;
+//   every block acquire-loads flag k before it reads pivot row k through
+//   L2.  A flag that stays unset past kWaitCycles traps.  The flags are m+1
+//   ints the wrapper zeroes; the last counts the blocks done.
+//   The plain version masks instead of slicing (kernels/ebv_lu.py:
+//   _lu_steps_plain), so a non-finite value spreads further there than the
+//   rank-1 updates carry it: a row whose last multiplier is not finite
+//   turns NaN left of it (a - l*0), and a column whose pivot-row entry
+//   above the diagonal is not finite turns NaN in every row above (a - 0*u).
+//   The kernel applies both rules after the walk (the second after one grid
+//   barrier), so it equals the plain version value for value, NaN and inf
+//   positions included.  Bound: 2n^3/3 flops in 2n^3/3 separately rounded
+//   operations, and n-1 dependent handoffs (~3 L2 round trips each).
 //
 // fused_step_kernel — replaces src/repro/kernels/ebv_lu.py:fused_step: per
 //   column tile, U12 = L11^-1 A12 (unit lower, b sequential masked axpys)
@@ -56,11 +55,10 @@
 
 #include <cstddef>
 
+#include "ebv_walk.cuh"
+
 namespace {
 
-constexpr int kWalkThreads = 512;    // 16 warps; a warp updates one row at a time
-constexpr int kWalkBlocksPerSm = 2;  // caps the barrier's arrivals at 2 x #SMs
-constexpr int kInFlight = 4;         // row entries a lane loads before it stores
 constexpr int kStepCols = 32;        // U12 / trailing columns per fused-step block
 constexpr int kStepRows = 128;       // trailing rows per fused-step block
 constexpr int kStepThreads = 256;
@@ -71,105 +69,82 @@ constexpr int kSmemMax = 232448;     // dynamic shared memory one H100 block may
 
 extern __shared__ float smem[];
 
-// element loads and stores: fp32 values in registers, T in memory
-__device__ __forceinline__ float load(const float* p) { return *p; }
-__device__ __forceinline__ float load(const __nv_bfloat16* p) { return __bfloat162float(*p); }
-__device__ __forceinline__ float load_l2(const float* p) { return __ldcg(p); }
-__device__ __forceinline__ float load_l2(const __nv_bfloat16* p) {
-  return __bfloat162float(__ushort_as_bfloat16(__ldcg(reinterpret_cast<const unsigned short*>(p))));
-}
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
+// A wait on a flag longer than kWaitCycles (seconds) traps, so a broken
+// handoff ends the launch with an error instead of holding the card.
+constexpr long long kWaitCycles = 20000000000LL;
 
-// v rounded to T (the identity for fp32)
-template <typename T>
-__device__ __forceinline__ float rnd(float v) {
+__device__ __forceinline__ int load_relaxed(const int* p) {
+  int v;
+  asm volatile("ld.relaxed.gpu.global.b32 %0, [%1];\n" : "=r"(v) : "l"(p) : "memory");
   return v;
 }
-template <>
-__device__ __forceinline__ float rnd<__nv_bfloat16>(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
+
+__device__ __forceinline__ void store_release(int* p, int v) {
+  asm volatile("st.release.gpu.global.b32 [%0], %1;\n" ::"l"(p), "r"(v) : "memory");
 }
 
-// Grid barrier of a cooperative launch: bar[0] counts arrivals, bar[1] is
-// the generation the waiting blocks watch.  A wait longer than
-// kBarrierCycles (seconds) traps, so a broken barrier ends the launch with
-// an error instead of holding the card.
-constexpr long long kBarrierCycles = 20000000000LL;
-
-__device__ void grid_sync(unsigned* bar, unsigned nblocks) {
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    volatile unsigned* gen = bar + 1;
-    const unsigned g = *gen;
-    __threadfence();
-    if (atomicAdd(bar, 1u) == nblocks - 1) {
-      atomicExch(bar, 0u);
-      __threadfence();
-      atomicAdd(bar + 1, 1u);
-    } else {
-      const long long t0 = clock64();
-      while (*gen == g) {
-        __nanosleep(64);
-        if (clock64() - t0 > kBarrierCycles) __trap();
-      }
-    }
-    __threadfence();
-  }
-  __syncthreads();
-}
-
-// Row of position t in block c's owned list, decreasing: first the high rows
-// m-1-u of its J units u = c, c+G, ..., then the low rows u+1 of the first
-// Jl of them (Jl = J less the middle singleton u+1 == m-1-u, counted once).
-__device__ __forceinline__ int owned_row(int t, int c, int G, int m, int J, int Jl) {
-  if (t < J) return m - 1 - (c + t * G);
-  return c + (Jl - 1 - (t - J)) * G + 1;
+// spin on relaxed loads, then one acquire fence: what the flag's writer
+// stored before its release is visible after
+__device__ void wait_until(const int* p, int at_least) {
+  const long long t0 = clock64();
+  while (load_relaxed(p) < at_least)
+    if (clock64() - t0 > kWaitCycles) __trap();
+  asm volatile("fence.acq_rel.gpu;\n" ::: "memory");
 }
 
 template <typename T>
-__global__ void __launch_bounds__(kWalkThreads) ebv_walk_kernel(T* a, int m, int ncols, int steps,
-                                                                unsigned* bar) {
-  float* prow = smem;  // the pivot row, ncols floats
-  __shared__ int s_live;
-  const int c = blockIdx.x, G = gridDim.x;
-  const int units = m / 2;  // equalized_pairing over the m-1 updatable rows
-  const int J = c < units ? (units - c + G - 1) / G : 0;
-  const bool singleton = (m % 2 == 0) && J > 0 && c + (J - 1) * G == units - 1;
-  const int Jl = J - (singleton ? 1 : 0), owned = J + Jl;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
-  int live = owned;
+__global__ void __launch_bounds__(kWalkThreads, 1)
+ebv_walk_kernel(T* a, int m, int ncols, int steps, int theta, size_t lbuf_at, size_t rows_at,
+                int* ready) {
+  const int G = gridDim.x;
+  const Walk<T> w(a, ncols, Owned(blockIdx.x, G, m), theta, reinterpret_cast<char*>(smem), lbuf_at,
+                  rows_at);
+  w.load_rows();
+  int live = w.own.count(), w0 = 0, kept = -1;  // the streamed elements have steps [w0, k) pending
+  float kv[kKeep];                               // the kept row's streamed columns (Walk::keep)
   for (int k = 0; k < steps; ++k) {
-    if (k) grid_sync(bar, G);
-    for (int j = k + threadIdx.x; j < ncols; j += blockDim.x)
-      prow[j] = load_l2(a + (size_t)k * ncols + j);
-    if (threadIdx.x == 0) {
-      while (live > 0 && owned_row(live - 1, c, G, m, J, Jl) <= k) --live;
-      s_live = live;
-    }
+    if (k > 0 && threadIdx.x == 0) wait_until(ready + k, 1);  // row 0 is the input's
+    __syncthreads();  // pivot row k is in the matrix, and this block's step k-1 is done
+    while (live > 0 && w.own.row(live - 1) <= k) --live;
+    const T* pk = a + (size_t)k * ncols;
+    w.stage(k, w0, live, kept, [&](int j) { return load_l2(pk + j); });
     __syncthreads();
-    const float piv = prow[k];
-    const int nl = s_live;
-    for (int t = warp; t < nl; t += nwarps) {
-      T* row = a + (size_t)owned_row(t, c, G, m, J, Jl) * ncols;
-      float l = 0.f;
-      if (lane == 0) l = rnd<T>(__fdiv_rn(load(row + k), piv));
-      l = __shfl_sync(0xffffffffu, l, 0);
-      for (int j0 = k + 1 + lane; j0 < ncols; j0 += 32 * kInFlight) {
-        float v[kInFlight];
-#pragma unroll
-        for (int q = 0; q < kInFlight; ++q) {
-          const int j = j0 + 32 * q;
-          v[q] = j < ncols ? load(row + j) : 0.f;
-        }
-#pragma unroll
-        for (int q = 0; q < kInFlight; ++q) {
-          const int j = j0 + 32 * q;
-          if (j < ncols) store(row + j, __fsub_rn(v[q], rnd<T>(__fmul_rn(l, prow[j]))));
-        }
-      }
-      if (lane == 0) store(row + k, l);
+    const int next = live > 0 && w.own.row(live - 1) == k + 1 ? live - 1 : -1;
+    if (next >= 0) {  // row k+1 first, into the matrix, then its flag
+      w.ahead(k, next, next == kept ? k : w0, true, next == kept, kv);
+      __syncthreads();
+      if (threadIdx.x == 0) store_release(ready + k + 1, 1);  // the block's stores before it
     }
+    w.update(k, live, next);
+    if ((k + 1) % kLag == 0) {
+      w.sweep(k, w0, live, next);
+      w0 = k + 1;
+    }
+    kept = w.keep(k, w0, live, next, kv);
+  }
+  __syncthreads();
+  w.write_back(true);  // the multipliers; each row's U part went out with its flag
+  __syncthreads();
+  const float nan = __int_as_float(0x7fffffff);
+  // a row whose last multiplier is not finite: NaN left of it
+  for (int t = 0; t < w.own.count(); ++t) {
+    const int r = w.own.row(t), last = (r < steps ? r : steps) - 1;
+    if (!isfinite(load_l2(w.at(t, last))))
+      for (int j = threadIdx.x; j < last; j += blockDim.x) store_l2(w.at(t, j), nan);
+  }
+  // every block has read its last pivot row before any column turns NaN
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    __threadfence();
+    atomicAdd(ready + m, 1);
+    wait_until(ready + m, G);
+  }
+  __syncthreads();
+  // a column whose entry in its last pivot row is not finite: NaN above it
+  for (int j = 1 + blockIdx.x; j < ncols; j += G) {
+    const int t = (j - 1 < steps - 1 ? j - 1 : steps - 1);
+    if (!isfinite(load_l2(a + (size_t)t * ncols + j)))
+      for (int i = threadIdx.x; i <= t; i += blockDim.x) store_l2(a + (size_t)i * ncols + j, nan);
   }
 }
 
@@ -306,30 +281,35 @@ update_kernel(const T* __restrict__ l, const T* __restrict__ u, const T* __restr
 }
 
 template <typename T>
-cudaError_t launch_walk(void* a, int m, int ncols, int steps, void* bar, cudaStream_t stream,
-                        int* launched) {
+cudaError_t launch_walk(void* a, int m, int ncols, int steps, void* ready, cudaStream_t stream,
+                        int* plan, int* launched) {
   auto kernel = ebv_walk_kernel<T>;
-  const size_t bytes = (size_t)ncols * sizeof(float);
-  if (bytes > (size_t)kSmemMax) return cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(bytes));
-  if (err) return err;
   int device = 0, sms = 0, coop = 0, per_sm = 0;
+  cudaError_t err;
   if ((err = cudaGetDevice(&device))) return err;
   if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device))) return err;
   if ((err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, device))) return err;
   if (!coop) return cudaErrorNotSupported;
-  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kWalkThreads, bytes)))
+  const int units = m / 2;
+  int grid = units < sms ? units : sms;
+  const WalkPlan p = walk_plan(m, ncols, grid, sizeof(T));
+  if (!p.bytes) return cudaErrorInvalidValue;  // not even the pivot row fits
+  if ((err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  static_cast<int>(p.bytes))))
+    return err;
+  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kWalkThreads, p.bytes)))
     return err;
   if (per_sm < 1) return cudaErrorCooperativeLaunchTooLarge;
-  const int units = m / 2;
-  int grid = (per_sm < kWalkBlocksPerSm ? per_sm : kWalkBlocksPerSm) * sms;
-  if (grid > units) grid = units;
-  unsigned* barrier = static_cast<unsigned*>(bar);
+  plan[0] = grid;
+  plan[1] = p.theta;
+  plan[2] = static_cast<int>(p.bytes);
   T* mat = static_cast<T*>(a);
-  void* args[] = {&mat, &m, &ncols, &steps, &barrier};
+  int theta = p.theta;
+  size_t lbuf_at = p.lbuf_at, rows_at = p.rows_at;
+  int* flags = static_cast<int*>(ready);
+  void* args[] = {&mat, &m, &ncols, &steps, &theta, &lbuf_at, &rows_at, &flags};
   err = cudaLaunchCooperativeKernel(reinterpret_cast<void*>(kernel), dim3(grid), dim3(kWalkThreads),
-                                    args, bytes, stream);
+                                    args, p.bytes, stream);
   if (err) return err;
   *launched = 1;
   return cudaGetLastError();
@@ -365,18 +345,22 @@ cudaError_t launch_update(const void* l, const void* u, const void* c, void* o, 
 
 }  // namespace
 
-// In place, the first `steps` EbV steps on the row-major (m, ncols) matrix
-// `a` (fp32, or bf16 when `bf16` is 1): lu_vmem with m = ncols and
-// steps = n - 1, panel with steps = b.  `bar` points to two zeroed unsigned
-// ints (the grid barrier).  One cooperative launch when there is a row to
-// update; `*launched` says how many were made.
-extern "C" int ebv_legacy_walk(void* a, int m, int ncols, int steps, int bf16, void* bar,
-                               void* stream, int* launched) {
+// In place, the EbV steps on the row-major (m, ncols) matrix `a` (fp32, or
+// bf16 when `bf16` is 1): lu_vmem with m = ncols and steps = n - 1, panel
+// with m >= ncols and steps = b = ncols.  `ready` points to m + 1 zeroed
+// ints (the rows' ready flags and the count of blocks done).  One
+// cooperative launch when there is a row to update; `*launched` says how
+// many were made, plan[0..2] the blocks, theta and the shared-memory bytes.
+extern "C" int ebv_legacy_walk(void* a, int m, int ncols, int steps, int bf16, void* ready,
+                               void* stream, int* plan, int* launched) {
   *launched = 0;
+  plan[0] = plan[1] = plan[2] = 0;
   if (steps <= 0 || m < 2) return 0;
+  const bool square = m == ncols && steps == ncols - 1, tall = m >= ncols && steps == ncols;
+  if (!square && !tall) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return bf16 ? launch_walk<__nv_bfloat16>(a, m, ncols, steps, bar, s, launched)
-              : launch_walk<float>(a, m, ncols, steps, bar, s, launched);
+  return bf16 ? launch_walk<__nv_bfloat16>(a, m, ncols, steps, ready, s, plan, launched)
+              : launch_walk<float>(a, m, ncols, steps, ready, s, plan, launched);
 }
 
 // u12 = L11^-1 top and out = trail - L21 u12 for the packed panel pan (m, b),

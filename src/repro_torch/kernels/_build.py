@@ -47,11 +47,12 @@ _SIGNATURES = {
     "ebv_band_lu_scalar": [_P, _I, _I, _P, _N],
     "ebv_band_solve": [_P, _P, _P, _I, _I, _I, _I, _P, _N],
     "ebv_band_solve_inverted": [_P] * 9 + [_I] * 4 + [_P, _N],
-    "ebv_batched_lu": [_P, _I, _I, _P, _N],
+    "ebv_batched_lu": [_P, _I, _I, _N, _P, _N],
+    "ebv_batched_cluster_room": [_N],
     "ebv_batched_lu_solve": [_P, _P, _P, _I, _I, _I, _I, _P, _N],
     "ebv_batched_band_lu": [_P, _I, _I, _I, _P, _N],
     "ebv_batched_band_solve": [_P, _P, _P, _I, _I, _I, _I, _I, _P, _N],
-    "ebv_legacy_walk": [_P, _I, _I, _I, _I, _P, _P, _N],
+    "ebv_legacy_walk": [_P, _I, _I, _I, _I, _P, _P, _N, _N],
     "ebv_legacy_fused_step": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "ebv_legacy_update": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "ebv_paged_decode_attention": [_P] * 7 + [_I] * 8 + [ctypes.c_float, _I, _P],

@@ -15,7 +15,9 @@ The legacy kernels behind the forced ``lu(impl="cuda_vmem")`` and
 
 * :func:`lu_vmem`    — the paper-faithful unblocked factor, n-1 masked
                        rank-1 steps on the whole matrix, one cooperative
-                       launch;
+                       launch of one block per SM, rows resident in shared
+                       memory and one ready flag per pivot row
+                       (:func:`walk_plan` mirrors its residency);
 * :func:`panel`      — the same steps on a tall (m, b) panel, pivots in
                        the top b rows (the same kernel);
 * :func:`fused_step` — U12 = L11⁻¹ A12 and A22 − L21·U12 in one launch;
@@ -27,14 +29,17 @@ PyTorch's elementwise bf16 ops do, and products accumulate in fp32.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from ..core.blocked import fused_blocked_lu
 from . import _build
 
 __all__ = ["lu_fused", "lu_fused_plain", "fused_launches", "fused_step_width", "lu_vmem", "lu_vmem_plain",
-           "panel", "panel_plain", "fused_step", "fused_step_plain", "update", "update_plain"]
+           "panel", "panel_plain", "fused_step", "fused_step_plain", "update", "update_plain",
+           "owned_rows", "row_owner", "WalkPlan", "walk_plan", "legacy_walk_plan", "WALK_SMEM", "H100_SMS"]
 
 _LEGACY_DTYPES = (torch.float32, torch.bfloat16)
 FUSED_TILE_MAX = 128  # csrc/ebv_lu.cu: the diagonal tile in registers, 16 values a thread
@@ -143,19 +148,95 @@ def _check_legacy(name: str, *ts: torch.Tensor) -> None:
             raise ValueError(f"{name} runs on CPU or CUDA tensors on one device, got {t.device}")
 
 
+# ---------------------------------------------------------------------------
+# the walk's plan (csrc/ebv_walk.cuh), mirrored for the CPU tests
+# ---------------------------------------------------------------------------
+WALK_SMEM = 232448  # dynamic shared memory one H100 block may use (kWalkSmem)
+WALK_LAG = 8  # steps a streamed element's updates are applied together (kLag)
+H100_SMS = 132
+
+
+def owned_rows(c: int, parts: int, m: int) -> list[int]:
+    """Rows of participant ``c`` of ``parts`` in a walk over ``m`` rows, in
+    decreasing order (``Owned::row``): the equalized pairing's units
+    ``c, c + parts, ...``, unit u holding rows ``m-1-u`` and ``u+1`` (the
+    middle row of an even m once)."""
+    units = m // 2
+    j = -(-(units - c) // parts) if c < units else 0
+    jl = j - int(m % 2 == 0 and j > 0 and c + (j - 1) * parts == units - 1)
+    return ([m - 1 - (c + t * parts) for t in range(j)]
+            + [c + (jl - 1 - q) * parts + 1 for q in range(jl)])
+
+
+def row_owner(i: int, parts: int, m: int) -> tuple[int, int]:
+    """(participant, place in its :func:`owned_rows`) of row ``i >= 1``
+    (``row_owner`` in csrc/ebv_walk.cuh)."""
+    units = m // 2
+    if i >= m - units:
+        u = m - 1 - i
+        return u % parts, u // parts
+    u = i - 1
+    c = u % parts
+    return c, len(owned_rows(c, parts, m)) - 1 - u // parts
+
+
+class WalkPlan(NamedTuple):
+    """Shared memory of a walk over ``parts`` participants: rows above
+    ``theta`` keep columns ``[theta, ncols)`` (``bytes`` per block at most);
+    ``resident`` is the share of the matrix held there at the start."""
+    parts: int
+    theta: int
+    bytes: int
+    resident: float
+
+
+def walk_plan(m: int, ncols: int, parts: int, elem: int) -> WalkPlan | None:
+    """The least theta at which every participant's rows above it fit beside
+    the fp32 pivot row and the last ``WALK_LAG`` steps' multipliers
+    (``walk_plan`` in csrc/ebv_walk.cuh); None if not even those fit."""
+    rows_max = 2 * -(-(m // 2) // parts)
+    rows_at = -(-(ncols + WALK_LAG * rows_max) * 4 // 16) * 16
+    if rows_at > WALK_SMEM:
+        return None
+    rows = [np.array(owned_rows(c, parts, m), dtype=np.int64) for c in range(parts)]
+
+    def above(theta):
+        return [int((r > theta).sum()) for r in rows]
+
+    def fits(theta):
+        return rows_at + max(above(theta)) * (ncols - theta) * elem <= WALK_SMEM
+
+    lo, hi = 0, ncols
+    while lo < hi:
+        mid = (lo + hi) // 2
+        lo, hi = (lo, mid) if fits(mid) else (mid + 1, hi)
+    held = sum(above(lo)) * (ncols - lo)
+    return WalkPlan(parts, lo, rows_at + max(above(lo)) * (ncols - lo) * elem, held / (m * ncols))
+
+
+def legacy_walk_plan(m: int, ncols: int, dtype: torch.dtype = torch.float32,
+                     sms: int = H100_SMS) -> WalkPlan | None:
+    """The plan :func:`lu_vmem` / :func:`panel` launch with: one block per
+    SM, at most one per unit (m // 2)."""
+    return walk_plan(m, ncols, max(1, min(sms, m // 2)), torch.empty((), dtype=dtype).element_size())
+
+
 def _walk(a: torch.Tensor, steps: int, wrapper) -> torch.Tensor:
-    """The first ``steps`` EbV steps on a contiguous copy of the CUDA
-    matrix ``a`` (one cooperative launch, counted on ``wrapper``)."""
+    """The EbV steps on a contiguous copy of the CUDA matrix ``a`` (one
+    cooperative launch, counted on ``wrapper``; the C entry's plan, blocks,
+    theta and shared-memory bytes, in ``wrapper.last_plan``)."""
     work = a.contiguous().clone()
     m, ncols = work.shape
-    barrier = torch.zeros(2, dtype=torch.int32, device=a.device)
+    ready = torch.zeros(m + 1, dtype=torch.int32, device=a.device)  # a flag per row, blocks done
     lib = _build.library()
+    plan = (ctypes.c_int * 3)()
     launched = ctypes.c_int(0)
     with torch.cuda.device(a.device):
         code = lib.ebv_legacy_walk(work.data_ptr(), m, ncols, steps, int(a.dtype == torch.bfloat16),
-                                   barrier.data_ptr(), torch.cuda.current_stream().cuda_stream,
+                                   ready.data_ptr(), torch.cuda.current_stream().cuda_stream, plan,
                                    ctypes.byref(launched))
     wrapper.launches += launched.value
+    wrapper.last_plan = tuple(plan)
     _build.check(code, wrapper.__name__)
     return work
 
@@ -164,7 +245,8 @@ def lu_vmem(a: torch.Tensor) -> torch.Tensor:
     """Paper-faithful unblocked EbV LU of a square matrix: n−1 masked
     rank-1 steps, packed (unit L strictly below the diagonal, U on and
     above).  A CPU tensor runs :func:`lu_vmem_plain`; a CUDA tensor is one
-    cooperative launch (none for n = 1), counted in ``lu_vmem.launches``."""
+    cooperative launch (none for n = 1), counted in ``lu_vmem.launches``.
+    Equal to the plain version value for value, NaN and inf included."""
     _check_legacy("lu_vmem", a)
     if a.shape[0] != a.shape[1]:
         raise ValueError(f"lu_vmem expects a square matrix, got shape {tuple(a.shape)}")
@@ -267,5 +349,6 @@ def update(l21: torch.Tensor, u12: torch.Tensor, a22: torch.Tensor, *, row_tile:
 
 lu_vmem.launches = 0
 panel.launches = 0
+lu_vmem.last_plan = panel.last_plan = None
 fused_step.launches = 0
 update.launches = 0

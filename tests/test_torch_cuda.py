@@ -16,7 +16,7 @@ their plain versions do and are held to bitwise equality; the batched
 band solve to 1e-5, as its unbatched twin measured <= 7.8e-7.  The
 legacy unblocked factor and panel (B17, B16) round every operation as
 their plain versions do and are held to bitwise equality, in fp32 and in
-bf16; the fused step and the trailing update (B14, B15) sum their products
+bf16, and a zero pivot's NaN and inf positions to the plain version's; the fused step and the trailing update (B14, B15) sum their products
 in another order than cuBLAS and are held to 1e-5 in fp32 and to 2e-2
 (a few bf16 units) in bf16.  A
 packed factor is compared as its L (strictly lower) and its U (upper)
@@ -330,9 +330,13 @@ def band_stack(bsz, n, bw, seed=0):
 
 
 # (B, n): one system; a few; n = 240, the largest system staged in shared
-# memory; n = 241 and 384 (the optimizer's order at whisper-tiny width),
-# walked in device memory
-@pytest.mark.parametrize("bsz,n", [(1, 8), (5, 64), (3, 240), (2, 241), (2, 384)])
+# memory; past it a cluster per system (batched_lu_plan): n = 241 and 384
+# (the optimizer's order at whisper-tiny width), odd n, n = 1000 and the
+# reference's cap 1024 (rows streamed below theta), 32 systems of 4 CTAs,
+# 100 systems of 2 (more clusters than the card holds at once); 133 systems,
+# one block each in device memory
+@pytest.mark.parametrize("bsz,n", [(1, 8), (5, 64), (3, 240), (2, 241), (2, 384), (1, 241), (3, 385),
+                                   (5, 1000), (8, 1024), (32, 256), (100, 384), (133, 384)])
 def test_batched_factor_kernel_is_bitwise_its_plain_version(bsz, n, card):
     a = torch.from_numpy(dd_stack(bsz, n, n)).to(card)
     before = batched_lu.batched_lu_vmem.launches
@@ -341,6 +345,13 @@ def test_batched_factor_kernel_is_bitwise_its_plain_version(bsz, n, card):
     torch.cuda.synchronize()
     assert torch.equal(got, batched_lu.batched_lu_plain(a))
     close_lu(got[-1], torch.from_numpy(ref.lu_ref(dd(n, n + bsz - 1))))
+    # the C entry chose the plan its Python mirror names
+    want = batched_lu.batched_lu_plan(bsz, n, torch.cuda.get_device_properties(card).multi_processor_count,
+                                      batched_lu.cluster_room(card))
+    kind, ctas, theta, nbytes, active = batched_lu.batched_lu_vmem.last_plan
+    assert (("staged", "global", "cluster")[kind], ctas) == (want.kind, want.ctas)
+    if want.kind == "cluster":
+        assert (theta, nbytes) == (want.walk.theta, want.walk.bytes) and active >= 1
 
 
 def test_batched_factor_leaves_its_input_alone(card):
@@ -462,7 +473,16 @@ def legacy_panel(m, b, seed, dtype):
     return torch.from_numpy(p).to(dtype)
 
 
-@pytest.mark.parametrize("n", [2, 64, 500, 2000])
+def assert_walk_plan(wrapper, m, ncols, dtype, card):
+    """The C entry launched the plan its Python mirror names."""
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    want = ebv_lu.legacy_walk_plan(m, ncols, dtype, sms)
+    assert wrapper.last_plan == (want.parts, want.theta, want.bytes)
+
+
+# odd and even n; n = 2 and 3 (one block); the reference's cap less one
+# (rows streamed below theta = 1519 in fp32)
+@pytest.mark.parametrize("n", [2, 3, 64, 263, 500, 1001, 2000, 4095])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_lu_vmem_kernel_is_bitwise_its_plain_version(n, dtype, card):
     a = torch.from_numpy(dd(n, n)).to(dtype).to(card)
@@ -472,6 +492,50 @@ def test_lu_vmem_kernel_is_bitwise_its_plain_version(n, dtype, card):
     torch.cuda.synchronize()
     assert ebv_lu.lu_vmem.launches - before == 1  # one cooperative launch
     assert torch.equal(got, ebv_lu.lu_vmem_plain(a)) and torch.equal(a, keep)
+    assert_walk_plan(ebv_lu.lu_vmem, n, n, dtype, card)
+
+
+# each side of the resident/streamed split: every row in shared memory up to
+# n = 2641 (fp32) and 3698 (bf16), rows streamed below theta = 1 above
+@pytest.mark.parametrize("n,dtype", [(2641, torch.float32), (2642, torch.float32),
+                                     (3698, torch.bfloat16), (3699, torch.bfloat16)])
+def test_lu_vmem_kernel_on_each_side_of_the_resident_split(n, dtype, card):
+    a = torch.from_numpy(dd(n, n + 1)).to(dtype).to(card)
+    before = ebv_lu.lu_vmem.launches
+    got = ebv_lu.lu_vmem(a)
+    torch.cuda.synchronize()
+    assert ebv_lu.lu_vmem.launches - before == 1
+    assert torch.equal(got, ebv_lu.lu_vmem_plain(a))
+    assert_walk_plan(ebv_lu.lu_vmem, n, n, dtype, card)
+
+
+def assert_same_non_finite(got, want):
+    """NaN where the plain version has NaN, and every other value (inf
+    among them) equal."""
+    torch.cuda.synchronize()
+    gnan, wnan = torch.isnan(got), torch.isnan(want)
+    assert torch.equal(gnan, wnan)
+    assert torch.equal(got.masked_fill(gnan, 0), want.masked_fill(wnan, 0))
+
+
+# a zero first pivot; rows p-1 and p equal, so pivot p turns exactly zero at
+# step p (the plain version's masked steps then spread NaN left of the rows
+# and above the columns the infinities reach)
+@pytest.mark.parametrize("n,p", [(263, 0), (263, 5), (1001, 700), (4095, 2000)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_lu_vmem_on_a_zero_pivot_gives_the_plain_non_finite_pattern(n, p, dtype, card):
+    a = dd(n, n + p)
+    if p == 0:
+        a[0, 0] = 0.0
+    else:
+        a[p] = a[p - 1]
+    a = torch.from_numpy(a).to(dtype).to(card)
+    before = ebv_lu.lu_vmem.launches
+    got = ebv_lu.lu_vmem(a)  # returns: no wait of the walk depends on a value
+    want = ebv_lu.lu_vmem_plain(a)
+    assert ebv_lu.lu_vmem.launches - before == 1
+    assert not bool(torch.isfinite(want).all())
+    assert_same_non_finite(got, want)
 
 
 def test_the_cooperative_walk_at_the_reference_cap(card):
@@ -492,6 +556,7 @@ def test_panel_kernel_is_bitwise_its_plain_version(m, b, dtype, card):
     torch.cuda.synchronize()
     assert ebv_lu.panel.launches - before == 1
     assert torch.equal(got, ebv_lu.panel_plain(p))
+    assert_walk_plan(ebv_lu.panel, m, b, dtype, card)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
