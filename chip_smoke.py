@@ -13,11 +13,15 @@ Phases (any failure exits non-zero):
    size the dense paths factor, n = 500, 1024, 2000 and 4096, also at
    n = 1, 100, 255 and 2049 and with ``block=50``, and at n = 8000 against
    the plain version or, if that would take over about a minute,
-   ``lu_factor(pivot=False)``; B3 and
+   ``lu_factor(pivot=False)``; B2 at n = 500, 1024, 2000, 2048, 4000 and
+   8000 with 1, 8 and 64 RHS columns, each launch's plan checked against its
+   Python mirror, and at n = 32000 (no room for a copy of a streamed
+   diagonal tile) with 1 and 64 against ``solve_triangular``; B3 and
    B4 also at n = 1, 100 and 2049 with 1, 33 and 300 RHS columns); 3c the
    batched kernels (B9-B12) at the batched paths' shapes, B9 also where its
    plan changes (each plan checked against its Python mirror); 3d the legacy
-   dense kernels (B14-B17) at the legacy paths' shapes, B17 also at odd n,
+   dense kernels (B14-B17) at the legacy paths' shapes, B14 also at ragged
+   edges, fp32 and bf16, B17 also at odd n,
    on each side of its resident/streamed split and on zero pivots (NaN and
    inf positions against the plain version's), and the legacy
    scalar band factor (B18) at the band the service escalates to it; 3e the
@@ -76,7 +80,8 @@ Phases (any failure exits non-zero):
    factor's one call), the bound,
    launches per call and peak memory;
    the ``cuda_vmem`` / ``cuda_tiled`` and ``cuda_blocked`` / ``cuda_tiled``
-   crossovers; B17's, B16's and B9's time a pivot and resident share; the
+   crossovers; B2's plan and time a link; B17's, B16's and B9's time a
+   pivot and resident share; the
    optimizer step's time; device time by kernel (B1, B3 and
    B4 at n = 8000 among them) and each dense factor and solve step's time
    beside the host's enqueue time per launch; B13 at the
@@ -105,10 +110,17 @@ PEAK_BYTES = 3.35e12
 KERNEL_TOL = 1e-4
 SIZES = (500, 2000, 8000)
 WIDE = 64
+# B2 (solve_vmem) in phase 3: the dense sizes up to the dispatch cap, the
+# service's n = 1024 and 8-column flushes (phase 4h), n = 4000, where less
+# than half the rows' columns fit shared memory, and n = 8000 (more than
+# 132 blocks of 32 rows: the wide path)
+VMEM_SOLVE_N, VMEM_SOLVE_M = (500, 1024, 2000, 2048, 4000, 8000), (1, 8, 64)
+VMEM_LARGE_N = 32000  # B2 past the room for a copy of its diagonal tile
 # B3 and B4 at shapes across their tiles (phase 3): n = 1, under one tile,
 # ragged; RHS widths narrow (<= 4 columns), wide (<= 64) and several tiles
 RAGGED_N, RAGGED_M = (1, 100, 2049), (1, 33, 300)
 REPS = 5
+BACK_TO_BACK = 20
 # (n, bw) of the banded main path: the paper's Table 1 bands
 # (benchmarks/table1_sparse.py), the reference's banded shootout
 # (benchmarks/run.py) and the 5-point Poisson band of a 256 x 256 grid
@@ -140,6 +152,9 @@ ENSEMBLE_NX, ENSEMBLE_MEMBERS = 64, 32
 # bf16 B14 at the reference test's absolute tolerance (tests/test_kernels.py)
 LEGACY_TOL = 1e-5
 BF16_UPDATE_ATOL = 0.5
+BF16_UPDATE_TOL = 2e-2  # normwise, a few bf16 units (tests/test_torch_cuda.py)
+# B14 at ragged edges (no 16-byte rows at w = 33, 65), one element, a narrow tall block
+UPDATE_EDGES = ((100, 7, 33), (129, 16, 65), (1, 1, 1), (1000, 256, 8))
 VMEM_SIZES = (500, 2000, 4096)   # lu_vmem up to the reference's cap
 # B17 also at odd n, at the cap less one, on each side of the resident /
 # streamed split (every row in shared memory up to n = 2641 in fp32 and 3698
@@ -216,6 +231,7 @@ def main() -> int:
     from repro_torch.solvers.backends import RAND_LU_RESIDUAL_BOUND, banded_static_impl, blocked_launches
 
     dev = torch.device("cuda")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     card = card_line()
     print(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"python {sys.version.split()[0]}", flush=True)
@@ -331,10 +347,42 @@ def main() -> int:
     compare_lu("lu_fused", "n=8000", lus[8000], want8)
     del want8
     inverses = {n: dense_block_inverses(lus[n], block=256) for n in SIZES}
+    # B2 at the dense path's sizes up to the dispatch cap (SOLVE_VMEM_MAX_N =
+    # 2048), the service's flush shapes (n = 1024, 8 columns) and past the
+    # resident split (n = 4000): one launch of the plan its Python mirror names
+    for n in VMEM_SOLVE_N:
+        lu = lus[n] if n in lus else ebv_lu.lu_fused(matrix(n, n))
+        for m in VMEM_SOLVE_M:
+            b = rhs(n, m, 7 + m)
+            compare("solve_vmem", f"n={n} m={m}", trsm.solve_vmem(lu, b), trsm.solve_vmem_plain(lu, b))
+            want = trsm.solve_vmem_plan(n, m, sms)
+            if trsm.solve_vmem.last_plan != tuple(want)[:6]:
+                fail(f"solve_vmem n={n} m={m}: plan {trsm.solve_vmem.last_plan} differs from the mirror's {want}")
+        print(f"    plan solve_vmem n={n}: {want.blocks} blocks of R = {want.rows} rows, theta {want.theta}, "
+              f"resident share {want.resident:.3f}, {want.bytes} B of shared memory a block (m={m})", flush=True)
+    # past about 240 rows a block no copy of a streamed diagonal tile fits:
+    # held against the same sweeps by torch.linalg.solve_triangular (the
+    # plain version's column loop takes minutes at this n)
+    lu = ebv_lu.lu_fused(matrix(VMEM_LARGE_N, 31))
     for m in (1, WIDE):
-        b = rhs(2000, m, 7)
-        compare("solve_vmem", f"n=2000 m={m}", trsm.solve_vmem(lus[2000], b),
-                trsm.solve_vmem_plain(lus[2000], b))
+        b = rhs(VMEM_LARGE_N, m, 32 + m)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        got = trsm.solve_vmem(lu, b)
+        end.record()
+        end.synchronize()
+        want = trsm.solve_vmem_plan(VMEM_LARGE_N, m, sms)
+        bm = b[:, None] if m == 1 else b
+        x = torch.linalg.solve_triangular(lu, torch.linalg.solve_triangular(lu, bm, upper=False, unitriangular=True),
+                                          upper=True)
+        compare("solve_vmem", f"n={VMEM_LARGE_N} m={m}", got, x[:, 0] if m == 1 else x)
+        if trsm.solve_vmem.last_plan != tuple(want)[:6] or want.copy:
+            fail(f"solve_vmem n={VMEM_LARGE_N} m={m}: plan {trsm.solve_vmem.last_plan}, the mirror's {want}")
+        print(f"    plan solve_vmem n={VMEM_LARGE_N} m={m}: {want.blocks} blocks of R = {want.rows} rows, theta "
+              f"{want.theta}, no copy of a streamed diagonal tile, {want.bytes} B a block; the first call "
+              f"{start.elapsed_time(end):.3f} ms (events; card: {card})", flush=True)
+    del lu, got, x
+    for m in (1, WIDE):
         for n in (2000, 8000):
             b = rhs(n, m, 8)
             linv, uinv = inverses[n]
@@ -417,7 +465,6 @@ def main() -> int:
         blus[(bsz, n)] = batched_lu.batched_lu_vmem(a)
         compare_bitwise("batched_lu_vmem", f"B={bsz} n={n}", blus[(bsz, n)],
                         batched_lu.batched_lu_plain(a))
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     room = batched_lu.cluster_room(dev)
     print(f"  clusters of 2 / 4 / 8 / 16 CTAs of B9's cluster kernel the card holds at once: "
           f"{' / '.join(str(room[c]) for c in batched_lu.CLUSTER_SIZES)}", flush=True)
@@ -536,6 +583,18 @@ def main() -> int:
                      for shape in ((wpad, LEGACY_BLOCK), (LEGACY_BLOCK, wpad), (wpad, wpad)))
     compare("update", f"{tuple(upd_args[0].shape[:1]) + tuple(upd_args[1].shape)}",
             ebv_lu.update(*upd_args), ebv_lu.update_plain(*upd_args), LEGACY_TOL)
+    # B14 on B1's SGEMM tile at ragged edges in rows, columns and depth, one
+    # element and a narrow tall block; A22 left as it was
+    for shape in UPDATE_EDGES:
+        for dtype in (torch.float32, torch.bfloat16):
+            args = tuple(torch.randn(d, generator=g, device=dev).to(dtype)
+                         for d in ((shape[0], shape[1]), (shape[1], shape[2]), (shape[0], shape[2])))
+            keep = args[2].clone()
+            got = ebv_lu.update(*args, row_tile=shape[0], col_tile=shape[2])
+            compare("update", f"{shape} {str(dtype)[6:]}", got.float(), ebv_lu.update_plain(*args).float(),
+                    LEGACY_TOL if dtype == torch.float32 else BF16_UPDATE_TOL)
+            if not torch.equal(args[2], keep):
+                fail(f"update {shape}: A22 changed")
     bargs = tuple(torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
                   for shape in ((128, 32), (32, 64), (128, 64)))
     got = ebv_lu.update(*bargs, row_tile=64, col_tile=32)
@@ -1324,6 +1383,14 @@ def main() -> int:
                                    bound_by=b_by, per_call=per_call)
         torch.cuda.reset_peak_memory_stats()
 
+    def vmem_links(n, m, ms=None):
+        """B2's plan and its time a link: 2P handoffs of one row block."""
+        plan = trsm.solve_vmem_plan(n, m, sms)
+        ms = rows[("solve_vmem", f"n={n} m={m}")]["ms"] if ms is None else ms
+        print(f"    solve_vmem n={n} m={m}: P = {plan.blocks} blocks of R = {plan.rows} rows, resident share "
+              f"{plan.resident:.3f}; {1e3 * ms / (2 * plan.blocks):.2f} us a link over {2 * plan.blocks} links "
+              f"(card: {card})", flush=True)
+
     def per_call(wrapper, fn):
         """Launches one call of ``fn`` adds to ``wrapper``'s counter."""
         before = wrapper.launches
@@ -1354,6 +1421,7 @@ def main() -> int:
                 record("solve_vmem", f"n={n} m={m}", timed(kernel),
                        timed(lambda: trsm.solve_vmem_plain(lu, b)), lib, *sweep,
                        per_call(trsm.solve_vmem, kernel))
+                vmem_links(n, m)
             if n >= 2000:
                 kernel = lambda: trsm.solve_tiled(lu, b)
                 record("solve_tiled", f"n={n} m={m}", timed(kernel),
@@ -1498,6 +1566,32 @@ def main() -> int:
            library(lambda: torch.addmm(uc, ul, uu, alpha=-1)), 2 * mu * ku * wu,
            (mu * ku + ku * wu + 2 * mu * wu) * 4, per_call(ebv_lu.update, kernel))
 
+    # a single call's events count the host's time to reach the launch (the
+    # card is idle when the first event is recorded); BACK_TO_BACK calls
+    # between two events hide it behind the calls before, leaving the
+    # device's time a call
+    def back_to_back(fn):
+        fn()
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(BACK_TO_BACK):
+            fn()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / BACK_TO_BACK
+
+    b2 = {m: rhs(2000, m, 14) for m in (1, WIDE)}
+    piv2 = torch.arange(1, 2001, dtype=torch.int32, device=dev)
+    print(f"  {BACK_TO_BACK} calls back to back, ms a call (card: {card}):", flush=True)
+    for label, fn in (("update (1792, 256, 1792)", lambda: ebv_lu.update(*upd_args)),
+                      ("addmm (1792, 256, 1792)", lambda: torch.addmm(uc, ul, uu, alpha=-1)),
+                      ("solve_vmem n=2000 m=1", lambda: trsm.solve_vmem(lus[2000], b2[1])),
+                      ("lu_solve n=2000 m=1", lambda: torch.linalg.lu_solve(lus[2000], piv2, b2[1][:, None])),
+                      (f"solve_vmem n=2000 m={WIDE}", lambda: trsm.solve_vmem(lus[2000], b2[WIDE])),
+                      (f"lu_solve n=2000 m={WIDE}", lambda: torch.linalg.lu_solve(lus[2000], piv2, b2[WIDE]))):
+        print(f"    {label:28s} {back_to_back(fn):.4f}", flush=True)
+
     for n in (2000, 8000):  # the legacy driver against the fused factor it was replaced by
         a = matrix(n, 2200 + n)
         tb = timed(lambda: ops.lu(a, impl="cuda_blocked"))
@@ -1589,6 +1683,7 @@ def main() -> int:
             tv, tt = timed(lambda: trsm.solve_vmem(lu, b)), timed(lambda: trsm.solve_tiled(lu, b))
             print(f"    n={n:5d} m={m:3d}  solve_vmem {tv:.4f}  solve_tiled {tt:.4f}  "
                   f"faster: {'solve_vmem' if tv <= tt else 'solve_tiled'}", flush=True)
+            vmem_links(n, m, tv)
 
     print("  cuda_blocked / cuda_tiled crossover (kernel ms):", flush=True)
     for bw in (5, 8, 12, 16):

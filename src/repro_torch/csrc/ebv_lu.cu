@@ -9,7 +9,7 @@
 // stream order on the caller's (n, n) matrix, row stride n:
 //   diag_kernel    one block factors the (W, W) diagonal tile;
 //   panel_kernel   L21 = A21 U11^-1 and U12 = L11^-1 A12 in one launch;
-//   update_kernel  A22 -= L21 U12, in two launches with one step of
+//   gemm_kernel    A22 -= L21 U12 (sgemm.cuh), in two launches with one step of
 //                  lookahead: first the next step's block row and block
 //                  column, then the rest of A22, which runs beside the
 //                  next step's diagonal tile (the launch between them).
@@ -56,17 +56,15 @@
 //     shuffle-and-FMA steps) at small n, the shuffles and FMAs issued per
 //     SM at large n.  Both panels are also written, as (W, ldt) row-major
 //     copies, to the scratch the update reads.
-//   - update_kernel is an fp32 SGEMM of depth W on the CUDA cores (IEEE
-//     FMAs: there is no fp32 wgmma, and TF32 stays off), bound by the card's
-//     fp32 operations at large n: 128x128, 128x64 or 64x64 output tiles, an
-//     8x8, 8x4 or 4x4 register micro-tile per thread, k-chunks of 16 copied
-//     by 16-byte cp.async into a two-stage ring, and the A22 tile copied into shared
-//     memory at the start so that its device-memory read overlaps the
-//     product.  L21 arrives transposed from the panel scratch, so both
-//     operands are k-major rows read as float4, free of bank conflicts.  The
-//     rest of A22 takes the tile that splits it most evenly over the SMs, so
-//     the late, small steps still fill the card; the block row and column
-//     take 64x64 tiles, many blocks of a short chain.
+//   - the update is the SGEMM tile of sgemm.cuh, of depth W, bound by the
+//     card's fp32 operations at large n: 128x128, 128x64 or 64x64 output
+//     tiles, k-chunks of 16 copied by 16-byte cp.async into a two-stage
+//     ring, the A22 tile copied into shared memory at the start.  L21
+//     arrives transposed from the panel scratch, so both operands copy
+//     straight into the ring as k-major rows.  The rest of A22 takes the
+//     tile that splits it most evenly over the SMs, so the late, small
+//     steps still fill the card; the block row and column take 64x64
+//     tiles, many blocks of a short chain.
 //
 // The TPU kernel's eq.-7 fold (program p owns trailing tiles p+1 and S-1-p,
 // so each program's lifetime work is the constant S) balances programs that
@@ -89,6 +87,7 @@
 
 #include "async_copy.cuh"
 #include "pdl.cuh"
+#include "sgemm.cuh"
 
 namespace {
 
@@ -98,8 +97,6 @@ constexpr int kDiagThreads = 1024;       // 32 warps, 4 rows each
 constexpr int kGroup = 8;                // panel rows (or columns) a warp solves together
 constexpr int kPanelWarps = 16;
 constexpr int kTld = kTileMax + 1;       // row stride of a staged triangle
-constexpr int kUpdateThreads = 256;      // 16 x 16 threads over an update tile
-constexpr int kDepth = 16;               // k-chunk of the update's ring
 
 extern __shared__ __align__(16) float smem[];
 
@@ -324,189 +321,23 @@ __global__ void __launch_bounds__(kPanelWarps * 32) panel_kernel(float* a, int n
 }
 
 // ---------------------------------------------------------------------------
-// 3. the trailing update
+// 3. the trailing update (sgemm.cuh)
 // ---------------------------------------------------------------------------
-constexpr int kStages = 2;  // the ring: a chunk's copy hides behind the product of the one before
-
-template <int BM, int BN>
-constexpr size_t update_smem() {
-  return (size_t)(kStages * kDepth * (BM + BN) + BM * BN) * sizeof(float);
-}
-
-// A rectangle of the trailing matrix that one update launch covers, in
-// (BM, BN) tiles: rows ro .. ro+rows-1, columns co .. co+cols-1.
-struct Rect {
-  int ro, co, rows, cols;
-  int tiles_x, tiles;  // tiles across, tiles in all
-};
-
-template <int BM, int BN>
-Rect rect(int ro, int co, int rows, int cols) {
-  const int tx = (cols + BN - 1) / BN;
-  return Rect{ro, co, rows, cols, tx, rows > 0 && cols > 0 ? tx * ((rows + BM - 1) / BM) : 0};
-}
-
 // A22 -= L21 U12 on rectangles r0, r1 of the (M, M) trailing matrix at
-// (t0, t0), M = n - t0, depth w: block b the b-th (BM, BN) tile of r0, then
-// of r1.  Thread (tx, ty) of 16 x 16 (a warp is 8 x 4 of them) owns rows
-// 64i + 4ty + (0..3) and columns 64j + 4tx + (0..3) of its tile.  `lt` (L21
-// transposed) and `ut` (U12) are (w, ldt) row-major, ldt a multiple of 4
-// past every tile's last row and column.  `vec`: n, t0 and the rectangles'
-// edges are multiples of 4, so A22's rows are copied as float4s.
-// `wait_last`: the launch reads nothing the launch before it writes (see
-// ebv_lu_fused), so it waits for that launch only at the end of its last
-// block, which makes its completion imply that launch's.
-template <int BM, int BN>
-__global__ void __launch_bounds__(kUpdateThreads, 2)
-    update_kernel(float* a, int n, int t0, const float* lt, const float* ut, int ldt, int w, int vec, Rect r0,
-                  Rect r1, int wait_last) {
-  constexpr int TM = BM / 16, TN = BN / 16;  // 8 or 4
-  constexpr int P = kStages;
-  float* As = smem;                          // [P][kDepth][BM]
-  float* Bs = As + P * kDepth * BM;          // [P][kDepth][BN]
-  float* Cs = Bs + P * kDepth * BN;          // [BM][BN]
-  allow_next_step();
-  const bool first = blockIdx.x < r0.tiles;
-  const Rect& R = first ? r0 : r1;
-  const int b = first ? blockIdx.x : blockIdx.x - r0.tiles;
-  const int bi = R.ro + b / R.tiles_x * BM, bj = R.co + b % R.tiles_x * BN;
-  const int rlim = R.ro + R.rows, clim = R.co + R.cols;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int tx = (warp & 1) * 8 + (lane & 7), ty = (warp >> 1) * 4 + (lane >> 3);
+// (t0, t0), depth w: `lt` (L21 transposed) and `ut` (U12) are (w, ldt)
+// row-major, ldt a multiple of 4 past every tile's last row and column.
+// `vec`: n, t0 and the rectangles' edges are multiples of 4, so A22's rows
+// are copied as float4s.
+Gemm<float> trailing(float* a, int n, int t0, const float* lt, const float* ut, int ldt, int w, int vec) {
   float* c0 = a + (size_t)t0 * n + t0;
-  if (!wait_last) wait_prior_step();
-
-  auto stage = [&](int chunk) {  // rows k0..k0+15 of both operands; zeros past w
-    const int k0 = chunk * kDepth;
-    float* as = As + (chunk % P) * kDepth * BM;
-    float* bs = Bs + (chunk % P) * kDepth * BN;
-    for (int idx = threadIdx.x; idx < kDepth * BM / 4; idx += kUpdateThreads) {
-      const int k = idx / (BM / 4), m = 4 * (idx % (BM / 4));
-      const bool ok = k0 + k < w;
-      cp_async16(as + k * BM + m, lt + (size_t)(ok ? k0 + k : 0) * ldt + bi + m, ok ? 16 : 0);
-    }
-    for (int idx = threadIdx.x; idx < kDepth * BN / 4; idx += kUpdateThreads) {
-      const int k = idx / (BN / 4), m = 4 * (idx % (BN / 4));
-      const bool ok = k0 + k < w;
-      cp_async16(bs + k * BN + m, ut + (size_t)(ok ? k0 + k : 0) * ldt + bj + m, ok ? 16 : 0);
-    }
-  };
-  const int chunks = (w + kDepth - 1) / kDepth;
-  // copy groups: [chunk 0] .. [chunk P-1] [A22 tile], then chunk c+P after chunk c
-#pragma unroll
-  for (int c = 0; c < P; ++c) {
-    if (c < chunks) stage(c);
-    cp_async_commit();
-  }
-  if (vec)
-    for (int idx = threadIdx.x; idx < BM * BN / 4; idx += kUpdateThreads) {
-      const int r = idx / (BN / 4), c = 4 * (idx % (BN / 4));
-      if (bi + r < rlim && bj + c < clim) cp_async16(Cs + r * BN + c, c0 + (size_t)(bi + r) * n + bj + c);
-    }
-  cp_async_commit();
-
-  float acc[TM][TN] = {};
-  for (int chunk = 0; chunk < chunks; ++chunk) {
-    if (chunk < P) cp_async_wait<P>();
-    else cp_async_wait<P - 1>();
-    __syncthreads();
-    const float* as = As + (chunk % P) * kDepth * BM;
-    const float* bs = Bs + (chunk % P) * kDepth * BN;
-#pragma unroll
-    for (int k = 0; k < kDepth; ++k) {
-      float af[TM], bf[TN];
-#pragma unroll
-      for (int i = 0; i < TM / 4; ++i)
-        *reinterpret_cast<float4*>(&af[4 * i]) = *reinterpret_cast<const float4*>(as + k * BM + 64 * i + 4 * ty);
-#pragma unroll
-      for (int j = 0; j < TN / 4; ++j)
-        *reinterpret_cast<float4*>(&bf[4 * j]) = *reinterpret_cast<const float4*>(bs + k * BN + 64 * j + 4 * tx);
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(af[i], bf[j], acc[i][j]);
-    }
-    __syncthreads();
-    if (chunk + P < chunks) stage(chunk + P);  // into the buffer just read
-    cp_async_commit();
-  }
-  cp_async_wait<0>();
-  __syncthreads();
-
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int r = 64 * (i / 4) + 4 * ty + i % 4;
-    if (bi + r >= rlim) continue;
-    float* out = c0 + (size_t)(bi + r) * n + bj;
-#pragma unroll
-    for (int j = 0; j < TN / 4; ++j) {
-      const int c = 64 * j + 4 * tx;
-      if (vec) {
-        if (bj + c >= clim) continue;
-        float4 o = *reinterpret_cast<const float4*>(Cs + r * BN + c);
-        o.x -= acc[i][4 * j];
-        o.y -= acc[i][4 * j + 1];
-        o.z -= acc[i][4 * j + 2];
-        o.w -= acc[i][4 * j + 3];
-        *reinterpret_cast<float4*>(out + c) = o;
-      } else {
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          if (bj + c + e < clim) out[c + e] = __ldcg(out + c + e) - acc[i][4 * j + e];
-      }
-    }
-  }
-  if (wait_last && blockIdx.x == gridDim.x - 1) wait_prior_step();
-}
-
-struct Shape {
-  int bm, bn;
-  // the tile's FMA rate against the 128 x 128 tile's on a large trailing
-  // matrix: about what the update alone reached on an H100 at 700 W (M =
-  // 7872: 36.9, 32.1 and 25.6 TF/s)
-  float eff;
-};
-constexpr Shape kShapes[] = {{128, 128, 1.f}, {128, 64, 0.85f}, {64, 64, 0.7f}};
-
-// The tile whose count splits most evenly over the SMs: least tiles per SM
-// times a tile's work over its rate.
-int pick_shape(int M, int sms) {
-  int best = 0;
-  double best_cost = 0;
-  for (int i = 0; i < 3; ++i) {
-    const Shape& s = kShapes[i];
-    const long tiles = (long)((M + s.bm - 1) / s.bm) * ((M + s.bn - 1) / s.bn);
-    const double cost = (double)((tiles + sms - 1) / sms) * s.bm * s.bn / s.eff;
-    if (i == 0 || cost < best_cost) best = i, best_cost = cost;
-  }
-  return best;
-}
-
-template <int BM, int BN>
-cudaError_t launch_update(float* a, int n, int t0, const float* lt, const float* ut, int ldt, int w, int vec,
-                          Rect r0, Rect r1, int wait_last, cudaStream_t stream) {
-  return launch_step(update_kernel<BM, BN>, dim3(r0.tiles + r1.tiles), dim3(kUpdateThreads), update_smem<BM, BN>(),
-                     stream, true, a, n, t0, lt, ut, ldt, w, vec, r0, r1, wait_last);
-}
-
-// The update of the (m, m) rectangle at (o, o) of the trailing matrix, in
-// the tile that splits it most evenly over the SMs.
-cudaError_t launch_rest(float* a, int n, int t0, const float* lt, const float* ut, int ldt, int w, int vec, int o,
-                        int m, int sms, cudaStream_t stream) {
-  switch (pick_shape(m, sms)) {
-    case 0: return launch_update<128, 128>(a, n, t0, lt, ut, ldt, w, vec, rect<128, 128>(o, o, m, m), Rect{}, 1, stream);
-    case 1: return launch_update<128, 64>(a, n, t0, lt, ut, ldt, w, vec, rect<128, 64>(o, o, m, m), Rect{}, 1, stream);
-    default: return launch_update<64, 64>(a, n, t0, lt, ut, ldt, w, vec, rect<64, 64>(o, o, m, m), Rect{}, 1, stream);
-  }
+  return Gemm<float>{lt, ldt, ut, ldt, c0, c0, n, ldt, ldt, w, vec, 1, 1};
 }
 
 // The shared memory attributes, set once per device.
 cudaError_t allow_kernels_smem() {
   cudaError_t err;
   if ((err = allow_smem(panel_kernel, kPanelSmem))) return err;
-  if ((err = allow_smem(update_kernel<128, 128>, update_smem<128, 128>()))) return err;
-  if ((err = allow_smem(update_kernel<128, 64>, update_smem<128, 64>()))) return err;
-  return allow_smem(update_kernel<64, 64>, update_smem<64, 64>());
+  return allow_gemm_smem<float, true>();
 }
 
 }  // namespace
@@ -553,15 +384,17 @@ extern "C" int ebv_lu_fused(void* a_ptr, int n, int W, void* scratch, int ldt, v
     ++*launches;
     // lookahead: the next step's block row and block column first, then its
     // diagonal tile beside the update of the rest
-    if ((err = launch_update<64, 64>(a, n, t0, lt, ut, ldt, W, vec, rect<64, 64>(0, 0, wn, M),
-                                     rect<64, 64>(wn, 0, M - wn, wn), 0, stream)))
+    const Gemm<float> g = trailing(a, n, t0, lt, ut, ldt, W, vec);
+    if ((err = launch_gemm<float, true, 64, 64>(g, rect<64, 64>(0, 0, wn, M), rect<64, 64>(wn, 0, M - wn, wn), 0,
+                                                true, stream)))
       return err;
     ++*launches;
     if ((err = launch_step(diag_kernel, dim3(1), dim3(kDiagThreads), 0, stream, true, a, n, t0, wn, rdiag)))
       return err;
     ++*launches;
     if (M > wn) {
-      if ((err = launch_rest(a, n, t0, lt, ut, ldt, W, vec, wn, M - wn, sms, stream))) return err;
+      // the rest of A22, in the tile that splits it most evenly over the SMs
+      if ((err = launch_gemm_rect<float, true>(g, wn, wn, M - wn, M - wn, sms, 1, true, stream))) return err;
       ++*launches;
     }
   }

@@ -41,37 +41,14 @@
 
 #include <cstddef>
 
+#include "elem.cuh"
+
 namespace {
 
 constexpr int kWalkThreads = 512;   // one block (CTA) per SM
 constexpr int kWalkSmem = 232448;   // dynamic shared memory one H100 block may use
 constexpr int kLag = 8;             // steps a streamed element's updates are applied together
 constexpr int kKeep = 8;            // columns of the next-but-one pivot row a thread keeps in registers
-
-// element loads and stores: fp32 values in registers, T in memory; the _l2
-// forms go past L1 (__ldcg / __stcg), for rows another SM writes or reads
-__device__ __forceinline__ float load(const float* p) { return *p; }
-__device__ __forceinline__ float load(const __nv_bfloat16* p) { return __bfloat162float(*p); }
-__device__ __forceinline__ float load_l2(const float* p) { return __ldcg(p); }
-__device__ __forceinline__ float load_l2(const __nv_bfloat16* p) {
-  return __bfloat162float(__ushort_as_bfloat16(__ldcg(reinterpret_cast<const unsigned short*>(p))));
-}
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
-__device__ __forceinline__ void store_l2(float* p, float v) { __stcg(p, v); }
-__device__ __forceinline__ void store_l2(__nv_bfloat16* p, float v) {
-  __stcg(reinterpret_cast<unsigned short*>(p), __bfloat16_as_ushort(__float2bfloat16_rn(v)));
-}
-
-// v rounded to T (the identity for fp32)
-template <typename T>
-__device__ __forceinline__ float rnd(float v) {
-  return v;
-}
-template <>
-__device__ __forceinline__ float rnd<__nv_bfloat16>(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
 
 // The rows of participant c of P over an m-row matrix, in decreasing order:
 // row(t) for t < count().  J units, Jl low rows (J less the middle

@@ -44,18 +44,25 @@
 //   of row chunk 0 store U12.  The solve rounds as the plain version does;
 //   the product accumulates in fp32 in k order and rounds once.
 //
-// update_kernel — replaces src/repro/kernels/ebv_lu.py:update: A22 - L21 U12
-//   on a grid of 64 x 64 output tiles, L21 and U12 streamed through shared
-//   memory 16 deep, a 4 x 4 register block per thread, fp32 accumulation,
-//   one rounding to the output type.  Bound: 2mbw flops (fp32 outside the
-//   tensor cores) against (mb + bw + 2mw) elements of traffic.  No wgmma or
-//   TMA: making these fast is later work.
+// update — replaces src/repro/kernels/ebv_lu.py:update: A22 - L21 U12 into
+//   a new tensor, one launch of the dense factor's SGEMM tile (sgemm.cuh):
+//   128x128, 128x64 or 64x64 output tiles, whichever splits (m, w) most
+//   evenly over the SMs; L21 arrives row-major and stays so in shared
+//   memory, bf16 operands widen to fp32 as they are read, the product
+//   accumulates in fp32 and rounds once to the output type.  Bound: 2mbw
+//   flops (fp32 outside the tensor cores) against (mb + bw + 2mw) elements
+//   of traffic; the tile runs the card's CUDA cores at about half their
+//   fp32 peak at large sizes.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstddef>
+#include <cstdint>
 
 #include "ebv_walk.cuh"
+#include "handoff.cuh"
+#include "pdl.cuh"
+#include "sgemm.cuh"
 
 namespace {
 
@@ -63,34 +70,9 @@ constexpr int kStepCols = 32;        // U12 / trailing columns per fused-step bl
 constexpr int kStepRows = 128;       // trailing rows per fused-step block
 constexpr int kStepThreads = 256;
 constexpr int kStrip = 32;           // L11 / L21 columns staged at once
-constexpr int kTile = 64;            // update output tile
-constexpr int kDepth = 16;           // update k step
 constexpr int kSmemMax = 232448;     // dynamic shared memory one H100 block may use
 
 extern __shared__ float smem[];
-
-// A wait on a flag longer than kWaitCycles (seconds) traps, so a broken
-// handoff ends the launch with an error instead of holding the card.
-constexpr long long kWaitCycles = 20000000000LL;
-
-__device__ __forceinline__ int load_relaxed(const int* p) {
-  int v;
-  asm volatile("ld.relaxed.gpu.global.b32 %0, [%1];\n" : "=r"(v) : "l"(p) : "memory");
-  return v;
-}
-
-__device__ __forceinline__ void store_release(int* p, int v) {
-  asm volatile("st.release.gpu.global.b32 [%0], %1;\n" ::"l"(p), "r"(v) : "memory");
-}
-
-// spin on relaxed loads, then one acquire fence: what the flag's writer
-// stored before its release is visible after
-__device__ void wait_until(const int* p, int at_least) {
-  const long long t0 = clock64();
-  while (load_relaxed(p) < at_least)
-    if (clock64() - t0 > kWaitCycles) __trap();
-  asm volatile("fence.acq_rel.gpu;\n" ::: "memory");
-}
 
 template <typename T>
 __global__ void __launch_bounds__(kWalkThreads, 1)
@@ -228,58 +210,6 @@ fused_step_kernel(const T* __restrict__ pan, const T* __restrict__ top, const T*
   }
 }
 
-// o = c - l u for l (m, kd), u (kd, w), c and o (m, w), row-major; 256
-// threads, each accumulating a 4 x 4 block of one 64 x 64 output tile.
-template <typename T>
-__global__ void __launch_bounds__(256)
-update_kernel(const T* __restrict__ l, const T* __restrict__ u, const T* __restrict__ c,
-              T* __restrict__ o, int m, int kd, int w) {
-  __shared__ float As[kDepth][kTile + 4];
-  __shared__ __align__(16) float Bs[kDepth][kTile];
-  const int bi = blockIdx.y * kTile, bj = blockIdx.x * kTile;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  float acc[4][4] = {};
-  for (int k0 = 0; k0 < kd; k0 += kDepth) {
-    for (int e = threadIdx.x; e < kTile * kDepth; e += blockDim.x) {
-      const int r = e / kDepth, kk = e % kDepth;
-      As[kk][r] = (bi + r < m && k0 + kk < kd) ? load(l + (size_t)(bi + r) * kd + k0 + kk) : 0.f;
-    }
-    for (int e = threadIdx.x; e < kDepth * kTile; e += blockDim.x) {
-      const int kk = e / kTile, cc = e % kTile;
-      Bs[kk][cc] = (bj + cc < w && k0 + kk < kd) ? load(u + (size_t)(k0 + kk) * w + bj + cc) : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kDepth; ++kk) {
-      float ar[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) ar[i] = As[kk][ty * 4 + i];
-      const float4 br = *reinterpret_cast<const float4*>(&Bs[kk][tx * 4]);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        acc[i][0] = fmaf(ar[i], br.x, acc[i][0]);
-        acc[i][1] = fmaf(ar[i], br.y, acc[i][1]);
-        acc[i][2] = fmaf(ar[i], br.z, acc[i][2]);
-        acc[i][3] = fmaf(ar[i], br.w, acc[i][3]);
-      }
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int gi = bi + ty * 4 + i;
-    if (gi >= m) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int gj = bj + tx * 4 + j;
-      if (gj < w) {
-        const size_t at = (size_t)gi * w + gj;
-        store(o + at, __fsub_rn(load(c + at), rnd<T>(acc[i][j])));
-      }
-    }
-  }
-}
-
 template <typename T>
 cudaError_t launch_walk(void* a, int m, int ncols, int steps, void* ready, cudaStream_t stream,
                         int* plan, int* launched) {
@@ -334,13 +264,28 @@ cudaError_t launch_fused_step(const void* pan, const void* top, const void* trai
   return cudaGetLastError();
 }
 
+// The shared memory attributes of the update's tiles, set once per device.
+cudaError_t allow_update_smem() {
+  cudaError_t err;
+  if ((err = allow_gemm_smem<float, false>())) return err;
+  return allow_gemm_smem<__nv_bfloat16, false>();
+}
+
+bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
+
 template <typename T>
-cudaError_t launch_update(const void* l, const void* u, const void* c, void* o, int m, int kd,
-                          int w, cudaStream_t stream) {
-  const dim3 grid((w + kTile - 1) / kTile, (m + kTile - 1) / kTile);
-  update_kernel<T><<<grid, 256, 0, stream>>>(static_cast<const T*>(l), static_cast<const T*>(u),
-                                             static_cast<const T*>(c), static_cast<T*>(o), m, kd, w);
-  return cudaGetLastError();
+cudaError_t launch_update(const void* l, const void* u, const void* c, void* o, int m, int kd, int w,
+                          cudaStream_t stream) {
+  int sms = 0;
+  cudaError_t err = device_sms<allow_update_smem>(&sms);
+  if (err) return err;
+  const bool f32 = sizeof(T) == 4;
+  const int vec = f32 && w % 4 == 0 && aligned16(c) && aligned16(o);
+  const int vec_b = f32 && w % 4 == 0 && aligned16(u);
+  const int vec_a = f32 && kd % 4 == 0 && aligned16(l);
+  const Gemm<T> g{static_cast<const T*>(l), kd, static_cast<const T*>(u), w, static_cast<const T*>(c),
+                  static_cast<T*>(o), w, m, w, kd, vec, vec_b, vec_a};
+  return launch_gemm_rect<T, false>(g, 0, 0, m, w, sms, 0, false, stream);
 }
 
 }  // namespace
@@ -372,9 +317,11 @@ extern "C" int ebv_legacy_fused_step(const void* pan, const void* top, const voi
               : launch_fused_step<float>(pan, top, trail, u12, out, m, b, w, s);
 }
 
-// o = c - l u for l (m, kd), u (kd, w), c and o (m, w); one launch.
+// o = c - l u for l (m, kd), u (kd, w), c and o (m, w), row-major; one
+// launch, none where o is empty.
 extern "C" int ebv_legacy_update(const void* l, const void* u, const void* c, void* o, int m, int kd,
                                  int w, int bf16, void* stream) {
+  if (m < 1 || w < 1) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return bf16 ? launch_update<__nv_bfloat16>(l, u, c, o, m, kd, w, s)
               : launch_update<float>(l, u, c, o, m, kd, w, s);

@@ -1,18 +1,45 @@
 // Forward (unit-lower) and backward (upper) substitution on a packed no-pivot
 // LU, fp32, for Hopper (sm_90a).
 //
-// solve_vmem_kernel — replaces src/repro/kernels/trsm.py:solve_vmem.
-//   One block per RHS tile.  The block's (n, rt) RHS tile lives in shared
-//   memory (column-major, so a row sweep is free of bank conflicts); the
-//   packed LU is read from L2.  The column-oriented sweep of the TPU kernel
-//   would read the row-major LU down a column, one 32-byte sector per
-//   element.  Instead the sweep goes in 32-row strips: one warp per RHS
-//   column solves the strip's (32, 32) triangle with each lane holding one
-//   row in a register and the solved value passed by __shfl_sync, then every
-//   thread retires one row below (above, backward) the strip with a 32-wide
-//   dot product whose LU row segment is one 128-byte line.  Bound: the LU's
-//   n^2 * 4 bytes, read once per RHS tile; at small n the 2 * n/32 strip
-//   steps (each a barrier) bound it instead.
+// solve_vmem_kernel — replaces src/repro/kernels/trsm.py:solve_vmem, which
+//   holds the whole factor in one core's VMEM and walks both sweeps in one
+//   program.  Here "the factor on chip" is the card's 132 x 227 KB of shared
+//   memory: ONE cooperative launch, block r owning the contiguous rows
+//   r R .. r R + R - 1 of the packed LU for the whole launch
+//   (kernels/trsm.py:solve_vmem_plan: R = 32 up to n = 4224, then
+//   ceil(n / 132); at most one block per SM).  Whole rows give every block
+//   the same R n elements over the two sweeps, since a row's L and U parts
+//   sum to n: the paper's equal contribution applied to the solve.  A
+//   block copies its rows' columns [theta, n) into shared memory once
+//   (16-byte cp.async, all in flight together); where that does not fit
+//   (past n = 1792 at R = 32) the leftmost columns, which the forward sweep
+//   consumes first, are read from L2 as they are needed, and a block whose
+//   diagonal tile streams keeps a copy of it where that fits (up to R of
+//   about 240; past that it reads the tile from L2 too).
+//   The forward sweep is a chain over the row blocks: block r takes
+//   L[r, j] y_j for each earlier block j as y_j arrives; on y_{r-1} it
+//   solves its unit-lower diagonal block (one lane a row; sub-blocks of 8
+//   rows that every lane solves itself, so no shuffle sits inside the
+//   recurrence: strip_solve) and hands y_r over.  The backward sweep runs
+//   the same chain from the last block up with the U part, multiplying by
+//   the reciprocal pivot.  A handoff is tagged cells (handoff.cuh): each
+//   value stored with its tag in one 8-byte word, which the readers poll,
+//   so a link costs one L2 round trip where a release-stored flag beside
+//   the values costs three (the release, the flag, the values).  No
+//   barrier spans the card.
+//   What bounds it on this card: the 2 ceil(n / R) links of the chain, each
+//   a handoff and an R-row triangle, not the n^2 * 4 bytes or 2 n^2 m
+//   operations.  So a link stays inside one warp where it can: with
+//   R <= 32 warp w of a block owns RHS columns 4w .. 4w+3 of a group of
+//   at most 64 (vmem_warp), its lanes its rows' values in registers from b
+//   to x, and walks both sweeps with no barrier of the block on its chain;
+//   the warps of a block never wait on each other.  Past 32 rows a block
+//   (vmem_sweep) the group's rows sit in shared memory, every thread owns
+//   outputs whose depth splits over up to 4 lanes, and the diagonal block
+//   goes in 32-row strips with the rows past each strip retired between
+//   them.  The RHS goes in groups of G columns, walked in turn.  IEEE fp32
+//   FMAs, no TF32; the sums run in another order than the plain version's
+//   column sweeps.
 //
 // step_kernel — replaces src/repro/kernels/trsm.py:solve_tiled (B3) and
 //   solve_inverted (B4).  Both sweep S = ceil(n/B) diagonal blocks forward
@@ -66,94 +93,354 @@
 #include <cstdint>
 
 #include "async_copy.cuh"
+#include "handoff.cuh"
 #include "pdl.cuh"
 
 namespace {
 
 constexpr int kStrip = 32;    // strip height of solve_vmem and of a step's diagonal solve
+constexpr int kSmemBytes = 232448;  // dynamic shared memory one H100 block may use
 
 extern __shared__ __align__(16) float smem[];  // 16 bytes for cp.async and float4
 
 // ---------------------------------------------------------------------------
 // solve_vmem
 // ---------------------------------------------------------------------------
-__global__ void solve_vmem_kernel(const float* __restrict__ lu, const float* __restrict__ b,
-                                  float* __restrict__ x, int n, int m, int rt) {
-  float* ys = smem;  // rt columns of n32 rows: ys[c * n32 + i]
-  const int n32 = (n + kStrip - 1) / kStrip * kStrip;
-  const int c0 = blockIdx.x * rt;
-  const int w = min(rt, m - c0);
-  for (int idx = threadIdx.x; idx < w * n32; idx += blockDim.x) {
-    const int c = idx / n32, i = idx % n32;
-    ys[idx] = i < n ? b[(size_t)i * m + c0 + c] : 0.f;
+constexpr int kVThreads = 512;   // 16 warps
+constexpr int kVOut = 8;         // outputs a thread accumulates over a sweep's products
+constexpr unsigned kBackoffNs = 256;  // between polls of a block that is not next in the chain
+constexpr int kMaxSplit = 4;     // most lanes one output's depth splits over
+constexpr int kSub = 8;          // rows of a diagonal sub-block that every lane of a warp solves itself
+constexpr int kCellsAtOnce = 4;  // handed-over values a thread loads before it checks their tags
+
+struct Vmem {
+  const float* lu;
+  const float* b;
+  float* x;      // the result
+  unsigned long long* cells;  // (2, n, m) zeroed: the sweeps' handed-over values, tagged (handoff.cuh)
+  int n, m;
+  int R, P, G;   // rows a block, blocks, RHS columns a group
+  int theta;     // the first resident column, a multiple of R
+  int copy;      // a block whose diagonal tile lies left of theta keeps a copy of it in shared memory
+  int ld;        // the resident rows' stride in shared memory
+  int D, RP, K;  // lanes one output's depth splits over; rows a pass of the outputs; outputs a thread
+  int vec;       // 16-byte copies of the rows: n and theta multiples of 4, lu 16-byte aligned
+};
+
+// Row i of the block's rows (from r0), column col: in shared memory where
+// col >= theta, else in the factor (L2).
+__device__ __forceinline__ const float* row_at(const Vmem& p, const float* rows, int r0, int i, int col) {
+  return col >= p.theta ? rows + (size_t)i * p.ld + col - p.theta : p.lu + (size_t)(r0 + i) * p.n + col;
+}
+
+// part[q] += A(i_q, k) v(k) over the k < Rj of one handed-over row block
+// (v in shared memory, ldv apart): a lane takes k = d, d + D, ...; i_q =
+// i0 + q RP.
+__device__ __forceinline__ void product(float (&part)[kVOut], const float* a, int lda, const float* v, int ldv,
+                                        int Rj, int Rb, int i0, int RP, int K, int d, int D) {
+#pragma unroll 4
+  for (int k = d; k < Rj; k += D) {
+    const float vk = v[k * ldv];
+#pragma unroll
+    for (int q = 0; q < kVOut; ++q) {
+      const int i = i0 + q * RP;
+      if (q < K && i < Rb) part[q] = fmaf(a[(size_t)i * lda + k], vk, part[q]);
+    }
+  }
+}
+
+// Solve the strip's triangle (sr <= 32 rows from diag, row stride lda;
+// rp its rows' reciprocal pivots, backward) for kC RHS columns of one
+// warp, lane l holding row l's value in v.  The rows go in sub-blocks of
+// kSub: the sub-block's values are gathered into every lane (one shuffle
+// each, all in flight together), every lane solves the sub-block's
+// (kSub, kSub) triangle itself with the entries read as broadcasts, so no
+// shuffle sits inside the recurrence, and the rows past the sub-block
+// retire its values.  A chain of one shuffle a row would cost a shuffle's
+// latency a row.
+template <bool kLower, int kC>
+__device__ __forceinline__ void strip_solve(const float* diag, int lda, const float* rp, int sr, int lane,
+                                            float (&v)[4]) {
+  const int nsub = (sr + kSub - 1) / kSub;
+  for (int t = 0; t < nsub; ++t) {
+    const int q = kLower ? t : nsub - 1 - t, b0 = q * kSub, nb = min(kSub, sr - b0);
+    float y[kC][kSub];
+#pragma unroll
+    for (int jj = 0; jj < kC; ++jj)
+#pragma unroll
+      for (int e = 0; e < kSub; ++e) y[jj][e] = __shfl_sync(0xffffffffu, v[jj], b0 + min(e, nb - 1));
+    // every entry the sub-block needs, loaded together before the
+    // recurrence: its triangle (zeros past nb), the reciprocal pivots, and
+    // this lane's row in the sub-block's columns if the lane retires them
+    const float* d = diag + (size_t)b0 * lda + b0;  // the sub-block's (0, 0)
+    const int own = lane - b0;                       // this lane's row in the sub-block
+    const bool retires = kLower ? own >= nb && lane < sr : own < 0;
+    float tri[kSub][kSub], r[kSub], a[kSub];
+#pragma unroll
+    for (int e = 0; e < kSub; ++e) {
+#pragma unroll
+      for (int i = 0; i < kSub; ++i)
+        if (kLower ? i > e : i < e) tri[i][e] = i < nb && e < nb ? d[i * lda + e] : 0.f;
+      r[e] = !kLower && e < nb ? rp[b0 + e] : 1.f;
+      a[e] = retires && e < nb ? diag[(size_t)lane * lda + b0 + e] : 0.f;
+    }
+    if (kLower) {
+#pragma unroll
+      for (int e = 0; e < kSub - 1; ++e)
+#pragma unroll
+        for (int i = e + 1; i < kSub; ++i)
+#pragma unroll
+          for (int jj = 0; jj < kC; ++jj) y[jj][i] = fmaf(-tri[i][e], y[jj][e], y[jj][i]);
+    } else {
+#pragma unroll
+      for (int e = kSub - 1; e >= 0; --e) {
+#pragma unroll
+        for (int jj = 0; jj < kC; ++jj) y[jj][e] *= r[e];
+#pragma unroll
+        for (int i = 0; i < e; ++i)
+#pragma unroll
+          for (int jj = 0; jj < kC; ++jj) y[jj][i] = fmaf(-tri[i][e], y[jj][e], y[jj][i]);
+      }
+    }
+    if (own >= 0 && own < nb) {
+#pragma unroll
+      for (int e = 0; e < kSub; ++e)
+        if (e == own)
+#pragma unroll
+          for (int jj = 0; jj < kC; ++jj) v[jj] = y[jj][e];
+    } else if (retires) {
+#pragma unroll
+      for (int e = 0; e < kSub; ++e)
+#pragma unroll
+        for (int jj = 0; jj < kC; ++jj) v[jj] = fmaf(-a[e], y[jj][e], v[jj]);
+    }
+  }
+}
+
+// One sweep of block r over the group of columns c0 .. c0+w-1 where a
+// block owns more than 32 rows: forward (L y = b, unit diagonal) or
+// backward (U x = y).  xs holds the block's rows of the group's right-hand
+// side on entry and their solution on exit; diag0 is the block's diagonal
+// tile, row stride ldd.
+template <bool kLower>
+__device__ void vmem_sweep(const Vmem& p, const float* rows, const float* diag0, int ldd, float* xs, float* vs,
+                           const float* rpiv, int r, int c0, int w) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int r0 = r * p.R, Rb = min(p.R, p.n - r0);
+  const int d = threadIdx.x % p.D, grp = threadIdx.x / p.D;
+  const int c = grp % p.G, i0 = grp / p.G;
+  const bool mine = i0 < p.RP && c < w;
+  unsigned long long* cells = p.cells + (kLower ? 0 : (size_t)p.n * p.m);  // this sweep's handoff
+  const int nstrips = (Rb + kStrip - 1) / kStrip;
+
+  // the products with the row blocks solved before this one, each as its
+  // tagged values arrive, copied into one of two shared buffers (a block
+  // that is not next in the chain first waits on one value, polled by one
+  // thread now and then, so that the readers of a row block do not crowd
+  // its lines): the partial sums stay split over D lanes until the last
+  float part[kVOut];
+#pragma unroll
+  for (int q = 0; q < kVOut; ++q) part[q] = 0.f;
+  const int pieces = kLower ? r : p.P - 1 - r;
+  for (int t = 0; t < pieces; ++t) {
+    const int j = kLower ? t : p.P - 1 - t;
+    const int jc = j * p.R, Rj = min(p.R, p.n - jc);
+    const unsigned long long* src = cells + (size_t)jc * p.m + c0;
+    float* vt = vs + (t & 1) * p.R * p.G;  // the buffer the piece before last used: every thread is past it
+    if (t + 2 < pieces) {  // a row block three or more links back
+      if (threadIdx.x == 0) wait_cell(src, 1, kBackoffNs);
+      __syncthreads();
+    }
+    for (int i0c = threadIdx.x; i0c < Rj * w; i0c += kCellsAtOnce * kVThreads) {
+      unsigned long long got[kCellsAtOnce];  // a thread's cells, every load in flight together
+#pragma unroll
+      for (int e = 0; e < kCellsAtOnce; ++e) {
+        const int idx = i0c + e * kVThreads;
+        got[e] = idx < Rj * w ? load_cell(src + (size_t)(idx / w) * p.m + idx % w) : ~0ull;
+      }
+#pragma unroll
+      for (int e = 0; e < kCellsAtOnce; ++e) {
+        const int idx = i0c + e * kVThreads;
+        if (idx < Rj * w) {
+          const unsigned long long* at = src + (size_t)(idx / w) * p.m + idx % w;
+          const float val = got[e] >> 32 ? __uint_as_float(static_cast<unsigned>(got[e])) : wait_cell(at, 1);
+          vt[(idx / w) * p.G + idx % w] = val;
+        }
+      }
+    }
+    __syncthreads();
+    if (!mine) continue;
+    if (jc >= p.theta) product(part, rows + jc - p.theta, p.ld, vt + c, p.G, Rj, Rb, i0, p.RP, p.K, d, p.D);
+    else product(part, p.lu + (size_t)r0 * p.n + jc, p.n, vt + c, p.G, Rj, Rb, i0, p.RP, p.K, d, p.D);
+  }
+  for (int off = p.D / 2; off > 0; off >>= 1)
+#pragma unroll
+    for (int q = 0; q < kVOut; ++q)
+      if (q < p.K) part[q] += __shfl_xor_sync(0xffffffffu, part[q], off);
+  if (mine && d == 0)
+#pragma unroll
+    for (int q = 0; q < kVOut; ++q) {
+      const int i = i0 + q * p.RP;
+      if (q < p.K && i < Rb) xs[c * p.R + i] -= part[q];
+    }
+  __syncthreads();
+
+  // the diagonal block, in 32-row strips (from the bottom backward): warp
+  // w solves columns 4w .. 4w+3, 64 + 4w .. (strip_solve), lane l the
+  // strip's row l; then every thread retires rows past the strip
+  for (int s = 0; s < nstrips; ++s) {
+    const int s0 = (kLower ? s : nstrips - 1 - s) * kStrip, sr = min(kStrip, Rb - s0);
+    const float* diag = diag0 + (size_t)s0 * ldd + s0;  // the strip's diagonal tile
+    for (int cb = 4 * warp; cb < w; cb += 4 * (kVThreads / 32)) {
+      const int cols = min(4, w - cb);
+      float v[4];
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) v[jj] = jj < cols && lane < sr ? xs[(cb + jj) * p.R + s0 + lane] : 0.f;
+      if (cols == 1) strip_solve<kLower, 1>(diag, ldd, rpiv + s0, sr, lane, v);
+      else strip_solve<kLower, 4>(diag, ldd, rpiv + s0, sr, lane, v);  // zero columns past w stay zero
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj)
+        if (jj < cols && lane < sr) xs[(cb + jj) * p.R + s0 + lane] = v[jj];
+    }
+    if (nstrips > 1) {
+      __syncthreads();
+      const int lo = kLower ? s0 + kStrip : 0, hi = kLower ? Rb : s0;
+      for (int idx = threadIdx.x; idx < (hi - lo) * w; idx += kVThreads) {
+        const int i = lo + idx % (hi - lo), cc = idx / (hi - lo);
+        const float* a = diag0 + (size_t)i * ldd + s0;
+        const float* xk = xs + cc * p.R + s0;
+        float acc = 0.f;
+        for (int k = 0; k < sr; ++k) acc = fmaf(a[k], xk[k], acc);
+        xs[cc * p.R + i] -= acc;
+      }
+      __syncthreads();
+    }
   }
   __syncthreads();
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
-
-  // forward: L y = b, unit diagonal
-  for (int k0 = 0; k0 < n; k0 += kStrip) {
-    const int row = k0 + lane;
-    float lr[kStrip];
-#pragma unroll
-    for (int l = 0; l < kStrip; ++l) lr[l] = (row < n && l < lane) ? lu[(size_t)row * n + k0 + l] : 0.f;
-    for (int c = warp; c < w; c += nwarps) {
-      float yr = ys[c * n32 + row];
-#pragma unroll
-      for (int l = 0; l < kStrip - 1; ++l) yr -= lr[l] * __shfl_sync(0xffffffffu, yr, l);
-      ys[c * n32 + row] = yr;
-    }
-    __syncthreads();
-    for (int i = k0 + kStrip + threadIdx.x; i < n; i += blockDim.x) {
-      float li[kStrip];
-#pragma unroll
-      for (int l = 0; l < kStrip; ++l) li[l] = lu[(size_t)i * n + k0 + l];
-      for (int c = 0; c < w; ++c) {
-        const float* yk = ys + c * n32 + k0;
-        float acc = 0.f;
-#pragma unroll
-        for (int l = 0; l < kStrip; ++l) acc += li[l] * yk[l];
-        ys[c * n32 + i] -= acc;
-      }
-    }
-    __syncthreads();
+  // hand the block's rows over, in rows of the RHS (coalesced); the result
+  unsigned long long* dst = cells + (size_t)r0 * p.m + c0;
+  for (int idx = threadIdx.x; idx < Rb * w; idx += kVThreads) {
+    const int i = idx / w, cc = idx % w;
+    store_cell(dst + (size_t)i * p.m + cc, xs[cc * p.R + i], 1);
   }
+  if (!kLower)
+    for (int idx = threadIdx.x; idx < Rb * w; idx += kVThreads) {
+      const int i = idx / w, cc = idx % w;
+      p.x[(size_t)(r0 + i) * p.m + c0 + cc] = xs[cc * p.R + i];
+    }
+  __syncthreads();  // xs read before the next sweep writes it
+}
 
-  // backward: U x = y, diagonal division included
-  for (int k0 = (n - 1) / kStrip * kStrip; k0 >= 0; k0 -= kStrip) {
-    const int row = k0 + lane;
-    float ur[kStrip];
+// Both sweeps of block r over the group's columns cb .. cb+kC-1 (those
+// below c0 + w) by one warp, R <= 32: lane l holds row l's values in
+// registers from b to x; each handed-over row block's values are loaded by
+// the lanes of their rows and passed to the others by __shfl_sync, the
+// diagonal block is one strip_solve, and the solved rows go out straight
+// from the lanes.  The warps of a block own disjoint columns and never
+// wait on each other: no barrier stands on the chain.
+template <int kC>
+__device__ void vmem_warp(const Vmem& p, const float* rows, const float* diag, int ldd, const float* rpiv, int r,
+                          int cb, int cw) {
+  const int lane = threadIdx.x & 31;
+  const int r0 = r * p.R, Rb = min(p.R, p.n - r0);
+  float v[4] = {};
 #pragma unroll
-    for (int l = 0; l < kStrip; ++l)
-      ur[l] = (row < n && l > lane && k0 + l < n) ? lu[(size_t)row * n + k0 + l] : 0.f;
-    const float piv = row < n ? lu[(size_t)row * n + row] : 1.f;
-    for (int c = warp; c < w; c += nwarps) {
-      float xr = ys[c * n32 + row];
-#pragma unroll
-      for (int l = kStrip - 1; l >= 0; --l) {
-        if (lane == l) xr /= piv;
-        xr -= ur[l] * __shfl_sync(0xffffffffu, xr, l);
+  for (int jj = 0; jj < kC; ++jj) v[jj] = jj < cw && lane < Rb ? p.b[(size_t)(r0 + lane) * p.m + cb + jj] : 0.f;
+#pragma unroll 1
+  for (int sweep = 0; sweep < 2; ++sweep) {
+    const bool lower = sweep == 0;
+    unsigned long long* cells = p.cells + (lower ? 0 : (size_t)p.n * p.m) + cb;
+    float acc[kC] = {};
+    const int pieces = lower ? r : p.P - 1 - r;
+    for (int t = 0; t < pieces; ++t) {
+      const int j = lower ? t : p.P - 1 - t;
+      const int jc = j * p.R, Rj = min(p.R, p.n - jc);
+      const unsigned long long* src = cells + (size_t)jc * p.m;
+      if (t + 2 < pieces) {  // a row block three or more links back
+        if (lane == 0) wait_cell(src, 1, kBackoffNs);
+        __syncwarp();
       }
-      ys[c * n32 + row] = xr;
-    }
-    __syncthreads();
-    for (int i = threadIdx.x; i < k0; i += blockDim.x) {
-      float ui[kStrip];
+      float pv[kC];
 #pragma unroll
-      for (int l = 0; l < kStrip; ++l) ui[l] = k0 + l < n ? lu[(size_t)i * n + k0 + l] : 0.f;
-      for (int c = 0; c < w; ++c) {
-        const float* xk = ys + c * n32 + k0;
-        float acc = 0.f;
+      for (int jj = 0; jj < kC; ++jj)
+        pv[jj] = jj < cw && lane < Rj ? wait_cell(src + (size_t)lane * p.m + jj, 1) : 0.f;
+      const float* a = row_at(p, rows, r0, lane < Rb ? lane : 0, jc);
+#pragma unroll 4
+      for (int k = 0; k < Rj; ++k) {
+        const float ak = a[k];
 #pragma unroll
-        for (int l = 0; l < kStrip; ++l) acc += ui[l] * xk[l];
-        ys[c * n32 + i] -= acc;
+        for (int jj = 0; jj < kC; ++jj) acc[jj] = fmaf(ak, __shfl_sync(0xffffffffu, pv[jj], k), acc[jj]);
       }
     }
-    __syncthreads();
+#pragma unroll
+    for (int jj = 0; jj < kC; ++jj) v[jj] -= acc[jj];
+    if (lower) strip_solve<true, kC>(diag, ldd, rpiv, Rb, lane, v);
+    else strip_solve<false, kC>(diag, ldd, rpiv, Rb, lane, v);
+#pragma unroll
+    for (int jj = 0; jj < kC; ++jj)
+      if (jj < cw && lane < Rb) {
+        store_cell(cells + (size_t)(r0 + lane) * p.m + jj, v[jj], 1);
+        if (!lower) p.x[(size_t)(r0 + lane) * p.m + cb + jj] = v[jj];
+      }
   }
+}
 
-  for (int idx = threadIdx.x; idx < w * n; idx += blockDim.x) {
-    const int i = idx / w, c = idx % w;
-    x[(size_t)i * m + c0 + c] = ys[c * n32 + i];
+// Block r owns rows r R .. r R + R - 1 of the factor for the whole launch:
+// their columns [theta, n) are copied into shared memory once, the rest is
+// read from L2 as the sweeps need it.
+__global__ void __launch_bounds__(kVThreads, 1) solve_vmem_kernel(Vmem p) {
+  const int r = blockIdx.x, r0 = r * p.R, Rb = min(p.R, p.n - r0);
+  const int warp = threadIdx.x >> 5;
+  float* rows = smem;                        // (Rb, ld)
+  float* diagc = rows + (size_t)p.R * p.ld;  // (Rb, Rb) where p.copy: the diagonal tile where it is not resident
+  float* rpiv = diagc + (p.copy ? p.R * p.R : 0);  // the rows' reciprocal pivots
+  float* xs = rpiv + p.R;                    // wide path: (G, R), column-major: the group's rows of b, y, x
+  float* vs = xs + p.R * p.G;                // wide path: 2 x (R, G), handed-over row blocks' values
+  const int nr = p.n - p.theta;
+  if (nr > 0) {
+    const float* src = p.lu + (size_t)r0 * p.n + p.theta;
+    if (p.vec) {
+      const int q = nr / 4;
+      for (int idx = threadIdx.x; idx < Rb * q; idx += kVThreads) {
+        const int i = idx / q, k = 4 * (idx % q);
+        cp_async16(rows + (size_t)i * p.ld + k, src + (size_t)i * p.n + k);
+      }
+    } else {
+      for (int idx = threadIdx.x; idx < Rb * nr; idx += kVThreads) {
+        const int i = idx / nr, k = idx % nr;
+        cp_async4(rows + (size_t)i * p.ld + k, src + (size_t)i * p.n + k);
+      }
+    }
+  }
+  const bool streamed = r0 < p.theta;         // the diagonal tile is not resident ...
+  const bool own_diag = streamed && p.copy;  // ... and a copy of it is kept
+  if (own_diag)
+    for (int idx = threadIdx.x; idx < Rb * Rb; idx += kVThreads)
+      cp_async4(diagc + idx, p.lu + (size_t)(r0 + idx / Rb) * p.n + r0 + idx % Rb);
+  cp_async_commit();
+  for (int i = threadIdx.x; i < Rb; i += kVThreads) rpiv[i] = 1.f / p.lu[(size_t)(r0 + i) * (p.n + 1)];
+  cp_async_wait<0>();
+  __syncthreads();
+  const float* diag = own_diag ? diagc : row_at(p, rows, r0, 0, r0);
+  const int ldd = own_diag ? Rb : streamed ? p.n : p.ld;
+  if (p.R <= kStrip) {  // a warp per 4 columns of a group, each on its own chain
+    for (int c0 = 0; c0 < p.m; c0 += p.G) {
+      const int w = min(p.G, p.m - c0), cb = c0 + 4 * warp;
+      if (cb >= c0 + w) break;
+      if (w == 1) vmem_warp<1>(p, rows, diag, ldd, rpiv, r, cb, 1);
+      else vmem_warp<4>(p, rows, diag, ldd, rpiv, r, cb, min(4, c0 + w - cb));
+    }
+    return;
+  }
+  for (int c0 = 0; c0 < p.m; c0 += p.G) {
+    const int w = min(p.G, p.m - c0);
+    for (int idx = threadIdx.x; idx < Rb * w; idx += kVThreads) {
+      const int i = idx % Rb, cc = idx / Rb;
+      xs[cc * p.R + i] = p.b[(size_t)(r0 + i) * p.m + c0 + cc];
+    }
+    __syncthreads();
+    vmem_sweep<true>(p, rows, diag, ldd, xs, vs, rpiv, r, c0, w);
+    vmem_sweep<false>(p, rows, diag, ldd, xs, vs, rpiv, r, c0, w);
   }
 }
 
@@ -531,12 +818,13 @@ cudaError_t allow_variant() {
 
 bool aligned(const float* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
-// The shared memory attributes of the step kernels, set once per device
-// (device_sms).
-cudaError_t allow_steps_smem() {
+// The shared memory attributes of the step kernels and of solve_vmem (the
+// most a block may use), set once per device (device_sms).
+cudaError_t allow_kernels_smem() {
   cudaError_t err;
   if ((err = allow_variant<kNarrow>())) return err;
-  return allow_variant<kWide>();
+  if ((err = allow_variant<kWide>())) return err;
+  return allow_smem(solve_vmem_kernel, kSmemBytes);
 }
 
 // Launches the steps of one solve on `stream`, counting them in *launches.
@@ -574,16 +862,52 @@ struct Sweep {
 
 }  // namespace
 
-// x = (LU)^-1 b for packed row-major lu (n, n), b and x (n, m) row-major.
-// One block of `threads` per tile of `rt` RHS columns.
-extern "C" int ebv_solve_vmem(const void* lu, const void* b, void* x, int n, int m, int rt,
-                              int threads, void* stream) {
-  const int n32 = (n + kStrip - 1) / kStrip * kStrip;
-  const size_t bytes = (size_t)rt * n32 * sizeof(float);
-  cudaError_t err = allow_smem(solve_vmem_kernel, bytes);
-  if (err) return err;
-  solve_vmem_kernel<<<(m + rt - 1) / rt, threads, bytes, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(lu), static_cast<const float*>(b), static_cast<float*>(x), n, m, rt);
+// x = (LU)^-1 b for packed row-major lu (n, n), b and x (n, m) row-major,
+// fp32: one cooperative launch of ceil(n / R) blocks of R rows, counted in
+// *launched, the RHS in groups of G columns; columns [theta, n) of a block's
+// rows resident in shared memory (theta a multiple of R), and where `copy`
+// a block whose diagonal tile lies left of theta keeps a copy of it there.
+// cells: 2 n m zeroed 8-byte words, the two sweeps' handoffs.  plan[0..5]
+// reports the blocks, R, G, theta, copy and the shared-memory bytes a block.
+extern "C" int ebv_solve_vmem(const void* lu, const void* b, void* x, void* cells, int n, int m, int R, int G,
+                              int theta, int copy, void* stream, int* plan, int* launched) {
+  *launched = 0;
+  for (int i = 0; i < 6; ++i) plan[i] = 0;
+  if (n < 1 || m < 1 || R < 1 || R > n || G < 1 || G > m || theta < 0 || theta % R || copy < 0 || copy > 1)
+    return cudaErrorInvalidValue;
+  int sms = 0, dev = 0, coop = 0, optin = 0, per_sm = 0;
+  cudaError_t err;
+  if ((err = device_sms<allow_kernels_smem>(&sms))) return err;
+  if ((err = cudaGetDevice(&dev))) return err;
+  if ((err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev))) return err;
+  if ((err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev))) return err;
+  if (!coop) return cudaErrorNotSupported;
+  Vmem p{static_cast<const float*>(lu), static_cast<const float*>(b), static_cast<float*>(x),
+         static_cast<unsigned long long*>(cells), n, m, R, (n + R - 1) / R, G, theta, copy};
+  const int nr = n - theta;
+  p.ld = nr > 0 ? (nr + 31) / 32 * 32 + 4 : 0;  // rows 16 bytes apart, 4 banks apart
+  p.D = 1;
+  while (2 * p.D <= kMaxSplit && p.D < R && 2 * p.D * G * R <= kVThreads) p.D *= 2;
+  p.RP = kVThreads / p.D / G;
+  p.K = p.RP > 0 ? (R + p.RP - 1) / p.RP : 0;
+  const bool warps = R <= kStrip;  // the warp path: a warp per 4 columns
+  if (warps ? G > 4 * (kVThreads / 32) : p.RP < 1 || p.K > kVOut) return cudaErrorInvalidValue;
+  p.vec = n % 4 == 0 && theta % 4 == 0 && reinterpret_cast<uintptr_t>(lu) % 16 == 0;
+  const size_t bytes = (size_t)R * (p.ld + (copy ? R : 0) + 1 + (warps ? 0 : 3 * G)) * sizeof(float);
+  if (bytes > (size_t)optin) return cudaErrorInvalidValue;
+  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, solve_vmem_kernel, kVThreads, bytes))) return err;
+  if (p.P > per_sm * sms) return cudaErrorCooperativeLaunchTooLarge;
+  plan[0] = p.P;
+  plan[1] = R;
+  plan[2] = G;
+  plan[3] = theta;
+  plan[4] = copy;
+  plan[5] = static_cast<int>(bytes);
+  void* args[] = {&p};
+  if ((err = cudaLaunchCooperativeKernel(reinterpret_cast<void*>(solve_vmem_kernel), dim3(p.P), dim3(kVThreads), args,
+                                         bytes, static_cast<cudaStream_t>(stream))))
+    return err;
+  *launched = 1;
   return cudaGetLastError();
 }
 
@@ -600,7 +924,7 @@ extern "C" int ebv_solve_tiled(const void* lu_ptr, const void* b_ptr, void* x_pt
   float* x = static_cast<float*>(x_ptr);
   float* y = static_cast<float*>(y_ptr);
   Sweep sw{static_cast<cudaStream_t>(stream), launches, m, tile, (m + tile - 1) / tile, 0};
-  cudaError_t err = device_sms<allow_steps_smem>(&sw.sms);
+  cudaError_t err = device_sms<allow_kernels_smem>(&sw.sms);
   if (err) return err;
   const int S = (n + B - 1) / B;
   for (int k = 0; k < S; ++k) {  // L y = b: block k solved into y, rows below retired in x
@@ -638,7 +962,7 @@ extern "C" int ebv_solve_inverted(const void* lu_ptr, const void* linv_ptr, cons
   float* x = static_cast<float*>(x_ptr);
   float* y = static_cast<float*>(y_ptr);
   Sweep sw{static_cast<cudaStream_t>(stream), launches, m, tile, (m + tile - 1) / tile, 0};
-  cudaError_t err = device_sms<allow_steps_smem>(&sw.sms);
+  cudaError_t err = device_sms<allow_kernels_smem>(&sw.sms);
   if (err) return err;
   const int S = (n + B - 1) / B;
   const size_t bb = (size_t)B * B;

@@ -11,7 +11,9 @@ call builds.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import functools
 import glob
 import hashlib
 import os
@@ -20,7 +22,9 @@ import subprocess
 import tempfile
 import threading
 
-__all__ = ["library", "check", "build_dir", "NVCC_FLAGS"]
+import torch
+
+__all__ = ["library", "check", "build_dir", "device_guard", "sm_count", "NVCC_FLAGS"]
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG, "csrc")
@@ -34,12 +38,12 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _N = ctypes.POINTER(_I)
 # C entry points: name -> argument types.  Every entry returns the
 # cudaError_t of its launches as an int (0 = success); ebv_lu_fused,
-# ebv_solve_tiled, ebv_solve_inverted, the ebv_band_* and ebv_batched_*
-# entries and ebv_legacy_walk also report through their last argument how
-# many kernels they launched.
+# ebv_solve_vmem, ebv_solve_tiled, ebv_solve_inverted, the ebv_band_* and
+# ebv_batched_* entries and ebv_legacy_walk also report through their last
+# argument how many kernels they launched.
 _SIGNATURES = {
     "ebv_lu_fused": [_P, _I, _I, _P, _I, _P, _N],
-    "ebv_solve_vmem": [_P, _P, _P, _I, _I, _I, _I, _P],
+    "ebv_solve_vmem": [_P] * 4 + [_I] * 6 + [_P, _N, _N],
     "ebv_solve_tiled": [_P] * 4 + [_I] * 4 + [_P, _N],
     "ebv_solve_inverted": [_P] * 6 + [_I] * 4 + [_P, _N],
     "ebv_band_lu_resident": [_P, _I, _I, _P, _N],
@@ -140,3 +144,18 @@ def check(code: int, what: str) -> None:
     if code:
         msg = library().ebv_error_string(code).decode()
         raise RuntimeError(f"{what}: CUDA error {code} ({msg})")
+
+
+def device_guard(device: torch.device):
+    """A context that makes the CUDA ``device`` current for a launch: none
+    where it already is, since entering ``torch.cuda.device`` costs
+    microseconds of host time a launch."""
+    if device.index is None or device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """The SM count of CUDA device ``index``."""
+    return torch.cuda.get_device_properties(index).multi_processor_count

@@ -21,7 +21,8 @@ The legacy kernels behind the forced ``lu(impl="cuda_vmem")`` and
 * :func:`panel`      — the same steps on a tall (m, b) panel, pivots in
                        the top b rows (the same kernel);
 * :func:`fused_step` — U12 = L11⁻¹ A12 and A22 − L21·U12 in one launch;
-* :func:`update`     — the rank-k trailing update A22 − L21·U12.
+* :func:`update`     — the rank-k trailing update A22 − L21·U12, on
+                       :func:`lu_fused`'s SGEMM tile (``csrc/sgemm.cuh``).
 
 They take fp32 or bf16; in bf16 every operation rounds to bf16 as
 PyTorch's elementwise bf16 ops do, and products accumulate in fp32.
@@ -322,9 +323,10 @@ def update_plain(l21: torch.Tensor, u12: torch.Tensor, a22: torch.Tensor) -> tor
 
 def update(l21: torch.Tensor, u12: torch.Tensor, a22: torch.Tensor, *, row_tile: int = 256,
            col_tile: int = 256) -> torch.Tensor:
-    """Rank-k trailing update ``A22 − L21 @ U12`` on a 2-D tile grid; the
-    reference's tiles must divide (m, W) as there.  A CUDA tensor is one
-    launch, counted in ``update.launches``."""
+    """Rank-k trailing update ``A22 − L21 @ U12`` into a new tensor.  The
+    reference's ``row_tile`` / ``col_tile`` must divide (m, W) as there; they
+    steer nothing on the card, where it is one launch of the dense factor's
+    SGEMM tile (none for an empty result), counted in ``update.launches``."""
     _check_legacy("update", l21, u12, a22)
     m, k = l21.shape
     w = u12.shape[1]
@@ -338,7 +340,9 @@ def update(l21: torch.Tensor, u12: torch.Tensor, a22: torch.Tensor, *, row_tile:
         return update_plain(l21, u12, a22)
     l21, u12, a22 = l21.contiguous(), u12.contiguous(), a22.contiguous()
     out = torch.empty_like(a22)
-    with torch.cuda.device(l21.device):
+    if out.numel() == 0:
+        return out
+    with _build.device_guard(l21.device):
         code = _build.library().ebv_legacy_update(
             l21.data_ptr(), u12.data_ptr(), a22.data_ptr(), out.data_ptr(), m, k, w,
             int(l21.dtype == torch.bfloat16), torch.cuda.current_stream().cuda_stream)

@@ -1,9 +1,13 @@
 """Substitution (solve) on a packed no-pivot LU: CUDA kernels
 (``csrc/trsm.cu``) and their plain PyTorch versions.
 
-* :func:`solve_vmem`     — one block per RHS tile, the (n, rt) tile held in
-                           shared memory, the LU read from L2; the sweep
-                           goes in 32-row strips (see the source's note).
+* :func:`solve_vmem`     — one cooperative launch of at most one block
+                           per SM, each owning a contiguous block of the
+                           factor's rows (32 up to n = 4224) in shared
+                           memory for the whole launch; each sweep is a
+                           chain of one handoff a row block, the values
+                           tagged in place, a warp per 4 RHS columns
+                           (:func:`solve_vmem_plan`, and the source's note).
 * :func:`solve_tiled`    — x in device memory, (B, B) LU tiles with
                            B ≤ 128; one launch per diagonal step (2S in
                            all), each spread over every SM: its blocks solve
@@ -21,6 +25,8 @@ An (n, 0) right-hand side returns an (n, 0) result and launches nothing.
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -32,13 +38,18 @@ from . import _build
 __all__ = [
     "solve_vmem", "solve_tiled", "solve_inverted",
     "solve_vmem_plain", "solve_tiled_plain", "tiled_launches", "inverted_launches",
-    "SMEM_BYTES", "TILED_MAX_BLOCK", "RHS_COLS",
+    "SolveVmemPlan", "solve_vmem_plan",
+    "SMEM_BYTES", "TILED_MAX_BLOCK", "RHS_COLS", "H100_SMS",
 ]
 
 SMEM_BYTES = 232_448    # dynamic shared memory one H100 block may use
 TILED_MAX_BLOCK = 128   # solve_tiled's largest (B, B) tile: a head's strip retirements grow as B^2
 RHS_COLS = 64           # most RHS columns a solve_tiled / solve_inverted block holds (kWide)
-_THREADS = 512
+H100_SMS = 132
+VMEM_THREADS = 512      # threads of a solve_vmem block (kVThreads)
+VMEM_OUTPUTS = 8        # outputs a solve_vmem thread accumulates (kVOut)
+VMEM_MIN_ROWS = 32      # fewest rows a solve_vmem block owns: one warp's rows
+VMEM_WARP_COLS = 64     # RHS columns a group of the warp path holds: 4 a warp
 
 
 def _as_matrix(b: torch.Tensor) -> tuple[torch.Tensor, bool]:
@@ -60,17 +71,12 @@ def _check_cuda(name: str, *ts: torch.Tensor) -> None:
             raise ValueError(f"{name}: tensors lie on different devices")
 
 
-def _launch(fn_name: str, *args) -> None:
-    lib = _build.library()
-    code = getattr(lib, fn_name)(*args, torch.cuda.current_stream().cuda_stream)
-    _build.check(code, fn_name)
-
-
-def _launch_counted(wrapper, fn_name: str, *args) -> None:
-    """Call a C entry that reports its launches; add them to ``wrapper.launches``."""
+def _launch_counted(wrapper, fn_name: str, *args, extra: tuple = ()) -> None:
+    """Call a C entry that reports its launches (after the stream and
+    ``extra``); add them to ``wrapper.launches``."""
     lib = _build.library()
     launched = ctypes.c_int(0)
-    code = getattr(lib, fn_name)(*args, torch.cuda.current_stream().cuda_stream,
+    code = getattr(lib, fn_name)(*args, torch.cuda.current_stream().cuda_stream, *extra,
                                  ctypes.byref(launched))
     wrapper.launches += launched.value
     _build.check(code, fn_name)
@@ -99,11 +105,72 @@ def solve_vmem_plain(lu: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return lu_solve(packed_of(lu), b)
 
 
+class SolveVmemPlan(NamedTuple):
+    """One :func:`solve_vmem` launch: ``blocks`` blocks of ``rows`` rows, the
+    RHS in groups of ``group`` columns, columns ``[theta, n)`` of a block's
+    rows resident in shared memory, a block whose diagonal tile lies left
+    of theta keeping a copy of it there where ``copy`` (else it reads the
+    tile from L2), ``bytes`` of shared memory a block; ``resident`` is the
+    share of the factor held there."""
+    blocks: int
+    rows: int
+    group: int
+    theta: int
+    copy: bool
+    bytes: int
+    resident: float
+
+
+def _vmem_bytes(n: int, rows: int, group: int, theta: int, copy: bool) -> int:
+    """Shared memory of a block (``ebv_solve_vmem``): the rows' columns
+    ``[theta, n)`` at a stride of a multiple of 32 floats plus 4, a copy of
+    the diagonal tile where ``copy``, the rows' reciprocal pivots and, past
+    32 rows, the group's (rows, group) right-hand side and two handed-over
+    row blocks' (rows, group) values."""
+    nr = n - theta
+    ld = -(-nr // 32) * 32 + 4 if nr > 0 else 0
+    return 4 * rows * (ld + (rows if copy else 0) + 1 + (0 if rows <= 32 else 3 * group))
+
+
+@functools.lru_cache(maxsize=256)
+def solve_vmem_plan(n: int, m: int, sms: int = H100_SMS, smem_bytes: int = SMEM_BYTES) -> SolveVmemPlan:
+    """The plan :func:`solve_vmem` launches with for an (n, n) factor and m
+    RHS columns on a card of ``sms`` SMs: blocks of R = ceil(n / sms) rows,
+    at least 32 (one warp's rows: a link of the chain is a handoff and an
+    R-row triangle, and the handoff costs the more, so fewer, fuller
+    blocks win, as measured on the H100: ``PERF.md``) and at most n, so at
+    most one block per SM; the RHS in equal groups of at most 64 columns
+    (4 a warp) up to 32 rows, past that of what a block's 512 threads hold
+    at 8 outputs each; ``theta`` the least multiple of R at which the rows'
+    columns [theta, n) fit ``smem_bytes`` beside the rest, with a copy of
+    a streamed diagonal tile, or, where even nothing resident leaves no
+    room for that copy (R past about 240), without it.  Raises
+    ``ValueError`` where a block's threads cannot hold R rows (R > 4096)."""
+    rows = min(n, max(-(-n // sms), VMEM_MIN_ROWS))
+    blocks = -(-n // rows)
+    widest = VMEM_WARP_COLS if rows <= 32 else VMEM_THREADS // -(-rows // VMEM_OUTPUTS)
+    if widest < 1:
+        raise ValueError(f"solve_vmem: n = {n} on {sms} SMs needs {rows} rows a block, past the "
+                         f"{VMEM_THREADS * VMEM_OUTPUTS} a block's threads hold")
+    m = max(m, 1)
+    group = -(-m // -(-m // widest))
+    for copy in (True, False):
+        # the last theta is the first multiple of R at or past n: nothing resident
+        for theta in range(0, n + rows, rows):
+            nbytes = _vmem_bytes(n, rows, group, theta, copy and theta > 0)
+            if nbytes <= smem_bytes:
+                return SolveVmemPlan(blocks, rows, group, theta, copy and theta > 0, nbytes,
+                                     max(0, n - theta) / n)
+    raise ValueError(f"solve_vmem: a block of {rows} rows and {group} RHS columns does not fit "
+                     f"{smem_bytes} bytes of shared memory (n = {n})")
+
+
 def solve_vmem(lu, b: torch.Tensor, *, rhs_tile: int = 256) -> torch.Tensor:
     """Solve ``(LU) x = b`` for packed ``lu`` (n, n) and ``b`` (n,) or
-    (n, m), in the RHS dtype.  The RHS columns split into equal tiles of at
-    most ``rhs_tile`` columns and at most what one block's shared memory
-    holds beside n rows."""
+    (n, m), in the RHS dtype: one cooperative launch (:func:`solve_vmem_plan`;
+    the plan the C entry launched is left in ``solve_vmem.last_plan``).
+    ``rhs_tile`` is the reference's argument, which the registry passes; it
+    steers nothing here: the plan groups the RHS columns."""
     lu = packed_of(lu)
     if lu.device.type == "cpu":
         return solve_vmem_plain(lu, b)
@@ -112,22 +179,23 @@ def solve_vmem(lu, b: torch.Tensor, *, rhs_tile: int = 256) -> torch.Tensor:
     n, m = bm.shape
     if m == 0:
         return torch.empty_like(bm)  # an (n, 0) RHS: nothing to launch
-    n32 = -(-n // 32) * 32
-    cap = SMEM_BYTES // (n32 * 4)
-    if cap < 1:
-        raise ValueError(f"solve_vmem: n={n} leaves no room for one RHS column in shared memory")
-    rt = min(rhs_tile, m, cap)
-    rt = -(-m // (-(-m // rt)))  # equal tiles
+    plan = solve_vmem_plan(n, m, _build.sm_count(lu.device.index or 0))
     lu32, b32 = _f32(lu, "solve_vmem"), _f32(bm, "solve_vmem")
     x = torch.empty_like(b32)
-    with torch.cuda.device(lu.device):
-        _launch("ebv_solve_vmem", lu32.data_ptr(), b32.data_ptr(), x.data_ptr(), n, m, rt, _THREADS)
-    solve_vmem.launches += 1
+    # the two sweeps' handed-over values, each with its tag in one 8-byte word
+    cells = torch.zeros((2, n, m), dtype=torch.int64, device=lu.device)
+    got = (ctypes.c_int * 6)()
+    with _build.device_guard(lu.device):
+        _launch_counted(solve_vmem, "ebv_solve_vmem", lu32.data_ptr(), b32.data_ptr(), x.data_ptr(),
+                        cells.data_ptr(), n, m, plan.rows, plan.group, plan.theta, int(plan.copy),
+                        extra=(got,))
+    solve_vmem.last_plan = tuple(got)
     x = x.to(bm.dtype)
     return x[:, 0] if squeeze else x
 
 
 solve_vmem.launches = 0
+solve_vmem.last_plan = None
 
 
 # ---------------------------------------------------------------------------

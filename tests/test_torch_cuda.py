@@ -167,6 +167,68 @@ def factors_on_card():
     return get
 
 
+# B2 across its plan (32 rows a block up to n = 4224): n = 1 and 2 (one block
+# of n rows); 33 and 40 (a full block and a ragged one); 257 and 600 (9 and
+# 19 blocks, every row resident); 2000 (63 blocks, 256 columns streamed, a
+# streamed diagonal tile copied) and 2048 (the dispatch cap); 2700 and 4000
+# (85 and 125 blocks, 44 % resident at 4000); RHS widths from a vector to
+# five groups of 60 columns (300)
+@pytest.mark.parametrize("m", [None, 1, 3, 64, 300])
+@pytest.mark.parametrize("n", [1, 2, 33, 40, 257, 600, 2000, 2048, 2700, 4000])
+def test_solve_vmem_is_one_launch_of_its_plan(n, m, card, factors_on_card):
+    lu = factors_on_card(n)
+    b = torch.from_numpy(rhs(n, m, 3 * n + (m or 0))).to(card)
+    before = trsm.solve_vmem.launches
+    got = trsm.solve_vmem(lu, b)
+    assert trsm.solve_vmem.launches - before == 1  # one cooperative launch, as the C entry counted
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    assert trsm.solve_vmem.last_plan == tuple(trsm.solve_vmem_plan(n, m or 1, sms))[:6]
+    assert got.shape == b.shape
+    close(got, trsm.solve_vmem_plain(lu, b))
+
+
+# past 132 blocks of 32 rows: R = 61 rows a block in two strips, the depth
+# of the products split over lanes, 8-10 % of the factor resident
+@pytest.mark.parametrize("m", [None, 64])
+def test_solve_vmem_past_32_rows_a_block(m, card, factors_on_card):
+    lu = factors_on_card(8000)
+    b = torch.from_numpy(rhs(8000, m, 11)).to(card)
+    before = trsm.solve_vmem.launches
+    got = trsm.solve_vmem(lu, b)
+    assert trsm.solve_vmem.launches - before == 1
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    assert trsm.solve_vmem.last_plan == tuple(trsm.solve_vmem_plan(8000, m or 1, sms))[:6]
+    close(got, trsm.solve_vmem_plain(lu, b))
+
+
+# Past about 240 rows a block no room is left for a copy of a streamed
+# diagonal tile: n = 30000 copies it at m = 1 with nothing resident and
+# reads it from L2 at m = 64; n = 32000 reads it from L2 at both, with its
+# last 167 columns resident at m = 1.  The matrix is made on the card; the
+# reference is the same two sweeps by torch.linalg.solve_triangular (the
+# plain version's column loop takes minutes at this n).
+@pytest.mark.parametrize("m", [None, 64])
+@pytest.mark.parametrize("n", [30000, 32000])
+def test_solve_vmem_past_the_diagonal_tiles_room(n, m, card):
+    gen = torch.Generator(device=card).manual_seed(n)
+    a = torch.rand((n, n), generator=gen, device=card) * 2 - 1
+    a.diagonal().copy_(a.abs().sum(dim=1) + 1)
+    lu = ebv_lu.lu_fused(a)
+    del a
+    b = torch.randn((n,) if m is None else (n, m), generator=gen, device=card)
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    plan = trsm.solve_vmem_plan(n, m or 1, sms)
+    assert plan.theta > 0 and plan.copy == (n == 30000 and m is None)
+    before = trsm.solve_vmem.launches
+    got = trsm.solve_vmem(lu, b)
+    assert trsm.solve_vmem.launches - before == 1
+    assert trsm.solve_vmem.last_plan == tuple(plan)[:6]
+    bm = b if m else b[:, None]
+    y = torch.linalg.solve_triangular(lu, bm, upper=False, unitriangular=True)
+    want = torch.linalg.solve_triangular(lu, y, upper=True)
+    close(got, want if m else want[:, 0])
+
+
 # n = 1; n under one 128-tile; ragged n = 2049 (one row past 16 tiles of 128,
 # a 1-row last tile of 256); n = 8000 (63 tiles of 128, 32 of 256, a 64-row
 # last one): each with the RHS widths on both sides of a narrow tile (4
@@ -576,7 +638,11 @@ def test_fused_step_kernel_matches_plain(dtype, card):
     close(new.float(), pnew.float(), tol)
 
 
-@pytest.mark.parametrize("m,k,w", [(1792, 256, 1792), (128, 32, 64), (100, 7, 33)])
+# the blocked factor's first trailing block at n = 2000; ragged edges in rows,
+# columns and depth (no 16-byte rows at w = 33 and 65); one element; a
+# narrow tall block
+@pytest.mark.parametrize("m,k,w", [(1792, 256, 1792), (128, 32, 64), (100, 7, 33), (129, 16, 65), (1, 1, 1),
+                                   (1000, 256, 8)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_update_kernel_matches_plain(m, k, w, dtype, card):
     g = torch.Generator(device=card).manual_seed(m + k)
