@@ -17,9 +17,12 @@ Phases (any failure exits non-zero):
    8000 with 1, 8 and 64 RHS columns, each launch's plan checked against its
    Python mirror, and at n = 32000 (no room for a copy of a streamed
    diagonal tile) with 1 and 64 against ``solve_triangular``; B3 and
-   B4 also at n = 1, 100 and 2049 with 1, 33 and 300 RHS columns); 3c the
-   batched kernels (B9-B12) at the batched paths' shapes, B9 also where its
-   plan changes (each plan checked against its Python mirror); 3d the legacy
+   B4 also at n = 1, 100 and 2049 with 1, 33 and 300 RHS columns; the band
+   factors B5 and B6 bit for bit, B6 at the Poisson band on its cluster
+   walk); 3c the batched kernels (B9-B12) at the batched paths' shapes, B9
+   also where its plan changes, B10 also on both of its paths at shapes on
+   either side of its plan's split (each plan checked against its Python
+   mirror); 3d the legacy
    dense kernels (B14-B17) at the legacy paths' shapes, B14 also at ragged
    edges, fp32 and bf16, B17 also at odd n,
    on each side of its resident/streamed split and on zero pivots (NaN and
@@ -80,8 +83,13 @@ Phases (any failure exits non-zero):
    factor's one call), the bound,
    launches per call and peak memory;
    the ``cuda_vmem`` / ``cuda_tiled`` and ``cuda_blocked`` / ``cuda_tiled``
-   crossovers; B2's plan and time a link; B17's, B16's and B9's time a
-   pivot and resident share; the
+   crossovers (the latter also on wide bands, where ``cuda_tiled`` is B6's
+   cluster walk); B2's plan and time a link; B17's, B16's and B9's time a
+   pivot and resident share; B10's plan and time a strip, and each of its
+   paths and cluster sizes beside batched ``lu_solve``; B6's time a pivot
+   and a group at the Poisson band over its CTAs and pivots a group, and
+   its slab steps against its cluster walk at bw = 16, 32 and 64
+   (``src/repro_torch/launch/time_kernels.py``'s sweeps); the
    optimizer step's time; device time by kernel (B1, B3 and
    B4 at n = 8000 among them) and each dense factor and solve step's time
    beside the host's enqueue time per launch; B13 at the
@@ -133,6 +141,9 @@ BATCHED_SOLVE_TOL = 1e-5
 # (B, n) of the batched dense path: scripts/autotune.py's batched grid and
 # the reference's BATCHED_VMEM_MAX_N
 BATCHED_DENSE = ((8, 128), (32, 256), (8, 1024))
+# B6's cluster walk against the one-block walk B5 on bands past the slab of
+# one block (bw >= 85 at the default step of 256 pivots), n = 16384
+WIDE_BANDS = (32, 64, 85, 128, 169, 256)
 # B9 also where its plan changes (kernels/batched_lu.py:batched_lu_plan): the
 # first n past one block's shared memory, odd n, n = 1000 with rows streamed
 # below theta, 100 systems of 2-CTA clusters (more than the card holds at
@@ -229,6 +240,11 @@ def main() -> int:
     from repro_torch.kernels import paged_attn
     from repro_torch.models import lm
     from repro_torch.solvers.backends import RAND_LU_RESIDUAL_BOUND, banded_static_impl, blocked_launches
+    # B10 on both paths (kernels/batched_lu.py:batched_solve_plan) at shapes
+    # on either side of the plan's split, the optimizer's group among them;
+    # B6's cluster walk over its CTAs and pivots a group
+    from repro_torch.launch import time_kernels
+    from repro_torch.launch.time_kernels import SOLVE_SPLIT
 
     dev = torch.device("cuda")
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
@@ -428,7 +444,11 @@ def main() -> int:
         for name in factors:
             got = getattr(banded, name)(a, bw=bw)
             compare_band_lu(name, f"n={n} bw={bw}", got, plain, bw)
-            print(f"    bitwise equal to the plain version: {bool(torch.equal(got, plain))}", flush=True)
+            equal = bool(torch.equal(got, plain))
+            plan = f"; plan {banded.banded_lu_tiled.last_plan}" if name == "banded_lu_tiled" else ""
+            print(f"    bitwise equal to the plain version: {equal}{plan}", flush=True)
+            if not equal:  # the band factors round every operation as the plain version does
+                fail(f"{name} n={n} bw={bw}: not bitwise equal to its plain version")
         f = factorize_banded(plain, bw=bw) if inverted else None
         for m in widths:
             b = rhs(n, m, 12)
@@ -496,6 +516,34 @@ def main() -> int:
             compare_bitwise("batched_lu_solve_vmem", f"B={bsz} n={n} m={m}",
                             batched_lu.batched_lu_solve_vmem(lu, b),
                             batched_lu.batched_lu_solve_plain(lu, b))
+    solve_room = batched_lu.solve_cluster_room(dev)
+    print(f"  clusters of 2 / 4 / 8 / 16 CTAs of B10's cluster kernel the card holds at once: "
+          f"{' / '.join(str(solve_room[c]) for c in batched_lu.CLUSTER_SIZES)}", flush=True)
+
+    def solve_plan_line(bsz, n, m, path=None):
+        """The plan B10's C entry reports (the shared-memory bytes its own
+        count), checked against the Python plan it was given."""
+        kind, cols, ctas, nbytes, active = batched_lu.batched_lu_solve_vmem.last_plan
+        want = batched_lu.batched_solve_plan(bsz, n, m, sms, solve_room, path)
+        got = (("none", "wide", "cluster")[kind], cols, ctas, nbytes)
+        at_once = f", {active} such clusters at once" if kind == 2 else ""
+        print(f"    plan B={bsz} n={n} m={m}{'' if path is None else ' forced ' + path}: {got[0]}, "
+              f"{cols} columns a tile, {ctas} CTA(s), {nbytes} B of shared memory a CTA{at_once}", flush=True)
+        if got != tuple(want):
+            fail(f"batched_lu_solve_vmem B={bsz} n={n} m={m}: plan {got} differs from the Python plan {want}")
+
+    split_lus = {}
+    for bsz, n, m in SOLVE_SPLIT:
+        lu = split_lus.get((bsz, n))
+        if lu is None:
+            lu = split_lus[(bsz, n)] = batched_lu.batched_lu_vmem(stack(bsz, n, 1300 + n))
+        b = rhs_stack(bsz, n, m, 1310 + m)
+        want = batched_lu.batched_lu_solve_plain(lu, b)
+        for path in (None, "wide", "cluster"):
+            got = (batched_lu.batched_lu_solve_vmem(lu, b) if path is None else
+                   batched_lu._solve(lu, b, batched_lu.batched_solve_plan(bsz, n, m, sms, solve_room, path)))
+            compare_bitwise("batched_lu_solve_vmem", f"B={bsz} n={n} m={m} {path or 'plan'}", got, want)
+            solve_plan_line(bsz, n, m, path)
     ensembles = {ENSEMBLE_T1: band_stack(*ENSEMBLE_T1, 880),
                  (ENSEMBLE_MEMBERS, ENSEMBLE_NX ** 2, ENSEMBLE_NX):
                      poisson_ensemble(ENSEMBLE_MEMBERS, ENSEMBLE_NX)}
@@ -1391,6 +1439,24 @@ def main() -> int:
               f"{plan.resident:.3f}; {1e3 * ms / (2 * plan.blocks):.2f} us a link over {2 * plan.blocks} links "
               f"(card: {card})", flush=True)
 
+    def solve_strip_rate(bsz, n, m, ms):
+        """B10's plan and its time a strip: both paths walk 2S strips, a
+        cluster's in waves of as many clusters as the card holds at once
+        (a link: a strip's triangle and its handoff), a wide grid's blocks
+        side by side (the time a strip of the whole grid)."""
+        plan = batched_lu.batched_solve_plan(bsz, n, m, sms, solve_room)
+        strips = 2 * -(-n // 32)
+        waves = 1
+        if plan.path == "cluster":
+            clusters = bsz * -(-m // plan.cols)
+            waves = -(-clusters // max(1, solve_room[plan.ctas]))
+            what = f"{plan.ctas} CTAs a cluster, {clusters} clusters in {waves} wave(s)"
+        else:
+            what = f"{plan.cols} columns a block, {bsz * -(-m // plan.cols)} blocks"
+        print(f"    batched_lu_solve_vmem B={bsz} n={n} m={m}: {plan.path} ({what}); "
+              f"{1e3 * ms / (strips * waves):.2f} us a strip over {strips} strips (card: {card})",
+              flush=True)
+
     def per_call(wrapper, fn):
         """Launches one call of ``fn`` adds to ``wrapper``'s counter."""
         before = wrapper.launches
@@ -1496,6 +1562,12 @@ def main() -> int:
             record("batched_lu_solve_vmem", f"B={bsz} n={n} m={m}", timed(kernel), plain,
                    library(lambda: torch.linalg.lu_solve(lu, piv, b3)), *work,
                    per_call(batched_lu.batched_lu_solve_vmem, kernel))
+            solve_strip_rate(bsz, n, m, rows[("batched_lu_solve_vmem", f"B={bsz} n={n} m={m}")]["ms"])
+    print(f"  batched_lu_solve_vmem on each path and cluster size beside batched lu_solve (ms, one call / "
+          f"{BACK_TO_BACK} back to back; card: {card}):", flush=True)
+    for bsz, n, m in SOLVE_SPLIT:
+        lu = split_lus[(bsz, n)]
+        time_kernels.batched_solve_sweep(lu, rhs_stack(bsz, n, m, 1320 + m))
     a = bstacks[BATCHED_DENSE[-1]]
     slot = solvers.get_backend("factor", "batched_dense", "torch")
     _, slot_ms = once(lambda: slot.call(solvers.Problem.from_arrays("factor", a), a))
@@ -1695,6 +1767,27 @@ def main() -> int:
             print(f"    n={n:5d} bw={bw:3d}  banded_lu_blocked {tb:.4f}  banded_lu_tiled {tt:.4f}  "
                   f"faster: {'cuda_blocked' if tb <= tt else 'cuda_tiled'}  "
                   f"static rule: {banded_static_impl(bw)}", flush=True)
+
+    print(f"  cuda_blocked / cuda_tiled on wide bands, n = 16384 (kernel ms; cuda_tiled is B6's cluster walk "
+          f"past the slab of one block; card: {card}):", flush=True)
+    for bw in WIDE_BANDS:
+        a = band(16384, bw, 820 + bw)
+        tb = timed(lambda: banded.banded_lu_blocked(a, bw=bw))
+        tt = timed(lambda: banded.banded_lu_tiled(a, bw=bw))
+        plan = banded.tiled_plan(16384, bw)
+        how = "slab steps" if plan is None else f"cluster K={plan.ctas} g={plan.group}"
+        print(f"    bw={bw:3d}  banded_lu_blocked {tb:.4f}  banded_lu_tiled {tt:.4f} ({how})  "
+              f"faster: {'cuda_blocked' if tb <= tt else 'cuda_tiled'}  static rule: {banded_static_impl(bw)}",
+              flush=True)
+    pms = rows[("banded_lu_tiled", pshape)]["ms"]
+    pplan = banded.tiled_plan(pn, POISSON_NX)
+    print(f"  banded_lu_tiled at the Poisson band: {pms:.3f} ms, {1e3 * pms / pn:.3f} us a pivot, "
+          f"{1e3 * pms / -(-pn // pplan.group):.2f} us a group of {pplan.group} on a cluster of {pplan.ctas} "
+          f"(card: {card}); over K and g (ms, one call / {BACK_TO_BACK} back to back):", flush=True)
+    time_kernels.band_cluster_sweep(apoisson, POISSON_NX)
+    print(f"  B6's slab steps against its cluster walk on bands whose slab fits a block (ms; card: {card}):",
+          flush=True)
+    time_kernels.band_walk_crossover()
 
     print("  paged decode attention (B13); library: the page gather + scaled_dot_product_attention"
           "(enable_gqa=True) with a length mask, two calls", flush=True)

@@ -20,19 +20,38 @@
 //   rows fit (bw > ~168), band_lu_global_kernel runs the same walk on the
 //   band in device memory; its working set, bw+1 rows, stays in the 50 MB L2.
 //
-// band_lu_slab_kernel — replaces src/repro/kernels/banded.py:banded_lu_tiled,
-//   whose grid steps ran in order on the TPU, step s+1 reading the carry rows
-//   step s wrote.  CUDA blocks run in no order, so here each step is one
-//   launch in stream order: S = ceil(n/C) launches, each staging its
-//   (C+bw, 2bw+1) slab of the band through shared memory where it fits and
-//   writing it back (band_lu_global_kernel per step otherwise).
-//
+// band_lu_slab_kernel, band_lu_cluster_kernel — replace src/repro/kernels/
+//   banded.py:banded_lu_tiled, whose grid steps ran in order on the TPU, step
+//   s+1 reading the carry rows step s wrote.  Bands of bw <= 32 whose step's
+//   (C+bw, 2bw+1) slab fits one block's shared memory take one launch a step
+//   in stream order: S = ceil(n/C) launches, each staging its slab through
+//   shared memory and writing it back (at n = 16384 the cluster walk below
+//   is 1.5x slower at bw = 16 and 1.1x at 32, but 1.3x faster at 36, where
+//   a block's 32 columns no longer cover a row's bw).  Wider bands (the Poisson band, bw = 256) are one launch of a
+//   thread-block cluster of
+//   K CTAs (band_lu_cluster_kernel; kernels/banded.py:tiled_plan picks the
+//   path, K and the group g):
+//   - the band's active rows live in a ring spread over the cluster's shared
+//     memory, row i in CTA i mod K, so every CTA retires bw/K rows of each
+//     pivot's bw x bw block (the paper's equal contribution); rows enter
+//     the ring by cp.async a group ahead of need, and every entry of the
+//     band is read once and written once;
+//   - pivots go in groups of g: the owners of the group's panel rows (its g
+//     pivot rows and the g columns of the bw rows below) write them into
+//     every CTA's shared memory through DSMEM a group ahead, as soon as the
+//     previous group's update has reached them, and every CTA factors the
+//     panel itself, so no panel has to be handed back: the g columns a
+//     thread a row in registers, one block barrier a pivot, then the pivot
+//     rows past them (U12) a thread a column; then it applies one rank-g
+//     update to its own rows, each entry taking the g terms in pivot order,
+//     first the rows and columns the next panel needs (one group of
+//     lookahead), then one split cluster barrier a group, then the rest of
+//     the update.
 //   Bound of both factors: n*(2bw^2+bw) flops and 2*n*(2bw+1)*4 bytes make
-//   microseconds of work, but the n pivots are a dependent chain on one SM.
-//   The chain, not the card, bounds them: the design keeps each pivot's
-//   operands in shared memory (bw <= ~168), where a pivot costs one block
-//   barrier and bw^2/threads updates (the device-memory walk takes two
-//   barriers and L2 round trips per pivot).
+//   microseconds of work, but the n pivots are a dependent chain.  The slab
+//   path pays one block barrier a pivot; the cluster walk one cluster
+//   barrier and g block barriers a group of g pivots, with the bw^2 g update
+//   split over K SMs.
 //
 // band_solve_kernel — replaces src/repro/kernels/banded.py:
 //   banded_solve_kernelized.  One warp per RHS column walks the rows in
@@ -77,9 +96,15 @@
 //   two barriers per pivot (multipliers first, then the window).  Bands too
 //   wide for the ring take the same step in device memory.  Bound and
 //   latency as for B5, with 2bw+1 entries per window row instead of bw.
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include <cstddef>
+
+#include "async_copy.cuh"
+#include "cluster.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -87,7 +112,7 @@ constexpr int kSmemBytes = 232448;  // dynamic shared memory one H100 block may 
 constexpr int kTile = 32;           // batched-product tile and scan column group
 constexpr int kInFlight = 8;        // band updates a factor thread loads before it stores
 
-extern __shared__ float smem[];
+extern __shared__ __align__(16) float smem[];  // 16 bytes for cp.async and float4
 
 // The band rows a factor kernel works on: a ring of R rows in shared memory
 // (row i in slot i % R) or the band itself in device memory.
@@ -279,6 +304,218 @@ __global__ void band_lu_global_kernel(float* band, int n, int bw, int p0, int p1
   const GlobalRows rows{band, 2 * bw + 1};
   if (kWindow) retire_pivots_window(rows, smem, p0, p1, n, bw);
   else retire_pivots_global(rows, smem, smem + bw, p0, p1, n, bw);
+}
+
+// ---------------------------------------------------------------------------
+// the wide-band factor on a thread-block cluster (band_lu_cluster_kernel)
+// ---------------------------------------------------------------------------
+constexpr int kClusterThreads = 512;  // a CTA; at least the G + bw rows of a panel
+
+// The shared memory of a CTA of the cluster walk with K CTAs and groups of G
+// pivots: the ring (RK rows of 2bw+1 floats; row i of the band in CTA i mod K,
+// slot (i / K) mod RK), then the panels: a group's G pivot rows over the
+// columns [p0, p0 + G + bw) (UP, stride ldu; the columns past the group
+// used; three, for groups g mod 3), the group's G columns of the rows
+// p0 .. p0+G+bw-1 (PC, stride G+1: a thread a row reads them free of bank
+// conflicts; two, for groups g mod 2) and their multipliers (ML).  The
+// owners of a panel's rows write it into every CTA's UP and PC a group
+// ahead; a CTA may still read group g-1's UP while group g+1's arrives.
+// K * RK covers the 2G + bw rows live during a group.
+struct BandCluster {
+  int K, G, RK, ldu;
+  size_t up_at, pc_at, ml_at, bytes;
+};
+
+inline size_t align16(size_t b) { return (b + 15) / 16 * 16; }
+
+inline BandCluster band_cluster_layout(int bw, int K, int G) {
+  BandCluster c{K, G, (2 * G + bw + K - 1) / K, (G + bw + 3) / 4 * 4, 0, 0, 0, 0};
+  c.up_at = align16((size_t)c.RK * (2 * bw + 1) * sizeof(float));
+  c.pc_at = c.up_at + 3 * (size_t)G * c.ldu * sizeof(float);
+  c.ml_at = c.pc_at + 2 * (size_t)(G + bw) * (G + 1) * sizeof(float);
+  c.bytes = c.ml_at + (size_t)(G + bw) * (G + 1) * sizeof(float);
+  return c;
+}
+
+template <int G>
+__global__ void __launch_bounds__(kClusterThreads, 1)
+band_lu_cluster_kernel(float* band, int n, int bw, int RK, int ldu, size_t up_at, size_t pc_at,
+                       size_t ml_at) {
+  constexpr int LDL = G + 1;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int K = cluster.num_blocks(), rank = cluster.block_rank();
+  const int W = 2 * bw + 1, tid = threadIdx.x, nt = blockDim.x;
+  char* base = reinterpret_cast<char*>(smem);
+  float* ring = smem;
+  float* const UP0 = reinterpret_cast<float*>(base + up_at);
+  float* const PC0 = reinterpret_cast<float*>(base + pc_at);
+  float* ML = reinterpret_cast<float*>(base + ml_at);
+  const int up_size = G * ldu, pc_size = (G + bw) * LDL;
+  auto slot = [&](int i) { return (size_t)((i / K) % RK) * W; };
+  auto first_own = [&](int lo) { return lo + ((rank - lo % K) % K + K) % K; };
+  // cp.async of the own rows of [lo, hi) into the ring
+  auto load_rows = [&](int lo, int hi) {
+    hi = min(hi, n);
+    const int first = first_own(lo), count = first < hi ? (hi - 1 - first) / K + 1 : 0;
+    for (int idx = tid; idx < count * W; idx += nt) {
+      const int i = first + idx / W * K, t = idx % W;
+      cp_async4(ring + slot(i) + t, band + (size_t)i * W + t);
+    }
+    cp_async_commit();
+  };
+  // Write the own rows' entries of group gi's panel into every CTA's UP
+  // and PC for the group: its pivot rows [q0, qe) past its columns
+  // (U12), and the group's columns of the rows [q0, min(n, qe + bw)).  The
+  // entries carry every earlier group's terms: the previous group's update
+  // has reached them, or they are fresh from the band.
+  auto push = [&](int gi) {
+    const int q0 = gi * G, qe = min(q0 + G, n), prows = min(n, qe + bw) - q0;
+    float* up = UP0 + (gi % 3) * up_size;
+    float* pc = PC0 + (gi & 1) * pc_size;
+    const int first = first_own(q0), rows = first < q0 + prows ? (q0 + prows - 1 - first) / K + 1 : 0;
+    for (int idx = tid; idx < rows * G; idx += nt) {
+      const int r = first + idx / G * K, j = q0 + idx % G;
+      if (j >= qe || j < r - bw || j > r + bw) continue;
+      const float v = ring[slot(r) + j - r + bw];
+      float* dst = pc + (r - q0) * LDL + (j - q0);
+      for (int d = 0; d < K; ++d) *cluster.map_shared_rank(dst, d) = v;
+    }
+    const int qrows = first < qe ? (qe - 1 - first) / K + 1 : 0, wide = ldu - G;
+    for (int idx = tid; idx < qrows * wide; idx += nt) {
+      const int q = first + idx / wide * K, j = qe + idx % wide;
+      if (j > q + bw || j >= n) continue;
+      const float v = ring[slot(q) + j - q + bw];
+      float* dst = up + (q - q0) * ldu + (j - q0);
+      for (int d = 0; d < K; ++d) *cluster.map_shared_rank(dst, d) = v;
+    }
+  };
+  // the rank-G update of the own rows [r_lo, r_hi) over the columns
+  // [c_lo, c_hi) (c_lo - p0 a multiple of 4): a[r][j] -= l_rp u_pj for the
+  // group's pivots p in order, those the band reaches (p >= r - bw, j - bw)
+  auto trail = [&](int p0, const float* UP, int r_lo, int r_hi, int c_lo, int c_hi) {
+    r_hi = min(r_hi, n);
+    c_hi = min(c_hi, n);
+    if (r_lo >= r_hi || c_lo >= c_hi) return;
+    const int first = first_own(r_lo), rows = first < r_hi ? (r_hi - 1 - first) / K + 1 : 0;
+    const int quads = (c_hi - c_lo + 3) / 4;
+    for (int it = tid; it < rows * quads; it += nt) {
+      const int r = first + it / quads * K, j = c_lo + 4 * (it % quads);
+      float* row = ring + slot(r) + bw - r;  // row[j] = A[r, j]
+      const float* ml = ML + (size_t)(r - p0) * LDL;
+      const float* up = UP + (j - p0);
+      float acc[4];
+      int lo[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const bool ok = j + q < c_hi;
+        acc[q] = ok ? row[j + q] : 0.f;
+        lo[q] = ok ? max(p0, max(r, j + q) - bw) - p0 : G;  // the first term the entry takes
+      }
+#pragma unroll
+      for (int pp = 0; pp < G; ++pp) {
+        const float l = ml[pp];
+        const float4 u = *reinterpret_cast<const float4*>(up + (size_t)pp * ldu);
+        if (pp >= lo[0]) acc[0] = __fsub_rn(acc[0], __fmul_rn(l, u.x));
+        if (pp >= lo[1]) acc[1] = __fsub_rn(acc[1], __fmul_rn(l, u.y));
+        if (pp >= lo[2]) acc[2] = __fsub_rn(acc[2], __fmul_rn(l, u.z));
+        if (pp >= lo[3]) acc[3] = __fsub_rn(acc[3], __fmul_rn(l, u.w));
+      }
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        if (j + q < c_hi) row[j + q] = acc[q];
+    }
+  };
+
+  load_rows(0, G + bw);
+  cp_async_wait<0>();
+  __syncthreads();
+  cluster_arrive();  // every CTA runs before any writes another's shared memory
+  cluster_wait();
+  push(0);
+  cluster_arrive_release();
+  const int groups = (n + G - 1) / G;
+  for (int gi = 0; gi < groups; ++gi) {
+    const int p0 = gi * G, pe = min(p0 + G, n), np = pe - p0;
+    cluster_wait();  // the group's panel is in UP and PC
+    load_rows(p0 + G + bw, p0 + 2 * G + bw);  // the next panel's new rows, into retired slots
+    const int prows = min(n, pe + bw) - p0;  // the panel's rows p0 .. min(n, pe+bw)-1
+    float* UP = UP0 + (gi % 3) * up_size;
+    float* PC = PC0 + (gi & 1) * pc_size;
+    // factor the panel's columns, pivot by pivot: thread t holds panel row
+    // t (band row p0 + t) over the group's columns in registers; row r takes
+    // l = a[r][p] / a[p][p] (into ML) and a[r][j] -= l * a[p][j] over the
+    // group's columns j > p (its L part and, for the group's own rows, the
+    // upper triangle); the next pivot row's owner publishes it in PC; one
+    // block barrier a pivot
+    float x[G];  // the pivot loop is unrolled so that x stays in registers
+#pragma unroll
+    for (int jj = 0; jj < G; ++jj) x[jj] = tid < prows ? PC[tid * LDL + jj] : 0.f;
+#pragma unroll
+    for (int pp = 0; pp < G; ++pp) {
+      if (pp >= np) break;
+      const int rend = min(n - 1, p0 + pp + bw) - p0;  // rows pp+1 .. rend of the panel
+      const float* prow = PC + pp * LDL;
+      if (tid > pp && tid <= rend) {
+        const float l = __fdiv_rn(x[pp], prow[pp]);
+        ML[tid * LDL + pp] = l;
+#pragma unroll
+        for (int jj = 0; jj < G; ++jj)
+          if (jj > pp && jj < np) x[jj] = __fsub_rn(x[jj], __fmul_rn(l, prow[jj]));
+      }
+      if (tid == pp + 1)
+#pragma unroll
+        for (int jj = 0; jj < G; ++jj) PC[tid * LDL + jj] = x[jj];
+      __syncthreads();
+    }
+    if (tid < np)  // the group's upper triangle, for the band
+#pragma unroll
+      for (int jj = 0; jj < G; ++jj) PC[tid * LDL + jj] = x[jj];
+    // the group's rows past its columns (U12), a thread a column held in
+    // registers: row q takes the terms of the group's pivots p < q in
+    // order, those the band reaches (j <= p + bw)
+    for (int jj = G + tid; jj < ldu && p0 + jj < n; jj += nt) {
+      float u[G];
+#pragma unroll
+      for (int qq = 0; qq < G; ++qq) u[qq] = UP[qq * ldu + jj];
+#pragma unroll
+      for (int qq = 1; qq < G; ++qq) {
+        if (qq >= np || jj > qq + bw) continue;  // past the group, or past row q's band
+#pragma unroll
+        for (int pp = 0; pp < qq; ++pp)
+          if (jj <= pp + bw) u[qq] = __fsub_rn(u[qq], __fmul_rn(ML[qq * LDL + pp], u[pp]));
+      }
+#pragma unroll
+      for (int qq = 1; qq < G; ++qq)
+        if (qq < np) UP[qq * ldu + jj] = u[qq];
+    }
+    __syncthreads();
+    // the panel's entries are final: the own rows' go to the band (L from
+    // ML, the group's upper triangle from PC, U12 from UP)
+    {
+      const int first = first_own(p0), rows = first < p0 + prows ? (p0 + prows - 1 - first) / K + 1 : 0;
+      for (int idx = tid; idx < rows * G; idx += nt) {
+        const int r = first + idx / G * K, rr = r - p0, jj = idx % G, j = p0 + jj;
+        if (j < pe && j >= r - bw && j <= r + bw)
+          band[(size_t)r * W + j - r + bw] = j < r ? ML[rr * LDL + jj] : PC[rr * LDL + jj];
+      }
+      const int qrows = first < pe ? (pe - 1 - first) / K + 1 : 0, wide = ldu - G;
+      for (int idx = tid; idx < qrows * wide; idx += nt) {
+        const int q = first + idx / wide * K, jj = G + idx % wide, j = p0 + jj;
+        if (j <= q + bw && j < n) band[(size_t)q * W + j - q + bw] = UP[(q - p0) * ldu + jj];
+      }
+    }
+    // the rank-G update: first what the next panel reads (the next G rows,
+    // and the next G columns of the rows below them), then the rest
+    trail(p0, UP, pe, pe + G, pe, pe + bw);
+    trail(p0, UP, pe + G, pe + bw, pe, pe + G);
+    cp_async_wait<0>();
+    __syncthreads();
+    if (gi + 1 < groups) push(gi + 1);
+    cluster_arrive_release();
+    trail(p0, UP, pe + G, pe + bw, pe + G, pe + bw);
+    __syncthreads();  // the panel buffers are free for the next group
+  }
+  cluster_wait();
 }
 
 // x = (LU)^-1 b; one warp per RHS column, blockDim.x / 32 columns per block;
@@ -539,28 +776,49 @@ extern "C" int ebv_batched_band_lu(void* band_ptr, int batch, int n, int bw, voi
                             static_cast<cudaStream_t>(stream_ptr), launches);
 }
 
-// Factor the band in place in S = ceil(n/C) launches, one per block step of
-// C pivots, in stream order.
-extern "C" int ebv_band_lu_steps(void* band_ptr, int n, int bw, int C, void* stream_ptr,
-                                 int* launches) {
+// Factor the band in place: with K = 0 in S = ceil(n/C) launches, one per
+// block step of C pivots, in stream order, each staging its slab in one
+// block's shared memory; with K > 0 in one launch of the cluster walk with K
+// CTAs and groups of G = 8, 16 or 32 pivots (kernels/banded.py:tiled_plan
+// picks the path, K and G).  plan[0..5]: the path (0 steps, 1 cluster), K,
+// G, the ring's rows a CTA, the shared memory bytes a CTA and how many such
+// clusters the card holds at once.  A slab, K or G whose shared memory no
+// block holds returns cudaErrorInvalidValue; a cluster the card cannot hold,
+// cudaErrorLaunchOutOfResources.
+extern "C" int ebv_band_lu_steps(void* band_ptr, int n, int bw, int C, int K, int G, int* plan,
+                                 void* stream_ptr, int* launches) {
   float* band = static_cast<float*>(band_ptr);
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   *launches = 0;
+  for (int i = 0; i < 6; ++i) plan[i] = 0;
+  if (n == 0) return 0;
   cudaError_t err;
+  if (K > 0) {
+    const BandCluster c = band_cluster_layout(bw, K, G);
+    plan[0] = 1;
+    plan[1] = c.K;
+    plan[2] = c.G;
+    plan[3] = c.RK;
+    plan[4] = static_cast<int>(c.bytes);
+    const bool built = G == 8 || G == 16 || G == 32;
+    if (!built || G > bw || G + bw > kClusterThreads || c.bytes > (size_t)kSmemBytes)
+      return cudaErrorInvalidValue;
+    auto kernel = G == 8 ? band_lu_cluster_kernel<8>
+                : G == 16 ? band_lu_cluster_kernel<16> : band_lu_cluster_kernel<32>;
+    if ((err = launch_cluster_kernel(kernel, c.K, c.K, kClusterThreads, c.bytes, stream, &plan[5], band,
+                                     n, bw, c.RK, c.ldu, c.up_at, c.pc_at, c.ml_at)))
+      return err;
+    ++*launches;
+    return 0;
+  }
   const size_t bytes = ring_bytes(C + bw, bw);
-  const bool staged = bytes <= (size_t)kSmemBytes;
-  if (staged && (err = cudaFuncSetAttribute(band_lu_slab_kernel,
-                                            cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                            (int)bytes)))
+  if (C < 1 || bytes > (size_t)kSmemBytes) return cudaErrorInvalidValue;
+  if ((err = cudaFuncSetAttribute(band_lu_slab_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  (int)bytes)))
     return err;
   for (int k0 = 0; k0 < n; k0 += C) {
-    if (staged) {
-      band_lu_slab_kernel<<<1, factor_block(bw), bytes, stream>>>(band, n, bw, k0, C);
-      err = cudaGetLastError();
-    } else {
-      err = launch_global(band, 1, n, bw, k0, k0 + C < n ? k0 + C : n, stream);
-    }
-    if (err) return err;
+    band_lu_slab_kernel<<<1, factor_block(bw), bytes, stream>>>(band, n, bw, k0, C);
+    if ((err = cudaGetLastError())) return err;
     ++*launches;
   }
   return 0;

@@ -35,27 +35,48 @@
 //     card): the staged kernel's walk in device memory, in L2 while few
 //     systems run at once, each thread keeping kInFlight loads outstanding.
 //
-// batched_solve_kernel — replaces src/repro/kernels/batched_lu.py:
-//   batched_lu_solve_vmem, one grid program per system holding the whole
-//   (n, m) RHS beside the factor.  Here the grid runs over (32-column RHS
-//   tile, system): the tile lives in shared memory (column-major), the
-//   factor is read through L2, so the RHS width has no cap and a wide RHS
-//   fills the 132 SMs.  The sweep is PR 11's strip sweep
-//   (csrc/trsm.cu:solve_vmem_kernel): per 32-row strip one warp solves the
-//   strip's triangle for its columns with __shfl_sync, then each thread
-//   retires one row below (above, backward) the strip.  Unlike solve_vmem it
-//   subtracts term by term in the plain version's order (y_i -= l_ik * y_k
-//   for k = 0, 1, ...; backward x_k / u_kk, then x_i -= u_ik * x_k for
-//   k = n-1, n-2, ...) with rounded multiply and subtract, so it is bitwise
-//   equal to repro_torch.core.batched.batched_lu_solve.  Bound: 2n^2 m flops
-//   per system; a separate multiply and subtract per term (no FMA) halve the
-//   card's fp32 rate for this kernel.
+// batched_solve_wide_kernel, batched_solve_cluster_kernel — replace
+//   src/repro/kernels/batched_lu.py:batched_lu_solve_vmem, one grid program
+//   per system holding the whole (n, m) RHS beside the factor.  Both subtract
+//   term by term in the plain version's order (y_i -= l_ik * y_k for
+//   k = 0, 1, ...; backward x_k / u_kk, then x_i -= u_ik * x_k for
+//   k = n-1, n-2, ...) with rounded multiply, subtract and divide and no
+//   fused multiply-adds, so they are bitwise equal to
+//   repro_torch.core.batched.batched_lu_solve.  Bound: 2n^2 m operations per
+//   system; a separate multiply and subtract per term halve the card's fp32
+//   rate.  Which kernel runs, with which tile and cluster, is
+//   kernels/batched_lu.py:batched_solve_plan's choice; the C entry launches it:
+//   - wide (the grid of RHS tiles x systems fills the card): one block of 256
+//     threads per (tile of W = 4 ... 64 RHS columns, system), the tile in
+//     shared memory (row-major, stride W+4).  The sweep walks 32-column strips
+//     of the factor: L below (forward) or U above (backward) the strip is
+//     staged by 16-byte cp.async in chunks of up to 256 rows, double buffered
+//     so the next chunk's copy overlaps this chunk's update; every warp
+//     solves the strip's triangle in registers (a few lanes a column), and each
+//     thread retires a micro-tile of up to 8 rows x 4 columns, reading the
+//     factor and the solved strip as float4 from shared memory: three
+//     shared-memory loads per 32 multiply-subtract pairs, so the update is
+//     bound by the fp32 pipe, not by shared memory's;
+//   - cluster (a few RHS columns on so few systems that the wide grid leaves
+//     SMs idle, or systems too large for a wide block): each (system, tile of
+//     <= 16 RHS columns) on a thread-block cluster of 2-16 CTAs
+//     (csrc/cluster.cuh).  Strips are owned by the paper's equalized
+//     pairs (strip s with strip S-1-s: forward s strips of terms, backward
+//     S-1-s, the same work per pair), each CTA holding its strips' values in
+//     shared memory.  A strip's owner solves its triangle (after retiring
+//     the previous strip's terms from it first, the lookahead) and writes
+//     the solved values into every CTA's shared memory through DSMEM behind
+//     one split cluster barrier a strip; every CTA then retires its own rows
+//     with them, reading its rows of the factor once through L2.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
-#include <atomic>
+#include <climits>
 #include <cstddef>
+#include <cstdint>
 
+#include "async_copy.cuh"
+#include "cluster.cuh"
 #include "ebv_walk.cuh"
 
 namespace cg = cooperative_groups;
@@ -64,11 +85,14 @@ namespace {
 
 constexpr int kSmemBytes = 232448;  // dynamic shared memory one H100 block may use
 constexpr int kInFlight = 4;        // row updates a factor thread loads before it stores
-constexpr int kStrip = 32;          // strip height and RHS columns of a solve block
-constexpr int kColsInFlight = 4;    // RHS columns a solve thread carries at once
-constexpr int kSolveThreads = 256;
+constexpr int kStrip = 32;          // strip height of the solve's sweeps
+constexpr int kSolveThreads = 256;  // a wide solve block
+constexpr int kLdl = kStrip + 4;    // a staged factor row: 32 floats, 16-byte aligned, no bank conflicts
+constexpr int kChunkRows = 256;     // factor rows a wide block stages at once, at most
+constexpr int kNarrowThreads = 512; // a CTA of the cluster solve
+constexpr int kNarrowCols = 16;     // RHS columns of one cluster's tile, at most (a warp each)
 
-extern __shared__ float smem[];
+extern __shared__ __align__(16) float smem[];  // 16 bytes for cp.async and float4
 
 // Retire the n-1 pivots of the (n, n) matrix a (row stride n), one barrier
 // per pivot; lbuf holds 2n floats (the multiplier double buffer).
@@ -129,19 +153,6 @@ __global__ void batched_lu_global_kernel(float* a, int n) {
   ebv_walk(a + (size_t)blockIdx.x * n * n, n, smem);
 }
 
-__device__ __forceinline__ void cluster_arrive_release() {
-  asm volatile("barrier.cluster.arrive.release;\n" ::: "memory");
-}
-
-// a CTA that wrote nothing another CTA reads arrives without releasing
-__device__ __forceinline__ void cluster_arrive() {
-  asm volatile("barrier.cluster.arrive.relaxed;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cluster_wait() {
-  asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory");
-}
-
 // One cluster of C CTAs per system (csrc/ebv_walk.cuh's walk over C
 // participants); n >= 2.
 __global__ void __launch_bounds__(kWalkThreads, 1)
@@ -191,144 +202,451 @@ batched_lu_cluster_kernel(float* a, int n, int theta, size_t lbuf_at, size_t row
   w.write_back(false);
 }
 
-// x = (LU)^-1 b per system; grid (RHS tiles of rt <= 32 columns, systems).
+
+// ---------------------------------------------------------------------------
+// the solve, wide path: one block per (tile of W RHS columns, system)
+// ---------------------------------------------------------------------------
+
+// The shape of a wide block's work at tile width W (4, 8, 16, 32 or 64):
+// CG column quads, NRG row groups of threads, micro-tiles of up to RM rows
+// (of one quad each), staged chunks of CH factor rows, the tile's row stride.
+template <int W>
+struct WideShape {
+  static constexpr int CG = W / 4;
+  static constexpr int NRG = kSolveThreads / CG;
+  static constexpr int RM = NRG * 8 <= kChunkRows ? 8 : kChunkRows / NRG;
+  static constexpr int CH = RM * NRG;
+  static constexpr int LDY = W + 4;
+};
+
+inline size_t wide_bytes(int n, int W) {
+  const size_t n32 = (size_t)(n + kStrip - 1) / kStrip * kStrip;
+  const int nrg = kSolveThreads / (W / 4);
+  const int rm = nrg * 8 <= kChunkRows ? 8 : kChunkRows / nrg;
+  return (n32 * (W + 4) + 2 * (size_t)rm * nrg * kLdl) * sizeof(float);
+}
+
+// One staged piece of a sweep: the strip's triangle (rows [k0, k0+32) ∩ [0, n))
+// or rows [r0, r1) below (forward) or above (backward) it; the factor's
+// columns [k0, k0+32) either way.
+struct Chunk {
+  bool fwd, tri;
+  int k0, r0, r1;
+};
+
+// the piece after c, in sweep order; false past the backward sweep's last
+__device__ __forceinline__ bool next_chunk(Chunk& c, int n, int ch) {
+  const int hi = c.fwd ? n : c.k0;
+  if (c.tri) {
+    const int lo = c.fwd ? c.k0 + kStrip : 0;
+    if (lo < hi) {
+      c.tri = false;
+      c.r0 = lo;
+      c.r1 = min(lo + ch, hi);
+      return true;
+    }
+  } else if (c.r1 < hi) {
+    c.r0 = c.r1;
+    c.r1 = min(c.r0 + ch, hi);
+    return true;
+  }
+  if (c.fwd) {
+    c.k0 += kStrip;
+    if (c.k0 >= n) {
+      c.fwd = false;
+      c.k0 = (n - 1) / kStrip * kStrip;
+    }
+  } else {
+    c.k0 -= kStrip;
+    if (c.k0 < 0) return false;
+  }
+  c.tri = true;
+  c.r0 = c.k0;
+  c.r1 = min(c.k0 + kStrip, n);
+  return true;
+}
+
+// Copy the piece's factor block into buf (row r at r * kLdl), columns past
+// n zero-filled; 16 bytes a copy where rows are 16-byte aligned (vec).
+__device__ __forceinline__ void stage_chunk(float* buf, const float* lu, int n, const Chunk& c,
+                                           bool vec) {
+  const int rows = c.r1 - c.r0;
+  if (vec) {
+    for (int idx = threadIdx.x; idx < rows * 8; idx += blockDim.x) {
+      const int r = idx >> 3, q = idx & 7, col = c.k0 + 4 * q;
+      const bool ok = col < n;
+      cp_async16(buf + r * kLdl + 4 * q, ok ? lu + (size_t)(c.r0 + r) * n + col : lu, ok ? 16 : 0);
+    }
+  } else {
+    for (int idx = threadIdx.x; idx < rows * kStrip; idx += blockDim.x) {
+      const int r = idx >> 5, l = idx & 31, col = c.k0 + l;
+      const bool ok = col < n;
+      cp_async4(buf + r * kLdl + l, ok ? lu + (size_t)(c.r0 + r) * n + col : lu, ok ? 4 : 0);
+    }
+  }
+}
+
+// The strip's triangle for the tile's columns: TPC threads a column (every
+// warp at work), thread r of column c holding its rows r, r + TPC, ... of
+// the strip in registers; forward unit lower (y_i -= l_il y_l, l
+// increasing), backward upper (x_l / u_ll, then x_i -= u_il x_l, l
+// decreasing), the solved value of row l shuffled from its owner within
+// the column's TPC lanes, the factor read from the staged block.  Every
+// lane divides (the owner keeps its quotient), so no branch diverges.
+template <int W>
+__device__ void wide_triangle(float* ys, const float* buf, int n, int k0, bool fwd) {
+  using S = WideShape<W>;
+  constexpr int TPC = kSolveThreads / W < kStrip ? kSolveThreads / W : kStrip;
+  constexpr int RPT = kStrip / TPC;  // rows a thread
+  const int c = threadIdx.x / TPC, r = threadIdx.x % TPC;
+  if (c >= W) return;  // whole warps (W = 4)
+  const int top = min(kStrip, n - k0);  // rows of the strip inside the matrix
+  const unsigned full = 0xffffffffu;
+  float v[RPT];
+#pragma unroll
+  for (int k = 0; k < RPT; ++k) v[k] = ys[(k0 + r + TPC * k) * S::LDY + c];
+  if (fwd) {
+#pragma unroll
+    for (int l = 0; l < kStrip - 1; ++l) {
+      const float xl = __shfl_sync(full, v[l / TPC], l % TPC, TPC);
+#pragma unroll
+      for (int k = 0; k < RPT; ++k) {
+        const int i = r + TPC * k;
+        if (i > l && i < top) v[k] = __fsub_rn(v[k], __fmul_rn(buf[i * kLdl + l], xl));
+      }
+    }
+  } else {
+#pragma unroll
+    for (int l = kStrip - 1; l >= 0; --l) {
+      if (l >= top) continue;
+      const float d = __fdiv_rn(v[l / TPC], buf[l * kLdl + l]);
+      if (r == l % TPC) v[l / TPC] = d;
+      const float xl = __shfl_sync(full, d, l % TPC, TPC);
+#pragma unroll
+      for (int k = 0; k < RPT; ++k) {
+        const int i = r + TPC * k;
+        if (i < l) v[k] = __fsub_rn(v[k], __fmul_rn(buf[i * kLdl + l], xl));
+      }
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < RPT; ++k)
+    if (r + TPC * k < top) ys[(k0 + r + TPC * k) * S::LDY + c] = v[k];
+}
+
+__device__ __forceinline__ float comp(const float4& v, int j) {
+  return j == 0 ? v.x : j == 1 ? v.y : j == 2 ? v.z : v.w;
+}
+
+// Retire the strip's 32 terms from R rows x 4 columns a thread: rows
+// r0 + d0 + rg + k * NRG (k < R, those past r1 skipped) of the tile, columns
+// 4 cq .. 4 cq + 3, the factor block staged in buf (row r - r0).
+template <int W, int R, bool kFwd>
+__device__ __forceinline__ void wide_tile(float* ys, const float* buf, int k0, int r0, int d0, int nr) {
+  using S = WideShape<W>;
+  const int cq = threadIdx.x % S::CG, rg = threadIdx.x / S::CG;
+  int loc[R];
+  float acc[R][4];
+#pragma unroll
+  for (int k = 0; k < R; ++k) {
+    loc[k] = d0 + rg + k * S::NRG;
+    float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (loc[k] < nr) a = *reinterpret_cast<const float4*>(ys + (r0 + loc[k]) * S::LDY + 4 * cq);
+    acc[k][0] = a.x;
+    acc[k][1] = a.y;
+    acc[k][2] = a.z;
+    acc[k][3] = a.w;
+  }
+  // the strip's 32 terms in 8 groups of 4, the next group's loads in flight
+  // while this group's arithmetic runs (two register sets; unrolled
+  // further, the loads of every group stay live at once and the tile spills)
+  float4 la[R], ya[4], lb[R], yb[4];
+  auto load = [&](float4* lf, float4* yf, int g) {
+    const int gg = kFwd ? g : kStrip / 4 - 1 - g;
+#pragma unroll
+    for (int k = 0; k < R; ++k)
+      lf[k] = loc[k] < nr ? *reinterpret_cast<const float4*>(buf + loc[k] * kLdl + 4 * gg)
+                          : make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      yf[j] = *reinterpret_cast<const float4*>(ys + (k0 + 4 * gg + j) * S::LDY + 4 * cq);
+  };
+  auto apply = [&](const float4* lf, const float4* yf) {
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj) {
+      const int j = kFwd ? jj : 3 - jj;
+#pragma unroll
+      for (int k = 0; k < R; ++k) {
+        const float l = comp(lf[k], j);
+#pragma unroll
+        for (int q = 0; q < 4; ++q) acc[k][q] = __fsub_rn(acc[k][q], __fmul_rn(l, comp(yf[j], q)));
+      }
+    }
+  };
+  load(la, ya, 0);
+#pragma unroll 1
+  for (int g = 0; g < kStrip / 4; g += 2) {
+    load(lb, yb, g + 1);
+    apply(la, ya);
+    if (g + 2 < kStrip / 4) load(la, ya, g + 2);
+    apply(lb, yb);
+  }
+#pragma unroll
+  for (int k = 0; k < R; ++k)
+    if (loc[k] < nr)
+      *reinterpret_cast<float4*>(ys + (r0 + loc[k]) * S::LDY + 4 * cq) =
+          make_float4(acc[k][0], acc[k][1], acc[k][2], acc[k][3]);
+}
+
+// The piece's rows [r0, r1) in passes of R rows a thread, the largest R
+// whose pass the rows left fill, so no thread idles for a few rows.
+template <int W, bool kFwd>
+__device__ void wide_update(float* ys, const float* buf, int k0, int r0, int r1) {
+  using S = WideShape<W>;
+  const int nr = r1 - r0;
+  for (int d0 = 0; d0 < nr;) {
+    const int left = nr - d0;
+    if (S::RM >= 8 && left >= 8 * S::NRG) {
+      wide_tile<W, (S::RM >= 8 ? 8 : 1), kFwd>(ys, buf, k0, r0, d0, nr);
+      d0 += 8 * S::NRG;
+    } else if (S::RM >= 4 && left >= 4 * S::NRG) {
+      wide_tile<W, (S::RM >= 4 ? 4 : 1), kFwd>(ys, buf, k0, r0, d0, nr);
+      d0 += 4 * S::NRG;
+    } else if (S::RM >= 2 && left >= 2 * S::NRG) {
+      wide_tile<W, (S::RM >= 2 ? 2 : 1), kFwd>(ys, buf, k0, r0, d0, nr);
+      d0 += 2 * S::NRG;
+    } else {
+      wide_tile<W, 1, kFwd>(ys, buf, k0, r0, d0, nr);
+      d0 += S::NRG;
+    }
+  }
+}
+
+// x = (LU)^-1 b per system; grid (RHS tiles of W columns, systems).
+template <int W>
 __global__ void __launch_bounds__(kSolveThreads)
-batched_solve_kernel(const float* __restrict__ lu, const float* __restrict__ b,
-                     float* __restrict__ x, int n, int m, int rt) {
+batched_solve_wide_kernel(const float* __restrict__ lu, const float* __restrict__ b,
+                          float* __restrict__ x, int n, int m, int vec) {
+  using S = WideShape<W>;
   const size_t sys = blockIdx.y;
   lu += sys * n * n;
   b += sys * n * m;
   x += sys * n * m;
-  // rt columns of n32 rows, column-major with the odd stride n32 + 1, so
-  // both a row sweep and the coalesced row-by-row copy in and out are free
-  // of bank conflicts: ys[c * ld + i]
-  const int n32 = (n + kStrip - 1) / kStrip * kStrip, ld = n32 + 1;
+  const int n32 = (n + kStrip - 1) / kStrip * kStrip;
   float* ys = smem;
-  const int c0 = blockIdx.x * rt;
-  const int w = min(rt, m - c0);
-  for (int idx = threadIdx.x; idx < w * n32; idx += blockDim.x) {
-    const int i = idx / w, c = idx % w;
-    ys[c * ld + i] = i < n ? b[(size_t)i * m + c0 + c] : 0.f;
+  float* lbuf = smem + (size_t)n32 * S::LDY;
+  const int c0 = blockIdx.x * W, w = min(W, m - c0);
+  for (int idx = threadIdx.x; idx < n32 * W; idx += blockDim.x) {
+    const int i = idx / W, c = idx % W;
+    ys[i * S::LDY + c] = (i < n && c < w) ? b[(size_t)i * m + c0 + c] : 0.f;
+  }
+  Chunk cur{true, true, 0, 0, min(kStrip, n)};
+  stage_chunk(lbuf, lu, n, cur, vec);
+  cp_async_commit();
+  for (int t = 0;; ++t) {
+    Chunk nxt = cur;
+    const bool more = next_chunk(nxt, n, S::CH);
+    if (more) stage_chunk(lbuf + ((t + 1) & 1) * S::CH * kLdl, lu, n, nxt, vec);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();  // this piece's block has landed; the tile's earlier updates are seen
+    const float* buf = lbuf + (t & 1) * S::CH * kLdl;
+    if (cur.tri) wide_triangle<W>(ys, buf, n, cur.k0, cur.fwd);
+    else if (cur.fwd) wide_update<W, true>(ys, buf, cur.k0, cur.r0, cur.r1);
+    else wide_update<W, false>(ys, buf, cur.k0, cur.r0, cur.r1);
+    __syncthreads();  // the buffer is free for the piece after next
+    if (!more) break;
+    cur = nxt;
+  }
+  for (int idx = threadIdx.x; idx < n * W; idx += blockDim.x) {
+    const int i = idx / W, c = idx % W;
+    if (c < w) x[(size_t)i * m + c0 + c] = ys[i * S::LDY + c];
+  }
+}
+
+// ---------------------------------------------------------------------------
+// the solve, cluster path: one cluster of C CTAs per (tile of mt <= 16 RHS
+// columns, system)
+// ---------------------------------------------------------------------------
+
+// Strip ownership by equalized pairs: unit u < P = ceil(S/2) is strips u and
+// S-1-u (one strip when they coincide), owned by CTA u mod C in its slots
+// 2k and 2k+1 (u = c + k C).
+struct StripPairs {
+  int S, C;
+  __device__ int unit(int s) const { return min(s, S - 1 - s); }
+  __device__ int owner(int s) const { return unit(s) % C; }
+  __device__ int slot(int s) const { return 2 * (unit(s) / C) + (s == unit(s) ? 0 : 1); }
+  // the strip in CTA c's slot, or -1
+  __device__ int strip(int c, int slot) const {
+    const int u = c + (slot >> 1) * C;
+    if (u >= (S + 1) / 2) return -1;
+    if (!(slot & 1)) return u;
+    return S - 1 - u == u ? -1 : S - 1 - u;
+  }
+};
+
+__host__ __device__ inline int narrow_slots(int n, int C) {
+  const int S = (n + kStrip - 1) / kStrip, P = (S + 1) / 2;
+  return 2 * ((P + C - 1) / C);
+}
+
+// own values (slots x 32 rows x mt) and three receive buffers (32 x mt)
+inline size_t narrow_bytes(int n, int mt, int C) {
+  return ((size_t)narrow_slots(n, C) * kStrip + 3 * kStrip) * mt * sizeof(float);
+}
+
+// the 32 factor entries of row i at columns [k0, k0+32), those at or past n
+// (or outside [lo, hi) of the strip) zero
+__device__ __forceinline__ void load_strip_row(float* dst, const float* row, int k0, int n, bool vec) {
+  if (vec && k0 + kStrip <= n) {
+#pragma unroll
+    for (int q = 0; q < kStrip / 4; ++q) {
+      const float4 v = __ldg(reinterpret_cast<const float4*>(row + k0) + q);
+      dst[4 * q] = v.x;
+      dst[4 * q + 1] = v.y;
+      dst[4 * q + 2] = v.z;
+      dst[4 * q + 3] = v.w;
+    }
+  } else {
+#pragma unroll
+    for (int l = 0; l < kStrip; ++l) dst[l] = k0 + l < n ? __ldg(row + k0 + l) : 0.f;
+  }
+}
+
+// link t of the 2S: forward strip t, then backward strip 2S-1-t
+__device__ __forceinline__ int link_strip(int t, int S) { return t < S ? t : 2 * S - 1 - t; }
+
+__global__ void __launch_bounds__(kNarrowThreads, 1)
+batched_solve_cluster_kernel(const float* __restrict__ lu, const float* __restrict__ b,
+                             float* __restrict__ x, int n, int m, int mt, int tiles, int vec) {
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = cluster.num_blocks(), rank = cluster.block_rank();
+  const int ci = blockIdx.x / C, sys = ci / tiles, c0 = (ci % tiles) * mt, w = min(mt, m - c0);
+  lu += (size_t)sys * n * n;
+  b += (size_t)sys * n * m;
+  x += (size_t)sys * n * m;
+  const int S = (n + kStrip - 1) / kStrip;
+  const StripPairs sp{S, C};
+  const int nslots = narrow_slots(n, C), lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int tid = threadIdx.x, nt = blockDim.x, span = kStrip * mt;
+  float* own = smem;                               // own[(slot * 32 + r) * mt + c]
+  float* recv = smem + (size_t)nslots * span;      // recv[(t % 3) * span + r * mt + c]
+  for (int idx = tid; idx < nslots * span; idx += nt) {
+    const int slot = idx / span, r = idx % span / mt, c = idx % mt;
+    const int s = sp.strip(rank, slot), i = s * kStrip + r;
+    own[idx] = (s >= 0 && i < n && c < w) ? b[(size_t)i * m + c0 + c] : 0.f;
   }
   __syncthreads();
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
+  cluster_arrive();  // every CTA runs before any writes another's shared memory
+  cluster_wait();
   const unsigned full = 0xffffffffu;
+  const bool tri_warp = warp < w;  // warp w carries column w through its strips' triangles
 
-  // forward: L y = b, unit diagonal; y_i -= l_ik * y_k in increasing k
-  for (int k0 = 0; k0 < n; k0 += kStrip) {
-    const int row = k0 + lane;
-    const bool live = row < n;
-    float lr[kStrip];
+  // The triangle of link t's strip, by its owner's warps: first the terms of
+  // link t-1's strip (from `prev`, the solved values; none at t = 0 and at
+  // the first backward link t = S), then the strip's own; the result into
+  // the own slot and every CTA's receive buffer t % 3.
+  auto solve_link = [&](int t, const float* prev, const float* cross, const float* tri, float piv) {
+    const int s = link_strip(t, S), k0 = s * kStrip, row = k0 + lane, top = min(kStrip, n - k0);
+    const bool fwd = t < S;
+    float* mine = own + (size_t)(sp.slot(s) * kStrip + lane) * mt + warp;
+    float v = *mine;
+    if (prev) {
+      const int kp = link_strip(t - 1, S) * kStrip;
+      if (fwd) {
 #pragma unroll
-    for (int l = 0; l < kStrip; ++l) lr[l] = (live && l < lane) ? lu[(size_t)row * n + k0 + l] : 0.f;
-    // the strip's triangle: a warp carries up to kColsInFlight columns at once
-    for (int cb = warp; cb < w; cb += kColsInFlight * nwarps) {
-      float yr[kColsInFlight];
+        for (int l = 0; l < kStrip; ++l) v = __fsub_rn(v, __fmul_rn(cross[l], prev[l * mt + warp]));
+      } else {
 #pragma unroll
-      for (int q = 0; q < kColsInFlight; ++q) {
-        const int c = cb + q * nwarps;
-        yr[q] = c < w ? ys[c * ld + row] : 0.f;
+        for (int l = kStrip - 1; l >= 0; --l)
+          if (kp + l < n) v = __fsub_rn(v, __fmul_rn(cross[l], prev[l * mt + warp]));
       }
+    }
+    if (fwd) {
 #pragma unroll
       for (int l = 0; l < kStrip - 1; ++l) {
-#pragma unroll
-        for (int q = 0; q < kColsInFlight; ++q) {
-          const float v = __shfl_sync(full, yr[q], l);
-          if (l < lane) yr[q] = __fsub_rn(yr[q], __fmul_rn(lr[l], v));
-        }
+        const float y = __shfl_sync(full, v, l);
+        if (l < lane) v = __fsub_rn(v, __fmul_rn(tri[l], y));
       }
-#pragma unroll
-      for (int q = 0; q < kColsInFlight; ++q) {
-        const int c = cb + q * nwarps;
-        if (c < w && live) ys[c * ld + row] = yr[q];
-      }
-    }
-    __syncthreads();
-    // the rows below the strip
-    for (int i = k0 + kStrip + threadIdx.x; i < n; i += blockDim.x) {
-      float li[kStrip];
-#pragma unroll
-      for (int l = 0; l < kStrip; ++l) li[l] = lu[(size_t)i * n + k0 + l];
-      for (int cb = 0; cb < w; cb += kColsInFlight) {
-        float acc[kColsInFlight];
-#pragma unroll
-        for (int q = 0; q < kColsInFlight; ++q)
-          acc[q] = cb + q < w ? ys[(cb + q) * ld + i] : 0.f;
-#pragma unroll
-        for (int l = 0; l < kStrip; ++l) {
-#pragma unroll
-          for (int q = 0; q < kColsInFlight; ++q)
-            if (cb + q < w) acc[q] = __fsub_rn(acc[q], __fmul_rn(li[l], ys[(cb + q) * ld + k0 + l]));
-        }
-#pragma unroll
-        for (int q = 0; q < kColsInFlight; ++q)
-          if (cb + q < w) ys[(cb + q) * ld + i] = acc[q];
-      }
-    }
-    __syncthreads();
-  }
-
-  // backward: U x = y; x_i -= u_ik * x_k in decreasing k, then x_i / u_ii
-  for (int k0 = (n - 1) / kStrip * kStrip; k0 >= 0; k0 -= kStrip) {
-    const int row = k0 + lane;
-    const bool live = row < n;
-    const int top = min(kStrip, n - k0);  // rows of this strip inside the matrix
-    float ur[kStrip];
-#pragma unroll
-    for (int l = 0; l < kStrip; ++l)
-      ur[l] = (live && l > lane && l < top) ? lu[(size_t)row * n + k0 + l] : 0.f;
-    const float piv = live ? lu[(size_t)row * n + row] : 1.f;
-    for (int cb = warp; cb < w; cb += kColsInFlight * nwarps) {
-      float xr[kColsInFlight];
-#pragma unroll
-      for (int q = 0; q < kColsInFlight; ++q) {
-        const int c = cb + q * nwarps;
-        xr[q] = c < w ? ys[c * ld + row] : 0.f;
-      }
+    } else {
 #pragma unroll
       for (int l = kStrip - 1; l >= 0; --l) {
-#pragma unroll
-        for (int q = 0; q < kColsInFlight; ++q) {
-          if (lane == l) xr[q] = __fdiv_rn(xr[q], piv);
-          const float v = __shfl_sync(full, xr[q], l);
-          if (l > lane && l < top) xr[q] = __fsub_rn(xr[q], __fmul_rn(ur[l], v));
-        }
-      }
-#pragma unroll
-      for (int q = 0; q < kColsInFlight; ++q) {
-        const int c = cb + q * nwarps;
-        if (c < w && live) ys[c * ld + row] = xr[q];
+        if (lane == l) v = __fdiv_rn(v, piv);
+        const float xk = __shfl_sync(full, v, l);
+        if (l > lane && l < top) v = __fsub_rn(v, __fmul_rn(tri[l], xk));
       }
     }
-    __syncthreads();
-    // the rows above the strip
-    for (int i = threadIdx.x; i < k0; i += blockDim.x) {
-      float ui[kStrip];
+    if (row < n) *mine = v;
+    else v = 0.f;
+    float* dst = recv + (t % 3) * span + lane * mt + warp;
+    for (int r = 0; r < C; ++r) *cluster.map_shared_rank(dst, r) = v;
+  };
+  // the factor blocks a triangle warp needs for link t: the previous strip's
+  // columns (cross) and the strip's own (tri, piv), loaded ahead of the wait
+  float cross[kStrip], tri[kStrip], piv = 1.f;
+  auto load_link = [&](int t) {
+    const int s = link_strip(t, S), k0 = s * kStrip, row = k0 + lane;
+    const bool fwd = t < S;
+    const float* r = lu + (size_t)min(row, n - 1) * n;
+    if (t > 0 && t != S) {
+      load_strip_row(cross, r, link_strip(t - 1, S) * kStrip, n, vec);
+      if (row >= n)
 #pragma unroll
-      for (int l = 0; l < kStrip; ++l) ui[l] = l < top ? lu[(size_t)i * n + k0 + l] : 0.f;
-      for (int cb = 0; cb < w; cb += kColsInFlight) {
-        float acc[kColsInFlight];
-#pragma unroll
-        for (int q = 0; q < kColsInFlight; ++q)
-          acc[q] = cb + q < w ? ys[(cb + q) * ld + i] : 0.f;
-#pragma unroll
-        for (int l = kStrip - 1; l >= 0; --l) {
-#pragma unroll
-          for (int q = 0; q < kColsInFlight; ++q)
-            if (cb + q < w && l < top)
-              acc[q] = __fsub_rn(acc[q], __fmul_rn(ui[l], ys[(cb + q) * ld + k0 + l]));
-        }
-#pragma unroll
-        for (int q = 0; q < kColsInFlight; ++q)
-          if (cb + q < w) ys[(cb + q) * ld + i] = acc[q];
-      }
+        for (int l = 0; l < kStrip; ++l) cross[l] = 0.f;
     }
-    __syncthreads();
-  }
+    load_strip_row(tri, r, k0, n, vec);
+#pragma unroll
+    for (int l = 0; l < kStrip; ++l) {
+      const bool keep = row < n && (fwd ? l < lane : l > lane);
+      if (!keep) tri[l] = 0.f;
+    }
+    piv = row < n ? __ldg(r + row) : 1.f;
+  };
 
-  for (int idx = threadIdx.x; idx < w * n; idx += blockDim.x) {
-    const int i = idx / w, c = idx % w;
-    x[(size_t)i * m + c0 + c] = ys[c * ld + i];
+  if (sp.owner(0) == rank && tri_warp) {
+    load_link(0);
+    solve_link(0, nullptr, cross, tri, piv);
+  }
+  cluster_arrive_release();
+  for (int t = 0; t < 2 * S; ++t) {
+    const bool next = t + 1 < 2 * S;
+    const int s1 = next ? link_strip(t + 1, S) : -1;
+    const bool ahead = next && sp.owner(s1) == rank && tri_warp;
+    if (ahead) load_link(t + 1);
+    const int s = link_strip(t, S), k0 = s * kStrip;
+    const bool fwd = t < S;
+    cluster_wait();  // link t's values are in recv[t % 3]
+    const float* v = recv + (t % 3) * span;
+    if (ahead) solve_link(t + 1, t + 1 == S ? nullptr : v, cross, tri, piv);
+    if (next) cluster_arrive_release();
+    // every own row the strip still reaches, but the next link's strip
+    for (int item = tid; item < nslots * kStrip; item += nt) {
+      const int slot = item / kStrip, r = item % kStrip, s2 = sp.strip(rank, slot);
+      const int i = s2 * kStrip + r;
+      if (s2 < 0 || s2 == s1 || i >= n || (fwd ? s2 <= s : s2 >= s)) continue;
+      float lrow[kStrip];
+      load_strip_row(lrow, lu + (size_t)i * n, k0, n, vec);
+      float* a = own + (size_t)item * mt;
+      for (int c = 0; c < w; ++c) {
+        float acc = a[c];
+        if (fwd) {
+#pragma unroll
+          for (int l = 0; l < kStrip; ++l) acc = __fsub_rn(acc, __fmul_rn(lrow[l], v[l * mt + c]));
+        } else {
+#pragma unroll
+          for (int l = kStrip - 1; l >= 0; --l)
+            if (k0 + l < n) acc = __fsub_rn(acc, __fmul_rn(lrow[l], v[l * mt + c]));
+        }
+        a[c] = acc;
+      }
+    }
+    __syncthreads();  // the own rows' values, for the next link's triangle
+  }
+  for (int idx = tid; idx < nslots * span; idx += nt) {
+    const int slot = idx / span, r = idx % span / mt, c = idx % mt;
+    const int s = sp.strip(rank, slot), i = s * kStrip + r;
+    if (s >= 0 && i < n && c < w) x[(size_t)i * m + c0 + c] = own[idx];
   }
 }
 
@@ -340,49 +658,16 @@ dim3 factor_block(int n) {
   return dim3(32, y);
 }
 
-constexpr int kClusterSizes[4] = {2, 4, 8, 16};
+RoomCache factor_room_cache, solve_room_cache;
 
-// a launch of `grid` CTAs of the cluster kernel in clusters of `csize`
-cudaLaunchConfig_t cluster_config(cudaLaunchAttribute* attr, int csize, int grid, size_t smem,
-                                  cudaStream_t stream) {
-  attr->id = cudaLaunchAttributeClusterDimension;
-  attr->val.clusterDim.x = csize;
-  attr->val.clusterDim.y = 1;
-  attr->val.clusterDim.z = 1;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(grid);
-  cfg.blockDim = dim3(kWalkThreads);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = stream;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  return cfg;
+// clusters of 2, 4, 8 and 16 CTAs of the factor's cluster kernel the
+// current device holds at once
+cudaError_t cluster_room(int room[4]) {
+  return cluster_room_of(batched_lu_cluster_kernel, kWalkThreads, kWalkSmem, factor_room_cache, room);
 }
 
-// How many clusters of 2, 4, 8 and 16 CTAs of the cluster kernel the current
-// device holds at once (one CTA an SM, and a cluster within one GPC), asked
-// once per device.
-cudaError_t cluster_room(int room[4]) {
-  constexpr int kMaxDevices = 64;
-  static std::atomic<int> cached[kMaxDevices][4];
-  int dev = 0;
-  cudaError_t err;
-  if ((err = cudaGetDevice(&dev))) return err;
-  if (dev < kMaxDevices && cached[dev][0].load()) {
-    for (int i = 0; i < 4; ++i) room[i] = cached[dev][i].load();
-    return cudaSuccess;
-  }
-  auto kernel = batched_lu_cluster_kernel;
-  if ((err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1))) return err;
-  if ((err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kWalkSmem))) return err;
-  for (int i = 0; i < 4; ++i) {
-    cudaLaunchAttribute attr;
-    const cudaLaunchConfig_t cfg = cluster_config(&attr, kClusterSizes[i], kClusterSizes[i], kWalkSmem, 0);
-    if ((err = cudaOccupancyMaxActiveClusters(&room[i], kernel, &cfg))) return err;
-  }
-  if (dev < kMaxDevices)
-    for (int i = 3; i >= 0; --i) cached[dev][i].store(room[i]);  // [0] last: it marks the entry filled
-  return cudaSuccess;
+cudaError_t solve_cluster_room(int room[4]) {
+  return cluster_room_of(batched_solve_cluster_kernel, kNarrowThreads, kSmemBytes, solve_room_cache, room);
 }
 
 // The factor's kernel for `batch` (n, n) systems on `sms` SMs that hold
@@ -401,19 +686,20 @@ int batched_plan(int batch, int n, int sms, const int room[4]) {
 cudaError_t launch_cluster(float* a, int batch, int n, int csize, cudaStream_t stream, int* plan) {
   const WalkPlan p = walk_plan(n, n, csize, sizeof(float));
   if (!p.bytes) return cudaErrorInvalidValue;
-  auto kernel = batched_lu_cluster_kernel;  // cluster_room allowed clusters of 16 on this device
-  cudaError_t err;
-  if ((err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)p.bytes)))
-    return err;
-  cudaLaunchAttribute attr;
-  const cudaLaunchConfig_t cfg = cluster_config(&attr, csize, batch * csize, p.bytes, stream);
-  int active = 0;
-  if ((err = cudaOccupancyMaxActiveClusters(&active, kernel, &cfg))) return err;
-  if (active < 1) return cudaErrorLaunchOutOfResources;  // the card cannot hold one such cluster
   plan[2] = p.theta;
   plan[3] = static_cast<int>(p.bytes);
-  plan[4] = active;
-  if ((err = cudaLaunchKernelEx(&cfg, kernel, a, n, p.theta, p.lbuf_at, p.rows_at))) return err;
+  return launch_cluster_kernel(batched_lu_cluster_kernel, csize, batch * csize, kWalkThreads, p.bytes,
+                               stream, &plan[4], a, n, p.theta, p.lbuf_at, p.rows_at);
+}
+
+template <int W>
+cudaError_t launch_wide(const float* lu, const float* b, float* x, int batch, int n, int m,
+                        size_t bytes, bool vec, cudaStream_t stream) {
+  auto kernel = batched_solve_wide_kernel<W>;
+  cudaError_t err;
+  if ((err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes)))
+    return err;
+  kernel<<<dim3((m + W - 1) / W, batch), kSolveThreads, bytes, stream>>>(lu, b, x, n, m, vec);
   return cudaGetLastError();
 }
 
@@ -462,23 +748,55 @@ extern "C" int ebv_batched_lu(void* a_ptr, int batch, int n, int* plan, void* st
 // cluster kernel the current device holds at once.
 extern "C" int ebv_batched_cluster_room(int* room) { return cluster_room(room); }
 
-// x (batch, n, m) = (LU)^-1 b per system on the packed (batch, n, n) factors;
-// one block per system and tile of rt <= 32 RHS columns.
-extern "C" int ebv_batched_lu_solve(const void* lu, const void* b, void* x, int batch, int n, int m,
-                                    int rt, void* stream_ptr, int* launches) {
+// The same for the solve's cluster kernel.
+extern "C" int ebv_batched_solve_cluster_room(int* room) { return solve_cluster_room(room); }
+
+// x (batch, n, m) = (LU)^-1 b per system on the packed (batch, n, n)
+// factors, in one launch of the plan kernels/batched_lu.py:batched_solve_plan
+// picks: path 1 wide (tiles of `cols` = 4, 8, 16, 32 or 64 RHS columns) or
+// 2 cluster (tiles of `cols` <= 16 columns, `ctas` CTAs a cluster).
+// plan[0..4]: the path, the tile's columns, the CTAs per (system, tile), the
+// shared memory bytes a CTA and, for a cluster, how many such clusters the
+// card holds at once.  A plan whose CTA does not fit shared memory returns
+// cudaErrorInvalidValue; a cluster the card cannot hold,
+// cudaErrorLaunchOutOfResources.
+extern "C" int ebv_batched_lu_solve(const void* lu_ptr, const void* b_ptr, void* x_ptr, int batch, int n,
+                                    int m, int path, int cols, int ctas, int* plan, void* stream_ptr,
+                                    int* launches) {
+  const float* lu = static_cast<const float*>(lu_ptr);
+  const float* b = static_cast<const float*>(b_ptr);
+  float* x = static_cast<float*>(x_ptr);
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   *launches = 0;
+  for (int i = 0; i < 5; ++i) plan[i] = 0;
   if (batch == 0 || n == 0 || m == 0) return 0;
-  const int n32 = (n + kStrip - 1) / kStrip * kStrip;
-  const size_t bytes = (size_t)rt * (n32 + 1) * sizeof(float);
+  const bool wide = path == 1 && (cols == 4 || cols == 8 || cols == 16 || cols == 32 || cols == 64);
+  const bool narrow = path == 2 && cols >= 1 && cols <= kNarrowCols && ctas >= 1;
+  if (!wide && !narrow) return cudaErrorInvalidValue;
+  const size_t bytes = wide ? wide_bytes(n, cols) : narrow_bytes(n, cols, ctas);
+  plan[0] = path;
+  plan[1] = cols;
+  plan[2] = wide ? 1 : ctas;
+  plan[3] = static_cast<int>(bytes);
+  if (bytes > (size_t)kSmemBytes) return cudaErrorInvalidValue;
+  // 16-byte rows: n a multiple of 4 and the factors 16-byte aligned
+  const bool vec = n % 4 == 0 && reinterpret_cast<uintptr_t>(lu) % 16 == 0;
   cudaError_t err;
-  if ((err = cudaFuncSetAttribute(batched_solve_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                  (int)bytes)))
-    return err;
-  const dim3 grid((m + rt - 1) / rt, batch);
-  batched_solve_kernel<<<grid, kSolveThreads, bytes, stream>>>(
-      static_cast<const float*>(lu), static_cast<const float*>(b), static_cast<float*>(x), n, m, rt);
-  if ((err = cudaGetLastError())) return err;
+  if (wide) {
+    switch (cols) {
+      case 4: err = launch_wide<4>(lu, b, x, batch, n, m, bytes, vec, stream); break;
+      case 8: err = launch_wide<8>(lu, b, x, batch, n, m, bytes, vec, stream); break;
+      case 16: err = launch_wide<16>(lu, b, x, batch, n, m, bytes, vec, stream); break;
+      case 32: err = launch_wide<32>(lu, b, x, batch, n, m, bytes, vec, stream); break;
+      default: err = launch_wide<64>(lu, b, x, batch, n, m, bytes, vec, stream); break;
+    }
+  } else {
+    const int tiles = (m + cols - 1) / cols;
+    if ((long long)batch * tiles * ctas > INT_MAX) return cudaErrorInvalidValue;
+    err = launch_cluster_kernel(batched_solve_cluster_kernel, ctas, batch * tiles * ctas, kNarrowThreads,
+                                bytes, stream, &plan[4], lu, b, x, n, m, cols, tiles, (int)vec);
+  }
+  if (err) return err;
   ++*launches;
   return 0;
 }

@@ -7,7 +7,13 @@ their plain PyTorch versions.
                                     bands too wide for it).
 * :func:`banded_lu_tiled`         — one launch per block step of ``C``
                                     pivots, in stream order, each staging its
-                                    slab of the band through shared memory.
+                                    slab of the band through shared memory;
+                                    past bw = 32, or where no block holds
+                                    the slab, one launch of a thread-block
+                                    cluster that
+                                    keeps the band's active rows in its
+                                    CTAs' shared memory and retires the
+                                    pivots in groups (:func:`tiled_plan`).
 * :func:`banded_lu_kernelized`    — the legacy scalar-sequential factor:
                                     the one-launch walk of
                                     :func:`banded_lu_blocked` with each pivot
@@ -42,6 +48,7 @@ its C driver reports.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -55,11 +62,23 @@ from .trsm import _as_matrix, _check_cuda, _f32
 __all__ = [
     "banded_lu_blocked", "banded_lu_tiled", "banded_lu_kernelized", "banded_solve_kernelized",
     "banded_solve_inverted", "batched_banded_lu_vmem", "batched_banded_solve_vmem",
-    "banded_lu_plain", "banded_lu_scalar_plain", "tiled_launches",
+    "banded_lu_plain", "banded_lu_scalar_plain", "tiled_launches", "BandClusterPlan",
+    "band_cluster_plan", "tiled_plan", "slab_fits", "band_tiled_fits", "BAND_SMEM",
+    "BAND_CLUSTER_MIN_BW",
 ]
 
 _WARP_COLS = 32  # RHS columns (one warp each) a banded_solve_kernelized block takes at most
 _MAX_SOLVE_BATCH = 65535  # systems of one batched solve launch (the grid's y extent)
+BAND_SMEM = 232_448  # dynamic shared memory one H100 block may use (kSmemBytes)
+CLUSTER_THREADS = 512  # a CTA of the cluster walk: a thread for each of a panel's rows (kClusterThreads)
+# (K, g) the cluster walk tries in turn, fastest first at the Poisson band in
+# chip_smoke.py's sweep (launch/time_kernels.py:band_cluster_sweep)
+CLUSTER_ORDER = ((16, 16), (16, 8), (8, 16), (16, 32), (8, 32), (8, 8), (4, 16), (4, 8),
+                 (2, 16), (2, 8), (2, 32))
+CLUSTER_GROUPS = (8, 16, 32)  # the pivots a group the cluster walk is built for
+# From this half width the cluster walk beats the slab steps even where the
+# slab fits a block (launch/time_kernels.py:band_walk_crossover, PERF.md)
+BAND_CLUSTER_MIN_BW = 33
 
 
 def _launch(wrapper, fn_name: str, device, *args) -> None:
@@ -95,8 +114,80 @@ def banded_lu_plain(arow: torch.Tensor, *, bw: int, block: int | None = None) ->
     return _banded_lu_plain(arow, bw=bw, block=block)
 
 
+class BandClusterPlan(NamedTuple):
+    """The cluster walk of :func:`banded_lu_tiled`: ``ctas`` (K), ``group``
+    (g pivots a group), ``ring_rows`` a CTA holds and its shared-memory
+    ``bytes``."""
+    ctas: int
+    group: int
+    ring_rows: int
+    bytes: int
+
+
+def _slab_bytes(rows: int, bw: int) -> int:
+    return (rows * (2 * bw + 1) + 2 * bw) * 4
+
+
+def _cluster_bytes(bw: int, k: int, g: int) -> tuple[int, int]:
+    """(ring rows, bytes) of a CTA of the cluster walk: the ring, 16-byte
+    aligned, then three panels' pivot rows (stride round4(g + bw)), two
+    panels' columns of the rows below (stride g + 1) and their multipliers."""
+    rows = -(-(2 * g + bw) // k)
+    up = -(-rows * (2 * bw + 1) * 4 // 16) * 16
+    ldu = -(-(g + bw) // 4) * 4
+    return rows, up + 4 * (3 * g * ldu + 3 * (g + bw) * (g + 1))
+
+
+def band_cluster_plan(bw: int, *, ctas: int | None = None, group: int | None = None) -> BandClusterPlan:
+    """The cluster walk's K CTAs and g pivots a group for a band of half
+    width ``bw``: ``ctas`` and ``group`` where given, else the first pair of
+    :data:`CLUSTER_ORDER` whose CTA fits shared memory, with g in
+    :data:`CLUSTER_GROUPS`, at most bw, and a thread for each of a panel's
+    g + bw rows.  Raises ``ValueError`` where none fits."""
+    for k, g in CLUSTER_ORDER:
+        k, g = ctas or k, group or g
+        rows, nbytes = _cluster_bytes(bw, k, g)
+        if g in CLUSTER_GROUPS and g <= bw and g + bw <= CLUSTER_THREADS and nbytes <= BAND_SMEM:
+            return BandClusterPlan(k, g, rows, nbytes)
+        if ctas and group:
+            break
+    raise ValueError(f"band_cluster_plan: no cluster of {ctas or 'any'} CTAs and groups of "
+                     f"{group or 'any'} pivots holds bw={bw} in shared memory")
+
+
+def slab_fits(n: int, bw: int, block: int | None = None) -> bool:
+    """Whether one block step's ``(C + bw, 2bw + 1)`` slab fits one block's
+    shared memory (bw up to 84 at the default C = 256)."""
+    return _slab_bytes(band_block_size(n, bw, block) + bw, bw) <= BAND_SMEM
+
+
+def tiled_plan(n: int, bw: int, block: int | None = None) -> BandClusterPlan | None:
+    """The cluster walk :func:`banded_lu_tiled` launches for the band, or
+    None for the per-step slab launches: where the slab fits and the band is
+    narrower than :data:`BAND_CLUSTER_MIN_BW`.  Raises ``ValueError`` where
+    neither fits (bw past ~490)."""
+    if bw < BAND_CLUSTER_MIN_BW and slab_fits(n, bw, block):
+        return None
+    return band_cluster_plan(bw)
+
+
+def band_tiled_fits(n: int, bw: int, block: int | None = None) -> bool:
+    """Whether :func:`banded_lu_tiled` takes the band: its slab steps, or a
+    cluster walk that fits (bw up to ~490)."""
+    try:
+        tiled_plan(n, bw, block)
+    except ValueError:
+        return False
+    return True
+
+
 def tiled_launches(n: int, bw: int, block: int | None = None) -> int:
-    """Launches :func:`banded_lu_tiled` should make: one per block step."""
+    """Launches :func:`banded_lu_tiled` should make: one per block step, or
+    one for the cluster walk; none for an empty band."""
+    if n == 0:
+        return 0
+    if tiled_plan(n, bw, block) is not None:
+        return 1
     return -(-n // band_block_size(n, bw, block))
 
 
@@ -118,17 +209,37 @@ banded_lu_blocked.launches = 0
 def banded_lu_tiled(arow: torch.Tensor, *, bw: int, block: int | None = None) -> torch.Tensor:
     """Packed no-pivot LU of the row-aligned band in ``ceil(n/C)``
     launches, one per block step of ``C = band_block_size(n, bw, block)``
-    pivots, in stream order."""
+    pivots, in stream order; from bw = :data:`BAND_CLUSTER_MIN_BW`, or
+    where a step's slab fits no block, in one launch of the cluster walk
+    (:func:`tiled_plan`).  The C entry's report (path 0 steps / 1 cluster,
+    K, g, ring rows, shared-memory bytes a CTA, clusters the card holds at
+    once) in ``banded_lu_tiled.last_plan``."""
     if arow.device.type == "cpu":
         return banded_lu_plain(arow, bw=bw, block=block)
+    n = arow.shape[0]
+    return _lu_tiled(arow, bw=bw, block=block, plan=tiled_plan(n, bw, block) if n else None)
+
+
+def _lu_tiled(arow: torch.Tensor, *, bw: int, block: int | None = None,
+              plan: BandClusterPlan | None = None) -> torch.Tensor:
+    """:func:`banded_lu_tiled` on the card by the slab steps (``plan``
+    None) or the cluster walk ``plan``, whichever :func:`tiled_plan` would
+    pick, so that the tests and the sweeps can launch either path."""
     work = _band_copy("banded_lu_tiled", arow, bw)
     n = work.shape[0]
-    _launch(banded_lu_tiled, "ebv_band_lu_steps", arow.device, work.data_ptr(), n, bw,
-            band_block_size(n, bw, block))
+    got = (ctypes.c_int * 6)()
+    try:
+        if n:  # an empty band: nothing to launch
+            _launch(banded_lu_tiled, "ebv_band_lu_steps", arow.device, work.data_ptr(), n, bw,
+                    band_block_size(n, bw, block), plan.ctas if plan else 0, plan.group if plan else 0,
+                    got)
+    finally:
+        banded_lu_tiled.last_plan = tuple(got)
     return work
 
 
 banded_lu_tiled.launches = 0
+banded_lu_tiled.last_plan = None
 
 
 def banded_lu_kernelized(arow: torch.Tensor, *, bw: int) -> torch.Tensor:

@@ -1,8 +1,15 @@
 """Time the dense factor B1 (``kernels/ebv_lu.py:lu_fused``) and the rank-k
 update B14 (``kernels/ebv_lu.py:update``) on the card, beside their library
-calls (``torch.linalg.lu_factor(pivot=False)``, ``torch.addmm``), and the
+calls (``torch.linalg.lu_factor(pivot=False)``, ``torch.addmm``), the
 dense solve B2 (``kernels/trsm.py:solve_vmem``) against the fewest rows a
-block its plan takes (``trsm.VMEM_MIN_ROWS``, 32; 1 gives one block per SM).
+block its plan takes (``trsm.VMEM_MIN_ROWS``, 32; 1 gives one block per SM),
+the batched solve B10 (``kernels/batched_lu.py:batched_lu_solve_vmem``) on
+each path and cluster size beside batched ``lu_solve``
+(:func:`batched_solve_sweep`), and the wide-band factor B6's cluster walk
+(``kernels/banded.py:banded_lu_tiled``) at the Poisson band over its CTAs K
+and pivots a group g (:func:`band_cluster_sweep`) and against its slab
+steps on narrower bands (:func:`band_walk_crossover`); ``chip_smoke.py``
+runs the sweeps once.
 
     PYTHONPATH=src python src/repro_torch/launch/time_kernels.py
 
@@ -25,6 +32,12 @@ BACK_TO_BACK = 20
 FACTOR_SIZES = (500, 2000, 8000)
 UPDATE_SHAPE = (1792, 256, 1792)  # (m, k, w): chip_smoke.py's B14 row
 SOLVE_SIZES, SOLVE_WIDTHS, LEAST_ROWS = (500, 2000), (1, 64), (1, 16, 32, 64)
+# B6's cluster walk: K CTAs and g pivots a group (kernels/banded.py:CLUSTER_ORDER)
+BAND_CTAS, BAND_GROUPS = (2, 4, 8, 16), (8, 16, 32)
+SLAB_BANDS = (16, 32, 33, 36, 64)  # bands whose slab fits one block: B6's slab steps against its cluster walk
+# B10: (B, n, m) on either side of the plan's split between its two paths
+SOLVE_SPLIT = ((8, 1024, 1), (8, 1024, 16), (8, 1024, 64), (8, 1024, 1024), (32, 256, 1), (32, 256, 16),
+               (32, 256, 256), (8, 128, 1), (8, 128, 128), (2, 384, 51968))
 
 
 def timed(fn) -> tuple[float, float]:
@@ -46,6 +59,119 @@ def timed(fn) -> tuple[float, float]:
     end.record()
     end.synchronize()
     return statistics.median(times), start.elapsed_time(end) / BACK_TO_BACK
+
+
+def poisson_band(nx: int, device) -> torch.Tensor:
+    """The 5-point Laplacian of an nx x nx grid with diagonal 4.05
+    (examples/cfd_poisson.py) in row-aligned band form, bw = nx."""
+    n, bw = nx * nx, nx
+    i = torch.arange(n, device=device)
+    one = torch.ones(n, device=device)
+    a = torch.zeros((n, 2 * bw + 1), device=device)
+    a[:, bw] = 4.05
+    a[:, bw - 1] = torch.where(i % nx > 0, -one, 0 * one)
+    a[:, bw + 1] = torch.where(i % nx < nx - 1, -one, 0 * one)
+    a[:, 0] = torch.where(i >= nx, -one, 0 * one)
+    a[:, 2 * bw] = torch.where(i < n - nx, -one, 0 * one)
+    return a
+
+
+def band_cluster_sweep(a: torch.Tensor, bw: int) -> dict:
+    """{(K, g): (ms one call, ms back to back)} of B6's cluster walk on the
+    band ``a`` for every K and g whose CTA fits shared memory (the others
+    print why not), each checked bitwise against the plan's own choice."""
+    from repro_torch.kernels import banded
+
+    n = a.shape[0]
+    want = banded.banded_lu_tiled(a, bw=bw)
+    out = {}
+    for k in BAND_CTAS:
+        for g in BAND_GROUPS:
+            try:
+                plan = banded.band_cluster_plan(bw, ctas=k, group=g)
+            except ValueError as err:
+                print(f"    banded_lu_tiled n={n} bw={bw} K={k:2d} g={g:2d}: {err}", flush=True)
+                continue
+            got = banded._lu_tiled(a, bw=bw, plan=plan)
+            if not torch.equal(got, want):
+                raise RuntimeError(f"banded_lu_tiled K={k} g={g} differs from the plan's own")
+            out[(k, g)] = timed(lambda: banded._lu_tiled(a, bw=bw, plan=plan))
+            t1, t20 = out[(k, g)]
+            print(f"    banded_lu_tiled n={n} bw={bw} K={k:2d} g={g:2d}: {t1:.3f} / {t20:.3f} ms "
+                  f"(one call / back to back), {1e3 * t1 / n:.3f} us a pivot, "
+                  f"{1e3 * t1 / -(-n // g):.2f} us a group", flush=True)
+    return out
+
+
+def band_walk_crossover(n: int = 16384, bws=SLAB_BANDS) -> dict:
+    """{bw: {label: (ms one call, ms back to back)}} of B6 on bands whose
+    slab fits one block: its slab steps beside the cluster walk at every K
+    and g that fits, each checked bitwise against the plain version; the
+    plan takes the slab steps below ``banded.BAND_CLUSTER_MIN_BW``, where
+    they are faster."""
+    from repro_torch.kernels import banded
+
+    dev = torch.device("cuda")
+    out = {}
+    for bw in bws:
+        g = torch.Generator(device=dev).manual_seed(900 + bw)
+        a = torch.rand((n, 2 * bw + 1), generator=g, device=dev) * 2 - 1
+        j = torch.arange(n, device=dev)[:, None] - bw + torch.arange(2 * bw + 1, device=dev)
+        a = torch.where((j >= 0) & (j < n), a, 0.0)  # a band: zero outside the matrix
+        a[:, bw] = a.abs().sum(dim=1) + 1
+        want = banded.banded_lu_plain(a, bw=bw)
+        runs = {"slab steps": None}
+        for k in BAND_CTAS:
+            for grp in BAND_GROUPS:
+                try:
+                    runs[f"K={k} g={grp}"] = banded.band_cluster_plan(bw, ctas=k, group=grp)
+                except ValueError:
+                    pass
+        cells = out[bw] = {}
+        for label, plan in runs.items():
+            if label == "slab steps" and not banded.slab_fits(n, bw):
+                continue  # no slab of this band fits a block
+            if not torch.equal(banded._lu_tiled(a, bw=bw, plan=plan), want):
+                raise RuntimeError(f"banded_lu_tiled n={n} bw={bw} {label} differs from its plain version")
+            cells[label] = timed(lambda: banded._lu_tiled(a, bw=bw, plan=plan))
+        best = min((v[0], k) for k, v in cells.items() if k != "slab steps")
+        print(f"    banded_lu_tiled n={n} bw={bw}, one call / back to back: "
+              + "; ".join(f"{k} {v[0]:.4f} / {v[1]:.4f}" for k, v in cells.items())
+              + f"; fastest cluster walk {best[1]} {best[0]:.4f}", flush=True)
+    return out
+
+
+def batched_solve_sweep(lu: torch.Tensor, b: torch.Tensor) -> dict:
+    """{label: (ms one call, ms back to back)} of B10 on ``lu``, ``b``
+    (``(B, n)`` or ``(B, n, m)``) on the wide path and on clusters of each
+    size that fits, beside batched ``lu_solve`` with identity pivots, each
+    checked bitwise against the plain version."""
+    from repro_torch.kernels import batched_lu
+
+    b = b[..., None] if b.ndim == 2 else b
+    bsz, n, m = b.shape
+    sms = torch.cuda.get_device_properties(lu.device).multi_processor_count
+    room = batched_lu.solve_cluster_room(lu.device)
+    want = batched_lu.batched_lu_solve_plain(lu, b)
+    runs = [("wide", "wide", None)] + [(f"cluster of {c}", "cluster", c) for c in (2, 4, 8, 16)]
+    out = {}
+    for label, path, c in runs:
+        try:
+            plan = batched_lu.batched_solve_plan(bsz, n, m, sms, room, path, c)
+            got = batched_lu._solve(lu, b, plan)
+        except (ValueError, RuntimeError) as err:  # no such CTA fits, or the card holds no such cluster
+            print(f"    batched_lu_solve_vmem B={bsz} n={n} m={m} {label}: {err}", flush=True)
+            continue
+        if not torch.equal(got, want):
+            raise RuntimeError(f"batched_lu_solve_vmem B={bsz} n={n} m={m} {label} differs from its plain version")
+        out[label] = timed(lambda: batched_lu._solve(lu, b, plan))
+    piv = torch.arange(1, n + 1, dtype=torch.int32, device=lu.device).expand(bsz, n).contiguous()
+    out["lu_solve"] = timed(lambda: torch.linalg.lu_solve(lu, piv, b))
+    plan = batched_lu.batched_solve_plan(bsz, n, m, sms, room)
+    print(f"    batched_lu_solve_vmem B={bsz} n={n} m={m} (plan: {plan.path}, {plan.cols} columns a tile, "
+          f"{plan.ctas} CTA(s)), one call / back to back: "
+          + "; ".join(f"{k} {v[0]:.4f} / {v[1]:.4f}" for k, v in out.items()), flush=True)
+    return out
 
 
 def main() -> int:
@@ -71,6 +197,19 @@ def main() -> int:
     k1, k20 = timed(lambda: ebv_lu.update(l21, u12, a22))
     l1, l20 = timed(lambda: torch.addmm(a22, l21, u12, alpha=-1))
     print(f"update {UPDATE_SHAPE}: {k1:.4f} ms, {k20:.4f} back to back; addmm {l1:.4f}, {l20:.4f}", flush=True)
+    from repro_torch.kernels import batched_lu
+
+    if hasattr(batched_lu, "batched_solve_plan"):  # a tree with B10's two paths
+        for bsz, n, m in SOLVE_SPLIT:
+            g = torch.Generator(device=dev).manual_seed(n + m)
+            a = torch.rand((bsz, n, n), generator=g, device=dev) * 2 - 1
+            a.diagonal(dim1=-2, dim2=-1).copy_(a.abs().sum(dim=-1) + 1)
+            batched_solve_sweep(batched_lu.batched_lu_vmem(a), torch.randn((bsz, n, m), generator=g, device=dev))
+    from repro_torch.kernels import banded
+
+    if hasattr(banded, "tiled_plan"):  # a tree with B6's cluster walk
+        band_cluster_sweep(poisson_band(256, dev), 256)
+        band_walk_crossover()
     if not hasattr(trsm, "VMEM_MIN_ROWS"):  # a tree whose B2 has no such plan
         return 0
     least0, sms = trsm.VMEM_MIN_ROWS, torch.cuda.get_device_properties(dev).multi_processor_count

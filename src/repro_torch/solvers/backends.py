@@ -266,7 +266,7 @@ register(Backend(
 register(Backend(
     name="cuda_tiled", op="factor", structure="banded",
     call=lambda p, arow, *, bw, block=None, **_: _kbanded.banded_lu_tiled(arow, bw=bw, block=block),
-    supports=lambda p: _is_f32(p) and _local(p),
+    supports=lambda p: _is_f32(p) and _local(p) and _kbanded.band_tiled_fits(p.n, p.bw),
     priority=lambda p: 1.0,
 ))
 register(Backend(
@@ -379,7 +379,7 @@ register(Backend(
 register(Backend(
     name="cuda_vmem", op="solve", structure="batched_dense",
     call=lambda p, lu, b, **_: _kbatched.batched_lu_solve_vmem(_packed(lu), b),
-    supports=lambda p: _is_f32(p) and _local(p) and _kbatched.solve_rhs_tile(p.n, 1) >= 1,
+    supports=lambda p: _is_f32(p) and _local(p) and _kbatched.batched_solve_fits(p.n),
     priority=lambda p: 2.0,
 ))
 register(Backend(

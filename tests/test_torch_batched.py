@@ -384,9 +384,12 @@ def test_the_ported_batched_caps_depart_from_the_reference(kw):
 
 
 def test_batched_solve_cap_follows_one_columns_tile():
-    fits = solvers.Problem(op="solve", structure="batched_dense", n=58080, batch=1, rhs=1)
-    past = solvers.Problem(op="solve", structure="batched_dense", n=58081, batch=1, rhs=1)
-    assert kbatched.solve_rhs_tile(58080, 1) == 1 and kbatched.solve_rhs_tile(58081, 1) == 0
+    # one RHS column on a cluster of 16 CTAs, each holding its strips' values
+    # in shared memory (kernels/batched_lu.py:batched_solve_plan)
+    fits = solvers.Problem(op="solve", structure="batched_dense", n=927744, batch=1, rhs=1)
+    past = solvers.Problem(op="solve", structure="batched_dense", n=927745, batch=1, rhs=1)
+    assert kbatched.batched_solve_plan(1, 927744, 1) == ("cluster", 1, 16, 232320)
+    assert kbatched.batched_solve_fits(927744) and not kbatched.batched_solve_fits(927745)
     assert solvers.select(fits).name == "cuda_vmem" and solvers.select(past).name == "torch"
 
 

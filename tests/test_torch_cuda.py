@@ -305,6 +305,58 @@ def test_band_factor_kernels_match_plain(n, bw, card):
     assert torch.equal(got_blocked, plain) and torch.equal(got_tiled, plain)
 
 
+# the cluster walk of the tiled factor (bands whose slab no block holds):
+# n = bw - 1, bw + 1, several groups, and a ragged last group past 4096
+@pytest.mark.parametrize("n_of", [lambda bw: bw - 1, lambda bw: bw + 1, lambda bw: 1000,
+                                  lambda bw: 4096 + 7])
+@pytest.mark.parametrize("bw", [169, 200, 256, 300])
+def test_band_cluster_walk_is_bitwise_the_plain_factor(bw, n_of, card):
+    n = n_of(bw)
+    a = torch.from_numpy(band_dd(n, bw, n + bw)).to(card)
+    before = banded.banded_lu_tiled.launches
+    got = banded.banded_lu_tiled(a, bw=bw)
+    assert banded.banded_lu_tiled.launches - before == banded.tiled_launches(n, bw) == 1
+    plan = banded.tiled_plan(n, bw)
+    path, k, g, rows, nbytes, active = banded.banded_lu_tiled.last_plan
+    assert (path, k, g, rows, nbytes) == (1, *plan) and active >= 1
+    torch.cuda.synchronize()
+    assert torch.equal(got, banded.banded_lu_plain(a, bw=bw))
+
+
+# every (K, g) whose CTA fits at the Poisson band's width
+@pytest.mark.parametrize("k,g", [(4, 8), (8, 8), (8, 16), (16, 8), (16, 16)])
+def test_band_cluster_walk_at_each_cluster_and_group(k, g, card):
+    a = torch.from_numpy(band_dd(2000, 256, 77)).to(card)
+    got = banded._lu_tiled(a, bw=256, plan=banded.band_cluster_plan(256, ctas=k, group=g))
+    assert banded.banded_lu_tiled.last_plan[1:3] == (k, g)
+    torch.cuda.synchronize()
+    assert torch.equal(got, banded.banded_lu_plain(a, bw=256))
+
+
+# the cluster walk on bands whose slab fits a block (forced up to bw = 32,
+# where the slab steps are faster; launch/time_kernels.py:band_walk_crossover):
+# the shootout band's width and two wider, g up to bw, a ragged last group
+@pytest.mark.parametrize("k,g", [(2, 8), (2, 16), (4, 16), (16, 8), (16, 16)])
+@pytest.mark.parametrize("bw", [16, 32, 64])
+def test_band_cluster_walk_on_bands_the_slab_steps_take(bw, k, g, card):
+    n = 1000 + bw + 3
+    a = torch.from_numpy(band_dd(n, bw, 81)).to(card)
+    assert banded.slab_fits(n, bw)
+    got = banded._lu_tiled(a, bw=bw, plan=banded.band_cluster_plan(bw, ctas=k, group=g))
+    assert banded.banded_lu_tiled.last_plan[:3] == (1, k, g)
+    torch.cuda.synchronize()
+    assert torch.equal(got, banded.banded_lu_plain(a, bw=bw))
+
+
+# an empty band of the Poisson width, and one too wide for any cluster
+@pytest.mark.parametrize("bw", [256, 600])
+def test_band_cluster_walk_takes_an_empty_band(bw, card):
+    a = torch.zeros((0, 2 * bw + 1), device=card)
+    before = banded.banded_lu_tiled.launches
+    assert banded.banded_lu_tiled(a, bw=bw).shape == (0, 2 * bw + 1)
+    assert banded.banded_lu_tiled.launches - before == banded.tiled_launches(0, bw) == 0
+
+
 @pytest.mark.parametrize("n,bw", BAND_SHAPES + [(16000, 5)])
 def test_scalar_band_factor_kernel_is_bitwise_its_plain_version(n, bw, card):
     """B18, one launch (the ring walk; device memory for bw = 200)."""
@@ -437,6 +489,92 @@ def test_batched_solve_kernel_is_bitwise_its_plain_version(bsz, n, m, card):
     torch.cuda.synchronize()
     assert got.shape == b.shape and torch.equal(got, batched_lu.batched_lu_solve_plain(lu, b))
     close(got, torch.from_numpy(ref.batched_solve_ref(lu.cpu().numpy(), b.cpu().numpy())))
+
+
+def solve_plan_matches(card, bsz, n, m, path=None):
+    """The C entry launched the plan its Python mirror names."""
+    want = batched_lu.batched_solve_plan(bsz, n, m, torch.cuda.get_device_properties(card).multi_processor_count,
+                                         batched_lu.solve_cluster_room(card), path)
+    kind, cols, ctas, nbytes, active = batched_lu.batched_lu_solve_vmem.last_plan
+    assert (("none", "wide", "cluster")[kind], cols, ctas, nbytes) == tuple(want)
+    assert active >= 1 or kind == 1
+
+
+def solve_on(card, lu, b, path):
+    """B10 on the plan's own path (``path`` None) or on the one forced."""
+    if path is None:
+        return batched_lu.batched_lu_solve_vmem(lu, b)
+    bsz, n, m = b.shape if b.ndim == 3 else (*b.shape, 1)
+    plan = batched_lu.batched_solve_plan(bsz, n, m, torch.cuda.get_device_properties(card).multi_processor_count,
+                                         batched_lu.solve_cluster_room(card), path)
+    return batched_lu._solve(lu, b, plan)
+
+
+# both paths and the plan's own choice at each side of its split: n = 1, a
+# ragged strip, one past a strip, the optimizer's order, odd strips, the
+# reference's cap; m = a vector, a few columns, past 32 and 64, wide
+@pytest.mark.parametrize("path", [None, "wide", "cluster"])
+@pytest.mark.parametrize("m", [1, 5, 33, 64, 1000])
+@pytest.mark.parametrize("n", [1, 31, 33, 384, 1000, 1024])
+def test_batched_solve_paths_are_bitwise_the_plain_version(n, m, path, card):
+    bsz = 2
+    lu = batched_lu.batched_lu_vmem(torch.from_numpy(dd_stack(bsz, n, n)).to(card))
+    b = torch.from_numpy(np.stack([rhs(n, m, 11 + i) for i in range(bsz)])).to(card)
+    before = batched_lu.batched_lu_solve_vmem.launches
+    got = solve_on(card, lu, b, path)
+    assert batched_lu.batched_lu_solve_vmem.launches == before + 1
+    solve_plan_matches(card, bsz, n, m, path)
+    torch.cuda.synchronize()
+    assert got.shape == b.shape and torch.equal(got, batched_lu.batched_lu_solve_plain(lu, b))
+
+
+# the batch from one system to more than the card's SMs, on each path
+@pytest.mark.parametrize("path", [None, "wide", "cluster"])
+@pytest.mark.parametrize("bsz,n,m", [(1, 384, 7), (8, 1024, 1), (8, 1024, 16), (32, 256, 1),
+                                     (140, 64, 3), (133, 100, 1)])
+def test_batched_solve_batches_are_bitwise_the_plain_version(bsz, n, m, path, card):
+    lu = batched_lu.batched_lu_vmem(torch.from_numpy(dd_stack(bsz, n, n + 5)).to(card))
+    b = torch.from_numpy(np.stack([rhs(n, m, 40 + i) for i in range(bsz)])).to(card)
+    before = batched_lu.batched_lu_solve_vmem.launches
+    got = solve_on(card, lu, b, path)
+    assert batched_lu.batched_lu_solve_vmem.launches == before + 1
+    solve_plan_matches(card, bsz, n, m, path)
+    torch.cuda.synchronize()
+    assert torch.equal(got, batched_lu.batched_lu_solve_plain(lu, b))
+
+
+# past n = 56320 a cluster's CTA holds fewer than 16 columns, so the plan
+# narrows the tile (16 columns in two tiles of 8 at n = 58080); the plain
+# column loop takes minutes at this order, so the reference is the two
+# sweeps by torch.linalg.solve_triangular on a well-conditioned packed factor
+def test_batched_solve_narrows_a_clusters_tile_at_large_n(card):
+    n, m = 58080, 16
+    gen = torch.Generator(device=card).manual_seed(n)
+    lu = torch.rand((1, n, n), generator=gen, device=card).mul_(2.0 / n).sub_(1.0 / n)
+    lu[0].diagonal().fill_(1.0)
+    b = torch.randn((1, n, m), generator=gen, device=card)
+    before = batched_lu.batched_lu_solve_vmem.launches
+    got = batched_lu.batched_lu_solve_vmem(lu, b)
+    assert batched_lu.batched_lu_solve_vmem.launches == before + 1
+    solve_plan_matches(card, 1, n, m)
+    assert batched_lu.batched_lu_solve_vmem.last_plan[:3] == (2, 8, 16)
+    y = torch.linalg.solve_triangular(lu[0], b[0], upper=False, unitriangular=True)
+    close(got[0], torch.linalg.solve_triangular(lu[0], y, upper=True))
+
+
+def test_a_cluster_the_card_cannot_hold_raises(card):
+    """Clusters of 32 CTAs: the launch is refused, and nothing falls back
+    to another kernel or to the plain version."""
+    lu = batched_lu.batched_lu_plain(torch.from_numpy(dd_stack(1, 256, 3)).to(card))
+    b = torch.from_numpy(rhs(256, 1, 4)[None]).to(card)
+    before = batched_lu.batched_lu_solve_vmem.launches
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        batched_lu._solve(lu, b, batched_lu.batched_solve_plan(1, 256, 1, path="cluster", ctas=32))
+    a = torch.from_numpy(band_dd(1000, 256, 5)).to(card)
+    tiled = banded.banded_lu_tiled.launches
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        banded._lu_tiled(a, bw=256, plan=banded.band_cluster_plan(256, ctas=32, group=8))
+    assert (batched_lu.batched_lu_solve_vmem.launches, banded.banded_lu_tiled.launches) == (before, tiled)
 
 
 def test_batched_solve_leaves_its_inputs_alone(card):
