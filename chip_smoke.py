@@ -19,7 +19,8 @@ Phases (any failure exits non-zero):
    diagonal tile) with 1 and 64 against ``solve_triangular``; B3 and
    B4 also at n = 1, 100 and 2049 with 1, 33 and 300 RHS columns; the band
    factors B5 and B6 bit for bit, B6 at the Poisson band on its cluster
-   walk); 3c the batched kernels (B9-B12) at the batched paths' shapes, B9
+   walk and at a bw = 600 band, past every cluster, on its device-memory
+   walk; B7 at every band with 1 and 64 RHS columns); 3c the batched kernels (B9-B12) at the batched paths' shapes, B9
    also where its plan changes, B10 also on both of its paths at shapes on
    either side of its plan's split (each plan checked against its Python
    mirror); 3d the legacy
@@ -29,7 +30,8 @@ Phases (any failure exits non-zero):
    inf positions against the plain version's), and the legacy
    scalar band factor (B18) at the band the service escalates to it; 3e the
    paged decode attention (B13) at the served shape and at a decode-heavy
-   one (32 rows of 4096 positions), fp32 and bf16, with holes;
+   one (32 rows of 4096 positions), fp32 and bf16, with holes, through its
+   wrapper and forced onto clusters of every size, 1 to 16 CTAs;
 4. the main paths, each with its kernels' launch counters set to 0 just
    before and read just after:
    - dense: ``repro_torch.kernels.ops.linear_solve`` at n = 500, 2000,
@@ -38,8 +40,9 @@ Phases (any failure exits non-zero):
    - banded: ``ops.banded_linear_solve`` on the paper's Table 1 bands
      (bw = 5, n = 500, 4000, 16000), the reference's banded shootout
      (n = 16384, bw = 16, m = 1 and 64) and the 5-point Poisson band of a
-     256 x 256 grid (n = 65536, bw = 256), then ``banded_lu(enrich=True)``
-     + ``banded_solve(impl="cuda_inverted")`` at n = 16384;
+     256 x 256 grid (n = 65536, bw = 256) and a bw = 600 band (n = 2000,
+     past every cluster of B6), then ``banded_lu(enrich=True)`` +
+     ``banded_solve(impl="cuda_inverted")`` at n = 16384;
    - batched dense (4c): ``ops.linear_solve`` on stacks (B, n) = (8, 128),
      (32, 256) (the reference's autotune grid) and (8, 1024) (its cap),
      m = 1 and n, plain and ``lu(enrich=True)`` + ``lu_solve``;
@@ -88,7 +91,10 @@ Phases (any failure exits non-zero):
    pivot and resident share; B10's plan and time a strip, and each of its
    paths and cluster sizes beside batched ``lu_solve``; B6's time a pivot
    and a group at the Poisson band over its CTAs and pivots a group, and
-   its slab steps against its cluster walk at bw = 16, 32 and 64
+   its slab steps against its cluster walk at bw = 16, 32 and 64; B7 at
+   Table 1's largest band, the shootout band (m = 64) and the Poisson band
+   over its warps a block and staged strips, beside the per-warp kernel
+   it replaced; B13 at both of its shapes over its CTAs a cluster
    (``src/repro_torch/launch/time_kernels.py``'s sweeps); the
    optimizer step's time; device time by kernel (B1, B3 and
    B4 at n = 8000 among them) and each dense factor and solve step's time
@@ -194,6 +200,9 @@ SERVE_REQS, SERVE_FLUSHES = 8, 4
 LM_ARCH, LM_SLOTS, LM_BUCKET, PAGE = "llama3_8b", 4, 16, 16
 LM_REQS, LM_MAX_LEN, SHARED_PREFIX, TEACHER_STEPS = 8, 576, 256, 8
 DECODE_HEAVY = (32, 256)  # rows x pages: 4096 positions a row
+# B6's device-memory walk: a band no cluster's CTAs hold (bw past ~490), and
+# the solve B7 on it (two staged strips); n = 2000 keeps the plain factor short
+PAST_CLUSTERS = (2000, 600)
 # B13 against its plain version, normwise: the sums run in another order;
 # in bf16 p and the output round to bf16 (one unit 2^-8)
 PAGED_TOL = {"float32": 1e-5, "bfloat16": 1e-2}
@@ -437,7 +446,8 @@ def main() -> int:
             (16000, 5, ("banded_lu_blocked",), (1,), False),
             (*SHOOTOUT, ("banded_lu_blocked", "banded_lu_tiled"), (1, WIDE), True),
             (4096, 256, ("banded_lu_blocked", "banded_lu_tiled"), (1, WIDE), True),
-            (pn, POISSON_NX, ("banded_lu_tiled",), (1,), False)):
+            (pn, POISSON_NX, ("banded_lu_tiled",), (1,), False),
+            (*PAST_CLUSTERS, ("banded_lu_tiled",), (1, WIDE), False)):
         a = apoisson if n == pn else band(n, bw, n + bw)
         plain, plain_ms = once(lambda: banded.banded_lu_plain(a, bw=bw))
         plain_once[f"n={n} bw={bw}"] = plain_ms
@@ -455,6 +465,7 @@ def main() -> int:
             shape = f"n={n} bw={bw} m={m}"
             want, plain_once[shape] = once(lambda: banded_solve_blocked(plain, b, bw=bw))
             compare("banded_solve_kernelized", shape, banded.banded_solve_kernelized(plain, b, bw=bw), want)
+            print(f"    plan {banded.banded_solve_kernelized.last_plan}", flush=True)
             if inverted:
                 compare("banded_solve_inverted", shape,
                         banded.banded_solve_inverted(f.linv, f.uinv, f.tlo, f.tup, b, n=n, bw=bw),
@@ -693,10 +704,17 @@ def main() -> int:
                 if np_ != served_np and h != mcfg.num_heads:
                     continue
                 args = paged_case(b, h, np_, dtype, 1500 + b + h)
+                want = paged_attn.paged_decode_attention_plain(*args)
                 compare("paged_decode_attention", f"B={b} NP={np_} rep={h // kvh} {dname}",
-                        paged_attn.paged_decode_attention(*args),
-                        paged_attn.paged_decode_attention_plain(*args), PAGED_TOL[dname])
-                del args
+                        paged_attn.paged_decode_attention(*args), want, PAGED_TOL[dname])
+                print(f"    plan {paged_attn.paged_decode_attention.last_plan}", flush=True)
+                if h == mcfg.num_heads:  # forced onto clusters of every size
+                    for k in time_kernels.PAGED_CTAS:
+                        plan = paged_attn.paged_plan(b, h, kvh, dh, np_, PAGE, args[0].element_size(), sms,
+                                                     ctas=k)
+                        compare("paged_decode_attention", f"B={b} NP={np_} K={k} {dname}",
+                                paged_attn._attend(*args, plan), want, PAGED_TOL[dname])
+                del args, want
 
     # ---- 4. the main paths -----------------------------------------------
     print("phase 4: main path", flush=True)
@@ -753,7 +771,7 @@ def main() -> int:
     factor_wrapper = {"cuda_blocked": "banded_lu_blocked", "cuda_tiled": "banded_lu_tiled"}
     bcases = ([(n, bw, 1, band(n, bw, 400 + n)) for n, bw in TABLE1]
               + [(*SHOOTOUT, m, band(*SHOOTOUT, 500)) for m in (1, WIDE)]
-              + [(pn, POISSON_NX, 1, apoisson)])
+              + [(pn, POISSON_NX, 1, apoisson), (*PAST_CLUSTERS, 1, band(*PAST_CLUSTERS, 450))])
     brhs = [rhs(n, m, 600 + n + m) for n, _, m, _ in bcases]
     a16, b16 = band(*SHOOTOUT, 700), rhs(SHOOTOUT[0], WIDE, 701)
     expected = dict.fromkeys(bwrappers, 0)
@@ -1507,7 +1525,8 @@ def main() -> int:
     for (n, bw), a in bands.items():
         # n (2bw^2 + bw) flops; the band read once and the factor written once
         work = (n * (2 * bw * bw + bw), 2 * n * (2 * bw + 1) * 4)
-        plain = timed(lambda: banded.banded_lu_plain(a, bw=bw)) if n != pn else plain_once[f"n={n} bw={bw}"]
+        plain = (timed(lambda: banded.banded_lu_plain(a, bw=bw)) if (n, bw) not in ((pn, POISSON_NX), PAST_CLUSTERS)
+                 else plain_once[f"n={n} bw={bw}"])  # one call, in phase 3
         for name in ("banded_lu_blocked", "banded_lu_tiled"):
             kernel = (lambda fn=bwrappers[name]: fn(a, bw=bw))
             record(name, f"n={n} bw={bw}", timed(kernel), plain, None, *work,
@@ -1518,7 +1537,7 @@ def main() -> int:
         # the two sweeps need ~4 n bw m flops; the factors, b and x cross once
         flops, nbytes = 4 * n * bw * m, n * (2 * bw + 1) * 4 + 2 * n * m * 4
         kernel = lambda: banded.banded_solve_kernelized(lu, b, bw=bw)
-        plain = (timed(lambda: banded_solve_blocked(lu, b, bw=bw)) if n != pn
+        plain = (timed(lambda: banded_solve_blocked(lu, b, bw=bw)) if (n, bw) not in ((pn, POISSON_NX), PAST_CLUSTERS)
                  else plain_once[f"n={n} bw={bw} m={m}"])
         record("banded_solve_kernelized", f"n={n} bw={bw} m={m}", timed(kernel), plain, None,
                flops, nbytes, per_call(banded.banded_solve_kernelized, kernel))
@@ -1788,6 +1807,11 @@ def main() -> int:
     print(f"  B6's slab steps against its cluster walk on bands whose slab fits a block (ms; card: {card}):",
           flush=True)
     time_kernels.band_walk_crossover()
+    print(f"  B7 over its warps a block and staged strips, beside the per-warp kernel it replaced "
+          f"(ms; card: {card}):", flush=True)
+    for n, bw, m, _ in bcases:
+        if (n, bw, m) in time_kernels.SOLVE_BANDS:
+            time_kernels.band_solve_sweep(band_lu[(n, bw)], rhs(n, m, 13), bw)
 
     print("  paged decode attention (B13); library: the page gather + scaled_dot_product_attention"
           "(enable_gqa=True) with a length mask, two calls", flush=True)
@@ -1815,6 +1839,12 @@ def main() -> int:
                timed(lambda: paged_attn.paged_decode_attention_plain(*args)),
                library(lambda: gather_sdpa(*args)), 4 * int(live.sum()) * h * dh, nbytes,
                per_call(paged_attn.paged_decode_attention, kernel))
+        # one call's events also hold the host's time to reach the launch,
+        # which at the served shape exceeds the kernel's own; a CUDA graph's
+        # replay holds the card's alone (and shows the launch capture-safe)
+        dev_ms = time_kernels.graph_ms(kernel)
+        print(f"    paged_decode_attention {shape}: {'not measured' if dev_ms is None else f'{dev_ms:.4f}'}"
+              f" ms a call in a CUDA graph of {time_kernels.BACK_TO_BACK} (card: {card})", flush=True)
 
     g = torch.Generator(device=dev).manual_seed(1700)
     served_args = (torch.randn((nrow, mcfg.num_heads, dh), generator=g, device=dev).to(torch.bfloat16),
@@ -1822,8 +1852,13 @@ def main() -> int:
     served_shape = f"B={nrow} NP={served_np} bf16"
     record_b13(served_shape, served_args)
     heavy_shape = f"B={DECODE_HEAVY[0]} NP={DECODE_HEAVY[1]} bf16"
-    record_b13(heavy_shape, paged_case(DECODE_HEAVY[0], mcfg.num_heads, DECODE_HEAVY[1], torch.bfloat16,
-                                       1800, holes=False))
+    heavy_args = paged_case(DECODE_HEAVY[0], mcfg.num_heads, DECODE_HEAVY[1], torch.bfloat16, 1800,
+                            holes=False)
+    record_b13(heavy_shape, heavy_args)
+    print(f"  B13 over its CTAs a cluster (ms; card: {card}):", flush=True)
+    time_kernels.paged_sweep(served_args)
+    time_kernels.paged_sweep(heavy_args)
+    del heavy_args
 
     kv_bytes = 2 * L * int(pos.sum()) * kvh * dh * 2  # the live K/V a step reads
     step_bound = (wbytes + kv_bytes) / PEAK_BYTES * 1e3

@@ -51,16 +51,43 @@
 //   microseconds of work, but the n pivots are a dependent chain.  The slab
 //   path pays one block barrier a pivot; the cluster walk one cluster
 //   barrier and g block barriers a group of g pivots, with the bw^2 g update
-//   split over K SMs.
+//   split over K SMs.  A band whose group of rows and panels no cluster's
+//   CTAs hold (bw past ~490) takes one launch of band_lu_global_kernel,
+//   B5's walk on the band in device memory (its speed is not tuned here).
 //
-// band_solve_kernel — replaces src/repro/kernels/banded.py:
-//   banded_solve_kernelized.  One warp per RHS column walks the rows in
-//   32-row strips, forward then backward: each lane holds one row, first
-//   retires the rows of earlier strips (at most bw terms, read from a ring
-//   of the warp's last solved values in shared memory), then the strip's
-//   triangle is solved in registers with the solved value passed by
-//   __shfl_sync.  No block barrier at all.  Bound: the band's n*(2bw+1)*4
-//   bytes; a vector RHS runs on one SM, latency-bound by the n/32 strips.
+// band_solve_staged_kernel — replaces src/repro/kernels/banded.py:
+//   banded_solve_kernelized.  Forward then backward substitution in strips
+//   of 32 rows, one launch of a block of W warps (8 by default) per tile of
+//   up to 8 RHS columns.  Bound: the band's n*(2bw+1)*4 bytes, but the
+//   2 n/32 strips are a dependent chain, and what sets the pace is each
+//   strip's latency.  So the design keeps band loads and the bulk of each
+//   row's sum off the chain:
+//   - a strip's half of the band (L forward, the diagonal and U backward)
+//     enters a ring of R (2-4) shared-memory buffers by 16-byte cp.async,
+//     R - 1 strips ahead of the helpers that need it first (the band does
+//     not depend on x), rows skewed so that a band diagonal spans 32 banks;
+//   - a solver warp per column walks the chain: its lanes' rows start from
+//     b (y) less the helper warps' partial sums, retire the previous
+//     strip's 32 x 32 block (its values in registers, passed by
+//     __shfl_sync; the block's band entries loaded into registers one step
+//     ahead) and solve the strip's triangle by 31 shuffles; one block
+//     barrier a strip;
+//   - meanwhile the helper warps (past the solvers, or all where there are
+//     none) retire the next strip's terms against strips solved two or more
+//     strips before, each a slice of the band's diagonals, against a ring
+//     of the last bw + 64 solved values a column, into partial sums.
+//   The sums run in another order than the plain version's blocks: B7 is
+//   held to it within 1e-4 normwise.  Bands too wide for two staged strips
+//   (bw past ~870) keep band_solve_kernel.
+//
+// band_solve_kernel — B7 before its staged redesign, kept for the bands too
+//   wide to stage and for B12 (below).  One warp per RHS column walks the
+//   rows in 32-row strips, forward then backward: each lane holds one row,
+//   first retires the rows of earlier strips (at most bw terms, read from a
+//   ring of the warp's last solved values in shared memory), then the
+//   strip's triangle is solved in registers with the solved value passed
+//   by __shfl_sync.  No block barrier at all; a vector RHS runs on one SM
+//   with every band load on the chain.
 //
 // band_gemm_kernel + band_tail_scan_kernel — replace src/repro/kernels/
 //   banded.py:banded_solve_inverted.  From the artifact's (S, C, C) inverses
@@ -600,6 +627,257 @@ __global__ void band_solve_kernel(const float* __restrict__ lu, const float* __r
   }
 }
 
+// ---------------------------------------------------------------------------
+// the band solve B7 with its strips staged ahead (band_solve_staged_kernel)
+// ---------------------------------------------------------------------------
+constexpr int kSolveCols = 8;          // RHS columns a block of the staged solve takes at most
+constexpr int kSolveMaxThreads = 512;  // 16 warps
+
+// A staged strip: 32 band rows of one half of the band (forward: the L half,
+// band columns [0, bw); backward: the diagonal and the U half, [bw, 2bw]),
+// each row copied in 16-byte chunks from the aligned chunk that holds its
+// first entry; row rr starts at rr * S + 4 * (rr / 8) floats with S / 4
+// odd, so the 32 lanes that read one band diagonal (entry e of 32 rows)
+// hit 32 banks.  The kernels/banded.py:band_solve_plan mirror computes the
+// same sizes.
+struct SolveLayout {
+  int S, stage, cap, bytes;
+};
+
+inline SolveLayout solve_layout(int bw, int cols, int warps, int stages) {
+  int q = (bw + 7 + 3) / 4;  // a half's bw + 1 entries and up to 6 of alignment
+  if (!(q & 1)) ++q;
+  SolveLayout l;
+  l.S = 4 * q;
+  l.stage = 32 * l.S + 16;
+  l.cap = (bw + 64 + 31) / 32 * 32;
+  const int helpers = warps > cols ? warps - cols : warps;
+  l.bytes = (stages * l.stage + cols * l.cap + 2 * helpers * cols * 32) * (int)sizeof(float);
+  return l;
+}
+
+// x = (LU)^-1 b on the packed band, RHS columns c0 .. c0 + ct - 1 of the
+// block's tile (ct <= kSolveCols), strips of 32 rows forward then backward,
+// one block barrier a strip.  Solver warp w < cols owns column c0 + w and
+// walks the chain: its lanes' rows start from b (y) less the partial sums
+// the helpers left, then retire the previous strip's 32 x 32 block (the
+// previous strip's values in registers, passed by __shfl_sync) and solve the
+// strip's triangle by shuffles.  Meanwhile the helper warps (those past the
+// solvers, or every warp where there are none) retire the next strip's terms
+// against strips solved two or more before, read from a ring of the last
+// cap solved values a column, each helper a slice of the band diagonals,
+// into partial sums (double buffered by strip parity).  The band rows do
+// not depend on x: strips enter a ring of R buffers by cp.async R - 1 steps
+// ahead of the helpers, and a solver loads the next strip's near block and
+// triangle into registers at the end of a step, so no band load sits on
+// the chain.
+template <int R>
+__global__ void __launch_bounds__(kSolveMaxThreads)
+band_solve_staged_kernel(const float* __restrict__ lu, const float* __restrict__ b, float* x, int n,
+                         int bw, int m, int cols, int S, int stage_floats, int cap) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nw = blockDim.x >> 5;
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int W = 2 * bw + 1;
+  const int c0 = blockIdx.x * cols, ct = min(cols, m - c0);
+  const bool solver = warp < ct;
+  const int col = c0 + warp;
+  const bool helper = nw > cols ? warp >= cols : true;
+  const int nh = nw > cols ? nw - cols : nw, h = nw > cols ? warp - cols : warp;
+  const int strips = (n + 31) / 32;
+  float* stages = smem;
+  float* ring = smem + (size_t)R * stage_floats;
+  float* part = ring + (size_t)cols * cap;  // [2][nh][cols][32]
+  const unsigned full = 0xffffffffu;
+  const size_t end = (size_t)n * W;
+
+  // stage strip k's half into buffer `buf` (nothing past the last strip);
+  // one commit group either way
+  auto stage = [&](int k, int buf, bool upper) {
+    if (k >= 0 && k < strips) {
+      float* dst = stages + (size_t)buf * stage_floats;
+      const int rows = min(32, n - 32 * k), chunks = S / 4, len = upper ? bw + 1 : bw;
+      for (int idx = tid; idx < rows * chunks; idx += nt) {
+        const int rr = idx / chunks, cc = idx - rr * chunks;
+        const size_t start = (size_t)(32 * k + rr) * W + (upper ? bw : 0);
+        const size_t a = (start & ~(size_t)3) + 4 * (size_t)cc;
+        if (a >= start + len) continue;
+        cp_async16(dst + rr * S + 4 * (rr >> 3) + 4 * cc, lu + a, a + 4 <= end ? 16 : (int)(end - a) * 4);
+      }
+    }
+    cp_async_commit();
+  };
+  // entry e of row rr's half in buffer `buf`
+  auto entry = [&](int buf, int k, int rr, bool upper) -> const float* {
+    const size_t start = (size_t)(32 * k + rr) * W + (upper ? bw : 0);
+    return stages + (size_t)buf * stage_floats + rr * S + 4 * (rr >> 3) + (int)(start & 3);
+  };
+
+  float near_l[32], tri[32];
+  float prev = 0.f, next_b = 0.f, inv_diag = 1.f;
+  // the solver's registers for strip k (buffer buf): its lanes' rows' near
+  // block (the previous strip's columns) and triangle, and the row's b or y
+  auto preload = [&](int k, int buf, bool upper) {
+    const int i = 32 * k + lane;
+    const bool live = k >= 0 && k < strips && i < n;
+    const float* row = live ? entry(buf, k, lane, upper) : nullptr;
+#pragma unroll
+    for (int s = 0; s < 32; ++s) {
+      if (!upper) {  // near: column 32k - 32 + s (t = bw - 32 + s - lane); triangle: 32k + s, s < lane
+        const int tn = bw - 32 + s - lane, tt = bw + s - lane;
+        near_l[s] = live && k > 0 && tn >= 0 ? row[tn] : 0.f;
+        tri[s] = live && s < lane && tt >= 0 ? row[tt] : 0.f;
+      } else {       // near: column 32k + 32 + s (u = 32 + s - lane); triangle: 32k + s, s > lane
+        const int un = 32 + s - lane, ut = s - lane;
+        near_l[s] = live && un <= bw && 32 * k + 32 + s < n ? row[un] : 0.f;
+        tri[s] = live && s > lane && ut <= bw && 32 * k + s < n ? row[ut] : 0.f;
+      }
+    }
+    if (upper) inv_diag = live ? __frcp_rn(row[0]) : 1.f;
+  };
+  // the row's b (forward) or y (backward: from x, which this kernel wrote,
+  // so past the read-only path) for strip k, loaded a step ahead of use
+  auto fetch = [&](int k, bool upper) {
+    const int i = 32 * k + lane;
+    if (k < 0 || k >= strips || i >= n) return 0.f;
+    return upper ? __ldcg(x + (size_t)i * m + col) : b[(size_t)i * m + col];
+  };
+
+  for (int pass = 0; pass < 2; ++pass) {
+    const bool upper = pass == 1;
+    auto strip_of = [&](int q) { return upper ? strips - 1 - q : q; };
+    for (int q = 0; q < R; ++q) stage(strip_of(q), q, upper);
+    for (int idx = tid; idx < nh * cols * 32; idx += nt) part[idx] = 0.f;  // the first strip's: none
+    cp_async_wait<R - 2>();
+    __syncthreads();
+    prev = 0.f;
+    if (solver) {
+      preload(strip_of(0), 0, upper);
+      next_b = fetch(strip_of(0), upper);
+    }
+    __syncthreads();  // before step 0 stages a strip into buffer 0
+    for (int q = 0; q < strips; ++q) {
+      const int k = strip_of(q), r0 = 32 * k;
+      float* pin = part + (size_t)(q & 1) * nh * cols * 32;
+      float* pout = part + (size_t)((q + 1) & 1) * nh * cols * 32;
+      if (solver) {
+        const int i = r0 + lane;
+        float acc = next_b;
+        next_b = fetch(strip_of(q + 1), upper);  // in flight through the chain
+        for (int hh = 0; hh < nh; ++hh) acc -= pin[(hh * cols + warp) * 32 + lane];
+#pragma unroll
+        for (int s = 0; s < 32; ++s) acc -= near_l[s] * __shfl_sync(full, prev, s);
+        // the triangle in four sub-blocks of 8 rows: every lane solves a
+        // sub-block itself (its values and triangle passed by __shfl_sync),
+        // then the rows past it retire its terms; each row takes its terms
+        // in the order of the one-row-at-a-time substitution
+        if (!upper) {
+#pragma unroll
+          for (int t = 0; t < 4; ++t) {
+            float y[8];
+#pragma unroll
+            for (int e = 0; e < 8; ++e) y[e] = __shfl_sync(full, acc, 8 * t + e);
+#pragma unroll
+            for (int e = 0; e < 7; ++e)
+#pragma unroll
+              for (int f = e + 1; f < 8; ++f) y[f] -= __shfl_sync(full, tri[8 * t + e], 8 * t + f) * y[e];
+            const int own = lane - 8 * t;
+#pragma unroll
+            for (int e = 0; e < 8; ++e) {
+              if (own == e) acc = y[e];
+              if (own >= 8) acc -= tri[8 * t + e] * y[e];
+            }
+          }
+        } else {  // x_l = acc_l / U(l, l), by the reciprocal each lane holds: no division on the chain
+#pragma unroll
+          for (int t = 3; t >= 0; --t) {
+            float y[8], xs[8];
+#pragma unroll
+            for (int e = 0; e < 8; ++e) y[e] = __shfl_sync(full, acc, 8 * t + e);
+#pragma unroll
+            for (int f = 7; f >= 0; --f) {
+              xs[f] = y[f] * __shfl_sync(full, inv_diag, 8 * t + f);
+#pragma unroll
+              for (int e = 0; e < f; ++e) y[e] -= __shfl_sync(full, tri[8 * t + f], 8 * t + e) * xs[f];
+            }
+            const int own = lane - 8 * t;
+#pragma unroll
+            for (int f = 7; f >= 0; --f) {
+              if (own == f) acc = y[f];
+              if (own < 0) acc -= tri[8 * t + f] * xs[f];
+            }
+          }
+          acc *= inv_diag;
+        }
+        if (i < n) {
+          ring[(size_t)warp * cap + i % cap] = acc;
+          x[(size_t)i * m + col] = acc;
+        }
+        prev = i < n ? acc : 0.f;
+      }
+      // the strip R steps on enters the buffer of strip q, which its solver
+      // holds in registers; after the solver's reads of b or y above
+      stage(strip_of(q + R), q % R, upper);
+      if (helper) {
+        // the next strip's terms against the strips solved before this one
+        const int kn = upper ? k - 1 : k + 1, i = 32 * kn + lane;
+        float acc[kSolveCols];
+#pragma unroll
+        for (int c = 0; c < kSolveCols; ++c) acc[c] = 0.f;
+        const int span = bw - 32, ts = span > 0 ? (span + nh - 1) / nh : 0;
+        if (kn >= 0 && kn < strips && i < n && ts > 0) {
+          const float* row = entry((q + 1) % R, kn, lane, upper);
+          // forward: t in [max(0, bw - i), bw - 32 - lane) reads y_{i - bw + t};
+          // backward: u in [64 - lane, min(bw, n - 1 - i)] reads x_{i + u}
+          int lo, hi;
+          if (!upper) {
+            lo = max(h * ts, max(0, bw - i));
+            hi = min((h + 1) * ts, bw - 32 - lane);
+          } else {
+            lo = max(33 + h * ts, 64 - lane);
+            hi = min(33 + (h + 1) * ts, min(bw, n - 1 - i) + 1);
+          }
+          if (lo < hi) {
+            int slot = (upper ? i + lo : i - bw + lo) % cap;
+            int e = lo;
+            for (; e + 4 <= hi; e += 4) {  // four diagonals, their loads together
+              float l[4];
+              int sl[4];
+#pragma unroll
+              for (int u = 0; u < 4; ++u) {
+                l[u] = row[e + u];
+                sl[u] = slot;
+                slot = slot + 1 == cap ? 0 : slot + 1;
+              }
+#pragma unroll
+              for (int c = 0; c < kSolveCols; ++c)
+                if (c < ct) {
+                  const float* rc = ring + (size_t)c * cap;
+                  const float y0 = rc[sl[0]], y1 = rc[sl[1]], y2 = rc[sl[2]], y3 = rc[sl[3]];
+                  acc[c] = fmaf(l[3], y3, fmaf(l[2], y2, fmaf(l[1], y1, fmaf(l[0], y0, acc[c]))));
+                }
+            }
+            for (; e < hi; ++e) {
+              const float l = row[e];
+#pragma unroll
+              for (int c = 0; c < kSolveCols; ++c)
+                if (c < ct) acc[c] = fmaf(l, ring[(size_t)c * cap + slot], acc[c]);
+              slot = slot + 1 == cap ? 0 : slot + 1;
+            }
+          }
+        }
+#pragma unroll
+        for (int c = 0; c < kSolveCols; ++c)
+          if (c < ct) pout[(h * cols + c) * 32 + lane] = acc[c];
+      }
+      cp_async_wait<R - 2>();
+      if (solver) preload(strip_of(q + 1), (q + 1) % R, upper);
+      __syncthreads();
+    }
+    cp_async_wait<0>();
+    __syncthreads();
+  }
+}
+
 // out[s] = base[s] - A[s] @ X[s + shift]   (base == nullptr: out[s] = A[s] @ X[s + shift]);
 // A is (S, M, K), X (S, K, m), out and base (S, M, m); X[s + shift] outside
 // 0..S-1 is zero.  One 32x32 output tile per block, 256 threads, 4 outputs each.
@@ -776,32 +1054,39 @@ extern "C" int ebv_batched_band_lu(void* band_ptr, int batch, int n, int bw, voi
                             static_cast<cudaStream_t>(stream_ptr), launches);
 }
 
-// Factor the band in place: with K = 0 in S = ceil(n/C) launches, one per
+// Factor the band in place: on path 0 in S = ceil(n/C) launches, one per
 // block step of C pivots, in stream order, each staging its slab in one
-// block's shared memory; with K > 0 in one launch of the cluster walk with K
-// CTAs and groups of G = 8, 16 or 32 pivots (kernels/banded.py:tiled_plan
-// picks the path, K and G).  plan[0..5]: the path (0 steps, 1 cluster), K,
-// G, the ring's rows a CTA, the shared memory bytes a CTA and how many such
-// clusters the card holds at once.  A slab, K or G whose shared memory no
-// block holds returns cudaErrorInvalidValue; a cluster the card cannot hold,
-// cudaErrorLaunchOutOfResources.
-extern "C" int ebv_band_lu_steps(void* band_ptr, int n, int bw, int C, int K, int G, int* plan,
-                                 void* stream_ptr, int* launches) {
+// block's shared memory; on path 1 in one launch of the cluster walk with K
+// CTAs and groups of G = 8, 16 or 32 pivots; on path 2 (bands no cluster
+// holds) in one launch of band_lu_global_kernel, B5's walk on the band in
+// device memory (kernels/banded.py:tiled_plan picks the path, K and G).
+// plan[0..5]: the path, K, G, the ring's rows a CTA, the shared memory
+// bytes a CTA and how many such clusters the card holds at once.  A slab,
+// K or G whose shared memory no block holds returns cudaErrorInvalidValue;
+// a cluster the card cannot hold, cudaErrorLaunchOutOfResources.
+extern "C" int ebv_band_lu_steps(void* band_ptr, int n, int bw, int path, int C, int K, int G,
+                                 int* plan, void* stream_ptr, int* launches) {
   float* band = static_cast<float*>(band_ptr);
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   *launches = 0;
   for (int i = 0; i < 6; ++i) plan[i] = 0;
   if (n == 0) return 0;
   cudaError_t err;
-  if (K > 0) {
+  plan[0] = path;
+  if (path == 2) {
+    plan[4] = static_cast<int>(2 * bw * sizeof(float));
+    if ((err = launch_global(band, 1, n, bw, 0, n, stream))) return err;
+    ++*launches;
+    return 0;
+  }
+  if (path == 1) {
     const BandCluster c = band_cluster_layout(bw, K, G);
-    plan[0] = 1;
     plan[1] = c.K;
     plan[2] = c.G;
     plan[3] = c.RK;
     plan[4] = static_cast<int>(c.bytes);
     const bool built = G == 8 || G == 16 || G == 32;
-    if (!built || G > bw || G + bw > kClusterThreads || c.bytes > (size_t)kSmemBytes)
+    if (K < 1 || !built || G > bw || G + bw > kClusterThreads || c.bytes > (size_t)kSmemBytes)
       return cudaErrorInvalidValue;
     auto kernel = G == 8 ? band_lu_cluster_kernel<8>
                 : G == 16 ? band_lu_cluster_kernel<16> : band_lu_cluster_kernel<32>;
@@ -812,7 +1097,7 @@ extern "C" int ebv_band_lu_steps(void* band_ptr, int n, int bw, int C, int K, in
     return 0;
   }
   const size_t bytes = ring_bytes(C + bw, bw);
-  if (C < 1 || bytes > (size_t)kSmemBytes) return cudaErrorInvalidValue;
+  if (path != 0 || C < 1 || bytes > (size_t)kSmemBytes) return cudaErrorInvalidValue;
   if ((err = cudaFuncSetAttribute(band_lu_slab_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                   (int)bytes)))
     return err;
@@ -824,12 +1109,44 @@ extern "C" int ebv_band_lu_steps(void* band_ptr, int n, int bw, int C, int K, in
   return 0;
 }
 
-// x (n, m) = (LU)^-1 b (n, m) on the packed band; `cols` RHS columns (one
-// warp each, at most 32) per block.
-extern "C" int ebv_band_solve(const void* lu, const void* b, void* x, int n, int bw, int m,
-                              int cols, void* stream_ptr, int* launches) {
-  return band_solve_launch(lu, b, x, 1, n, bw, m, cols, static_cast<cudaStream_t>(stream_ptr),
-                           launches);
+// x (n, m) = (LU)^-1 b (n, m) on the packed band.  Path 1: one launch of
+// band_solve_staged_kernel, blocks of `warps` warps over tiles of `cols` RHS
+// columns (at most 8 and at most `warps`) with `stages` (2-4) staged strips;
+// path 0: band_solve_kernel, `cols` columns (one warp each, at most 32) a
+// block (kernels/banded.py:band_solve_plan picks the path and its sizes).
+// plan[0..4]: the path, warps, columns a block, stages and shared-memory
+// bytes a block.  A plan whose shared memory no block holds returns
+// cudaErrorInvalidValue; the band must start on a 16-byte boundary.
+extern "C" int ebv_band_solve(const void* lu, const void* b, void* x, int n, int bw, int m, int path,
+                              int warps, int cols, int stages, int* plan, void* stream_ptr,
+                              int* launches) {
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  *launches = 0;
+  for (int i = 0; i < 5; ++i) plan[i] = 0;
+  if (path == 0) {
+    plan[2] = cols;
+    return band_solve_launch(lu, b, x, 1, n, bw, m, cols, stream, launches);
+  }
+  const SolveLayout l = solve_layout(bw, cols, warps, stages);
+  plan[0] = 1;
+  plan[1] = warps;
+  plan[2] = cols;
+  plan[3] = stages;
+  plan[4] = l.bytes;
+  if (path != 1 || cols < 1 || cols > kSolveCols || warps < cols || 32 * warps > kSolveMaxThreads ||
+      stages < 2 || stages > 4 || l.bytes > kSmemBytes || reinterpret_cast<size_t>(lu) % 16)
+    return cudaErrorInvalidValue;
+  auto kernel = stages == 2 ? band_solve_staged_kernel<2>
+              : stages == 3 ? band_solve_staged_kernel<3> : band_solve_staged_kernel<4>;
+  cudaError_t err;
+  if ((err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, l.bytes)))
+    return err;
+  kernel<<<(m + cols - 1) / cols, 32 * warps, l.bytes, stream>>>(
+      static_cast<const float*>(lu), static_cast<const float*>(b), static_cast<float*>(x), n, bw, m,
+      cols, l.S, l.stage, l.cap);
+  if ((err = cudaGetLastError())) return err;
+  ++*launches;
+  return 0;
 }
 
 // x (batch, n, m) = (LU)^-1 b per system on the packed bands (batch, n, 2bw+1);

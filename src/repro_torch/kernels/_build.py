@@ -47,9 +47,9 @@ _SIGNATURES = {
     "ebv_solve_tiled": [_P] * 4 + [_I] * 4 + [_P, _N],
     "ebv_solve_inverted": [_P] * 6 + [_I] * 4 + [_P, _N],
     "ebv_band_lu_resident": [_P, _I, _I, _P, _N],
-    "ebv_band_lu_steps": [_P, _I, _I, _I, _I, _I, _N, _P, _N],
+    "ebv_band_lu_steps": [_P, _I, _I, _I, _I, _I, _I, _N, _P, _N],
     "ebv_band_lu_scalar": [_P, _I, _I, _P, _N],
-    "ebv_band_solve": [_P, _P, _P, _I, _I, _I, _I, _P, _N],
+    "ebv_band_solve": [_P, _P, _P] + [_I] * 7 + [_N, _P, _N],
     "ebv_band_solve_inverted": [_P] * 9 + [_I] * 4 + [_P, _N],
     "ebv_batched_lu": [_P, _I, _I, _N, _P, _N],
     "ebv_batched_cluster_room": [_N],
@@ -60,7 +60,7 @@ _SIGNATURES = {
     "ebv_legacy_walk": [_P, _I, _I, _I, _I, _P, _P, _N, _N],
     "ebv_legacy_fused_step": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "ebv_legacy_update": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
-    "ebv_paged_decode_attention": [_P] * 7 + [_I] * 8 + [ctypes.c_float, _I, _P],
+    "ebv_paged_decode_attention": [_P] * 7 + [_I] * 9 + [ctypes.c_float, _I, _N, _P],
 }
 
 

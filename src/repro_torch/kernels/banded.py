@@ -20,8 +20,10 @@ their plain PyTorch versions.
                                     updating its whole ``(bw, 2bw+1)``
                                     window, as the reference's
                                     ``banded_lu_kernelized`` does.
-* :func:`banded_solve_kernelized` — forward and backward band substitution,
-                                    one warp per RHS column.
+* :func:`banded_solve_kernelized` — forward and backward band substitution
+                                    in strips of 32 rows, staged ahead of a
+                                    solver warp a RHS column and helper
+                                    warps (:func:`band_solve_plan`).
 * :func:`banded_solve_inverted`   — the substitution from an enriched
                                     ``Factorization``'s inverses and transfer
                                     blocks: batched products and a tail
@@ -62,12 +64,15 @@ from .trsm import _as_matrix, _check_cuda, _f32
 __all__ = [
     "banded_lu_blocked", "banded_lu_tiled", "banded_lu_kernelized", "banded_solve_kernelized",
     "banded_solve_inverted", "batched_banded_lu_vmem", "batched_banded_solve_vmem",
-    "banded_lu_plain", "banded_lu_scalar_plain", "tiled_launches", "BandClusterPlan",
-    "band_cluster_plan", "tiled_plan", "slab_fits", "band_tiled_fits", "BAND_SMEM",
+    "banded_lu_plain", "banded_lu_scalar_plain", "tiled_launches", "BandClusterPlan", "BandSolvePlan",
+    "band_solve_plan", "SOLVE_STAGES",
+    "band_cluster_plan", "tiled_plan", "slab_fits", "GLOBAL_WALK", "BAND_SMEM",
     "BAND_CLUSTER_MIN_BW",
 ]
 
-_WARP_COLS = 32  # RHS columns (one warp each) a banded_solve_kernelized block takes at most
+_WARP_COLS = 32  # RHS columns (one warp each) a band_solve_kernel block takes at most
+_SOLVE_COLS = 8  # RHS columns (a solver warp each) a staged band solve block takes at most
+SOLVE_STAGES = (4, 3, 2)  # staged strips it tries in turn (three steps of lookahead, then two, one)
 _MAX_SOLVE_BATCH = 65535  # systems of one batched solve launch (the grid's y extent)
 BAND_SMEM = 232_448  # dynamic shared memory one H100 block may use (kSmemBytes)
 CLUSTER_THREADS = 512  # a CTA of the cluster walk: a thread for each of a panel's rows (kClusterThreads)
@@ -79,6 +84,9 @@ CLUSTER_GROUPS = (8, 16, 32)  # the pivots a group the cluster walk is built for
 # From this half width the cluster walk beats the slab steps even where the
 # slab fits a block (launch/time_kernels.py:band_walk_crossover, PERF.md)
 BAND_CLUSTER_MIN_BW = 33
+#: :func:`tiled_plan`'s answer for a band that no cluster holds: one launch of
+#: the one-block walk on the band in device memory (``band_lu_global_kernel``)
+GLOBAL_WALK = "global walk"
 
 
 def _launch(wrapper, fn_name: str, device, *args) -> None:
@@ -161,29 +169,22 @@ def slab_fits(n: int, bw: int, block: int | None = None) -> bool:
     return _slab_bytes(band_block_size(n, bw, block) + bw, bw) <= BAND_SMEM
 
 
-def tiled_plan(n: int, bw: int, block: int | None = None) -> BandClusterPlan | None:
-    """The cluster walk :func:`banded_lu_tiled` launches for the band, or
-    None for the per-step slab launches: where the slab fits and the band is
-    narrower than :data:`BAND_CLUSTER_MIN_BW`.  Raises ``ValueError`` where
-    neither fits (bw past ~490)."""
+def tiled_plan(n: int, bw: int, block: int | None = None) -> BandClusterPlan | str | None:
+    """The path :func:`banded_lu_tiled` launches for the band: None for the
+    per-step slab launches, where the slab fits and the band is narrower
+    than :data:`BAND_CLUSTER_MIN_BW`; else the cluster walk's plan, or
+    :data:`GLOBAL_WALK` where no cluster holds the band (bw past ~490)."""
     if bw < BAND_CLUSTER_MIN_BW and slab_fits(n, bw, block):
         return None
-    return band_cluster_plan(bw)
-
-
-def band_tiled_fits(n: int, bw: int, block: int | None = None) -> bool:
-    """Whether :func:`banded_lu_tiled` takes the band: its slab steps, or a
-    cluster walk that fits (bw up to ~490)."""
     try:
-        tiled_plan(n, bw, block)
+        return band_cluster_plan(bw)
     except ValueError:
-        return False
-    return True
+        return GLOBAL_WALK
 
 
 def tiled_launches(n: int, bw: int, block: int | None = None) -> int:
     """Launches :func:`banded_lu_tiled` should make: one per block step, or
-    one for the cluster walk; none for an empty band."""
+    one for either walk; none for an empty band."""
     if n == 0:
         return 0
     if tiled_plan(n, bw, block) is not None:
@@ -210,10 +211,11 @@ def banded_lu_tiled(arow: torch.Tensor, *, bw: int, block: int | None = None) ->
     """Packed no-pivot LU of the row-aligned band in ``ceil(n/C)``
     launches, one per block step of ``C = band_block_size(n, bw, block)``
     pivots, in stream order; from bw = :data:`BAND_CLUSTER_MIN_BW`, or
-    where a step's slab fits no block, in one launch of the cluster walk
-    (:func:`tiled_plan`).  The C entry's report (path 0 steps / 1 cluster,
-    K, g, ring rows, shared-memory bytes a CTA, clusters the card holds at
-    once) in ``banded_lu_tiled.last_plan``."""
+    where a step's slab fits no block, in one launch of the cluster walk,
+    or of the device-memory walk where no cluster holds the band
+    (:func:`tiled_plan`).  The C entry's report (path 0 steps / 1 cluster /
+    2 device-memory walk, K, g, ring rows, shared-memory bytes a CTA,
+    clusters the card holds at once) in ``banded_lu_tiled.last_plan``."""
     if arow.device.type == "cpu":
         return banded_lu_plain(arow, bw=bw, block=block)
     n = arow.shape[0]
@@ -221,18 +223,21 @@ def banded_lu_tiled(arow: torch.Tensor, *, bw: int, block: int | None = None) ->
 
 
 def _lu_tiled(arow: torch.Tensor, *, bw: int, block: int | None = None,
-              plan: BandClusterPlan | None = None) -> torch.Tensor:
+              plan: BandClusterPlan | str | None = None) -> torch.Tensor:
     """:func:`banded_lu_tiled` on the card by the slab steps (``plan``
-    None) or the cluster walk ``plan``, whichever :func:`tiled_plan` would
-    pick, so that the tests and the sweeps can launch either path."""
+    None), the cluster walk ``plan`` or the device-memory walk
+    (:data:`GLOBAL_WALK`), whichever :func:`tiled_plan` would pick, so that
+    the tests and the sweeps can launch any path."""
     work = _band_copy("banded_lu_tiled", arow, bw)
     n = work.shape[0]
     got = (ctypes.c_int * 6)()
+    cluster = isinstance(plan, BandClusterPlan)
+    path = 1 if cluster else 2 if plan == GLOBAL_WALK else 0
     try:
         if n:  # an empty band: nothing to launch
-            _launch(banded_lu_tiled, "ebv_band_lu_steps", arow.device, work.data_ptr(), n, bw,
-                    band_block_size(n, bw, block), plan.ctas if plan else 0, plan.group if plan else 0,
-                    got)
+            _launch(banded_lu_tiled, "ebv_band_lu_steps", arow.device, work.data_ptr(), n, bw, path,
+                    band_block_size(n, bw, block), plan.ctas if cluster else 0,
+                    plan.group if cluster else 0, got)
     finally:
         banded_lu_tiled.last_plan = tuple(got)
     return work
@@ -261,35 +266,105 @@ banded_lu_kernelized.launches = 0
 # ---------------------------------------------------------------------------
 # band solves
 # ---------------------------------------------------------------------------
+class BandSolvePlan(NamedTuple):
+    """The launch of :func:`banded_solve_kernelized`: ``path`` "staged"
+    (``band_solve_staged_kernel``) or "warp" (``band_solve_kernel``, bands
+    whose two staged strips no block holds), ``warps`` a block, ``cols``
+    RHS columns a block, ``stages`` staged strips and shared-memory
+    ``bytes`` a block (the staged path's)."""
+    path: str
+    warps: int
+    cols: int
+    stages: int
+    bytes: int
+
+
+def _solve_bytes(bw: int, cols: int, warps: int, stages: int) -> int:
+    """A staged solve block's shared memory: ``stages`` strips of 32 rows of
+    one half of the band (row stride S, S/4 odd, skewed 4 floats every 8
+    rows), a ring of ``cap`` solved values a column and the helpers' partial
+    sums, double buffered (``solve_layout`` in ``csrc/banded.cu``)."""
+    q = (bw + 10) // 4
+    q += 1 - q % 2
+    stage, cap = 32 * 4 * q + 16, -(-(bw + 64) // 32) * 32
+    helpers = warps - cols if warps > cols else warps
+    return 4 * (stages * stage + cols * cap + 2 * helpers * cols * 32)
+
+
+def band_solve_plan(n: int, bw: int, m: int, *, rhs_tile: int = 256, warps: int | None = None,
+                    stages: int | None = None) -> BandSolvePlan:
+    """The launch :func:`banded_solve_kernelized` makes for ``m`` RHS
+    columns: blocks of ``warps`` (default 4 where bw <= 32, else 16) warps over
+    equal tiles of at most ``min(rhs_tile, warps, 8)`` columns, a solver
+    warp a column, with ``stages`` (default the most of
+    :data:`SOLVE_STAGES` that fits) staged strips; the warp path where not
+    even two staged strips of one column fit (bw past ~870) or where
+    ``stages`` does not."""
+    # 4 where bw <= 32 (no term lies two strips back: no helper has work),
+    # else 16 (launch/time_kernels.py:band_solve_sweep, PERF.md)
+    warps = warps or (4 if bw <= 32 else 16)
+    if not 1 <= warps <= 16:
+        raise ValueError(f"band_solve_plan: {warps} warps a block, 1 to 16")
+    cols = max(1, min(rhs_tile, m, warps, _SOLVE_COLS))
+    while True:  # fewer columns a block where their rings and sums leave no room
+        cols = -(-m // -(-m // cols)) if m else cols  # equal tiles
+        for r in ((stages,) if stages else SOLVE_STAGES):
+            nbytes = _solve_bytes(bw, cols, warps, r)
+            if nbytes <= BAND_SMEM:
+                return BandSolvePlan("staged", warps, cols, r, nbytes)
+        if cols == 1:
+            break
+        cols //= 2
+    rt = max(1, min(rhs_tile, m, _WARP_COLS))
+    rt = -(-m // -(-m // rt)) if m else rt
+    return BandSolvePlan("warp", rt, rt, 0, 0)
+
+
 def banded_solve_kernelized(lu_band, b: torch.Tensor, *, bw: int, block: int | None = None,
                             rhs_tile: int = 256) -> torch.Tensor:
     """Solve ``(LU) x = b`` on packed band factors ``(n, 2bw+1)``, ``b``
-    ``(n,)`` or ``(n, m)``, in the RHS dtype.  On the card one warp sweeps
-    each RHS column; a block takes an equal tile of at most
-    ``min(rhs_tile, 32)`` columns.  ``block`` sets the plain version's
-    blocking."""
+    ``(n,)`` or ``(n, m)``, in the RHS dtype.  On the card one launch of
+    :func:`band_solve_plan`'s kernel: a block per tile of at most
+    ``min(rhs_tile, 8)`` columns, strips of 32 rows staged ahead of a solver
+    warp a column and helper warps.  ``block`` sets the plain version's
+    blocking.  The C entry's report (path 1 staged / 0 warp, warps, columns
+    a block, stages, shared-memory bytes) in ``.last_plan``."""
     lu_band = packed_of(lu_band)
     if lu_band.device.type == "cpu":
         return banded_solve_blocked(lu_band, b, bw=bw, block=block)
     _check_cuda("banded_solve_kernelized", lu_band, b)
+    bm, _ = _as_matrix(b)
+    n, m = bm.shape
+    return _solve(lu_band, b, bw=bw, plan=band_solve_plan(n, bw, m, rhs_tile=rhs_tile))
+
+
+def _solve(lu_band, b: torch.Tensor, *, bw: int, plan: BandSolvePlan) -> torch.Tensor:
+    """:func:`banded_solve_kernelized` on the card by ``plan``, so that the
+    tests and the sweeps can launch any path, warps a block and stages."""
+    name = "banded_solve_kernelized"
     bm, squeeze = _as_matrix(b)
     n, m = bm.shape
     if bw < 1 or lu_band.shape != (n, 2 * bw + 1):
-        raise ValueError(f"banded_solve_kernelized: factors {tuple(lu_band.shape)} do not match "
-                         f"n={n}, bw={bw}")
+        raise ValueError(f"{name}: factors {tuple(lu_band.shape)} do not match n={n}, bw={bw}")
     if m == 0:  # no column to solve: nothing to launch
         return torch.empty_like(b)
-    rt = max(1, min(rhs_tile, m, _WARP_COLS))
-    rt = -(-m // (-(-m // rt)))  # equal tiles
-    lu32, b32 = _f32(lu_band, "banded_solve_kernelized"), _f32(bm, "banded_solve_kernelized")
+    lu32, b32 = _f32(lu_band, name), _f32(bm, name)
+    if lu32.data_ptr() % 16:  # the staged strips are copied in 16-byte chunks
+        lu32 = lu32.clone()
     x = torch.empty_like(b32)
-    _launch(banded_solve_kernelized, "ebv_band_solve", lu_band.device, lu32.data_ptr(),
-            b32.data_ptr(), x.data_ptr(), n, bw, m, rt)
+    got = (ctypes.c_int * 5)()
+    try:
+        _launch(banded_solve_kernelized, "ebv_band_solve", lu_band.device, lu32.data_ptr(),
+                b32.data_ptr(), x.data_ptr(), n, bw, m, int(plan.path == "staged"), plan.warps,
+                plan.cols, plan.stages, got)
+    finally:
+        banded_solve_kernelized.last_plan = tuple(got)
     x = x.to(bm.dtype)
     return x[:, 0] if squeeze else x
 
 
 banded_solve_kernelized.launches = 0
+banded_solve_kernelized.last_plan = None
 
 
 def banded_solve_inverted(linv: torch.Tensor, uinv: torch.Tensor, tlo: torch.Tensor,

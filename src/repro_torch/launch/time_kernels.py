@@ -8,10 +8,16 @@ each path and cluster size beside batched ``lu_solve``
 (:func:`batched_solve_sweep`), and the wide-band factor B6's cluster walk
 (``kernels/banded.py:banded_lu_tiled``) at the Poisson band over its CTAs K
 and pivots a group g (:func:`band_cluster_sweep`) and against its slab
-steps on narrower bands (:func:`band_walk_crossover`); ``chip_smoke.py``
-runs the sweeps once.
+steps on narrower bands (:func:`band_walk_crossover`), the band solve B7
+(``kernels/banded.py:banded_solve_kernelized``) over its warps a block and
+staged strips (:func:`band_solve_sweep`) and the paged decode attention
+B13 (``kernels/paged_attn.py:paged_decode_attention``) over its CTAs a
+cluster (:func:`paged_sweep`); ``chip_smoke.py`` runs the sweeps once.
 
-    PYTHONPATH=src python src/repro_torch/launch/time_kernels.py
+    PYTHONPATH=src python src/repro_torch/launch/time_kernels.py [section ...]
+
+Sections (all by default): factor (B1), update (B14), batched (B10), band
+(B6), solve (B7), paged (B13), vmem (B2).
 
 It runs as a file and imports ``repro_torch`` absolutely, so it times the
 package that ``PYTHONPATH`` names: with another checkout's ``src`` there it
@@ -35,6 +41,12 @@ SOLVE_SIZES, SOLVE_WIDTHS, LEAST_ROWS = (500, 2000), (1, 64), (1, 16, 32, 64)
 # B6's cluster walk: K CTAs and g pivots a group (kernels/banded.py:CLUSTER_ORDER)
 BAND_CTAS, BAND_GROUPS = (2, 4, 8, 16), (8, 16, 32)
 SLAB_BANDS = (16, 32, 33, 36, 64)  # bands whose slab fits one block: B6's slab steps against its cluster walk
+# B7: warps a block and staged strips (kernels/banded.py:band_solve_plan)
+SWEEP_WARPS, SWEEP_STAGES = (4, 8, 16), (2, 3, 4)
+PAGED_CTAS = (1, 2, 4, 8, 16)  # B13: CTAs a cluster (kernels/paged_attn.py:paged_plan)
+# chip_smoke.py's bands for B7: Table 1's largest, the shootout (m = 64), the Poisson band
+SOLVE_BANDS = ((16000, 5, 1), (16384, 16, 64), (65536, 256, 1))
+PAGED_SHAPES = ((4, 36), (32, 256))  # B13: (rows, pages of 16) served and decode-heavy
 # B10: (B, n, m) on either side of the plan's split between its two paths
 SOLVE_SPLIT = ((8, 1024, 1), (8, 1024, 16), (8, 1024, 64), (8, 1024, 1024), (32, 256, 1), (32, 256, 16),
                (32, 256, 256), (8, 128, 1), (8, 128, 128), (2, 384, 51968))
@@ -59,6 +71,34 @@ def timed(fn) -> tuple[float, float]:
     end.record()
     end.synchronize()
     return statistics.median(times), start.elapsed_time(end) / BACK_TO_BACK
+
+
+def graph_ms(fn, calls: int = BACK_TO_BACK) -> float | None:
+    """The time a call of ``fn`` takes on the card without the host: ``calls``
+    calls captured in one CUDA graph, the median of 5 replays between CUDA
+    events over ``calls``; None where the capture fails (a launch that is
+    not capture-safe)."""
+    fn()
+    torch.cuda.synchronize()
+    try:
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            for _ in range(calls):
+                fn()
+    except RuntimeError as err:
+        print(f"    the capture failed: {err}", flush=True)
+        return None
+    g.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(REPS):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        g.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / calls)
+    return statistics.median(times)
 
 
 def poisson_band(nx: int, device) -> torch.Tensor:
@@ -141,6 +181,73 @@ def band_walk_crossover(n: int = 16384, bws=SLAB_BANDS) -> dict:
     return out
 
 
+def band_solve_sweep(lu: torch.Tensor, b: torch.Tensor, bw: int) -> dict:
+    """{label: (ms one call, ms back to back)} of B7 on the factors ``lu``
+    and RHS ``b`` over its warps a block (:data:`SWEEP_WARPS`) and staged
+    strips (:data:`SWEEP_STAGES`), each that fits, beside the per-warp
+    kernel it replaced (B12's), each checked against the plain version
+    within 1e-4 normwise."""
+    from repro_torch.core.banded import banded_solve_blocked
+    from repro_torch.kernels import banded
+
+    n = lu.shape[0]
+    m = 1 if b.ndim == 1 else b.shape[1]
+    want = banded_solve_blocked(lu, b, bw=bw)
+    scale = float(want.abs().max())
+    plans = {f"warps={w} stages={r}": banded.band_solve_plan(n, bw, m, warps=w, stages=r)
+             for w in SWEEP_WARPS for r in SWEEP_STAGES}
+    # the per-warp kernel, which B12 and the bands too wide to stage take
+    plans["per-warp kernel"] = banded.BandSolvePlan("warp", min(m, 32), min(m, 32), 0, 0)
+    out = {}
+    for label, plan in plans.items():
+        if label != "per-warp kernel" and plan.path != "staged":
+            print(f"    banded_solve_kernelized n={n} bw={bw} m={m} {label}: no block holds it", flush=True)
+            continue
+        err = float((banded._solve(lu, b, bw=bw, plan=plan) - want).abs().max()) / scale
+        if not err <= 1e-4:
+            raise RuntimeError(f"banded_solve_kernelized n={n} bw={bw} m={m} {label}: normwise {err:.2e}")
+        out[label] = timed(lambda: banded._solve(lu, b, bw=bw, plan=plan))
+    plan = banded.band_solve_plan(n, bw, m)
+    strips = 2 * -(-n // 32)
+    print(f"    banded_solve_kernelized n={n} bw={bw} m={m} (plan: {plan.warps} warps, {plan.cols} columns a "
+          f"block, {plan.stages} stages), one call / back to back: "
+          + "; ".join(f"{k} {v[0]:.4f} / {v[1]:.4f}" for k, v in out.items())
+          + f"; the plan's {1e3 * out[f'warps={plan.warps} stages={plan.stages}'][0] / strips:.3f} us a strip",
+          flush=True)
+    return out
+
+
+def paged_sweep(args: tuple) -> dict:
+    """{K: (ms one call, ms back to back, ms a call in a CUDA graph)} of
+    B13 on ``args`` (q, the two pools, page table, lengths) over clusters
+    of K = 1 .. 16 CTAs, each checked against the plain version (1e-5
+    normwise in fp32, 1e-2 in bf16).  At the served shape a call's host
+    time exceeds its device time, so back to back measures the host; the
+    graph's replay measures the card alone."""
+    from repro_torch.kernels import paged_attn
+
+    q, kp = args[0], args[1]
+    b, h, dh = q.shape
+    np_, page, kvh = args[3].shape[1], kp.shape[1], kp.shape[2]
+    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+    want = paged_attn.paged_decode_attention_plain(*args).float()
+    tol = 1e-5 if q.dtype == torch.float32 else 1e-2
+    out = {}
+    for k in PAGED_CTAS:
+        plan = paged_attn.paged_plan(b, h, kvh, dh, np_, page, q.element_size(), sms, ctas=k)
+        err = float((paged_attn._attend(*args, plan).float() - want).abs().max() / want.abs().max())
+        if not err <= tol:
+            raise RuntimeError(f"paged_decode_attention B={b} NP={np_} K={k}: normwise {err:.2e}")
+        call = lambda: paged_attn._attend(*args, plan)
+        out[k] = (*timed(call), graph_ms(call))
+    plan = paged_attn.paged_plan(b, h, kvh, dh, np_, page, q.element_size(), sms)
+    fmt = lambda v: "not measured" if v is None else f"{v:.4f}"
+    print(f"    paged_decode_attention B={b} NP={np_} {str(q.dtype).removeprefix('torch.')} (plan: K={plan.ctas}), "
+          "one call / back to back / in a CUDA graph: "
+          + "; ".join(f"K={k} {v[0]:.4f} / {v[1]:.4f} / {fmt(v[2])}" for k, v in out.items()), flush=True)
+    return out
+
+
 def batched_solve_sweep(lu: torch.Tensor, b: torch.Tensor) -> dict:
     """{label: (ms one call, ms back to back)} of B10 on ``lu``, ``b``
     (``(B, n)`` or ``(B, n, m)``) on the wide path and on clusters of each
@@ -174,44 +281,118 @@ def batched_solve_sweep(lu: torch.Tensor, b: torch.Tensor) -> dict:
     return out
 
 
-def main() -> int:
+def solve_bands(dev) -> dict:
+    """B7 at chip_smoke.py's three bands: {(n, bw, m): (ms one call, ms
+    back to back)}, on this tree's B7 (its default plan) and, where the
+    tree has them, over its warps a block and staged strips."""
+    from repro_torch.kernels import banded
+
+    out = {}
+    for n, bw, m in SOLVE_BANDS:
+        a = poisson_band(256, dev) if bw == 256 else band_of(n, bw, dev)
+        lu = banded.banded_lu_tiled(a, bw=bw)
+        g = torch.Generator(device=dev).manual_seed(n + m)
+        b = torch.randn((n,) if m == 1 else (n, m), generator=g, device=dev)
+        out[(n, bw, m)] = timed(lambda: banded.banded_solve_kernelized(lu, b, bw=bw))
+        print(f"banded_solve_kernelized n={n} bw={bw} m={m}: {out[(n, bw, m)][0]:.4f} ms, "
+              f"{out[(n, bw, m)][1]:.4f} back to back", flush=True)
+        if hasattr(banded, "band_solve_plan"):
+            band_solve_sweep(lu, b, bw)
+    return out
+
+
+def paged_shapes(dev) -> dict:
+    """B13 at chip_smoke.py's two shapes (llama3-8b's KV heads, bf16):
+    {(B, NP): (ms one call, ms back to back, ms a call in a CUDA graph)},
+    and over its clusters where the tree has them."""
+    from repro_torch.kernels import paged_attn
+
+    out = {}
+    for b, np_ in PAGED_SHAPES:
+        g = torch.Generator(device=dev).manual_seed(b * np_)
+        pool = b * np_ + 1
+        q = torch.randn((b, 32, 128), generator=g, device=dev).to(torch.bfloat16)
+        kp, vp = (torch.randn((pool, 16, 8, 128), generator=g, device=dev).to(torch.bfloat16) for _ in range(2))
+        table = (1 + torch.randperm(pool - 1, generator=g, device=dev)).reshape(b, np_).to(torch.int32)
+        lengths = torch.full((b,), np_ * 16, dtype=torch.int32, device=dev)
+        args = (q, kp, vp, table, lengths)
+        call = lambda: paged_attn.paged_decode_attention(*args)
+        out[(b, np_)] = (*timed(call), graph_ms(call))
+        dev_ms = out[(b, np_)][2]
+        print(f"paged_decode_attention B={b} NP={np_} bf16: {out[(b, np_)][0]:.4f} ms, "
+              f"{out[(b, np_)][1]:.4f} back to back, in a CUDA graph "
+              f"{'not measured' if dev_ms is None else f'{dev_ms:.4f}'}", flush=True)
+        if hasattr(paged_attn, "paged_plan"):
+            paged_sweep(args)
+    return out
+
+
+def band_of(n: int, bw: int, dev) -> torch.Tensor:
+    """A diagonally dominant row-aligned band, zero outside the matrix."""
+    g = torch.Generator(device=dev).manual_seed(900 + bw)
+    a = torch.rand((n, 2 * bw + 1), generator=g, device=dev) * 2 - 1
+    j = torch.arange(n, device=dev)[:, None] - bw + torch.arange(2 * bw + 1, device=dev)
+    a = torch.where((j >= 0) & (j < n), a, 0.0)
+    a[:, bw] = a.abs().sum(dim=1) + 1
+    return a
+
+
+SECTIONS = ("factor", "update", "batched", "band", "solve", "paged", "vmem")
+
+
+def main(argv: list[str]) -> int:
     if not torch.cuda.is_available():
         print("time_kernels: no CUDA device is available", file=sys.stderr)
         return 1
-    from repro_torch.kernels import ebv_lu, trsm
+    wanted = set(argv) or set(SECTIONS)
+    if not wanted <= set(SECTIONS):
+        print(f"time_kernels: sections are {', '.join(SECTIONS)}", file=sys.stderr)
+        return 2
+    from repro_torch.kernels import banded, batched_lu, ebv_lu, trsm
 
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, timeout=60).stdout.strip().splitlines()[0]
     print(f"card: {card}; repro_torch from {ebv_lu.__file__}", flush=True)
     dev = torch.device("cuda")
-    for n in FACTOR_SIZES:
-        g = torch.Generator(device=dev).manual_seed(n)
-        a = torch.rand((n, n), generator=g, device=dev) * 2 - 1
-        a.diagonal().copy_(a.abs().sum(dim=1) + 1)
-        k1, k20 = timed(lambda: ebv_lu.lu_fused(a))
-        l1, l20 = timed(lambda: torch.linalg.lu_factor(a, pivot=False))
-        print(f"lu_fused n={n}: {k1:.4f} ms, {k20:.4f} back to back; lu_factor {l1:.4f}, {l20:.4f}", flush=True)
-    m, k, w = UPDATE_SHAPE
-    g = torch.Generator(device=dev).manual_seed(m)
-    l21, u12, a22 = (torch.randn(s, generator=g, device=dev) for s in ((m, k), (k, w), (m, w)))
-    k1, k20 = timed(lambda: ebv_lu.update(l21, u12, a22))
-    l1, l20 = timed(lambda: torch.addmm(a22, l21, u12, alpha=-1))
-    print(f"update {UPDATE_SHAPE}: {k1:.4f} ms, {k20:.4f} back to back; addmm {l1:.4f}, {l20:.4f}", flush=True)
-    from repro_torch.kernels import batched_lu
-
-    if hasattr(batched_lu, "batched_solve_plan"):  # a tree with B10's two paths
+    if "factor" in wanted:
+        for n in FACTOR_SIZES:
+            g = torch.Generator(device=dev).manual_seed(n)
+            a = torch.rand((n, n), generator=g, device=dev) * 2 - 1
+            a.diagonal().copy_(a.abs().sum(dim=1) + 1)
+            k1, k20 = timed(lambda: ebv_lu.lu_fused(a))
+            l1, l20 = timed(lambda: torch.linalg.lu_factor(a, pivot=False))
+            print(f"lu_fused n={n}: {k1:.4f} ms, {k20:.4f} back to back; lu_factor {l1:.4f}, {l20:.4f}",
+                  flush=True)
+    if "update" in wanted:
+        m, k, w = UPDATE_SHAPE
+        g = torch.Generator(device=dev).manual_seed(m)
+        l21, u12, a22 = (torch.randn(s, generator=g, device=dev) for s in ((m, k), (k, w), (m, w)))
+        k1, k20 = timed(lambda: ebv_lu.update(l21, u12, a22))
+        l1, l20 = timed(lambda: torch.addmm(a22, l21, u12, alpha=-1))
+        print(f"update {UPDATE_SHAPE}: {k1:.4f} ms, {k20:.4f} back to back; addmm {l1:.4f}, {l20:.4f}",
+              flush=True)
+    if "batched" in wanted and hasattr(batched_lu, "batched_solve_plan"):  # a tree with B10's two paths
         for bsz, n, m in SOLVE_SPLIT:
             g = torch.Generator(device=dev).manual_seed(n + m)
             a = torch.rand((bsz, n, n), generator=g, device=dev) * 2 - 1
             a.diagonal(dim1=-2, dim2=-1).copy_(a.abs().sum(dim=-1) + 1)
             batched_solve_sweep(batched_lu.batched_lu_vmem(a), torch.randn((bsz, n, m), generator=g, device=dev))
-    from repro_torch.kernels import banded
-
-    if hasattr(banded, "tiled_plan"):  # a tree with B6's cluster walk
+    if "band" in wanted and hasattr(banded, "tiled_plan"):  # a tree with B6's cluster walk
         band_cluster_sweep(poisson_band(256, dev), 256)
         band_walk_crossover()
-    if not hasattr(trsm, "VMEM_MIN_ROWS"):  # a tree whose B2 has no such plan
-        return 0
+    if "solve" in wanted:
+        solve_bands(dev)
+    if "paged" in wanted:
+        paged_shapes(dev)
+    if "vmem" in wanted and hasattr(trsm, "VMEM_MIN_ROWS"):  # a tree whose B2 has such a plan
+        vmem_rows(dev)
+    return 0
+
+
+def vmem_rows(dev) -> None:
+    """B2 against the fewest rows a block its plan takes, beside lu_solve."""
+    from repro_torch.kernels import ebv_lu, trsm
+
     least0, sms = trsm.VMEM_MIN_ROWS, torch.cuda.get_device_properties(dev).multi_processor_count
     try:
         for n in SOLVE_SIZES:
@@ -236,8 +417,7 @@ def main() -> int:
     finally:
         trsm.VMEM_MIN_ROWS = least0
         trsm.solve_vmem_plan.cache_clear()
-    return 0
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -266,7 +266,7 @@ register(Backend(
 register(Backend(
     name="cuda_tiled", op="factor", structure="banded",
     call=lambda p, arow, *, bw, block=None, **_: _kbanded.banded_lu_tiled(arow, bw=bw, block=block),
-    supports=lambda p: _is_f32(p) and _local(p) and _kbanded.band_tiled_fits(p.n, p.bw),
+    supports=lambda p: _is_f32(p) and _local(p),
     priority=lambda p: 1.0,
 ))
 register(Backend(

@@ -415,6 +415,33 @@ def test_health_escalation_walks_the_band_backends_like_the_reference():
     assert [e[1] for e in esc] == [counterpart(e[1]) for e in jesc if counterpart(e[1]) in ported]
 
 
+# fault C5: past every cluster (bw >= 497) the tiled slot still takes the
+# band, as the reference's pallas_tiled does, and the escalation chain
+# keeps the reference's names in its order
+@pytest.mark.parametrize("device", ["cpu", "cuda"])
+@pytest.mark.parametrize("bw", [497, 600])
+def test_the_tiled_slot_takes_every_local_band_like_the_reference(bw, device):
+    jp = jsolvers.Problem(op="factor", structure="banded", n=65536, bw=bw)
+    tp = solvers.Problem(op="factor", structure="banded", n=65536, bw=bw, device=device)
+
+    def chain(reg, p):
+        win = reg.select(p).name
+        rest = sorted((b for b in reg.candidates(p) if b.name != win), key=lambda b: -b.priority(p))
+        return [win] + [b.name for b in rest]
+
+    assert solvers.select(tp).name == "cuda_tiled" == counterpart(jsolvers.select(jp).name)
+    assert chain(solvers, tp) == [counterpart(name) for name in chain(jsolvers, jp)]
+
+
+def test_a_band_past_every_cluster_dispatches_the_tiled_factor():
+    n, bw = 520, 500
+    a, b = band_dd(n, bw, 23), rhs(n, 2, seed=24)
+    with solvers.record_dispatches() as log:
+        x = ops.banded_linear_solve(cpu(a), cpu(b), bw=bw)
+    assert [(p.op, name) for p, name in log] == [("factor", "cuda_tiled"), ("solve", "cuda")]
+    close(x, ref.banded_solve_ref(ref.banded_lu_ref(a, bw), b, bw), tol=1e-4)
+
+
 # ---------------------------------------------------------------------------
 # end to end
 # ---------------------------------------------------------------------------

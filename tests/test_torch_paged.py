@@ -114,10 +114,114 @@ def test_the_wrapper_checks_shapes():
         PA.paged_decode_attention(q, kp, vp, table, lengths[:1])
 
 
+# (rep, NP, page, scores on chip) at 32 rows of llama3-8b's KV heads in bf16,
+# one CTA a row and head: the row's scores stay beside the ring up to ~690
+# pages of 16 at rep 4, and up to far more at rep 1
 @pytest.mark.parametrize("rep,np_,page,smem", [(4, 37, 16, True), (4, 384, 16, True),
-                                               (4, 385, 16, False), (1, 1536, 16, True)])
+                                               (4, 700, 16, False), (1, 1536, 16, True)])
 def test_scores_stay_in_shared_memory_while_they_fit(rep, np_, page, smem):
-    assert PA.scores_in_shared_memory(rep, np_, page) is smem
+    plan = PA.paged_plan(32, 8 * rep, 8, 128, np_, page, 2, 132, ctas=1)
+    assert plan.smem_scores is smem and plan.bytes <= PA.SMEM_BYTES
+
+
+# ---------------------------------------------------------------------------
+# B13's plan and its split softmax
+# ---------------------------------------------------------------------------
+# (B, H, KV, Dh, NP, page, element size): llama3-8b served (4 rows) and
+# decode-heavy (32 rows of 256 pages); one row of one page; GQA groups of
+# 8 and 12 query heads (2 and 3 groups of 4); a narrow head; fp32
+PLAN_SHAPES = [(4, 32, 8, 128, 36, 16, 2), (32, 32, 8, 128, 256, 16, 2), (1, 4, 1, 64, 1, 16, 2),
+               (2, 16, 2, 64, 600, 16, 4), (3, 24, 2, 128, 50, 8, 2), (5, 4, 2, 16, 8, 8, 4)]
+
+
+@pytest.mark.parametrize("sms", [132, 114, 8])
+@pytest.mark.parametrize("shape", PLAN_SHAPES)
+def test_b13_plan_reads_only_shapes_and_owns_every_position_once(shape, sms):
+    b, h, kv, dh, np_, page, es = shape
+    plan = PA.paged_plan(b, h, kv, dh, np_, page, es, sms)
+    k = plan.ctas
+    assert k in (1, 2, 4, 8) and k <= max(1, np_) and plan.groups == -(-(h // kv) // 4)
+    half = PA.paged_plan(b, h, kv, dh, np_, page, es, sms, ctas=k // 2) if k > 1 else None
+    # it splits a row to fill the card once, or where half as many CTAs an
+    # SM-sized share would keep a CTA alone on its SM
+    assert k == 1 or b * kv * plan.groups * k <= sms or 2 * (half.bytes + 1024) > PA.SM_SMEM_BYTES
+    assert plan.bytes <= PA.SMEM_BYTES
+    owner = np.concatenate([np.full(max(0, min(np_, (r + 1) * plan.pages) - r * plan.pages), r)
+                            for r in range(k)])
+    assert owner.shape == (np_,) and (np.diff(owner) >= 0).all()  # each page once, in rank order
+    for forced in (1, 2, 4, 8, 16):
+        f = PA.paged_plan(b, h, kv, dh, np_, page, es, sms, ctas=forced)
+        assert f.ctas == forced and f.pages * forced >= np_ > (f.pages - 1) * forced
+    if shape[:2] == (4, 32) and sms == 132:
+        assert k == 4  # 128 CTAs at the served shape
+    if shape[0] == 32:
+        assert k == 2  # 512 CTAs of 87 KB, two an SM, where one of 118 KB would sit alone
+    with pytest.raises(ValueError, match="CTAs"):
+        PA.paged_plan(b, h, kv, dh, np_, page, es, sms, ctas=3)
+
+
+def split_softmax_emulation(q, kp, vp, table, lengths, k, dtype):
+    """B13's order on clusters of k CTAs: CTA r scores the row's pages
+    [r·ppc, (r+1)·ppc) that the length reaches (holes zero, page ids past
+    the pool clamped), the cluster takes the row's max before any p is
+    formed, each CTA rounds p to the V dtype and sums its Σp and Σp·v in
+    fp32, and the leader adds the k shares in rank order, then
+    round(o) / round(max(l, 1e-30))."""
+    rnd = (lambda x: np.asarray(x, np.float32)) if dtype == "float32" else \
+        (lambda x: np.asarray(x, np.float32).astype(jnp.bfloat16).astype(np.float32))
+    q, kp, vp = rnd(q), rnd(kp), rnd(vp)
+    b, h, dh = q.shape
+    pool, page, kvh, _ = kp.shape
+    np_ = table.shape[1]
+    rep, ppc = h // kvh, -(-np_ // k)
+    out = np.zeros((b, h * dh), np.float32)
+    for row in range(b):
+        live = min(max(int(lengths[row]), 0), np_ * page)
+        lpg = -(-live // page)
+        for head in range(h):
+            g = head // rep
+            shares = []
+            for r in range(k):
+                pages = range(r * ppc, min(min((r + 1) * ppc, np_), lpg))
+                ks, vs = [], []
+                for pg in pages:
+                    pid = int(table[row, pg])
+                    blk = np.zeros((2, page, dh), np.float32) if pid < 0 else \
+                        np.stack([kp[min(pid, pool - 1), :, g], vp[min(pid, pool - 1), :, g]])
+                    ks.append(blk[0])
+                    vs.append(blk[1])
+                ks = np.concatenate(ks) if ks else np.zeros((0, dh), np.float32)
+                vs = np.concatenate(vs) if vs else np.zeros((0, dh), np.float32)
+                pos = r * ppc * page + np.arange(len(ks))
+                s = np.where(pos < live, (ks @ q[row, head]).astype(np.float32) * np.float32(dh ** -0.5),
+                             np.float32(-1e30)).astype(np.float32)
+                shares.append((s, vs))
+            m = max([np.float32(-1e25)] + [s.max() for s, _ in shares if len(s)])
+            o, l = np.zeros(dh, np.float32), np.float32(0)
+            for s, vs in shares:
+                p = np.exp(s - m).astype(np.float32)
+                o = (o + (rnd(p) @ vs).astype(np.float32)).astype(np.float32)
+                l = np.float32(l + p.sum(dtype=np.float32))
+            out[row, head * dh:(head + 1) * dh] = rnd(rnd(o) / rnd(max(l, np.float32(1e-30))))
+    return out
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("k", [1, 2, 4, 8])
+@pytest.mark.parametrize("rep", [1, 4, 6])
+def test_b13_split_softmax_is_within_tol_of_the_reference(rep, k, dtype):
+    kv, dh, page, np_ = 2, 32, 4, 9
+    q, kp, vp, table = inputs(5, kv * rep, kv, dh, page, np_, 40, seed=rep + k)
+    table[0, 1] = -1          # a hole inside the live length
+    table[3, 2] = -1          # another
+    table[4, 0] = 40 + 7      # a page id past the pool: clamped
+    lengths = np.array([30, 0, 4 * 5 + 3, 36, 17], np.int32)  # zero, partial pages, a full row
+    want = np.asarray(paged_decode_attention_ref(*(jnp.asarray(x, jnp.dtype(dtype)) for x in (q, kp, vp)),
+                                                 jnp.asarray(table), jnp.asarray(lengths))).astype(np.float32)
+    got = split_softmax_emulation(q, kp, vp, table, lengths, k, dtype)
+    err = np.abs(got.astype(np.float64) - want).max() / np.abs(want).max()
+    assert err <= {"float32": 1e-5, "bfloat16": 1e-2}[dtype], f"normwise {err:.3e}"
+    assert not got[1].any()  # a row of length 0 gives zeros
 
 
 # ---------------------------------------------------------------------------

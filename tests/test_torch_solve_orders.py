@@ -29,6 +29,7 @@ import torch
 
 from repro.core import banded as jbanded
 from repro.core import batched as jbatched
+from repro.kernels import banded as jkband
 from repro_torch.core import banded as tbanded
 from repro_torch.core import batched as tbatched
 from repro_torch.kernels import banded as kband
@@ -38,6 +39,7 @@ SMEM = 232448  # dynamic shared memory one H100 block may use
 STRIP = 32
 F32 = np.float32
 TOL = 1e-5
+SOLVE_TOL = 1e-4  # B7 against its plain version (tests/test_torch_cuda.py, chip_smoke.py)
 
 
 def dd_stack(bsz, n, seed=0):
@@ -285,12 +287,20 @@ def test_band_cluster_plan_takes_the_first_pair_that_fits(bw, want):
 
 
 def test_the_tiled_slot_takes_only_the_bands_its_kernel_holds():
+    """Every fp32 local band (fault C5, repaired): the slab steps, a cluster
+    walk, or, where no cluster's CTAs hold a group's rows and panels, the
+    one-launch walk of the band in device memory; other dtypes stay out."""
     from repro_torch import solvers
 
-    assert kband.band_tiled_fits(65536, 256) and kband.band_tiled_fits(16384, 16)
-    assert not kband.band_tiled_fits(65536, 600)  # no cluster's CTA holds the rows and panels
-    wide = solvers.Problem(op="factor", structure="banded", n=65536, bw=600)
-    assert "cuda_tiled" not in [b.name for b in solvers.candidates(wide)]
+    assert kband.tiled_plan(16384, 16) is None
+    assert isinstance(kband.tiled_plan(65536, 256), kband.BandClusterPlan)
+    for bw in (497, 600, 3000):
+        assert kband.tiled_plan(65536, bw) == kband.GLOBAL_WALK and kband.tiled_launches(65536, bw) == 1
+        wide = solvers.Problem(op="factor", structure="banded", n=65536, bw=bw)
+        assert "cuda_tiled" in [b.name for b in solvers.candidates(wide)]
+        assert solvers.select(wide).name == "cuda_tiled"
+    half = solvers.Problem(op="factor", structure="banded", n=65536, bw=600, dtype="bfloat16")
+    assert "cuda_tiled" not in [b.name for b in solvers.candidates(half)]
 
 
 def test_band_cluster_plan_forced_and_refused():
@@ -307,7 +317,8 @@ def test_band_cluster_plan_forced_and_refused():
     with pytest.raises(ValueError, match="holds bw=256"):  # no kernel for groups of 12
         kband.band_cluster_plan(256, ctas=4, group=12)
     with pytest.raises(ValueError, match="holds bw=500"):  # not even 16 CTAs hold its rows and panels
-        kband.tiled_plan(65536, 500)
+        kband.band_cluster_plan(500)
+    assert kband.tiled_plan(65536, 500) == kband.GLOBAL_WALK  # the device-memory walk takes it
     with pytest.raises(ValueError, match="holds bw="):
         kband.band_cluster_plan(3000)
     assert kband.tiled_launches(0, 256) == 0 and kband.tiled_launches(0, 600) == 0
@@ -418,3 +429,162 @@ def test_band_cluster_order_is_the_plain_factors(n, bw, g, k):
     assert np.array_equal(band_cluster_emulation(a, bw, k, g), want)
     jwant = np.asarray(jbanded.banded_lu_blocked(jnp.asarray(a), bw=bw))
     assert normwise(want, jwant) <= TOL
+
+
+# ---------------------------------------------------------------------------
+# B7's staged schedule
+# ---------------------------------------------------------------------------
+def staged_solve_emulation(lu, b, bw, warps, cols, stages):
+    """B7's staged solve (``band_solve_staged_kernel``) step by step: per
+    tile of ``cols`` RHS columns, strips of 32 rows forward then backward;
+    each strip's half of the band enters a ring of ``stages`` buffers (each
+    tagged with its strip, ready only once the kernel's waits cover its
+    copy, and written only where a block barrier separates the copy from
+    the buffer's last read: other warps run ahead), the solver warps start from b (y) less the helpers' partial sums
+    of the step before, retire the previous strip's block and solve the
+    triangle; the helpers split the next strip's diagonals into slices
+    against a ring of ``cap`` solved values a column, tagged with the row
+    each slot holds, so a read of an overwritten slot fails."""
+    n, w = lu.shape
+    m = b.shape[1]
+    strips = -(-n // 32)
+    q4 = (bw + 10) // 4
+    q4 += 1 - q4 % 2
+    S, cap = 4 * q4, -(-(bw + 64) // 32) * 32
+    x = np.zeros((n, m), F32)
+    flat = lu.reshape(-1)
+    for c0 in range(0, m, cols):
+        ct = min(cols, m - c0)
+        nh = warps - cols if warps > cols else warps
+        ring = np.zeros((ct, cap), F32)
+        ring_tag = -np.ones((ct, cap), np.int64)
+        for upper in (False, True):
+            strip_of = (lambda q: strips - 1 - q) if upper else (lambda q: q)
+            buf_tag = [None] * stages   # (strip, upper) a buffer holds
+            issued = []                 # (buffer, tag) per commit group, in order
+            done = 0                    # groups the waits have covered
+            epoch = 0                   # block barriers so far
+            last_read = [-1] * stages   # the epoch of each buffer's last read
+
+            def barrier():
+                nonlocal epoch
+                epoch += 1
+
+            def stage(k, buf):
+                if 0 <= k < strips:
+                    assert last_read[buf] < epoch, f"buffer {buf} copied over before a barrier"
+                issued.append((buf, (k, upper) if 0 <= k < strips else None))
+                buf_tag[buf] = ("pending", len(issued) - 1)
+
+            def wait(pending):
+                nonlocal done
+                done = max(done, len(issued) - pending)
+                for i in range(done):
+                    bf, tag = issued[i]
+                    if buf_tag[bf] == ("pending", i):
+                        buf_tag[bf] = tag
+
+            def entry(buf, k, rr, e):
+                assert buf_tag[buf] == (k, upper), f"buffer {buf} holds {buf_tag[buf]}, not strip {k}"
+                last_read[buf] = epoch
+                start = (32 * k + rr) * w + (bw if upper else 0)
+                assert (start & 3) + e < S and 0 <= e < (bw + 1 if upper else bw)
+                return flat[start + e]
+
+            for qq in range(stages):
+                stage(strip_of(qq), qq)
+            part = {0: np.zeros((nh, ct, 32), F32)}
+            wait(stages - 2)
+            barrier()
+
+            def preload(k, buf):
+                near, tri = np.zeros((32, 32), F32), np.zeros((32, 32), F32)
+                diag, nb = np.ones(32, F32), np.zeros((32, ct), F32)
+                for lane in range(32):
+                    i = 32 * k + lane
+                    if not (0 <= k < strips and i < n):
+                        continue
+                    for s in range(32):
+                        if not upper:
+                            tn, tt = bw - 32 + s - lane, bw + s - lane
+                            near[lane, s] = entry(buf, k, lane, tn) if k > 0 and tn >= 0 else 0
+                            tri[lane, s] = entry(buf, k, lane, tt) if s < lane and tt >= 0 else 0
+                        else:
+                            un, ut = 32 + s - lane, s - lane
+                            near[lane, s] = entry(buf, k, lane, un) if un <= bw and 32 * k + 32 + s < n else 0
+                            tri[lane, s] = entry(buf, k, lane, ut) if s > lane and ut <= bw and 32 * k + s < n else 0
+                    if upper:
+                        diag[lane] = entry(buf, k, lane, 0)
+                    nb[lane] = (x if upper else b)[i, c0:c0 + ct]
+                return near, tri, diag, nb
+
+            regs = preload(strip_of(0), 0)
+            barrier()
+            prev = np.zeros((32, ct), F32)
+            for q in range(strips):
+                k = strip_of(q)
+                near, tri, diag, nb = regs
+                pin = part[q & 1]
+                acc = nb.copy()
+                for hh in range(nh):
+                    acc = (acc - pin[hh].T).astype(F32)
+                for s in range(32):
+                    acc = (acc - near[:, s:s + 1] * prev[s:s + 1, :]).astype(F32)
+                if not upper:
+                    for l in range(31):
+                        acc = (acc - tri[:, l:l + 1] * acc[l:l + 1, :]).astype(F32)
+                else:  # x_l = acc_l times the reciprocal of its pivot
+                    inv = (F32(1) / diag).astype(F32)[:, None]
+                    for l in range(31, -1, -1):
+                        xl = (acc[l:l + 1, :] * inv[l]).astype(F32)
+                        acc = (acc - tri[:, l:l + 1] * xl).astype(F32)
+                    acc = (acc * inv).astype(F32)
+                for lane in range(32):
+                    i = 32 * k + lane
+                    if i < n:
+                        ring[:, i % cap] = acc[lane]
+                        ring_tag[:, i % cap] = i
+                        x[i, c0:c0 + ct] = acc[lane]
+                prev = np.where((32 * k + np.arange(32) < n)[:, None], acc, 0).astype(F32)
+                stage(strip_of(q + stages), q % stages)
+                # the helpers: the next strip's terms against strips solved before this one
+                out = np.zeros((nh, ct, 32), F32)
+                kn = k - 1 if upper else k + 1
+                span = bw - 32
+                ts = -(-span // nh) if span > 0 else 0
+                for h in range(nh):
+                    for lane in range(32):
+                        i = 32 * kn + lane
+                        if not (0 <= kn < strips and i < n and ts > 0):
+                            continue
+                        if not upper:
+                            lo, hi = max(h * ts, max(0, bw - i)), min((h + 1) * ts, bw - 32 - lane)
+                        else:
+                            lo = max(33 + h * ts, 64 - lane)
+                            hi = min(33 + (h + 1) * ts, min(bw, n - 1 - i) + 1)
+                        accs = np.zeros(ct, F32)
+                        for e in range(lo, hi):
+                            j = i + e if upper else i - bw + e
+                            assert (ring_tag[:, j % cap] == j).all(), f"ring slot of {j} overwritten"
+                            accs = (accs + entry((q + 1) % stages, kn, lane, e) * ring[:, j % cap]).astype(F32)
+                        out[h, :, lane] = accs
+                part[(q + 1) & 1] = out
+                wait(stages - 2)
+                regs = preload(strip_of(q + 1), (q + 1) % stages)
+                barrier()
+            wait(0)
+            barrier()
+    return x
+
+
+# (n, bw): a tridiagonal band, Table 1's width, the shootout's, one just
+# past a strip, n not a multiple of 32, bw >= n, and the Poisson width on a
+# short band; warps a block, columns a block and stage counts the plan takes
+@pytest.mark.parametrize("warps,cols,stages", [(8, 1, 3), (8, 3, 2), (4, 4, 3), (1, 1, 2), (16, 8, 4)])
+@pytest.mark.parametrize("n,bw", [(97, 1), (131, 5), (200, 16), (150, 33), (45, 60), (300, 256), (64, 64)])
+def test_staged_band_solve_order_is_within_tol_of_the_reference(n, bw, warps, cols, stages):
+    lu = tbanded.banded_lu_blocked(torch.from_numpy(band_dd(n, bw, n + bw)), bw=bw).numpy()
+    b = np.random.default_rng(n).standard_normal((n, 5)).astype(F32)
+    got = staged_solve_emulation(lu, b, bw, warps, cols, stages)
+    want = np.asarray(jkband.banded_solve_kernelized(jnp.asarray(lu), jnp.asarray(b), bw=bw, interpret=True))
+    assert normwise(got, want) <= SOLVE_TOL
