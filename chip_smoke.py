@@ -20,12 +20,19 @@ Phases (any failure exits non-zero):
    B4 also at n = 1, 100 and 2049 with 1, 33 and 300 RHS columns; the band
    factors B5 and B6 bit for bit, B6 at the Poisson band on its cluster
    walk and at a bw = 600 band, past every cluster, on its device-memory
-   walk; B7 at every band with 1 and 64 RHS columns); 3c the batched kernels (B9-B12) at the batched paths' shapes, B9
+   walk; B7 at every band with 1 and 64 RHS columns); 3b B5 bit for bit on
+   its warp walk (bw = 1, 2, 5, 11, 16, 31) and on the ring and
+   device-memory walks (bw = 32, 200) at n = bw + 1, 2bw + 3, 257 and 4000,
+   on bands with entries outside the matrix, the walk checked against
+   ``band_lu_walk``, and on a zero pivot; 3c the batched kernels (B9-B12)
+   at the batched paths' shapes, B9
    also where its plan changes, B10 also on both of its paths at shapes on
    either side of its plan's split (each plan checked against its Python
    mirror); 3d the legacy
    dense kernels (B14-B17) at the legacy paths' shapes, B14 also at ragged
-   edges, fp32 and bf16, B17 also at odd n,
+   edges, fp32 and bf16, B15's U12 bit for bit (also the n = 8000 step in
+   fp32 and bf16) and a U12 column holding an inf (fault C6: NaN throughout
+   in U12 and A22, as in the plain version), B17 also at odd n,
    on each side of its resident/streamed split and on zero pivots (NaN and
    inf positions against the plain version's), and the legacy
    scalar band factor (B18) at the band the service escalates to it; 3e the
@@ -150,6 +157,10 @@ BATCHED_DENSE = ((8, 128), (32, 256), (8, 1024))
 # B6's cluster walk against the one-block walk B5 on bands past the slab of
 # one block (bw >= 85 at the default step of 256 pivots), n = 16384
 WIDE_BANDS = (32, 64, 85, 128, 169, 256)
+# B5 in phase 3b: its warp walk's bands (bw <= 31: the tridiagonal, Table 1's
+# bw = 5, the static rule's last bw = 11, 16 and 31) and the ring and
+# device-memory walks past it (32, 200), each at n = bw + 1, 2bw + 3, 257, 4000
+WALK_BANDS = (1, 2, 5, 11, 16, 31, 32, 200)
 # B9 also where its plan changes (kernels/batched_lu.py:batched_lu_plan): the
 # first n past one block's shared memory, odd n, n = 1000 with rows streamed
 # below theta, 100 systems of 2-CTA clusters (more than the card holds at
@@ -474,6 +485,42 @@ def main() -> int:
     print(f"  plain versions at the Poisson band, one call each: factor {plain_once[pshape]:.1f} ms, "
           f"solve m=1 {plain_once[pshape + ' m=1']:.1f} ms", flush=True)
 
+    # ---- 3b. B5's walks at the bands on either side of the warp walk ------
+    print("phase 3b: B5 (banded_lu_blocked) bit for bit on its warp walk (bw <= "
+          f"{banded.WARP_WALK_MAX_BW}) and on the ring and device-memory walks past it; bands with "
+          "entries outside the matrix", flush=True)
+
+    def any_band(n, bw, seed):
+        # a diagonally dominant band whose entries outside the matrix are not zero
+        g = torch.Generator(device=dev).manual_seed(seed)
+        a = torch.rand((n, 2 * bw + 1), generator=g, device=dev) * 2 - 1
+        a[:, bw] = a.abs().sum(dim=1) + 1
+        return a
+
+    for bw in WALK_BANDS:
+        for n in (bw + 1, 2 * bw + 3, 257, 4000):
+            a = any_band(n, bw, 1900 + 7 * n + bw)
+            got, want = banded.banded_lu_blocked(a, bw=bw), banded.banded_lu_plain(a, bw=bw)
+            torch.cuda.synchronize()
+            walk, equal = banded.banded_lu_blocked.last_path, bool(torch.equal(got, want))
+            max_err["banded_lu_blocked"] = max(max_err["banded_lu_blocked"],
+                                               float((got.double() - want.double()).abs().max()))
+            print(f"  {'banded_lu_blocked':18s} n={n:5d} bw={bw:3d} {walk:19s} bitwise equal: {equal}", flush=True)
+            if not equal or walk != banded.band_lu_walk(n, bw):
+                fail(f"banded_lu_blocked n={n} bw={bw}: {walk} (mirror: {banded.band_lu_walk(n, bw)}), "
+                     f"bitwise equal {equal}")
+    a = any_band(300, 5, 1990)
+    a[0, 5] = 0  # a zero first pivot: inf and NaN where the plain version has them
+    got, want = banded.banded_lu_blocked(a, bw=5), banded.banded_lu_plain(a, bw=5)
+    torch.cuda.synchronize()
+    gnan, wnan = torch.isnan(got), torch.isnan(want)
+    same = bool(torch.equal(gnan, wnan)) and bool(torch.equal(got.masked_fill(gnan, 0), want.masked_fill(wnan, 0)))
+    print(f"  {'banded_lu_blocked':18s} n=  300 bw=  5 zero pivot: NaN {int(wnan.sum())}, inf "
+          f"{int(torch.isinf(want).sum())} in the plain version; positions and finite values equal: {same}",
+          flush=True)
+    if not same or bool(torch.isfinite(want).all()):
+        fail("banded_lu_blocked on a zero pivot differs from its plain version")
+
     # ---- 3c. the batched kernels against their plain versions -------------
     print("phase 3c: batched kernels vs plain (B9, B10, B11 bit for bit; B12 normwise, "
           f"tolerance {BATCHED_SOLVE_TOL:.0e})", flush=True)
@@ -635,8 +682,45 @@ def main() -> int:
     step_args = (pan, top, trail)
     u12, new_trail = ebv_lu.fused_step(*step_args, col_tile=128)
     pu12, pnew = ebv_lu.fused_step_plain(*step_args)
-    compare("fused_step", f"n=2000 U12", u12, pu12, LEGACY_TOL)
+    compare_bitwise("fused_step", "n=2000 U12", u12, pu12)
     compare("fused_step", f"n=2000 A22", new_trail, pnew, LEGACY_TOL)
+    # the driver's first step at n = 8000 (W = 7744), fp32 and bf16
+    a8k = matrix(8000, 1310)
+    for dtype in (torch.float32, torch.bfloat16):
+        args8 = (ebv_lu.panel(a8k[:, :LEGACY_BLOCK].to(dtype)), a8k[:LEGACY_BLOCK, LEGACY_BLOCK:].to(dtype),
+                 a8k[LEGACY_BLOCK:, LEGACY_BLOCK:].to(dtype))
+        got_u, got_a = ebv_lu.fused_step(*args8, col_tile=64)  # W = 7744 = 121 * 64
+        want_u, want_a = ebv_lu.fused_step_plain(*args8)
+        dname = str(dtype)[6:]
+        compare_bitwise("fused_step", f"n=8000 U12 {dname}", got_u, want_u)
+        compare("fused_step", f"n=8000 A22 {dname}", got_a.float(), want_a.float(),
+                LEGACY_TOL if dtype == torch.float32 else BF16_UPDATE_TOL)
+    del a8k, args8, got_u, got_a, want_u, want_a
+    # C6: a U12 column holding a non-finite value (an inf in A12, or an inf in
+    # L11 meeting an exact zero of U12) is NaN throughout, in U12 and A22
+    for poison in ("a12_inf", "l11_zero_times_inf"):
+        ptop, ppan = top.clone(), pan.clone()
+        if poison == "a12_inf":
+            ptop[2, 1] = float("inf")
+        else:
+            ptop[0, 0] = 0
+            ppan[1, 0] = float("inf")
+        got_u, got_a = ebv_lu.fused_step(ppan, ptop, trail, col_tile=128)
+        want_u, want_a = ebv_lu.fused_step_plain(ppan, ptop, trail)
+        torch.cuda.synchronize()
+        col = 1 if poison == "a12_inf" else 0
+        same = bool(torch.equal(torch.isnan(got_u), torch.isnan(want_u))) \
+            and bool(torch.equal(got_u.nan_to_num(0), want_u.nan_to_num(0))) \
+            and bool(torch.equal(torch.isnan(got_a), torch.isnan(want_a)))
+        finite = ~torch.isnan(want_a)
+        rel = (float((got_a[finite].double() - want_a[finite].double()).abs().max()
+                     / want_a[finite].double().abs().max()) if bool(finite.any()) else 0.0)
+        nan_cols = int(torch.isnan(want_u).all(dim=0).sum())
+        print(f"  {'fused_step':15s} n=2000 {poison}: {nan_cols} U12 column(s) NaN throughout in the plain "
+              f"version; NaN positions in U12 and A22 and the finite U12 equal: {same}; finite A22 rel "
+              f"{rel:.3e}", flush=True)
+        if not same or not bool(torch.isnan(want_u[:, col]).all()) or not rel <= LEGACY_TOL:
+            fail(f"fused_step {poison}: the kernel differs from its plain version on a non-finite column (C6)")
     g = torch.Generator(device=dev).manual_seed(1400)
     upd_args = tuple(torch.randn(shape, generator=g, device=dev)
                      for shape in ((wpad, LEGACY_BLOCK), (LEGACY_BLOCK, wpad), (wpad, wpad)))
@@ -1027,7 +1111,7 @@ def main() -> int:
                        "panel": sum(-(-n // LEGACY_BLOCK) for n in BLOCKED_SIZES),
                        "fused_step": sum(blocked_launches(n) - (-(-n // LEGACY_BLOCK)) for n in BLOCKED_SIZES)}
     legacy_launches = read(lwrappers, legacy_expected, "legacy forced path (one cooperative launch per "
-                           "lu_vmem; 2S-1 per cuda_blocked)")
+                           "lu_vmem; S panels and S-1 fused steps of two launches per cuda_blocked)")
     check_results(fresults)
     _, n, a, b = fcases[0]
     want = ref.solve_ref(ref.lu_ref(a.double().cpu().numpy()), b.double().cpu().numpy())
@@ -1690,6 +1774,13 @@ def main() -> int:
         print(f"  ops.lu(impl='cuda_blocked') n={n}: {tb:.4f} ms ({blocked_launches(n)} launches) against "
               f"the default cuda_fused {tf:.4f} ms", flush=True)
 
+    print(f"  B15 on the forced cuda_blocked factor's first step beside solve_triangular + addmm, and the "
+          f"factor (ms; card: {card}):", flush=True)
+    time_kernels.blocked_steps(dev)
+    print(f"  B5 at Table 1's bands and over bw at n = 16384, B6's slab steps beside it from bw = 12, B11 and "
+          f"B18 (ms; card: {card}):", flush=True)
+    time_kernels.narrow_bands(dev)
+
     print("  optimizer step (host clock around a synchronized step, median of 3):", flush=True)
     opt_ms = {}
     for name, ps in trees.items():
@@ -1905,6 +1996,7 @@ def main() -> int:
     source = {"lu_fused": "src/repro_torch/csrc/ebv_lu.cu", "solve_vmem": "src/repro_torch/csrc/trsm.cu",
               "solve_tiled": "src/repro_torch/csrc/trsm.cu", "solve_inverted": "src/repro_torch/csrc/trsm.cu",
               **dict.fromkeys(bwrappers, "src/repro_torch/csrc/banded.cu"),
+              "banded_lu_blocked": "src/repro_torch/csrc/band_walk.cu",  # bw <= 31: the line's n=16000 bw=5
               **dict.fromkeys(dwrappers, "src/repro_torch/csrc/batched_lu.cu"),
               **dict.fromkeys(ewrappers, "src/repro_torch/csrc/banded.cu"),
               **dict.fromkeys(("lu_vmem", "panel", "fused_step", "update"),

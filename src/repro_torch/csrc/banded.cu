@@ -12,13 +12,15 @@
 // factor (repro_torch.core.banded.banded_lu_blocked) value for value.
 //
 // band_lu_resident_kernel — replaces src/repro/kernels/banded.py:
-//   banded_lu_blocked, the Pallas megakernel that held the whole skewed band
-//   in VMEM for ceil(n/C) window steps.  One launch, one block: the band is
-//   streamed through a ring of R rows in shared memory (R*(2bw+1) floats, up
-//   to 227 KB), so each band row is read once and written once and the bw
-//   carry rows of a chunk stay on chip for the next.  Where not even bw+1
-//   rows fit (bw > ~168), band_lu_global_kernel runs the same walk on the
-//   band in device memory; its working set, bw+1 rows, stays in the 50 MB L2.
+//   banded_lu_blocked (B5) for bands past bw = 31 (band_walk.cu's warp walk
+//   takes the narrower ones), the Pallas megakernel that held the whole
+//   skewed band in VMEM for ceil(n/C) window steps.  One launch, one block:
+//   the band is streamed through a ring of R rows in shared memory
+//   (R*(2bw+1) floats, up to 227 KB), so each band row is read once and
+//   written once and the bw carry rows of a chunk stay on chip for the
+//   next; one block barrier a pivot.  Where not even bw+1 rows fit
+//   (bw > ~168), band_lu_global_kernel runs the same walk on the band in
+//   device memory; its working set, bw+1 rows, stays in the 50 MB L2.
 //
 // band_lu_slab_kernel, band_lu_cluster_kernel — replace src/repro/kernels/
 //   banded.py:banded_lu_tiled, whose grid steps ran in order on the TPU, step
@@ -133,7 +135,12 @@
 
 namespace cg = cooperative_groups;
 
+// B5's warp walk for bands up to bw = 31 (band_walk.cu)
+cudaError_t band_lu_warp_walk(float* band, int n, int bw, cudaStream_t stream);
+
 namespace {
+
+constexpr int kWarpWalkMaxBw = 31;  // the widest band the warp walk takes (band_walk.cu)
 
 constexpr int kSmemBytes = 232448;  // dynamic shared memory one H100 block may use
 constexpr int kTile = 32;           // batched-product tile and scan column group
@@ -977,9 +984,9 @@ cudaError_t launch_global(float* band, int batch, int n, int bw, int p0, int p1,
 // Factor `batch` row-aligned (n, 2bw+1) fp32 bands in place, in one launch
 // of one block per band (the ring of band_lu_resident_kernel, or
 // band_lu_global_kernel for wide bands); `window`: the scalar-sequential
-// step of B18.
+// step of B18.  *path: 1 the ring walk, 2 the device-memory walk.
 int band_lu_one_launch(float* band, int batch, int n, int bw, cudaStream_t stream, int* launches,
-                       bool window = false) {
+                       bool window = false, int* path = nullptr) {
   *launches = 0;
   cudaError_t err;
   int R = n, C = n;  // the whole band fits: one chunk
@@ -988,6 +995,7 @@ int band_lu_one_launch(float* band, int batch, int n, int bw, cudaStream_t strea
     R = room > 0 ? (int)(room / ((2LL * bw + 1) * (long long)sizeof(float))) : 0;
     C = R - bw;  // pivots per chunk: rows p .. p+bw of each must be in the ring
   }
+  if (path) *path = C < 1 ? 2 : 1;
   if (C < 1) {
     if ((err = launch_global(band, batch, n, bw, 0, n, stream, window))) return err;
     ++*launches;
@@ -1030,13 +1038,24 @@ int band_solve_launch(const void* lu, const void* b, void* x, int batch, int n, 
 
 }  // namespace
 
-// Factor the row-aligned (n, 2bw+1) fp32 band in place, in one launch (the
-// ring of band_lu_resident_kernel, or band_lu_global_kernel for wide bands).
-// Stores in *launches how many kernels it launched; returns the first error.
-extern "C" int ebv_band_lu_resident(void* band_ptr, int n, int bw, void* stream_ptr,
+// Factor the row-aligned (n, 2bw+1) fp32 band in place, in one launch: the
+// warp walk of band_walk.cu for bw <= 31 (none for an empty band), else the
+// ring of band_lu_resident_kernel, or band_lu_global_kernel for bands too
+// wide for it.  *path: 0 the warp walk, 1 the ring walk, 2 the
+// device-memory walk.  Stores in *launches how many kernels it launched;
+// returns the first error.
+extern "C" int ebv_band_lu_resident(void* band_ptr, int n, int bw, int* path, void* stream_ptr,
                                     int* launches) {
-  return band_lu_one_launch(static_cast<float*>(band_ptr), 1, n, bw,
-                            static_cast<cudaStream_t>(stream_ptr), launches);
+  float* band = static_cast<float*>(band_ptr);
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  *launches = 0;
+  *path = 0;
+  if (bw <= kWarpWalkMaxBw) {
+    const cudaError_t err = band_lu_warp_walk(band, n, bw, stream);
+    if (!err && n > 0) *launches = 1;
+    return err;
+  }
+  return band_lu_one_launch(band, 1, n, bw, stream, launches, false, path);
 }
 
 // Factor the row-aligned (n, 2bw+1) fp32 band in place with the

@@ -31,18 +31,33 @@
 //   positions included.  Bound: 2n^3/3 flops in 2n^3/3 separately rounded
 //   operations, and n-1 dependent handoffs (~3 L2 round trips each).
 //
-// fused_step_kernel — replaces src/repro/kernels/ebv_lu.py:fused_step: per
-//   column tile, U12 = L11^-1 A12 (unit lower, b sequential masked axpys)
-//   and then A22 - L21 U12.  The TPU kernel keeps the whole (m, b) panel in
-//   VMEM (8 MB at m = 8000, b = 256); here a block owns 32 columns and 128
-//   trailing rows, solves its 32 columns of U12 in shared memory with L11
-//   streamed through a 32-column strip, then forms its (128, 32) block of
-//   L21 U12 with L21 streamed through the same strip.  Columns are
-//   independent, so the internal 32-column tiling gives the caller's
-//   col_tile result.  The solve repeats in every row chunk of a column
-//   (one launch per step, as the TPU kernel is one pallas_call); the blocks
-//   of row chunk 0 store U12.  The solve rounds as the plain version does;
-//   the product accumulates in fp32 in k order and rounds once.
+// u12_solve_kernel + the SGEMM tile — replace src/repro/kernels/ebv_lu.py:
+//   fused_step: per column tile, U12 = L11^-1 A12 (unit lower, b sequential
+//   masked axpys) and then A22 - L21 U12.  The TPU kernel keeps the whole
+//   (m, b) panel in VMEM (8 MB at m = 8000, b = 256) and solves U12 in every
+//   grid step.  Here it is two launches in stream order, the second a
+//   programmatic dependent launch of the first:
+//   - u12_solve_kernel solves each tile of 16 U12 columns once, a block a
+//     tile (112 blocks at n = 2000, step 1: W = 1792), the tile in shared
+//     memory: in strips of 32 pivots, L11's strip staged in shared memory,
+//     one warp solves the strip's 32 x 32 triangle in registers (a lane a
+//     column), then every thread retires the strip's 32 terms, in pivot
+//     order, from its row and four columns below the strip.  Each element
+//     takes its terms k = 0, 1, ... in turn, each multiply and subtract
+//     rounded to T (__fmul_rn, __fsub_rn, rnd<T>), so U12 is the plain
+//     version's bit for bit in fp32 and bf16.  The plain version masks each
+//     axpy (y - where(rows > k, l, 0) y_k), so a non-finite y_k turns every
+//     row at or above k NaN (0 * inf), and each later y_j is non-finite in
+//     turn: a column holding any non-finite value ends NaN throughout.  The
+//     kernel retires only the rows below each pivot and then applies that
+//     rule, so it equals the plain version value for value;
+//   - A22 - L21 U12 on the dense factor's SGEMM tile (sgemm.cuh), as update
+//     below: L21 row-major as it lies in the panel, U12 from the first
+//     launch (read after griddepcontrol.wait), a NaN column of U12 a NaN
+//     column of A22.
+//   Bound: b(b-1)W flops of the solve and 2(m-b)bW of the product (1.6
+//   GFLOP at n = 2000, step 1), fp32 on the CUDA cores.  The product runs at
+//   the tile's rate; the solve has b/(2(m-b)) of its flops, in one wave.
 //
 // update — replaces src/repro/kernels/ebv_lu.py:update: A22 - L21 U12 into
 //   a new tensor, one launch of the dense factor's SGEMM tile (sgemm.cuh):
@@ -66,13 +81,12 @@
 
 namespace {
 
-constexpr int kStepCols = 32;        // U12 / trailing columns per fused-step block
-constexpr int kStepRows = 128;       // trailing rows per fused-step block
-constexpr int kStepThreads = 256;
-constexpr int kStrip = 32;           // L11 / L21 columns staged at once
+constexpr int kSolveCols = 16;       // U12 columns a solve block owns
+constexpr int kSolveThreads = 256;
+constexpr int kStrip = 32;           // pivots of L11 staged at once
 constexpr int kSmemMax = 232448;     // dynamic shared memory one H100 block may use
 
-extern __shared__ float smem[];
+extern __shared__ __align__(16) float smem[];  // 16 bytes for the solve's float4 reads
 
 template <typename T>
 __global__ void __launch_bounds__(kWalkThreads, 1)
@@ -130,83 +144,78 @@ ebv_walk_kernel(T* a, int m, int ncols, int steps, int theta, size_t lbuf_at, si
   }
 }
 
-// grid (column strips of 32, row chunks of 128); pan (m, b), top (b, w),
-// trail (m-b, w) row-major; u12 (b, w), out (m-b, w).
+// The solve's shared memory in floats: the tile ys (b rows of 16), a strip
+// of L11 (max(b, 32) rows of 33: the triangle reads 32 rows, and those past
+// the panel feed only rows it never stores) and a flag a column.
+inline size_t u12_solve_floats(int b) {
+  return (size_t)b * kSolveCols + (size_t)(b > kStrip ? b : kStrip) * (kStrip + 1) + kSolveCols;
+}
+
+// grid: tiles of 16 columns; pan (m, b) and top (b, w) row-major, u12 (b, w).
 template <typename T>
-__global__ void __launch_bounds__(kStepThreads)
-fused_step_kernel(const T* __restrict__ pan, const T* __restrict__ top, const T* __restrict__ trail,
-                  T* __restrict__ u12, T* __restrict__ out, int m, int b, int w) {
-  const int ldy = b + 1;
-  float* ys = smem;                          // U12 block, column-major: ys[c * ldy + i]
-  float* ls = smem + kStepCols * ldy;        // a staged strip: ls[r * (kStrip + 1) + l]
+__global__ void __launch_bounds__(kSolveThreads)
+u12_solve_kernel(const T* __restrict__ pan, const T* __restrict__ top, T* __restrict__ u12, int b, int w) {
+  allow_next_step();  // the product's blocks may start; they wait for this launch before reading U12
   constexpr int lds = kStrip + 1;
-  const int col0 = blockIdx.x * kStepCols;
-  const int cols = min(kStepCols, w - col0);
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, nwarps = kStepThreads / 32;
-  for (int idx = tid; idx < b * kStepCols; idx += kStepThreads) {
-    const int i = idx / kStepCols, cc = idx % kStepCols;
-    ys[cc * ldy + i] = cc < cols ? load(top + (size_t)i * w + col0 + cc) : 0.f;
+  float* ys = smem;                     // ys[i * 16 + c]
+  float* ls = smem + b * kSolveCols;    // ls[(i - s0) * 33 + l] = L11[i, s0 + l]
+  int* bad = reinterpret_cast<int*>(ls + (b > kStrip ? b : kStrip) * lds);  // a column holds a non-finite value
+  const int col0 = blockIdx.x * kSolveCols, cols = min(kSolveCols, w - col0);
+  const int tid = threadIdx.x;
+  if (tid < kSolveCols) bad[tid] = 0;
+  for (int idx = tid; idx < b * kSolveCols; idx += kSolveThreads) {
+    const int i = idx / kSolveCols, c = idx % kSolveCols;
+    ys[idx] = c < cols ? load(top + (size_t)i * w + col0 + c) : 0.f;
   }
-  // U12 = L11^-1 A12: y_i -= l_ik y_k for k = 0, 1, ..., each column by one warp
+  // a thread retires rows q0, q0 + 64, ... of four columns c4 .. c4+3
+  const int c4 = 4 * (tid % 4), q0 = tid / 4;
   for (int s0 = 0; s0 < b; s0 += kStrip) {
     const int kw = min(kStrip, b - s0);
-    __syncthreads();
-    for (int idx = tid; idx < b * kw; idx += kStepThreads) {
-      const int i = idx / kw, l = idx % kw;
-      ls[i * lds + l] = load(pan + (size_t)i * b + s0 + l);
+    __syncthreads();  // the last strip's retire has read ls
+    for (int idx = tid; idx < (b - s0) * kStrip; idx += kSolveThreads) {
+      const int r = idx / kStrip, l = idx % kStrip;
+      ls[r * lds + l] = l < kw ? load(pan + (size_t)(s0 + r) * b + s0 + l) : 0.f;
     }
     __syncthreads();
-    for (int cc = warp; cc < cols; cc += nwarps) {
-      float* y = ys + cc * ldy;
-      for (int l = 0; l < kw; ++l) {
-        const int k = s0 + l;
-        const float yk = y[k];
-        for (int i = k + 1 + lane; i < b; i += 32)
-          y[i] = rnd<T>(__fsub_rn(y[i], rnd<T>(__fmul_rn(ls[i * lds + l], yk))));
-        __syncwarp();
+    if (tid < kSolveCols) {  // the strip's triangle: lane c solves column c in registers
+      float y[kStrip];
+#pragma unroll
+      for (int j = 0; j < kStrip; ++j) y[j] = j < kw ? ys[(s0 + j) * kSolveCols + tid] : 0.f;
+#pragma unroll
+      for (int l = 0; l < kStrip - 1; ++l)
+#pragma unroll
+        for (int j = l + 1; j < kStrip; ++j)  // rows past kw read rows of ls never stored back
+          y[j] = rnd<T>(__fsub_rn(y[j], rnd<T>(__fmul_rn(ls[j * lds + l], y[l]))));
+#pragma unroll
+      for (int j = 0; j < kStrip; ++j)
+        if (j < kw) ys[(s0 + j) * kSolveCols + tid] = y[j];
+    }
+    __syncthreads();
+    // the rows below the strip take its 32 terms in order (a strip with rows
+    // below it is a whole one)
+    for (int i = s0 + kStrip + q0; i < b; i += kSolveThreads / 4) {
+      float4 acc = *reinterpret_cast<const float4*>(ys + i * kSolveCols + c4);
+      const float* li = ls + (i - s0) * lds;
+#pragma unroll
+      for (int l = 0; l < kStrip; ++l) {
+        const float lv = li[l];
+        const float4 yk = *reinterpret_cast<const float4*>(ys + (s0 + l) * kSolveCols + c4);
+        acc.x = rnd<T>(__fsub_rn(acc.x, rnd<T>(__fmul_rn(lv, yk.x))));
+        acc.y = rnd<T>(__fsub_rn(acc.y, rnd<T>(__fmul_rn(lv, yk.y))));
+        acc.z = rnd<T>(__fsub_rn(acc.z, rnd<T>(__fmul_rn(lv, yk.z))));
+        acc.w = rnd<T>(__fsub_rn(acc.w, rnd<T>(__fmul_rn(lv, yk.w))));
       }
+      *reinterpret_cast<float4*>(ys + i * kSolveCols + c4) = acc;
     }
   }
   __syncthreads();
-  if (blockIdx.y == 0) {
-    for (int idx = tid; idx < b * cols; idx += kStepThreads) {
-      const int i = idx / cols, cc = idx % cols;
-      store(u12 + (size_t)i * w + col0 + cc, ys[cc * ldy + i]);
-    }
-  }
-  // A22 - L21 U12 for rows r0 .. r0+127: thread (tx, ty) owns column tx and
-  // rows ty, ty+8, ...
-  const int mt = m - b, r0 = blockIdx.y * kStepRows;
-  const int rows = min(kStepRows, mt - r0);
-  if (rows <= 0) return;
-  const int tx = tid & 31, ty = tid >> 5;
-  constexpr int kPer = kStepRows / (kStepThreads / 32);
-  float acc[kPer];
-#pragma unroll
-  for (int q = 0; q < kPer; ++q) acc[q] = 0.f;
-  for (int s0 = 0; s0 < b; s0 += kStrip) {
-    const int kw = min(kStrip, b - s0);
-    __syncthreads();
-    for (int idx = tid; idx < rows * kw; idx += kStepThreads) {
-      const int r = idx / kw, l = idx % kw;
-      ls[r * lds + l] = load(pan + (size_t)(b + r0 + r) * b + s0 + l);
-    }
-    __syncthreads();
-    for (int l = 0; l < kw; ++l) {
-      const float yk = ys[tx * ldy + s0 + l];
-#pragma unroll
-      for (int q = 0; q < kPer; ++q) acc[q] = fmaf(ls[(ty + 8 * q) * lds + l], yk, acc[q]);
-    }
-  }
-  if (tx < cols) {
-#pragma unroll
-    for (int q = 0; q < kPer; ++q) {
-      const int r = ty + 8 * q;
-      if (r < rows) {
-        const size_t at = (size_t)(r0 + r) * w + col0 + tx;
-        store(out + at, __fsub_rn(load(trail + at), rnd<T>(acc[q])));
-      }
-    }
+  for (int idx = tid; idx < b * kSolveCols; idx += kSolveThreads)
+    if (!isfinite(ys[idx])) bad[idx % kSolveCols] = 1;
+  __syncthreads();
+  const float nan = __int_as_float(0x7fffffff);
+  for (int idx = tid; idx < b * cols; idx += kSolveThreads) {
+    const int i = idx / cols, c = idx % cols;
+    store(u12 + (size_t)i * w + col0 + c, bad[c] ? nan : ys[i * kSolveCols + c]);
   }
 }
 
@@ -245,25 +254,6 @@ cudaError_t launch_walk(void* a, int m, int ncols, int steps, void* ready, cudaS
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t launch_fused_step(const void* pan, const void* top, const void* trail, void* u12,
-                              void* out, int m, int b, int w, cudaStream_t stream) {
-  auto kernel = fused_step_kernel<T>;
-  const int strip_rows = b > kStepRows ? b : kStepRows;  // the strip holds L11 or 128 rows of L21
-  const size_t bytes =
-      ((size_t)kStepCols * (b + 1) + (size_t)strip_rows * (kStrip + 1)) * sizeof(float);
-  if (bytes > (size_t)kSmemMax) return cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(bytes));
-  if (err) return err;
-  const int chunks = m - b > 0 ? (m - b + kStepRows - 1) / kStepRows : 1;
-  const dim3 grid((w + kStepCols - 1) / kStepCols, chunks);
-  kernel<<<grid, kStepThreads, bytes, stream>>>(
-      static_cast<const T*>(pan), static_cast<const T*>(top), static_cast<const T*>(trail),
-      static_cast<T*>(u12), static_cast<T*>(out), m, b, w);
-  return cudaGetLastError();
-}
-
 // The shared memory attributes of the update's tiles, set once per device.
 cudaError_t allow_update_smem() {
   cudaError_t err;
@@ -288,6 +278,43 @@ cudaError_t launch_update(const void* l, const void* u, const void* c, void* o, 
   return launch_gemm_rect<T, false>(g, 0, 0, m, w, sms, 0, false, stream);
 }
 
+// The shared memory attributes of the fused step's two kernels, set once
+// per device.
+cudaError_t allow_fused_step_smem() {
+  cudaError_t err;
+  if ((err = allow_update_smem())) return err;
+  if ((err = allow_smem(u12_solve_kernel<float>, kSmemMax))) return err;
+  return allow_smem(u12_solve_kernel<__nv_bfloat16>, kSmemMax);
+}
+
+// U12 = L11^-1 top, then out = trail - L21 U12 on the SGEMM tile, a
+// programmatic dependent launch of the solve (none where out is empty).
+template <typename T>
+cudaError_t launch_fused_step(const void* pan, const void* top, const void* trail, void* u12, void* out, int m,
+                              int b, int w, cudaStream_t stream, int* launched) {
+  const size_t bytes = u12_solve_floats(b) * sizeof(float);
+  if (bytes > (size_t)kSmemMax) return cudaErrorInvalidValue;
+  int sms = 0;
+  cudaError_t err;
+  if ((err = device_sms<allow_fused_step_smem>(&sms))) return err;
+  if ((err = launch_step(u12_solve_kernel<T>, dim3((w + kSolveCols - 1) / kSolveCols), dim3(kSolveThreads),
+                         bytes, stream, false, static_cast<const T*>(pan), static_cast<const T*>(top),
+                         static_cast<T*>(u12), b, w)))
+    return err;
+  *launched = 1;
+  if (m - b < 1) return cudaSuccess;
+  const bool f32 = sizeof(T) == 4;
+  const T* l21 = static_cast<const T*>(pan) + (size_t)b * b;
+  const int vec = f32 && w % 4 == 0 && aligned16(trail) && aligned16(out);
+  const int vec_b = f32 && w % 4 == 0 && aligned16(u12);
+  const int vec_a = f32 && b % 4 == 0 && aligned16(l21);
+  const Gemm<T> g{l21, b, static_cast<const T*>(u12), w, static_cast<const T*>(trail), static_cast<T*>(out), w,
+                  m - b, w, b, vec, vec_b, vec_a};
+  if ((err = launch_gemm_rect<T, false>(g, 0, 0, m - b, w, sms, 0, true, stream))) return err;
+  *launched = 2;
+  return cudaSuccess;
+}
+
 }  // namespace
 
 // In place, the EbV steps on the row-major (m, ncols) matrix `a` (fp32, or
@@ -309,12 +336,15 @@ extern "C" int ebv_legacy_walk(void* a, int m, int ncols, int steps, int bf16, v
 }
 
 // u12 = L11^-1 top and out = trail - L21 u12 for the packed panel pan (m, b),
-// top (b, w) and trail (m - b, w); one launch.
+// top (b, w) and trail (m - b, w): the solve, then the product (none where
+// m = b); *launched says how many launches were made.
 extern "C" int ebv_legacy_fused_step(const void* pan, const void* top, const void* trail, void* u12,
-                                     void* out, int m, int b, int w, int bf16, void* stream) {
+                                     void* out, int m, int b, int w, int bf16, void* stream, int* launched) {
+  *launched = 0;
+  if (b < 1 || w < 1) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return bf16 ? launch_fused_step<__nv_bfloat16>(pan, top, trail, u12, out, m, b, w, s)
-              : launch_fused_step<float>(pan, top, trail, u12, out, m, b, w, s);
+  return bf16 ? launch_fused_step<__nv_bfloat16>(pan, top, trail, u12, out, m, b, w, s, launched)
+              : launch_fused_step<float>(pan, top, trail, u12, out, m, b, w, s, launched);
 }
 
 // o = c - l u for l (m, kd), u (kd, w), c and o (m, w), row-major; one

@@ -39,14 +39,14 @@ _N = ctypes.POINTER(_I)
 # C entry points: name -> argument types.  Every entry returns the
 # cudaError_t of its launches as an int (0 = success); ebv_lu_fused,
 # ebv_solve_vmem, ebv_solve_tiled, ebv_solve_inverted, the ebv_band_* and
-# ebv_batched_* entries and ebv_legacy_walk also report through their last
-# argument how many kernels they launched.
+# ebv_batched_* entries, ebv_legacy_walk and ebv_legacy_fused_step also
+# report through their last argument how many kernels they launched.
 _SIGNATURES = {
     "ebv_lu_fused": [_P, _I, _I, _P, _I, _P, _N],
     "ebv_solve_vmem": [_P] * 4 + [_I] * 6 + [_P, _N, _N],
     "ebv_solve_tiled": [_P] * 4 + [_I] * 4 + [_P, _N],
     "ebv_solve_inverted": [_P] * 6 + [_I] * 4 + [_P, _N],
-    "ebv_band_lu_resident": [_P, _I, _I, _P, _N],
+    "ebv_band_lu_resident": [_P, _I, _I, _N, _P, _N],
     "ebv_band_lu_steps": [_P, _I, _I, _I, _I, _I, _I, _N, _P, _N],
     "ebv_band_lu_scalar": [_P, _I, _I, _P, _N],
     "ebv_band_solve": [_P, _P, _P] + [_I] * 7 + [_N, _P, _N],
@@ -58,7 +58,7 @@ _SIGNATURES = {
     "ebv_batched_band_lu": [_P, _I, _I, _I, _P, _N],
     "ebv_batched_band_solve": [_P, _P, _P, _I, _I, _I, _I, _I, _P, _N],
     "ebv_legacy_walk": [_P, _I, _I, _I, _I, _P, _P, _N, _N],
-    "ebv_legacy_fused_step": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "ebv_legacy_fused_step": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _N],
     "ebv_legacy_update": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "ebv_paged_decode_attention": [_P] * 7 + [_I] * 9 + [ctypes.c_float, _I, _N, _P],
 }

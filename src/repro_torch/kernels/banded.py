@@ -1,10 +1,15 @@
-"""The banded EbV factor and solves: CUDA kernels (``csrc/banded.cu``) and
+"""The banded EbV factor and solves: CUDA kernels (``csrc/banded.cu``, and
+``csrc/band_walk.cu`` for :func:`banded_lu_blocked` up to bw = 31) and
 their plain PyTorch versions.
 
-* :func:`banded_lu_blocked`       — one launch walks the whole pivot chain,
-                                    the band streamed through a ring of rows
-                                    in shared memory (in device memory for
-                                    bands too wide for it).
+* :func:`banded_lu_blocked`       — one launch walks the whole pivot chain:
+                                    up to bw = 31 one warp, the live rows on
+                                    its lanes and the band streamed through
+                                    a ring of rows in shared memory; wider
+                                    bands one block, the band streamed
+                                    through a ring of rows in shared memory,
+                                    or in device memory for bands too wide
+                                    for it (:func:`band_lu_walk`).
 * :func:`banded_lu_tiled`         — one launch per block step of ``C``
                                     pivots, in stream order, each staging its
                                     slab of the band through shared memory;
@@ -67,7 +72,7 @@ __all__ = [
     "banded_lu_plain", "banded_lu_scalar_plain", "tiled_launches", "BandClusterPlan", "BandSolvePlan",
     "band_solve_plan", "SOLVE_STAGES",
     "band_cluster_plan", "tiled_plan", "slab_fits", "GLOBAL_WALK", "BAND_SMEM",
-    "BAND_CLUSTER_MIN_BW",
+    "BAND_CLUSTER_MIN_BW", "WARP_WALK_MAX_BW", "BAND_WALKS", "band_lu_walk",
 ]
 
 _WARP_COLS = 32  # RHS columns (one warp each) a band_solve_kernel block takes at most
@@ -84,6 +89,11 @@ CLUSTER_GROUPS = (8, 16, 32)  # the pivots a group the cluster walk is built for
 # From this half width the cluster walk beats the slab steps even where the
 # slab fits a block (launch/time_kernels.py:band_walk_crossover, PERF.md)
 BAND_CLUSTER_MIN_BW = 33
+#: Widest band :func:`banded_lu_blocked` walks on one warp: its bw + 1 live
+#: rows on the warp's lanes (``csrc/band_walk.cu``; ``csrc/banded.cu:kWarpWalkMaxBw``)
+WARP_WALK_MAX_BW = 31
+#: The walks :func:`banded_lu_blocked` launches, by the C entry's path number
+BAND_WALKS = ("warp walk", "ring walk", "device-memory walk")
 #: :func:`tiled_plan`'s answer for a band that no cluster holds: one launch of
 #: the one-block walk on the band in device memory (``band_lu_global_kernel``)
 GLOBAL_WALK = "global walk"
@@ -192,19 +202,40 @@ def tiled_launches(n: int, bw: int, block: int | None = None) -> int:
     return -(-n // band_block_size(n, bw, block))
 
 
+def band_lu_walk(n: int, bw: int) -> str:
+    """The walk :func:`banded_lu_blocked` launches for an (n, 2bw+1) band
+    (one of :data:`BAND_WALKS`): the warp walk up to
+    :data:`WARP_WALK_MAX_BW`, else the ring walk where bw + 1 rows and a
+    chunk of pivots fit a block's shared memory, else the device-memory
+    walk (the C driver's rule, ``csrc/banded.cu:band_lu_one_launch``)."""
+    if bw <= WARP_WALK_MAX_BW:
+        return BAND_WALKS[0]
+    row, lbuf = (2 * bw + 1) * 4, 2 * bw * 4
+    # pivots a chunk: the whole band where it fits, else the ring's rows less bw
+    chunk = n if n * row + lbuf <= BAND_SMEM else max(0, BAND_SMEM - lbuf) // row - bw
+    return BAND_WALKS[1] if chunk >= 1 else BAND_WALKS[2]
+
+
 def banded_lu_blocked(arow: torch.Tensor, *, bw: int, block: int | None = None) -> torch.Tensor:
     """Packed no-pivot LU of the row-aligned band ``(n, 2bw+1)`` in one
-    launch.  ``block`` sets the plain version's window; the kernel stages
-    as many rows as shared memory holds, which gives the same factor."""
+    launch (none for an empty band on the warp walk).  ``block`` sets the
+    plain version's window; the kernels stage as many rows as they hold,
+    which gives the same factor.  The walk that ran (:func:`band_lu_walk`)
+    in ``banded_lu_blocked.last_path``."""
     if arow.device.type == "cpu":
         return banded_lu_plain(arow, bw=bw, block=block)
     work = _band_copy("banded_lu_blocked", arow, bw)
-    _launch(banded_lu_blocked, "ebv_band_lu_resident", arow.device, work.data_ptr(),
-            work.shape[0], bw)
+    path = ctypes.c_int(0)
+    try:
+        _launch(banded_lu_blocked, "ebv_band_lu_resident", arow.device, work.data_ptr(),
+                work.shape[0], bw, ctypes.byref(path))
+    finally:
+        banded_lu_blocked.last_path = BAND_WALKS[path.value]
     return work
 
 
 banded_lu_blocked.launches = 0
+banded_lu_blocked.last_path = None
 
 
 def banded_lu_tiled(arow: torch.Tensor, *, bw: int, block: int | None = None) -> torch.Tensor:

@@ -20,7 +20,7 @@ The legacy kernels behind the forced ``lu(impl="cuda_vmem")`` and
                        (:func:`walk_plan` mirrors its residency);
 * :func:`panel`      — the same steps on a tall (m, b) panel, pivots in
                        the top b rows (the same kernel);
-* :func:`fused_step` — U12 = L11⁻¹ A12 and A22 − L21·U12 in one launch;
+* :func:`fused_step` — U12 = L11⁻¹ A12 and A22 − L21·U12 in two launches;
 * :func:`update`     — the rank-k trailing update A22 − L21·U12, on
                        :func:`lu_fused`'s SGEMM tile (``csrc/sgemm.cuh``).
 
@@ -291,8 +291,11 @@ def fused_step(pan: torch.Tensor, a_top: torch.Tensor, a_trail: torch.Tensor, *,
     """Fused bi-vector step.  ``pan``: (m, b) factored packed panel;
     ``a_top``: (b, W) A12 rows; ``a_trail``: (m−b, W) A22, with
     ``W % min(col_tile, W) == 0`` as in the reference.  Returns
-    ``(U12, updated A22)``.  A CUDA tensor is one launch, counted in
-    ``fused_step.launches``."""
+    ``(U12, updated A22)``.  A CUDA tensor is two launches in stream order
+    (the U12 solve, a tile of columns a block, then A22 − L21·U12 on the
+    SGEMM tile; one where m = b), counted in ``fused_step.launches``.  U12
+    equals the plain version value for value: a column holding a
+    non-finite value comes out NaN throughout, as the masked axpys make it."""
     _check_legacy("fused_step", pan, a_top, a_trail)
     m, b = pan.shape
     w = a_top.shape[1]
@@ -306,11 +309,13 @@ def fused_step(pan: torch.Tensor, a_top: torch.Tensor, a_trail: torch.Tensor, *,
         return fused_step_plain(pan, a_top, a_trail)
     pan, top, trail = pan.contiguous(), a_top.contiguous(), a_trail.contiguous()
     u12, out = torch.empty_like(top), torch.empty_like(trail)
+    launched = ctypes.c_int(0)
     with torch.cuda.device(pan.device):
         code = _build.library().ebv_legacy_fused_step(
             pan.data_ptr(), top.data_ptr(), trail.data_ptr(), u12.data_ptr(), out.data_ptr(),
-            m, b, w, int(pan.dtype == torch.bfloat16), torch.cuda.current_stream().cuda_stream)
-    fused_step.launches += 1
+            m, b, w, int(pan.dtype == torch.bfloat16), torch.cuda.current_stream().cuda_stream,
+            ctypes.byref(launched))
+    fused_step.launches += launched.value
     _build.check(code, "fused_step")
     return u12, out
 

@@ -12,12 +12,18 @@ steps on narrower bands (:func:`band_walk_crossover`), the band solve B7
 (``kernels/banded.py:banded_solve_kernelized``) over its warps a block and
 staged strips (:func:`band_solve_sweep`) and the paged decode attention
 B13 (``kernels/paged_attn.py:paged_decode_attention``) over its CTAs a
-cluster (:func:`paged_sweep`); ``chip_smoke.py`` runs the sweeps once.
+cluster (:func:`paged_sweep`), the fused step B15
+(``kernels/ebv_lu.py:fused_step``) beside ``solve_triangular`` + ``addmm``
+and the forced ``cuda_blocked`` factor it runs in (:func:`blocked_steps`),
+and the narrow-band factor B5 (``kernels/banded.py:banded_lu_blocked``) at
+Table 1's bands and over bw at n = 16384, beside B6's slab steps from
+bw = 12 and the batched and scalar band factors B11 and B18 that keep the
+ring walk (:func:`narrow_bands`); ``chip_smoke.py`` runs the sweeps once.
 
     PYTHONPATH=src python src/repro_torch/launch/time_kernels.py [section ...]
 
 Sections (all by default): factor (B1), update (B14), batched (B10), band
-(B6), solve (B7), paged (B13), vmem (B2).
+(B6), solve (B7), paged (B13), vmem (B2), blocked (B15), narrow (B5).
 
 It runs as a file and imports ``repro_torch`` absolutely, so it times the
 package that ``PYTHONPATH`` names: with another checkout's ``src`` there it
@@ -47,6 +53,11 @@ PAGED_CTAS = (1, 2, 4, 8, 16)  # B13: CTAs a cluster (kernels/paged_attn.py:page
 # chip_smoke.py's bands for B7: Table 1's largest, the shootout (m = 64), the Poisson band
 SOLVE_BANDS = ((16000, 5, 1), (16384, 16, 64), (65536, 256, 1))
 PAGED_SHAPES = ((4, 36), (32, 256))  # B13: (rows, pages of 16) served and decode-heavy
+BLOCKED_SIZES = (2000, 8000)  # B15's first step and the forced cuda_blocked factor
+# B5: Table 1's bands (bw = 5), then bw at n = 16384 (the crossover record
+# for solvers/backends.py:BANDED_TILED_MIN_BW: B6's slab steps from bw = 12)
+NARROW_TABLE1 = ((500, 5), (4000, 5), (16000, 5))
+NARROW_BWS = (1, 2, 5, 11, 16, 31)
 # B10: (B, n, m) on either side of the plan's split between its two paths
 SOLVE_SPLIT = ((8, 1024, 1), (8, 1024, 16), (8, 1024, 64), (8, 1024, 1024), (32, 256, 1), (32, 256, 16),
                (32, 256, 256), (8, 128, 1), (8, 128, 128), (2, 384, 51968))
@@ -337,7 +348,80 @@ def band_of(n: int, bw: int, dev) -> torch.Tensor:
     return a
 
 
-SECTIONS = ("factor", "update", "batched", "band", "solve", "paged", "vmem")
+def blocked_steps(dev) -> dict:
+    """B15 on the forced cuda_blocked factor's first step (pan (n, 256), the
+    trailing width padded to a multiple of 128 as the driver pads it) at
+    n in :data:`BLOCKED_SIZES`, beside ``solve_triangular`` + ``addmm``
+    (two calls), its U12 checked bitwise against the plain version; then
+    ``ops.lu(impl="cuda_blocked")`` at the same n.  {label: (ms one call,
+    ms back to back)}."""
+    from repro_torch.kernels import ebv_lu, ops
+
+    out = {}
+    for n in BLOCKED_SIZES:
+        g = torch.Generator(device=dev).manual_seed(n)
+        a = torch.rand((n, n), generator=g, device=dev) * 2 - 1
+        a.diagonal().copy_(a.abs().sum(dim=1) + 1)
+        b = 256
+        wpad = -(-(n - b) // 128) * 128
+        pan = ebv_lu.panel(a[:, :b])
+        top = torch.nn.functional.pad(a[:b, b:], (0, wpad - n + b))
+        trail = torch.nn.functional.pad(a[b:, b:], (0, wpad - n + b))
+        u12, _ = ebv_lu.fused_step(pan, top, trail, col_tile=128)
+        if not torch.equal(u12, ebv_lu.fused_step_plain(pan, top, trail)[0]):
+            raise RuntimeError(f"fused_step n={n}: U12 differs from the plain version's")
+        l11, l21 = pan[:b], pan[b:]
+
+        def two_calls():
+            u = torch.linalg.solve_triangular(l11, top, upper=False, unitriangular=True)
+            return torch.addmm(trail, l21, u, alpha=-1)
+
+        before = ebv_lu.fused_step.launches
+        out[f"fused_step n={n}"] = timed(lambda: ebv_lu.fused_step(pan, top, trail, col_tile=128))
+        per_call = (ebv_lu.fused_step.launches - before) // (1 + REPS + BACK_TO_BACK)
+        out[f"library n={n}"] = timed(two_calls)
+        out[f"cuda_blocked n={n}"] = timed(lambda: ops.lu(a, impl="cuda_blocked"))
+        k, lib, fac = (out[f"{x} n={n}"] for x in ("fused_step", "library", "cuda_blocked"))
+        m = n - b  # the unit-lower solve b(b-1)W flops and the product 2(m-b)bW, over 67 TFLOP/s fp32
+        bound = (b * (b - 1) * wpad + 2 * m * b * wpad) / 67e12 * 1e3
+        print(f"fused_step n={n} step 1 (W {wpad}, {per_call} launch(es) a call), one call / back to back: "
+              f"{k[0]:.4f} / {k[1]:.4f} ms (bound {bound:.4f}); solve_triangular + addmm {lib[0]:.4f} / "
+              f"{lib[1]:.4f}; ops.lu(impl='cuda_blocked') {fac[0]:.4f} / {fac[1]:.4f}", flush=True)
+    return out
+
+
+def narrow_bands(dev) -> dict:
+    """B5 at :data:`NARROW_TABLE1` and at n = 16384 over :data:`NARROW_BWS`,
+    each checked bitwise against the plain version; B6 (its slab steps)
+    beside it from bw = 12; B11 at 16 Table 1 bands and B18 at (16000, 5),
+    which keep the ring walk.  {label: (ms one call, ms back to back)}."""
+    from repro_torch.kernels import banded
+
+    out = {}
+    cases = list(NARROW_TABLE1) + [(16384, bw) for bw in NARROW_BWS]
+    for n, bw in cases:
+        a = band_of(n, bw, dev)
+        if not torch.equal(banded.banded_lu_blocked(a, bw=bw), banded.banded_lu_plain(a, bw=bw)):
+            raise RuntimeError(f"banded_lu_blocked n={n} bw={bw} differs from its plain version")
+        walk = getattr(banded.banded_lu_blocked, "last_path", None) or "ring walk"
+        t = out[f"banded_lu_blocked n={n} bw={bw}"] = timed(lambda: banded.banded_lu_blocked(a, bw=bw))
+        line = (f"banded_lu_blocked n={n} bw={bw} ({walk}), one call / back to back: {t[0]:.4f} / {t[1]:.4f} ms, "
+                f"{1e3 * t[0] / n:.4f} us a pivot")
+        if bw >= 12:
+            tt = out[f"banded_lu_tiled n={n} bw={bw}"] = timed(lambda: banded.banded_lu_tiled(a, bw=bw))
+            line += f"; banded_lu_tiled {tt[0]:.4f} / {tt[1]:.4f}"
+        print(line, flush=True)
+    stack = torch.stack([band_of(16000, 5, dev) for _ in range(16)])
+    t = out["batched_banded_lu_vmem B=16 n=16000 bw=5"] = timed(lambda: banded.batched_banded_lu_vmem(stack, bw=5))
+    print(f"batched_banded_lu_vmem B=16 n=16000 bw=5, one call / back to back: {t[0]:.4f} / {t[1]:.4f} ms",
+          flush=True)
+    a = band_of(16000, 5, dev)
+    t = out["banded_lu_kernelized n=16000 bw=5"] = timed(lambda: banded.banded_lu_kernelized(a, bw=5))
+    print(f"banded_lu_kernelized n=16000 bw=5, one call / back to back: {t[0]:.4f} / {t[1]:.4f} ms", flush=True)
+    return out
+
+
+SECTIONS = ("factor", "update", "batched", "band", "solve", "paged", "vmem", "blocked", "narrow")
 
 
 def main(argv: list[str]) -> int:
@@ -386,6 +470,10 @@ def main(argv: list[str]) -> int:
         paged_shapes(dev)
     if "vmem" in wanted and hasattr(trsm, "VMEM_MIN_ROWS"):  # a tree whose B2 has such a plan
         vmem_rows(dev)
+    if "blocked" in wanted:
+        blocked_steps(dev)
+    if "narrow" in wanted:
+        narrow_bands(dev)
     return 0
 
 

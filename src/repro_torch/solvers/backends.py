@@ -55,7 +55,10 @@ SOLVE_VMEM_MAX_N = 2048
 # cuda_tiled is 2-4 % faster at bw = 12 and 16 for n >= 16384, while at
 # n = 4000 the two trade places by up to 3 % from run to run; at bw = 256
 # neither stages the band in shared memory and they time alike, and the
-# reference's choice for such bands, pallas_tiled, stands.
+# reference's choice for such bands, pallas_tiled, stands.  Since
+# cuda_blocked walks bands up to bw = 31 on one warp (csrc/band_walk.cu),
+# launch/time_kernels.py's narrow sweep records it faster than the slab
+# steps at bw = 16 and 31 too (PERF.md); the split has not moved yet.
 BANDED_TILED_MIN_BW = 12
 
 
@@ -107,14 +110,16 @@ def _inverted_plain_call(lu, b, *, block):
 
 def blocked_launches(n: int, block: int = 256) -> int:
     """Kernel launches of :func:`_cuda_blocked_lu` for an (n, n) matrix: a
-    panel per block column and a fused step per block column but the last."""
-    return 2 * (-(-n // min(block, n))) - 1
+    panel per block column and, for each block column but the last, a
+    fused step of two launches (the U12 solve and the trailing product)."""
+    s = -(-n // min(block, n))
+    return s + 2 * (s - 1)
 
 
 def _cuda_blocked_lu(a: torch.Tensor, *, block: int, col_tile: int) -> torch.Tensor:
     """The reference's legacy multi-launch blocked driver: one panel kernel
-    and one fused bi-vector step kernel per block column (2S-1 launches for
-    S block columns) on a copy of ``a``."""
+    and one fused bi-vector step per block column (2S-1 calls for S block
+    columns, :func:`blocked_launches` device launches) on a copy of ``a``."""
     n = a.shape[-1]
     block = min(block, n)
     a = a.clone()

@@ -306,6 +306,49 @@ def test_band_factor_kernels_match_plain(n, bw, card):
     assert torch.equal(got_blocked, plain) and torch.equal(got_tiled, plain)
 
 
+def any_band(n, bw, seed, zero_pivot=False):
+    """A diagonally dominant band whose entries outside the matrix are not
+    zero (the factors update those past column n - 1 as the plain version
+    does); ``zero_pivot``: the first pivot is 0."""
+    rng = np.random.default_rng(seed)
+    a = rng.uniform(-1.0, 1.0, (n, 2 * bw + 1)).astype(np.float32)
+    a[:, bw] = np.abs(a).sum(axis=1) + 1.0
+    if zero_pivot:
+        a[0, bw] = 0.0
+    return a
+
+
+# B5 on its warp walk (bw <= 31) at n = bw + 1, 2bw + 3, 257 and 4000, and
+# at bw = 32 and 200 on the ring and device-memory walks it keeps
+@pytest.mark.parametrize("n_of", [lambda bw: bw + 1, lambda bw: 2 * bw + 3, lambda bw: 257,
+                                  lambda bw: 4000], ids=["bw+1", "2bw+3", "257", "4000"])
+@pytest.mark.parametrize("bw", [1, 2, 5, 11, 16, 31, 32, 200])
+def test_band_factor_walks_are_bitwise_the_plain_factor(bw, n_of, card):
+    n = n_of(bw)
+    a = torch.from_numpy(any_band(n, bw, 7 * n + bw)).to(card)
+    before = banded.banded_lu_blocked.launches
+    got = banded.banded_lu_blocked(a, bw=bw)
+    torch.cuda.synchronize()
+    assert banded.banded_lu_blocked.launches - before == 1
+    assert banded.banded_lu_blocked.last_path == banded.band_lu_walk(n, bw)
+    assert torch.equal(got, banded.banded_lu_plain(a, bw=bw))
+
+
+@pytest.mark.parametrize("n,bw", [(40, 1), (300, 5), (1000, 16), (64, 31), (300, 32)])
+def test_band_factor_walk_on_a_zero_pivot_gives_the_plain_non_finite_pattern(n, bw, card):
+    a = torch.from_numpy(any_band(n, bw, n + bw, zero_pivot=True)).to(card)
+    got, want = banded.banded_lu_blocked(a, bw=bw), banded.banded_lu_plain(a, bw=bw)
+    assert not bool(torch.isfinite(want).all())
+    assert_same_non_finite(got, want)
+
+
+def test_band_factor_warp_walk_takes_an_empty_band(card):
+    before = banded.banded_lu_blocked.launches
+    got = banded.banded_lu_blocked(torch.zeros((0, 11), device=card), bw=5)
+    assert got.shape == (0, 11) and banded.banded_lu_blocked.launches == before
+    assert banded.banded_lu_blocked.last_path == "warp walk"
+
+
 # the cluster walk of the tiled factor (bands whose slab no block holds):
 # n = bw - 1, bw + 1, several groups, and a ragged last group past 4096
 @pytest.mark.parametrize("n_of", [lambda bw: bw - 1, lambda bw: bw + 1, lambda bw: 1000,
@@ -846,11 +889,62 @@ def test_fused_step_kernel_matches_plain(dtype, card):
     before = ebv_lu.fused_step.launches
     u12, new = ebv_lu.fused_step(pan, top, trail, col_tile=128)
     pu12, pnew = ebv_lu.fused_step_plain(pan, top, trail)
-    assert ebv_lu.fused_step.launches - before == 1
+    assert ebv_lu.fused_step.launches - before == 2  # the U12 solve, then the product
     tol = LEGACY_F32_TOL if dtype == torch.float32 else LEGACY_BF16_TOL
     assert u12.dtype == new.dtype == dtype
-    close(u12.float(), pu12.float(), tol)
+    assert torch.equal(u12, pu12)  # the solve rounds every operation as the plain version does
     close(new.float(), pnew.float(), tol)
+
+
+def fused_step_inputs(m, b, w, dtype, card, seed):
+    p = dd(m, seed)[:, :b].copy()
+    p[:b, :b] = dd(b, seed + 1)
+    pan = ebv_lu.panel(torch.from_numpy(p).to(dtype).to(card))
+    g = torch.Generator(device=card).manual_seed(seed)
+    top, trail = (torch.randn(s, generator=g, device=card).to(dtype) for s in ((b, w), (m - b, w)))
+    return pan, top, trail
+
+
+# ragged tiles of 16 columns and strips of 32 pivots; a last strip of 4; b < 32;
+# m = b (no trailing rows: the solve alone); the driver's first step at n = 8000
+@pytest.mark.parametrize("m,b,w", [(300, 100, 33), (100, 7, 5), (64, 36, 16), (64, 64, 24), (40, 1, 3),
+                                   (8000, 256, 7744)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_step_kernel_at_ragged_shapes(m, b, w, dtype, card):
+    pan, top, trail = fused_step_inputs(m, b, w, dtype, card, m + b + w)
+    before = ebv_lu.fused_step.launches
+    u12, new = ebv_lu.fused_step(pan, top, trail, col_tile=w)
+    pu12, pnew = ebv_lu.fused_step_plain(pan, top, trail)
+    assert ebv_lu.fused_step.launches - before == (2 if m > b else 1)
+    assert torch.equal(u12, pu12) and new.shape == pnew.shape
+    if m > b:
+        close(new.float(), pnew.float(), LEGACY_F32_TOL if dtype == torch.float32 else LEGACY_BF16_TOL)
+
+
+# C6: a U12 column holding a non-finite value (an inf in A12, or an inf in
+# L11 meeting an exact zero of U12) is NaN throughout, in U12 and in A22,
+# as the plain version's masked axpys make it
+@pytest.mark.parametrize("poison", ["a12_inf", "l11_zero_times_inf"])
+@pytest.mark.parametrize("m,b,w", [(2000, 256, 1792), (300, 100, 33)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_step_turns_a_non_finite_column_nan_as_the_plain_version(m, b, w, poison, dtype, card):
+    pan, top, trail = fused_step_inputs(m, b, w, dtype, card, 2 * m + b)
+    if poison == "a12_inf":
+        top[2, 1] = float("inf")
+    else:
+        top[0, 0] = 0.0
+        pan[1, 0] = float("inf")
+    u12, new = ebv_lu.fused_step(pan, top, trail, col_tile=w)
+    pu12, pnew = ebv_lu.fused_step_plain(pan, top, trail)
+    assert bool(torch.isnan(pu12[:, 1 if poison == "a12_inf" else 0]).all())
+    assert bool(torch.isnan(pnew[:, 1 if poison == "a12_inf" else 0]).all())
+    assert_same_non_finite(u12, pu12)
+    torch.cuda.synchronize()
+    assert torch.equal(torch.isnan(new), torch.isnan(pnew))
+    finite = ~torch.isnan(pnew)
+    if bool(finite.any()):
+        close(new[finite].float(), pnew[finite].float(),
+              LEGACY_F32_TOL if dtype == torch.float32 else LEGACY_BF16_TOL)
 
 
 # the blocked factor's first trailing block at n = 2000; ragged edges in rows,
@@ -881,7 +975,8 @@ def test_forced_legacy_impls_launch_their_kernels(impl, n, card):
     torch.cuda.synchronize()
     assert [name for _, name in log][0] == impl
     blocks = -(-n // 256)
-    want = [1, 0, 0] if impl == "cuda_vmem" else [0, blocks, blocks - 1]
+    # a fused step is two launches: the U12 solve and the trailing product
+    want = [1, 0, 0] if impl == "cuda_vmem" else [0, blocks, 2 * (blocks - 1)]
     assert [w.launches - c for w, c in zip(counters, before)] == want
     assert float(relative_residual(a, b, x)) < 1e-5
 
