@@ -24,8 +24,10 @@ Phases (any failure exits non-zero):
    its warp walk (bw = 1, 2, 5, 11, 16, 31) and on the ring and
    device-memory walks (bw = 32, 200) at n = bw + 1, 2bw + 3, 257 and 4000,
    on bands with entries outside the matrix, the walk checked against
-   ``band_lu_walk``, and on a zero pivot; 3c the batched kernels (B9-B12)
-   at the batched paths' shapes, B9
+   ``band_lu_walk``, and on a zero pivot, and there too the batched band
+   factor B11 (a stack of 3) and the scalar band factor B18 bit for bit on
+   the walks they share with B5; 3c the batched kernels (B9-B12)
+   at the batched paths' shapes (B11 and B12 at the three stacks of 4e), B9
    also where its plan changes, B10 also on both of its paths at shapes on
    either side of its plan's split (each plan checked against its Python
    mirror); 3d the legacy
@@ -35,7 +37,10 @@ Phases (any failure exits non-zero):
    in U12 and A22, as in the plain version), B17 also at odd n,
    on each side of its resident/streamed split and on zero pivots (NaN and
    inf positions against the plain version's), and the legacy
-   scalar band factor (B18) at the band the service escalates to it; 3e the
+   scalar band factor (B18) at the band the service escalates to it, finite,
+   NaN-poisoned as the service's (its pivot 5) and with an inf in a pivot
+   row's upper tail (fault C7: NaN and inf positions and finite values
+   against the plain version's); 3e the
    paged decode attention (B13) at the served shape and at a decode-heavy
    one (32 rows of 4096 positions), fp32 and bf16, with holes, through its
    wrapper and forced onto clusters of every size, 1 to 16 CTAs;
@@ -96,12 +101,14 @@ Phases (any failure exits non-zero):
    crossovers (the latter also on wide bands, where ``cuda_tiled`` is B6's
    cluster walk); B2's plan and time a link; B17's, B16's and B9's time a
    pivot and resident share; B10's plan and time a strip, and each of its
-   paths and cluster sizes beside batched ``lu_solve``; B6's time a pivot
+   paths and cluster sizes beside batched ``lu_solve``; B11 and B18 beside
+   the parent tree's times (``WALK_PARENT_MS``); B6's time a pivot
    and a group at the Poisson band over its CTAs and pivots a group, and
    its slab steps against its cluster walk at bw = 16, 32 and 64; B7 at
    Table 1's largest band, the shootout band (m = 64) and the Poisson band
    over its warps a block and staged strips, beside the per-warp kernel
-   it replaced; B13 at both of its shapes over its CTAs a cluster
+   it replaced; B5, B11 and B18 on the warp walk (B11 over its systems
+   and bw); B13 at both of its shapes over its CTAs a cluster
    (``src/repro_torch/launch/time_kernels.py``'s sweeps); the
    optimizer step's time; device time by kernel (B1, B3 and
    B4 at n = 8000 among them) and each dense factor and solve step's time
@@ -175,6 +182,7 @@ OPT_D, OPT_LEAVES = 128, 4  # benchmarks/run.py:184-197, opt_step_d128
 # the Poisson ensemble, 32 members on a 64 x 64 grid (bw = 64)
 ENSEMBLE_T1 = (16, 16000, 5)
 ENSEMBLE_NX, ENSEMBLE_MEMBERS = 64, 32
+ENSEMBLE_SMALL = (4, 500, 5)  # four of Table 1's smallest band
 # the legacy kernels: B14 and B15 against their plain versions normwise
 # (their products sum in another order than cuBLAS); B16 and B17 bit for bit;
 # bf16 B14 at the reference test's absolute tolerance (tests/test_kernels.py)
@@ -194,6 +202,13 @@ VMEM_EDGES = ((3, "float32"), (263, "float32"), (1001, "float32"), (4095, "float
 VMEM_ZERO_PIVOTS = ((263, 0, "float32"), (1001, 700, "bfloat16"), (4096, 2000, "float32"))
 # the whisper-tiny optimizer step before B9's cluster kernel (PERF.md section 5)
 OPT_STEP_BEFORE_MS = 20.9
+# B11 and B18 before the warp walk took bw <= 31: the ring walk's time, ms,
+# median of 5 single calls by src/repro_torch/launch/time_kernels.py narrow
+# on the tree before it (H100 80GB HBM3, 700 W; PERF.md section 6)
+WALK_PARENT_MS = {"batched_banded_lu_vmem B=4 n=500 bw=5": 0.2197,
+                  "batched_banded_lu_vmem B=16 n=16000 bw=5": 5.9142,
+                  "batched_banded_lu_vmem B=32 n=4096 bw=64": 4.2601,
+                  "banded_lu_kernelized n=16000 bw=5": 7.6982}
 BLOCKED_SIZES = (500, 2000, 8000)
 LEGACY_BLOCK, LEGACY_CT = 256, 256  # the driver's defaults (solvers/backends.py)
 # the tiers: Table 2's largest size under the cap; the reference's
@@ -486,9 +501,9 @@ def main() -> int:
           f"solve m=1 {plain_once[pshape + ' m=1']:.1f} ms", flush=True)
 
     # ---- 3b. B5's walks at the bands on either side of the warp walk ------
-    print("phase 3b: B5 (banded_lu_blocked) bit for bit on its warp walk (bw <= "
-          f"{banded.WARP_WALK_MAX_BW}) and on the ring and device-memory walks past it; bands with "
-          "entries outside the matrix", flush=True)
+    print("phase 3b: B5 (banded_lu_blocked), B11 (batched_banded_lu_vmem, 3 systems) and B18 "
+          f"(banded_lu_kernelized) bit for bit on the warp walk (bw <= {banded.WARP_WALK_MAX_BW}) and on "
+          "the ring and device-memory walks past it; bands with entries outside the matrix", flush=True)
 
     def any_band(n, bw, seed):
         # a diagonally dominant band whose entries outside the matrix are not zero
@@ -509,6 +524,18 @@ def main() -> int:
             if not equal or walk != banded.band_lu_walk(n, bw):
                 fail(f"banded_lu_blocked n={n} bw={bw}: {walk} (mirror: {banded.band_lu_walk(n, bw)}), "
                      f"bitwise equal {equal}")
+            s3 = torch.stack([a, any_band(n, bw, 2900 + n + bw), any_band(n, bw, 3900 + n + bw)])
+            for name, x, plain_fn in (("batched_banded_lu_vmem", s3, banded.banded_lu_plain),
+                                      ("banded_lu_kernelized", a, banded.banded_lu_scalar_plain)):
+                fn = getattr(banded, name)
+                got, want = fn(x, bw=bw), plain_fn(x, bw=bw)
+                torch.cuda.synchronize()
+                walk, equal = fn.last_path, bool(torch.equal(got, want))
+                max_err[name] = max(max_err.get(name, 0.0), float((got.double() - want.double()).abs().max()))
+                print(f"  {name:22s} n={n:5d} bw={bw:3d} {walk:19s} bitwise equal: {equal}", flush=True)
+                if not equal or walk != banded.band_lu_walk(n, bw):
+                    fail(f"{name} n={n} bw={bw}: {walk} (mirror: {banded.band_lu_walk(n, bw)}), "
+                         f"bitwise equal {equal}")
     a = any_band(300, 5, 1990)
     a[0, 5] = 0  # a zero first pivot: inf and NaN where the plain version has them
     got, want = banded.banded_lu_blocked(a, bw=5), banded.banded_lu_plain(a, bw=5)
@@ -604,13 +631,18 @@ def main() -> int:
             solve_plan_line(bsz, n, m, path)
     ensembles = {ENSEMBLE_T1: band_stack(*ENSEMBLE_T1, 880),
                  (ENSEMBLE_MEMBERS, ENSEMBLE_NX ** 2, ENSEMBLE_NX):
-                     poisson_ensemble(ENSEMBLE_MEMBERS, ENSEMBLE_NX)}
+                     poisson_ensemble(ENSEMBLE_MEMBERS, ENSEMBLE_NX),
+                 ENSEMBLE_SMALL: band_stack(*ENSEMBLE_SMALL, 970)}
     eplain, eplain_ms = {}, {}
     for (bsz, n, bw), a in ensembles.items():
         shape = f"B={bsz} n={n} bw={bw}"
         eplain[(bsz, n, bw)], eplain_ms[shape] = once(lambda: banded.banded_lu_plain(a, bw=bw))
         compare_bitwise("batched_banded_lu_vmem", shape, banded.batched_banded_lu_vmem(a, bw=bw),
                         eplain[(bsz, n, bw)])
+        walk = banded.batched_banded_lu_vmem.last_path
+        print(f"    {walk} (mirror: {banded.band_lu_walk(n, bw)})", flush=True)
+        if walk != banded.band_lu_walk(n, bw):
+            fail(f"batched_banded_lu_vmem {shape}: {walk}, not {banded.band_lu_walk(n, bw)}")
         b = rhs_stack(bsz, n, 1, 890 + n)
         want, eplain_ms[shape + " m=1"] = once(lambda: banded_solve_blocked(eplain[(bsz, n, bw)], b, bw=bw))
         got = banded.batched_banded_solve_vmem(eplain[(bsz, n, bw)], b, bw=bw)
@@ -754,8 +786,27 @@ def main() -> int:
     plain, legacy_plain_ms["scalar band"] = once(lambda: banded.banded_lu_scalar_plain(sband, bw=SERVE_BAND[1]))
     compare_bitwise("banded_lu_kernelized", f"n={SERVE_BAND[0]} bw={SERVE_BAND[1]}",
                     banded.banded_lu_kernelized(sband, bw=SERVE_BAND[1]), plain)
+    print(f"    {banded.banded_lu_kernelized.last_path}", flush=True)
     print(f"  the plain scalar band factor at n={SERVE_BAND[0]} bw={SERVE_BAND[1]}, one call: "
           f"{legacy_plain_ms['scalar band']:.1f} ms", flush=True)
+    # B18 on the service's NaN-poisoned band (phase 4h: NaN at pivot 5) and on
+    # an inf in pivot row 3000's upper tail (fault C7): NaN and inf where the
+    # plain version has them, every finite value equal
+    for label, at, value in (("NaN pivot 5", (5, SERVE_BAND[1]), float("nan")),
+                             ("inf tail of row 3000", (3000, SERVE_BAND[1] + 2), float("inf"))):
+        pband = band(*SERVE_BAND, 1862)
+        pband[at] = value
+        got = banded.banded_lu_kernelized(pband, bw=SERVE_BAND[1])
+        want = banded.banded_lu_scalar_plain(pband, bw=SERVE_BAND[1])
+        torch.cuda.synchronize()
+        same = all(bool(torch.equal(f(got), f(want))) for f in (torch.isnan, torch.isposinf, torch.isneginf))
+        fin = torch.isfinite(want)
+        same = same and bool(torch.equal(got[fin], want[fin]))
+        print(f"  {'banded_lu_kernelized':25s} n={SERVE_BAND[0]} bw={SERVE_BAND[1]} {label}: NaN "
+              f"{int(torch.isnan(want).sum())}, inf {int(torch.isinf(want).sum())} in the plain version; "
+              f"positions and finite values equal: {same}", flush=True)
+        if not same or bool(fin.all()):
+            fail(f"banded_lu_kernelized {label}: differs from its plain version")
 
     # ---- 3e. the paged decode attention against its plain version ---------
     print(f"phase 3e: paged decode attention (B13) vs plain (normwise, tolerance {PAGED_TOL})", flush=True)
@@ -1072,8 +1123,6 @@ def main() -> int:
     ewrappers = {"batched_banded_lu_vmem": banded.batched_banded_lu_vmem,
                  "batched_banded_solve_vmem": banded.batched_banded_solve_vmem}
     ecases = [(bsz, n, bw, a, rhs_stack(bsz, n, 1, 960 + n)) for (bsz, n, bw), a in ensembles.items()]
-    small = (4, 500, 5)
-    ecases.append((*small, band_stack(*small, 970), rhs_stack(small[0], small[1], 1, 971)))
     zero(ewrappers)
     eresults = []
     with solvers.record_dispatches() as log:
@@ -1676,12 +1725,20 @@ def main() -> int:
     _, slot_ms = once(lambda: slot.call(solvers.Problem.from_arrays("factor", a), a))
     print(f"  the reference's slot past its cap, the plain fused_blocked_lu per system "
           f"(torch slot), B={a.shape[0]} n={a.shape[1]}, one call: {slot_ms:.1f} ms", flush=True)
+    def beside_parent(name, shape):
+        """The walk's time beside the parent tree's (WALK_PARENT_MS)."""
+        ms, before = rows[(name, shape)]["ms"], WALK_PARENT_MS.get(f"{name} {shape}")
+        parent = "not measured" if before is None else f"{before:.4f} ms, {before / ms:.2f}x this"
+        print(f"    {name} {shape} on the {getattr(banded, name).last_path}: {ms:.4f} ms; the parent's ring "
+              f"walk: {parent}", flush=True)
+
     for (bsz, n, bw), a in ensembles.items():
         shape = f"B={bsz} n={n} bw={bw}"
         kernel = lambda: banded.batched_banded_lu_vmem(a, bw=bw)
         record("batched_banded_lu_vmem", shape, timed(kernel), eplain_ms[shape], None,
                bsz * n * (2 * bw * bw + bw), 2 * bsz * n * (2 * bw + 1) * 4,
                per_call(banded.batched_banded_lu_vmem, kernel))
+        beside_parent("batched_banded_lu_vmem", shape)
         lu, b = eplain[(bsz, n, bw)], rhs_stack(bsz, n, 1, 990 + n)
         kernel = lambda: banded.batched_banded_solve_vmem(lu, b, bw=bw)
         record("batched_banded_solve_vmem", shape + " m=1", timed(kernel), eplain_ms[shape + " m=1"],
@@ -1718,6 +1775,7 @@ def main() -> int:
     # as B5: n (2bw^2 + bw) flops, the band read once and its factor written once
     record("banded_lu_kernelized", f"n={n} bw={bw}", timed(kernel), legacy_plain_ms["scalar band"], None,
            n * (2 * bw * bw + bw), 2 * n * (2 * bw + 1) * 4, per_call(banded.banded_lu_kernelized, kernel))
+    beside_parent("banded_lu_kernelized", f"n={n} bw={bw}")
     mb, wb = step_args[2].shape
     bb = step_args[0].shape[1]
     l11 = step_args[0][:bb]
@@ -1777,8 +1835,8 @@ def main() -> int:
     print(f"  B15 on the forced cuda_blocked factor's first step beside solve_triangular + addmm, and the "
           f"factor (ms; card: {card}):", flush=True)
     time_kernels.blocked_steps(dev)
-    print(f"  B5 at Table 1's bands and over bw at n = 16384, B6's slab steps beside it from bw = 12, B11 and "
-          f"B18 (ms; card: {card}):", flush=True)
+    print(f"  B5 at Table 1's bands and over bw at n = 16384, B6's slab steps beside it from bw = 12 and B18; "
+          f"B11 at the three stacks, over its systems and over bw (ms; card: {card}):", flush=True)
     time_kernels.narrow_bands(dev)
 
     print("  optimizer step (host clock around a synchronized step, median of 3):", flush=True)
@@ -1987,7 +2045,8 @@ def main() -> int:
                   "banded_lu_blocked": "n=16000 bw=5", "banded_lu_tiled": shoot,
                   "banded_solve_kernelized": f"{shoot} m={WIDE}", "banded_solve_inverted": f"{shoot} m={WIDE}",
                   "batched_lu_vmem": f"B=2 n={d}", "batched_lu_solve_vmem": f"B=2 n={d} m={vocab}",
-                  "batched_banded_lu_vmem": ens, "batched_banded_solve_vmem": f"{ens} m=1",
+                  "batched_banded_lu_vmem": "B={} n={} bw={}".format(*ENSEMBLE_T1),
+                  "batched_banded_solve_vmem": f"{ens} m=1",
                   "lu_vmem": f"n={VMEM_SIZES[-1]}", "panel": f"m=2000 b={LEGACY_BLOCK}",
                   "fused_step": "n=2000 step 1",
                   "update": f"({wpad}, {LEGACY_BLOCK}, {wpad})",
@@ -2001,7 +2060,9 @@ def main() -> int:
               **dict.fromkeys(ewrappers, "src/repro_torch/csrc/banded.cu"),
               **dict.fromkeys(("lu_vmem", "panel", "fused_step", "update"),
                               "src/repro_torch/csrc/legacy_lu.cu"),
-              "banded_lu_kernelized": "src/repro_torch/csrc/banded.cu",
+              # bw <= 31, the warp walk: the lines' n=16000 bw=5 and B=16 n=16000 bw=5
+              "banded_lu_kernelized": "src/repro_torch/csrc/band_walk.cu",
+              "batched_banded_lu_vmem": "src/repro_torch/csrc/band_walk.cu",
               "paged_decode_attention": "src/repro_torch/csrc/paged_attn.cu"}
     replaces = {"lu_fused": "src/repro/kernels/ebv_lu.py:349", "solve_vmem": "src/repro/kernels/trsm.py:62",
                 "solve_tiled": "src/repro/kernels/trsm.py:160",

@@ -1,16 +1,20 @@
 // The narrow-band no-pivot LU walk for Hopper (sm_90a), fp32, on the
 // row-aligned band (row i holds A[i, i-bw .. i+bw] in 2bw+1 floats).
 //
-// band_lu_warp_kernel — replaces src/repro/kernels/banded.py:
+// band_lu_warp_kernel<BW, false> — replaces src/repro/kernels/banded.py:
 //   banded_lu_blocked (B5) for bw <= 31, the Pallas megakernel that held the
-//   whole skewed band in VMEM for ceil(n/C) window steps.  The factor is a
-//   chain of n pivots: pivot p divides the bw entries below it by a[p][p]
-//   and takes l * u off the bw x bw block it reaches.  Bound: n(2bw^2 + bw)
-//   flops and the band read once and written once make microseconds of work
-//   (0.00042 ms at n = 16000, bw = 5), but each pivot waits on the one
-//   before, so what sets the pace is one pivot's latency.  The ring walk of
-//   banded.cu (band_lu_resident_kernel) pays a block barrier a pivot and
-//   ~650 cycles; here the chain stays inside one warp, with no barrier on it:
+//   whole skewed band in VMEM for ceil(n/C) window steps, and
+//   batched_banded_lu_vmem (B11) for bw <= 31, one grid program per system of
+//   a stack: here one warp per system, blockIdx.x picking the band at
+//   blockIdx.x * n * (2bw+1) floats (64-bit offsets), each system its own
+//   walk.  The factor is a chain of n pivots: pivot p divides the bw entries
+//   below it by a[p][p] and takes l * u off the bw x bw block it reaches.
+//   Bound: n(2bw^2 + bw) flops and the band read once and written once make
+//   microseconds of work (0.00042 ms at n = 16000, bw = 5), but each pivot
+//   waits on the one before, so what sets the pace is one pivot's latency.
+//   The ring walk of banded.cu (band_lu_resident_kernel) pays a block
+//   barrier a pivot and ~650 cycles; here the chain stays inside one warp,
+//   with no barrier on it:
 //   - the bw + 1 live rows of pivot p (p .. p+bw) sit on the warp's lanes,
 //     row i on lane i mod 32, and each lane keeps its row's columns
 //     p .. p+bw in registers r[0..bw] (r[k] holds column p+k, the same
@@ -36,9 +40,37 @@
 //   subtract.  The walk is templated on bw, so every register index is a
 //   constant.  Every entry sees the plain version's operations in its order,
 //   the band entries outside the matrix too, so the factor is the plain
-//   version's (repro_torch.core.banded.banded_lu_blocked) value for value.
+//   version's (repro_torch.core.banded.banded_lu_blocked, over the stack for
+//   B11) value for value.
+//
+// band_lu_warp_kernel<BW, true> — replaces src/repro/kernels/banded.py:
+//   banded_lu_kernelized (B18) for bw <= 31, the legacy scalar-sequential
+//   kernel: each pivot updates its whole (bw, 2bw+1) window, a - l * shifted,
+//   where the pivot row's upper tail u enters each window entry by a one-hot
+//   contraction, shifted = sum_t onehot_t * u_t with IEEE products (fault C7:
+//   0 * inf is NaN).  So: where every u_t is finite, shifted is u on the bw
+//   entries the pivot reaches and 0 elsewhere, and the window step is B5's
+//   (the entries outside the reach keep their values while l is finite);
+//   where exactly one u_t is infinite, the entries of column p+1+t keep it
+//   and every other entry's shifted is NaN; otherwise every entry's is NaN.
+//   The chain stays B5's (a shuffle, a division, a multiply and a subtract),
+//   and nothing branches: the rule is selects beside it and one predicated
+//   store.  The tail test reads the u the lanes already hold from the
+//   shuffle (a mask of its non-finite entries, the same on every lane); the
+//   reach takes a - l * u', u' = u but NaN where another tail entry is not
+//   finite, computed beside the division.  A live row whose l or tail is
+//   not finite turns NaN its entries outside the reach: its columns past
+//   p+bw are read back only by its own lane, one a pivot as the column
+//   entering, and the row's multiplier at every later pivot is then not
+//   finite either (a - l * u' with l or u' not finite is not finite), so
+//   the column read ahead turns NaN at each such pivot; its L part left of
+//   column p is final, so the lane stores how many of its entries are NaN
+//   into a count a ring slot (the last such pivot's), applied when the
+//   chunk goes back to the band.  The anti-diagonal takes l.  Factor: the plain version's
+//   (repro_torch.kernels.banded.banded_lu_window_plain) value for value.
 //   Wider bands take banded.cu's ring walk or its device-memory walk.
 #include <cuda_runtime.h>
+#include <math_constants.h>
 
 #include <cstddef>
 
@@ -56,9 +88,10 @@ constexpr int kWalkUnroll = 4;
 
 extern __shared__ __align__(16) float walk_smem[];
 
-template <int BW>
+template <int BW, bool kWindow>
 __global__ void __launch_bounds__(32, 1) band_lu_warp_kernel(float* __restrict__ band, int n) {
   constexpr int W = 2 * BW + 1;  // a band row
+  band += (size_t)blockIdx.x * n * W;  // the system (0 for one band)
   constexpr int LD = W + 1;      // a ring row: even, so rows one apart lie LD - 1 (odd) banks apart
   // A lane idles 31 - bw pivots between its rows, enough for bw <= 15 to read
   // its next row's columns one a pivot, as every live lane does; wider bands
@@ -67,6 +100,10 @@ __global__ void __launch_bounds__(32, 1) band_lu_warp_kernel(float* __restrict__
   const int lane = threadIdx.x;
   const int chunks = (n + kChunk - 1) / kChunk;
   float* const spare = walk_smem + kRingRows * LD;  // where a lane with no multiplier stores its l
+  // B18: a ring slot's row has its band entries 0 .. nan_left-1 NaN (its L
+  // part left of the last pivot whose l or tail was not finite); then 32
+  // slots where the other lanes store theirs, so that the store does not branch
+  int* const nan_left = reinterpret_cast<int*>(spare + 32);
   auto row_at = [&](int i) { return walk_smem + (i & (kRingRows - 1)) * LD; };
   // chunk c of the band into its ring slots, one copy group (empty past the band)
   auto stage = [&](int c) {
@@ -87,12 +124,21 @@ __global__ void __launch_bounds__(32, 1) band_lu_warp_kernel(float* __restrict__
     float* dst = band + (size_t)r0 * W;
     const float* src = row_at(r0);
     for (int idx = lane; idx < count; idx += 32) {
-      const int r = idx / W;
-      dst[idx] = src[r * LD + (idx - r * W)];
+      const int r = idx / W, t = idx - r * W;
+      float v = src[r * LD + t];
+      if constexpr (kWindow) v = t < nan_left[(r0 + r) & (kRingRows - 1)] ? CUDART_NAN_F : v;
+      dst[idx] = v;
     }
   };
+  // B18: the slots of chunk c take new rows, with no NaN entries yet (after a __syncwarp)
+  auto clear_nan_left = [&](int c) {
+    if constexpr (kWindow) nan_left[(c * kChunk + lane) & (kRingRows - 1)] = 0;
+  };
 
-  for (int c = 0; c < kChunks; ++c) stage(c);
+  for (int c = 0; c < kChunks; ++c) {
+    stage(c);
+    clear_nan_left(c);
+  }
   cp_async_wait<kChunks - 2>();  // chunks 0 and 1
   __syncwarp();
   float r[BW + 1];  // r[k]: column p+k of this lane's row (row p + ((lane - p) mod 32))
@@ -111,6 +157,7 @@ __global__ void __launch_bounds__(32, 1) band_lu_warp_kernel(float* __restrict__
       __syncwarp();
       write_back(c - 1);
       __syncwarp();
+      clear_nan_left(c - 1);
       stage(c + kChunks - 1);
       cp_async_wait<kChunks - 2>();  // chunks c and c+1, the rows the walk reads until p+32
       __syncwarp();
@@ -127,7 +174,7 @@ __global__ void __launch_bounds__(32, 1) band_lu_warp_kernel(float* __restrict__
       // it enters), none of which pivot p's stores below write.
       const float* next_row = row_at(in);
       const int tn = 2 * BW - dn;
-      const float next = next_row[tn > 0 ? tn : 0];
+      float next = next_row[tn > 0 ? tn : 0];
       float enter[BW];  // row p+1+bw, read by every lane at one address (a broadcast), kept by its lane
       if constexpr (!kPreload) {
         const float* entering = row_at(p + 1 + BW);
@@ -140,10 +187,30 @@ __global__ void __launch_bounds__(32, 1) band_lu_warp_kernel(float* __restrict__
       float u[BW + 1];
 #pragma unroll
       for (int k = 1; k <= BW; ++k) u[k] = __shfl_sync(kFull, r[k], pl);
+      // B18: u' = u but NaN where another tail entry is not finite (0 * inf
+      // in the one-hot contraction); B5: u' = u
+      float us[BW + 1];
+      unsigned bad = 0;  // the tail's non-finite entries, the same on every lane
+#pragma unroll
+      for (int k = 1; k <= BW; ++k) {
+        us[k] = u[k];
+        if constexpr (kWindow) bad |= isfinite(u[k]) ? 0u : 1u << k;
+      }
+      if constexpr (kWindow) {
+#pragma unroll
+        for (int k = 1; k <= BW; ++k) us[k] = (bad & ~(1u << k)) ? CUDART_NAN_F : us[k];
+      }
       const float l = __fdiv_rn(live ? r[0] : piv, piv);
       float upd[BW + 1];
 #pragma unroll
-      for (int k = 1; k <= BW; ++k) upd[k] = __fsub_rn(r[k], __fmul_rn(l, u[k]));
+      for (int k = 1; k <= BW; ++k) upd[k] = __fsub_rn(r[k], __fmul_rn(l, us[k]));
+      if constexpr (kWindow) {
+        // the row's entries outside the reach take a - l * NaN: those past
+        // column p+bw as they enter, those left of column p at write-back
+        const bool hit = live && (bad || !isfinite(l));
+        next = hit ? CUDART_NAN_F : next;
+        nan_left[hit ? i & (kRingRows - 1) : kRingRows + lane] = BW - d;
+      }
       // A[i, p] = l; lane k stores A[p, p+k], the pivot row's final values
       *(live ? row_at(i) + BW - d : spare + lane) = l;
       float mine = piv;
@@ -162,24 +229,28 @@ __global__ void __launch_bounds__(32, 1) band_lu_warp_kernel(float* __restrict__
 }
 
 template <int BW>
-cudaError_t launch_warp_walk(float* band, int n, cudaStream_t stream) {
-  const size_t bytes = ((size_t)kRingRows * (2 * BW + 2) + 32) * sizeof(float);  // the ring and `spare`: at most 32 KB
-  band_lu_warp_kernel<BW><<<1, 32, bytes, stream>>>(band, n);
+cudaError_t launch_warp_walk(float* band, int batch, int n, bool window, cudaStream_t stream) {
+  // the ring, `spare` and B18's `nan_left`: at most 33 KB
+  const size_t bytes = ((size_t)kRingRows * (2 * BW + 2) + 32 + kRingRows + 32) * sizeof(float);
+  if (window) band_lu_warp_kernel<BW, true><<<batch, 32, bytes, stream>>>(band, n);
+  else band_lu_warp_kernel<BW, false><<<batch, 32, bytes, stream>>>(band, n);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// Factor the row-aligned (n, 2bw+1) fp32 band in place by the warp walk, one
-// launch of one warp (none for an empty band); 1 <= bw <= 31, so that the
-// bw + 1 live rows fit a warp's lanes.
-cudaError_t band_lu_warp_walk(float* band, int n, int bw, cudaStream_t stream) {
+// Factor the `batch` row-aligned (n, 2bw+1) fp32 bands at `band` (one after
+// the other) in place by the warp walk, one launch of one warp a band (none
+// for an empty stack or band); 1 <= bw <= 31, so that the bw + 1 live rows fit
+// a warp's lanes.  `window`: B18's window step in place of B5's.
+cudaError_t band_lu_warp_walk(float* band, int batch, int n, int bw, bool window,
+                              cudaStream_t stream) {
   if (bw < 1 || bw > 31) return cudaErrorInvalidValue;
-  if (n < 1) return cudaSuccess;
+  if (n < 1 || batch < 1) return cudaSuccess;
   switch (bw) {
 #define EBV_WALK(B) \
   case B:           \
-    return launch_warp_walk<B>(band, n, stream);
+    return launch_warp_walk<B>(band, batch, n, window, stream);
     EBV_WALK(1) EBV_WALK(2) EBV_WALK(3) EBV_WALK(4) EBV_WALK(5) EBV_WALK(6) EBV_WALK(7) EBV_WALK(8)
     EBV_WALK(9) EBV_WALK(10) EBV_WALK(11) EBV_WALK(12) EBV_WALK(13) EBV_WALK(14) EBV_WALK(15)
     EBV_WALK(16) EBV_WALK(17) EBV_WALK(18) EBV_WALK(19) EBV_WALK(20) EBV_WALK(21) EBV_WALK(22)

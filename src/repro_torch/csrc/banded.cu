@@ -99,14 +99,16 @@
 //   stream order (two when S = 1).  Bound: the inverses' 2*S*C*C*4 bytes.
 // batched_band_lu (ebv_batched_band_lu) — replaces src/repro/kernels/
 //   banded.py:batched_banded_lu_vmem, one grid program per system running
-//   the band_block_step loop on its VMEM-resident skewed band.  Here it is
-//   band_lu_resident_kernel's walk (band_lu_global_kernel's for bands too
-//   wide for the ring) with one block per system: blockIdx.x picks the
-//   system, whose band starts at blockIdx.x * n * (2bw+1) floats (64-bit
-//   offsets).  Each system is the same dependent pivot chain as the
-//   unbatched factor, so the batch only fills more SMs (one per system);
-//   the chain bounds each block as it does B5.  Bitwise equal to the plain
-//   version (repro_torch.core.banded.banded_lu_blocked over the stack).
+//   the band_block_step loop on its VMEM-resident skewed band.  Up to
+//   bw = 31 it is band_walk.cu's warp walk with one warp per system, in one
+//   launch; wider bands take band_lu_resident_kernel's walk
+//   (band_lu_global_kernel's for bands too wide for the ring) with one block
+//   per system.  blockIdx.x picks the system, whose band starts at
+//   blockIdx.x * n * (2bw+1) floats (64-bit offsets).  Each system is the
+//   same dependent pivot chain as the unbatched factor, so the batch only
+//   fills more SMs; the chain bounds each system as it does B5.  Bitwise
+//   equal to the plain version (repro_torch.core.banded.banded_lu_blocked
+//   over the stack).
 //
 // batched_band_solve (ebv_batched_band_solve) — replaces src/repro/kernels/
 //   banded.py:batched_banded_solve_vmem, one grid program per system.  Here
@@ -117,16 +119,22 @@
 //   kernels/banded.py:banded_lu_kernelized, the legacy scalar-sequential
 //   Pallas kernel: n-1 fori_loop steps on the VMEM-resident band, each
 //   updating the whole (bw, 2bw+1) window below the pivot, the pivot row's
-//   upper tail shifted into each row by a one-hot contraction (zero outside
-//   it).  Here it is the one-launch ring walk of B5 with that step body
-//   (retire_pivots_window): every window entry takes a - l*u with u = 0
-//   outside the tail, as the plain version (repro_torch.core.banded.
-//   banded_lu) computes it, so the factor is the plain one value for value;
-//   two barriers per pivot (multipliers first, then the window).  Bands too
-//   wide for the ring take the same step in device memory.  Bound and
-//   latency as for B5, with 2bw+1 entries per window row instead of bw.
+//   upper tail shifted into each row by a one-hot contraction.  Up to
+//   bw = 31 it is band_walk.cu's warp walk with that step; wider bands take
+//   the one-launch ring walk of B5 with that step body
+//   (retire_pivots_window): every window entry takes a - l*shifted, two
+//   barriers per pivot (multipliers first, then the window), or the same
+//   step in device memory for bands too wide for the ring.  shifted follows
+//   the contraction's IEEE products (fault C7): u on the entries the tail
+//   reaches and 0 elsewhere while the tail is finite; where exactly one tail
+//   entry is infinite, that entry on the entries that take its column and
+//   NaN elsewhere; otherwise NaN throughout.  So the factor is the plain
+//   version's (repro_torch.kernels.banded.banded_lu_window_plain) value for
+//   value.  Bound and latency as for B5, with 2bw+1 entries per window row
+//   instead of bw.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
+#include <math_constants.h>
 
 #include <cstddef>
 
@@ -135,8 +143,9 @@
 
 namespace cg = cooperative_groups;
 
-// B5's warp walk for bands up to bw = 31 (band_walk.cu)
-cudaError_t band_lu_warp_walk(float* band, int n, int bw, cudaStream_t stream);
+// the warp walk of B5, B11 and (window) B18 for bands up to bw = 31 (band_walk.cu)
+cudaError_t band_lu_warp_walk(float* band, int batch, int n, int bw, bool window,
+                              cudaStream_t stream);
 
 namespace {
 
@@ -217,10 +226,14 @@ __device__ void retire_pivots_global(const GlobalRows& rows, float* lv, float* u
 
 // The step of the scalar-sequential factor (B18) for pivots [p0, p1):
 // the bw multipliers go to lv (bw floats), then every entry t of window
-// row r (band row p+1+r, rows at or past n absent) takes a - l*u, u the
-// pivot row's upper-tail entry that column t meets or 0 where it meets
-// none; the anti-diagonal entry takes its multiplier.  Two barriers per
-// pivot: the window update reads the raw L column only through lv.
+// row r (band row p+1+r, rows at or past n absent) takes a - l*shifted,
+// shifted the one-hot contraction of the pivot row's upper tail (fault C7):
+// the tail entry that column t meets, or 0 where it meets none, while the
+// tail is finite; else NaN, but for the entries that meet a lone infinity.
+// The anti-diagonal entry takes its multiplier.  Two barriers per pivot:
+// the window update reads the raw L column only through lv; the first
+// counts the threads that found a non-finite tail entry, and a second, only
+// where some did, tells one such entry from several.
 template <class Rows>
 __device__ void retire_pivots_window(const Rows& rows, float* lv, int p0, int p1, int n, int bw) {
   const int tid = threadIdx.y * blockDim.x + threadIdx.x, nt = blockDim.x * blockDim.y;
@@ -231,11 +244,16 @@ __device__ void retire_pivots_window(const Rows& rows, float* lv, int p0, int p1
     const float* prow = rows.row(p);
     const float piv = prow[bw];
     for (int r = tid; r < nr; r += nt) lv[r] = __fdiv_rn(rows.row(p + 1 + r)[bw - 1 - r], piv);
-    __syncthreads();
+    int bad = 0;  // this thread's non-finite tail entries
+    for (int t = tid; t < bw; t += nt) bad += !isfinite(prow[bw + 1 + t]);
+    const int bad_threads = __syncthreads_count(bad > 0);
+    // block-uniform: a lone non-finite entry, or more than one
+    const bool lone = bad_threads == 1 && !__syncthreads_or(bad > 1);
     for (int idx = tid; idx < nr * W; idx += nt) {
       const int r = idx / W, t = idx - r * W;
       const int src = t - (bw - r);  // band row p+1+r, column t is A[p+1+r, p+1+src]
-      const float u = (src >= 0 && src < bw) ? prow[bw + 1 + src] : 0.0f;
+      float u = (src >= 0 && src < bw) ? prow[bw + 1 + src] : 0.0f;
+      if (bad_threads && !(lone && !isfinite(u))) u = CUDART_NAN_F;
       float* a = rows.row(p + 1 + r) + t;
       const float v = __fsub_rn(*a, __fmul_rn(lv[r], u));
       *a = t == bw - 1 - r ? lv[r] : v;
@@ -983,10 +1001,11 @@ cudaError_t launch_global(float* band, int batch, int n, int bw, int p0, int p1,
 
 // Factor `batch` row-aligned (n, 2bw+1) fp32 bands in place, in one launch
 // of one block per band (the ring of band_lu_resident_kernel, or
-// band_lu_global_kernel for wide bands); `window`: the scalar-sequential
-// step of B18.  *path: 1 the ring walk, 2 the device-memory walk.
+// band_lu_global_kernel for wide bands; none for an empty stack or band);
+// `window`: the scalar-sequential step of B18.  *path: 1 the ring walk, 2 the
+// device-memory walk.
 int band_lu_one_launch(float* band, int batch, int n, int bw, cudaStream_t stream, int* launches,
-                       bool window = false, int* path = nullptr) {
+                       bool window, int* path) {
   *launches = 0;
   cudaError_t err;
   int R = n, C = n;  // the whole band fits: one chunk
@@ -995,7 +1014,8 @@ int band_lu_one_launch(float* band, int batch, int n, int bw, cudaStream_t strea
     R = room > 0 ? (int)(room / ((2LL * bw + 1) * (long long)sizeof(float))) : 0;
     C = R - bw;  // pivots per chunk: rows p .. p+bw of each must be in the ring
   }
-  if (path) *path = C < 1 ? 2 : 1;
+  *path = C < 1 ? 2 : 1;
+  if (batch < 1 || n < 1) return 0;  // nothing to factor
   if (C < 1) {
     if ((err = launch_global(band, batch, n, bw, 0, n, stream, window))) return err;
     ++*launches;
@@ -1036,6 +1056,21 @@ int band_solve_launch(const void* lu, const void* b, void* x, int batch, int n, 
   return 0;
 }
 
+// The warp walk for bw <= 31 (path 0), else band_lu_one_launch's ring
+// (path 1) or device-memory walk (path 2), over `batch` bands; one launch,
+// none for an empty stack or band.
+int band_lu_walk(float* band, int batch, int n, int bw, bool window, int* path,
+                 cudaStream_t stream, int* launches) {
+  *launches = 0;
+  *path = 0;
+  if (bw <= kWarpWalkMaxBw) {
+    const cudaError_t err = band_lu_warp_walk(band, batch, n, bw, window, stream);
+    if (!err && n > 0 && batch > 0) *launches = 1;
+    return err;
+  }
+  return band_lu_one_launch(band, batch, n, bw, stream, launches, window, path);
+}
+
 }  // namespace
 
 // Factor the row-aligned (n, 2bw+1) fp32 band in place, in one launch: the
@@ -1046,31 +1081,26 @@ int band_solve_launch(const void* lu, const void* b, void* x, int batch, int n, 
 // returns the first error.
 extern "C" int ebv_band_lu_resident(void* band_ptr, int n, int bw, int* path, void* stream_ptr,
                                     int* launches) {
-  float* band = static_cast<float*>(band_ptr);
-  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  *launches = 0;
-  *path = 0;
-  if (bw <= kWarpWalkMaxBw) {
-    const cudaError_t err = band_lu_warp_walk(band, n, bw, stream);
-    if (!err && n > 0) *launches = 1;
-    return err;
-  }
-  return band_lu_one_launch(band, 1, n, bw, stream, launches, false, path);
+  return band_lu_walk(static_cast<float*>(band_ptr), 1, n, bw, false, path,
+                      static_cast<cudaStream_t>(stream_ptr), launches);
 }
 
 // Factor the row-aligned (n, 2bw+1) fp32 band in place with the
-// scalar-sequential step of the legacy kernel (B18), in one launch.
-extern "C" int ebv_band_lu_scalar(void* band_ptr, int n, int bw, void* stream_ptr, int* launches) {
-  return band_lu_one_launch(static_cast<float*>(band_ptr), 1, n, bw,
-                            static_cast<cudaStream_t>(stream_ptr), launches, true);
+// scalar-sequential step of the legacy kernel (B18), in one launch (none for
+// an empty band), on the walk *path names as for ebv_band_lu_resident.
+extern "C" int ebv_band_lu_scalar(void* band_ptr, int n, int bw, int* path, void* stream_ptr,
+                                  int* launches) {
+  return band_lu_walk(static_cast<float*>(band_ptr), 1, n, bw, true, path,
+                      static_cast<cudaStream_t>(stream_ptr), launches);
 }
 
-// Factor `batch` bands (batch, n, 2bw+1) in place, one block per band, in
-// one launch.
-extern "C" int ebv_batched_band_lu(void* band_ptr, int batch, int n, int bw, void* stream_ptr,
-                                   int* launches) {
-  return band_lu_one_launch(static_cast<float*>(band_ptr), batch, n, bw,
-                            static_cast<cudaStream_t>(stream_ptr), launches);
+// Factor `batch` bands (batch, n, 2bw+1) in place in one launch (none for an
+// empty stack or band): one warp a band up to bw = 31, else one block a band;
+// *path as for ebv_band_lu_resident.
+extern "C" int ebv_batched_band_lu(void* band_ptr, int batch, int n, int bw, int* path,
+                                   void* stream_ptr, int* launches) {
+  return band_lu_walk(static_cast<float*>(band_ptr), batch, n, bw, false, path,
+                      static_cast<cudaStream_t>(stream_ptr), launches);
 }
 
 // Factor the band in place: on path 0 in S = ceil(n/C) launches, one per

@@ -1,6 +1,7 @@
 """The banded EbV factor and solves: CUDA kernels (``csrc/banded.cu``, and
-``csrc/band_walk.cu`` for :func:`banded_lu_blocked` up to bw = 31) and
-their plain PyTorch versions.
+``csrc/band_walk.cu`` for the three band factors :func:`banded_lu_blocked`,
+:func:`batched_banded_lu_vmem` and :func:`banded_lu_kernelized` up to
+bw = 31) and their plain PyTorch versions.
 
 * :func:`banded_lu_blocked`       — one launch walks the whole pivot chain:
                                     up to bw = 31 one warp, the live rows on
@@ -23,8 +24,9 @@ their plain PyTorch versions.
                                     the one-launch walk of
                                     :func:`banded_lu_blocked` with each pivot
                                     updating its whole ``(bw, 2bw+1)``
-                                    window, as the reference's
-                                    ``banded_lu_kernelized`` does.
+                                    window, the pivot row's tail shifted in
+                                    by the reference's one-hot contraction
+                                    (:func:`banded_lu_window_plain`).
 * :func:`banded_solve_kernelized` — forward and backward band substitution
                                     in strips of 32 rows, staged ahead of a
                                     solver warp a RHS column and helper
@@ -34,18 +36,18 @@ their plain PyTorch versions.
                                     blocks: batched products and a tail
                                     recurrence, six launches.
 * :func:`batched_banded_lu_vmem`  — the one-launch walk of
-                                    :func:`banded_lu_blocked` with one block
-                                    per band of a ``(B, n, 2bw+1)`` stack.
+                                    :func:`banded_lu_blocked` over a
+                                    ``(B, n, 2bw+1)`` stack: one warp per
+                                    band up to bw = 31, else one block.
 * :func:`batched_banded_solve_vmem` — the walk of
                                     :func:`banded_solve_kernelized` with one
                                     block per (system, RHS tile).
 
 The factors compute the plain version's packed band factor
 (:func:`repro_torch.core.banded.banded_lu_blocked`, over the stack for the
-batched one; :func:`repro_torch.core.banded.banded_lu` for the scalar
-one) value for value: the
-factor does not depend on the block size, and the kernels round every
-operation as the plain version does.  Each factor works on its own copy of
+batched one; :func:`banded_lu_window_plain` for the scalar one) value for
+value: the factor does not depend on the block size, and the kernels round
+every operation as the plain version does.  Each factor works on its own copy of
 the band; the caller's tensor is never written.
 
 Each wrapper runs its plain version for tensors on the CPU and, for tensors
@@ -59,7 +61,7 @@ from typing import NamedTuple
 
 import torch
 
-from ..core.banded import band_block_size, banded_lu as banded_lu_scalar_plain
+from ..core.banded import band_block_size
 from ..core.banded import banded_lu_blocked as _banded_lu_plain
 from ..core.banded import banded_solve_blocked
 from ..core.factorization import banded_inverted_solve, packed_of
@@ -69,7 +71,8 @@ from .trsm import _as_matrix, _check_cuda, _f32
 __all__ = [
     "banded_lu_blocked", "banded_lu_tiled", "banded_lu_kernelized", "banded_solve_kernelized",
     "banded_solve_inverted", "batched_banded_lu_vmem", "batched_banded_solve_vmem",
-    "banded_lu_plain", "banded_lu_scalar_plain", "tiled_launches", "BandClusterPlan", "BandSolvePlan",
+    "banded_lu_plain", "banded_lu_window_plain", "banded_lu_scalar_plain", "tiled_launches",
+    "BandClusterPlan", "BandSolvePlan",
     "band_solve_plan", "SOLVE_STAGES",
     "band_cluster_plan", "tiled_plan", "slab_fits", "GLOBAL_WALK", "BAND_SMEM",
     "BAND_CLUSTER_MIN_BW", "WARP_WALK_MAX_BW", "BAND_WALKS", "band_lu_walk",
@@ -130,6 +133,42 @@ def banded_lu_plain(arow: torch.Tensor, *, bw: int, block: int | None = None) ->
     """Plain version of both band factors
     (:func:`repro_torch.core.banded.banded_lu_blocked`)."""
     return _banded_lu_plain(arow, bw=bw, block=block)
+
+
+def banded_lu_window_plain(arow: torch.Tensor, *, bw: int) -> torch.Tensor:
+    """Plain version of the scalar-sequential factor :func:`banded_lu_kernelized`:
+    the reference kernel's step (``repro.kernels.banded._banded_kernel``),
+    one pivot at a time.  Pivot k's window, rows k+1 .. k+bw, takes
+    ``window - l * shifted`` and then its multipliers on the anti-diagonal,
+    where ``shifted[r, c] = sum_t onehot[r, c, t] * u_t`` shifts the pivot
+    row's upper tail ``u`` into the window with IEEE products: while ``u`` is
+    finite, ``u`` on the entries the tail reaches and 0 elsewhere (the masked
+    step of :func:`repro_torch.core.banded.banded_lu`); where exactly one
+    ``u_t`` is infinite, ``u_t`` on the entries that take column t and NaN
+    elsewhere (``0 * inf``); otherwise NaN throughout."""
+    n, w = arow.shape
+    dev = arow.device
+    ap = torch.cat([arow, torch.zeros((bw, w), dtype=arow.dtype, device=dev)])
+    # window row r (offset s = r + 1) takes tail entry c - (bw + 1 - s) at band column c
+    s = torch.arange(1, bw + 1, device=dev)[:, None]
+    src = torch.arange(w, device=dev)[None, :] - (bw + 1 - s)
+    take = torch.where((src >= 0) & (src < bw), src, bw)  # bw: the 0 past the tail
+    anti = (torch.arange(bw, device=dev), bw - 1 - torch.arange(bw, device=dev))
+    zero = torch.zeros(1, dtype=arow.dtype, device=dev)
+    nan = torch.full((), float("nan"), dtype=arow.dtype, device=dev)
+    for k in range(n - 1):
+        window = ap[k + 1:k + 1 + bw]  # a view
+        l = window[anti] / ap[k, bw]
+        tail = torch.cat([ap[k, bw + 1:], zero])
+        bad = ~torch.isfinite(tail)
+        # 0 * u_t is NaN for a non-finite u_t: NaN where one lies off the entry's own column
+        shifted = torch.where(bad.sum() > bad[take], nan, tail[take])
+        window -= l[:, None] * shifted
+        window[anti] = l
+    return ap[:n]
+
+
+banded_lu_scalar_plain = banded_lu_window_plain
 
 
 class BandClusterPlan(NamedTuple):
@@ -203,11 +242,12 @@ def tiled_launches(n: int, bw: int, block: int | None = None) -> int:
 
 
 def band_lu_walk(n: int, bw: int) -> str:
-    """The walk :func:`banded_lu_blocked` launches for an (n, 2bw+1) band
-    (one of :data:`BAND_WALKS`): the warp walk up to
+    """The walk :func:`banded_lu_blocked`, :func:`batched_banded_lu_vmem`
+    and :func:`banded_lu_kernelized` launch for (n, 2bw+1) bands (one of
+    :data:`BAND_WALKS`): the warp walk up to
     :data:`WARP_WALK_MAX_BW`, else the ring walk where bw + 1 rows and a
     chunk of pivots fit a block's shared memory, else the device-memory
-    walk (the C driver's rule, ``csrc/banded.cu:band_lu_one_launch``)."""
+    walk (the C entries' rule, ``csrc/banded.cu:band_lu_walk``)."""
     if bw <= WARP_WALK_MAX_BW:
         return BAND_WALKS[0]
     row, lbuf = (2 * bw + 1) * 4, 2 * bw * 4
@@ -280,18 +320,24 @@ banded_lu_tiled.last_plan = None
 
 def banded_lu_kernelized(arow: torch.Tensor, *, bw: int) -> torch.Tensor:
     """Packed no-pivot LU of the row-aligned band, one pivot at a time, in
-    one launch: each pivot updates the whole ``(bw, 2bw+1)`` window below
-    it (the legacy scalar-sequential factor; plain version
-    :func:`repro_torch.core.banded.banded_lu`)."""
+    one launch (none for an empty band): each pivot updates the whole
+    ``(bw, 2bw+1)`` window below it (the legacy scalar-sequential factor;
+    plain version :func:`banded_lu_window_plain`).  The walk that ran, by
+    :func:`band_lu_walk`'s rule, in ``banded_lu_kernelized.last_path``."""
     if arow.device.type == "cpu":
         return banded_lu_scalar_plain(arow, bw=bw)
     work = _band_copy("banded_lu_kernelized", arow, bw)
-    _launch(banded_lu_kernelized, "ebv_band_lu_scalar", arow.device, work.data_ptr(),
-            work.shape[0], bw)
+    path = ctypes.c_int(0)
+    try:
+        _launch(banded_lu_kernelized, "ebv_band_lu_scalar", arow.device, work.data_ptr(),
+                work.shape[0], bw, ctypes.byref(path))
+    finally:
+        banded_lu_kernelized.last_path = BAND_WALKS[path.value]
     return work
 
 
 banded_lu_kernelized.launches = 0
+banded_lu_kernelized.last_path = None
 
 
 # ---------------------------------------------------------------------------
@@ -437,21 +483,28 @@ banded_solve_inverted.launches = 0
 # ---------------------------------------------------------------------------
 def batched_banded_lu_vmem(arow: torch.Tensor, *, bw: int, block: int | None = None) -> torch.Tensor:
     """Packed no-pivot LU of every band of a row-aligned ``(B, n, 2bw+1)``
-    stack in one launch, one block per band.  ``block`` sets the plain
-    version's window; the kernel's factor does not depend on it."""
+    stack in one launch (none for an empty stack): one warp per band up to
+    :data:`WARP_WALK_MAX_BW`, else one block per band.  ``block`` sets the
+    plain version's window; the kernel's factor does not depend on it.  The
+    walk that ran (:func:`band_lu_walk`) in
+    ``batched_banded_lu_vmem.last_path``."""
     if arow.device.type == "cpu":
         if arow.ndim != 3:
             raise ValueError(f"batched_banded_lu_vmem expects a stack (B, n, 2bw+1), got "
                              f"{tuple(arow.shape)}")
         return banded_lu_plain(arow, bw=bw, block=block)
     work = _band_copy("batched_banded_lu_vmem", arow, bw, ndim=3)
-    if work.shape[0] and work.shape[1]:
+    path = ctypes.c_int(0)
+    try:
         _launch(batched_banded_lu_vmem, "ebv_batched_band_lu", arow.device, work.data_ptr(),
-                work.shape[0], work.shape[1], bw)
+                work.shape[0], work.shape[1], bw, ctypes.byref(path))
+    finally:
+        batched_banded_lu_vmem.last_path = BAND_WALKS[path.value]
     return work
 
 
 batched_banded_lu_vmem.launches = 0
+batched_banded_lu_vmem.last_path = None
 
 
 def batched_banded_solve_vmem(lu_band, b: torch.Tensor, *, bw: int, block: int | None = None,

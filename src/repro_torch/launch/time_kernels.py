@@ -15,15 +15,18 @@ B13 (``kernels/paged_attn.py:paged_decode_attention``) over its CTAs a
 cluster (:func:`paged_sweep`), the fused step B15
 (``kernels/ebv_lu.py:fused_step``) beside ``solve_triangular`` + ``addmm``
 and the forced ``cuda_blocked`` factor it runs in (:func:`blocked_steps`),
-and the narrow-band factor B5 (``kernels/banded.py:banded_lu_blocked``) at
-Table 1's bands and over bw at n = 16384, beside B6's slab steps from
-bw = 12 and the batched and scalar band factors B11 and B18 that keep the
-ring walk (:func:`narrow_bands`); ``chip_smoke.py`` runs the sweeps once.
+and the narrow-band factors on the warp walk (:func:`narrow_bands`): B5
+(``kernels/banded.py:banded_lu_blocked``) at Table 1's bands and over bw
+at n = 16384, beside B6's slab steps from bw = 12 and the scalar factor
+B18 (``banded_lu_kernelized``), and the batched factor B11
+(``batched_banded_lu_vmem``) at ``chip_smoke.py``'s three stacks, over
+its systems at (16000, 5) and over bw at 16 x 16384; ``chip_smoke.py``
+runs the sweeps once.
 
     PYTHONPATH=src python src/repro_torch/launch/time_kernels.py [section ...]
 
 Sections (all by default): factor (B1), update (B14), batched (B10), band
-(B6), solve (B7), paged (B13), vmem (B2), blocked (B15), narrow (B5).
+(B6), solve (B7), paged (B13), vmem (B2), blocked (B15), narrow (B5, B11, B18).
 
 It runs as a file and imports ``repro_torch`` absolutely, so it times the
 package that ``PYTHONPATH`` names: with another checkout's ``src`` there it
@@ -58,6 +61,11 @@ BLOCKED_SIZES = (2000, 8000)  # B15's first step and the forced cuda_blocked fac
 # for solvers/backends.py:BANDED_TILED_MIN_BW: B6's slab steps from bw = 12)
 NARROW_TABLE1 = ((500, 5), (4000, 5), (16000, 5))
 NARROW_BWS = (1, 2, 5, 11, 16, 31)
+# B11: chip_smoke.py's stacks (systems, n, bw): 4 and 16 Table 1 bands and 32
+# Poisson bands of a 64 x 64 grid; then (16000, 5) for one system, 16, one an
+# SM of the H100's 132, 4 and 8 an SM; then bw at 16 x 16384
+NARROW_STACKS = ((4, 500, 5), (16, 16000, 5), (32, 4096, 64))
+NARROW_SYSTEMS = (1, 16, 132, 528, 1056)
 # B10: (B, n, m) on either side of the plan's split between its two paths
 SOLVE_SPLIT = ((8, 1024, 1), (8, 1024, 16), (8, 1024, 64), (8, 1024, 1024), (32, 256, 1), (32, 256, 16),
                (32, 256, 256), (8, 128, 1), (8, 128, 128), (2, 384, 51968))
@@ -338,9 +346,9 @@ def paged_shapes(dev) -> dict:
     return out
 
 
-def band_of(n: int, bw: int, dev) -> torch.Tensor:
+def band_of(n: int, bw: int, dev, seed: int = 0) -> torch.Tensor:
     """A diagonally dominant row-aligned band, zero outside the matrix."""
-    g = torch.Generator(device=dev).manual_seed(900 + bw)
+    g = torch.Generator(device=dev).manual_seed(900 + bw + 1000 * seed)
     a = torch.rand((n, 2 * bw + 1), generator=g, device=dev) * 2 - 1
     j = torch.arange(n, device=dev)[:, None] - bw + torch.arange(2 * bw + 1, device=dev)
     a = torch.where((j >= 0) & (j < n), a, 0.0)
@@ -392,10 +400,14 @@ def blocked_steps(dev) -> dict:
 
 def narrow_bands(dev) -> dict:
     """B5 at :data:`NARROW_TABLE1` and at n = 16384 over :data:`NARROW_BWS`,
-    each checked bitwise against the plain version; B6 (its slab steps)
-    beside it from bw = 12; B11 at 16 Table 1 bands and B18 at (16000, 5),
-    which keep the ring walk.  {label: (ms one call, ms back to back)}."""
+    beside B6 (its slab steps) from bw = 12 and B18; B11 at
+    :data:`NARROW_STACKS`, over :data:`NARROW_SYSTEMS` at (16000, 5) and
+    over :data:`NARROW_BWS` at 16 x 16384.  Each factor is checked bitwise
+    against its plain version.  {label: (ms one call, ms back to back)}."""
     from repro_torch.kernels import banded
+
+    def walk(fn):
+        return getattr(fn, "last_path", None) or "ring walk"
 
     out = {}
     cases = list(NARROW_TABLE1) + [(16384, bw) for bw in NARROW_BWS]
@@ -403,21 +415,39 @@ def narrow_bands(dev) -> dict:
         a = band_of(n, bw, dev)
         if not torch.equal(banded.banded_lu_blocked(a, bw=bw), banded.banded_lu_plain(a, bw=bw)):
             raise RuntimeError(f"banded_lu_blocked n={n} bw={bw} differs from its plain version")
-        walk = getattr(banded.banded_lu_blocked, "last_path", None) or "ring walk"
         t = out[f"banded_lu_blocked n={n} bw={bw}"] = timed(lambda: banded.banded_lu_blocked(a, bw=bw))
-        line = (f"banded_lu_blocked n={n} bw={bw} ({walk}), one call / back to back: {t[0]:.4f} / {t[1]:.4f} ms, "
-                f"{1e3 * t[0] / n:.4f} us a pivot")
+        line = (f"banded_lu_blocked n={n} bw={bw} ({walk(banded.banded_lu_blocked)}), one call / back to "
+                f"back: {t[0]:.4f} / {t[1]:.4f} ms, {1e3 * t[0] / n:.4f} us a pivot")
         if bw >= 12:
             tt = out[f"banded_lu_tiled n={n} bw={bw}"] = timed(lambda: banded.banded_lu_tiled(a, bw=bw))
             line += f"; banded_lu_tiled {tt[0]:.4f} / {tt[1]:.4f}"
+        if n == 16384 or (n, bw) == (16000, 5):
+            if not torch.equal(banded.banded_lu_kernelized(a, bw=bw), banded.banded_lu_scalar_plain(a, bw=bw)):
+                raise RuntimeError(f"banded_lu_kernelized n={n} bw={bw} differs from its plain version")
+            ts = out[f"banded_lu_kernelized n={n} bw={bw}"] = timed(lambda: banded.banded_lu_kernelized(a, bw=bw))
+            line += (f"; banded_lu_kernelized ({walk(banded.banded_lu_kernelized)}) {ts[0]:.4f} / "
+                     f"{ts[1]:.4f} ms, {1e3 * ts[0] / n:.4f} us a pivot")
         print(line, flush=True)
-    stack = torch.stack([band_of(16000, 5, dev) for _ in range(16)])
-    t = out["batched_banded_lu_vmem B=16 n=16000 bw=5"] = timed(lambda: banded.batched_banded_lu_vmem(stack, bw=5))
-    print(f"batched_banded_lu_vmem B=16 n=16000 bw=5, one call / back to back: {t[0]:.4f} / {t[1]:.4f} ms",
-          flush=True)
-    a = band_of(16000, 5, dev)
-    t = out["banded_lu_kernelized n=16000 bw=5"] = timed(lambda: banded.banded_lu_kernelized(a, bw=5))
-    print(f"banded_lu_kernelized n=16000 bw=5, one call / back to back: {t[0]:.4f} / {t[1]:.4f} ms", flush=True)
+
+    def stack_row(label, stack, bw):
+        if not torch.equal(banded.batched_banded_lu_vmem(stack, bw=bw), banded.banded_lu_plain(stack, bw=bw)):
+            raise RuntimeError(f"batched_banded_lu_vmem {label} differs from its plain version")
+        t = out[f"batched_banded_lu_vmem {label}"] = timed(lambda: banded.batched_banded_lu_vmem(stack, bw=bw))
+        print(f"batched_banded_lu_vmem {label} ({walk(banded.batched_banded_lu_vmem)}), one call / back to "
+              f"back: {t[0]:.4f} / {t[1]:.4f} ms, {1e3 * t[0] / stack.shape[1]:.4f} us a pivot", flush=True)
+
+    for bsz, n, bw in NARROW_STACKS:
+        if bw == 64:  # the Poisson ensemble, member s with diagonal 4.05 + 0.01 s
+            stack = poisson_band(64, dev).expand(bsz, -1, -1).clone()
+            stack[:, :, 64] += 0.01 * torch.arange(bsz, device=dev)[:, None]
+        else:
+            stack = torch.stack([band_of(n, bw, dev, s) for s in range(bsz)])
+        stack_row(f"B={bsz} n={n} bw={bw}", stack, bw)
+    for bsz in NARROW_SYSTEMS:
+        stack_row(f"B={bsz} n=16000 bw=5 (systems)",
+                  torch.stack([band_of(16000, 5, dev, s % 16) for s in range(bsz)]), 5)
+    for bw in NARROW_BWS:
+        stack_row(f"B=16 n=16384 bw={bw}", torch.stack([band_of(16384, bw, dev, s) for s in range(16)]), bw)
     return out
 
 

@@ -174,6 +174,60 @@ def test_band_lu_matches_the_reference_kernels(n, bw, block):
     close_lu(port["mirror"], ref.banded_lu_ref(a, bw), bw, tol=1e-4)
 
 
+def same_non_finite(port, want, bw):
+    """NaN, inf and -inf where ``want`` has them; the finite entries within
+    :func:`close_lu`'s tolerance."""
+    port, want = np.asarray(port), np.asarray(want)
+    for where in (np.isnan, np.isposinf, np.isneginf):
+        np.testing.assert_array_equal(where(port), where(want))
+    fin = np.isfinite(want)
+    close_lu(np.where(fin, port, 0), np.where(fin, want, 0), bw)
+
+
+TAIL_POISONS = {"inf": [(1, np.inf)], "-inf": [(1, -np.inf)], "nan": [(1, np.nan)],
+                "two infs": [(0, np.inf), (-1, -np.inf)]}
+
+
+# fault C7: the reference kernel shifts a pivot row's upper tail into its
+# window by a one-hot contraction, so a non-finite tail entry turns NaN
+# every window entry that does not take its column (0 * inf); the scalar
+# factor B18 follows it, while the scalar mirror stays masked, as the
+# reference's is.  Tail entry t of pivot row k = n // 3 (the last where
+# bw = 1; -inf alone for "two infs" there)
+@pytest.mark.parametrize("poison", TAIL_POISONS)
+@pytest.mark.parametrize("bw", [1, 2, 5])
+def test_scalar_band_factor_on_a_non_finite_tail_matches_the_reference_kernel(bw, poison):
+    n = 3 * bw + 9
+    a, k = band_dd(n, bw, 40 + bw), n // 3
+    for t, value in TAIL_POISONS[poison]:
+        a[k, bw + 1 + t % bw] = value
+    ja = jnp.asarray(a)
+    want = np.asarray(jkband.banded_lu_kernelized(ja, bw=bw, interpret=True))
+    got = kband.banded_lu_kernelized(cpu(a), bw=bw).numpy()
+    assert not np.isfinite(want).all()
+    same_non_finite(got, want, bw)
+    same_non_finite(band.banded_lu(cpu(a), bw=bw).numpy(), np.asarray(jband.banded_lu(ja, bw=bw)), bw)
+    # the masked mirror leaves the window entries off the poisoned column as they were
+    assert np.isnan(got).sum() > np.isnan(band.banded_lu(cpu(a), bw=bw).numpy()).sum()
+
+
+@pytest.mark.parametrize("col,value", [(3, np.inf), (4, np.nan), (4, -np.inf)])
+def test_scalar_band_factor_on_the_c7_band_matches_the_reference_kernel(col, value):
+    rng = np.random.default_rng(0)
+    a = rng.uniform(-1, 1, (12, 5)).astype(np.float32)
+    a[:, 2] = np.abs(a).sum(1) + 1
+    a[3, col] = value  # A[3, 4] or A[3, 5]: pivot row 3's upper tail
+    ja = jnp.asarray(a)
+    want = np.asarray(jkband.banded_lu_kernelized(ja, bw=2, interpret=True))
+    got = kband.banded_lu_kernelized(cpu(a), bw=2).numpy()
+    same_non_finite(got, want, 2)
+    assert np.isnan(got).sum() + np.isinf(got).sum() == 40
+    if col == 3:  # row 4 keeps the lone infinity's column and its multiplier
+        assert np.isnan(got[4, [0, 3, 4]]).all() and np.isposinf(got[4, 2])
+        assert np.isclose(got[4, 1], want[4, 1])
+    same_non_finite(band.banded_lu(cpu(a), bw=2).numpy(), np.asarray(jband.banded_lu(ja, bw=2)), 2)
+
+
 def test_band_lu_never_writes_the_callers_band():
     a = cpu(band_dd(50, 3, 1))
     before = a.clone()

@@ -422,14 +422,68 @@ def test_band_tiled_factor_past_every_cluster_is_bitwise_the_plain_one(n, bw, ca
 
 @pytest.mark.parametrize("n,bw", BAND_SHAPES + [(16000, 5)])
 def test_scalar_band_factor_kernel_is_bitwise_its_plain_version(n, bw, card):
-    """B18, one launch (the ring walk; device memory for bw = 200)."""
+    """B18, one launch (the warp walk up to bw = 31, the ring walk past it;
+    device memory for bw = 200)."""
     a = torch.from_numpy(band_dd(n, bw, 5 * n + bw)).to(card)
     plain = banded.banded_lu_scalar_plain(a, bw=bw)
     before = banded.banded_lu_kernelized.launches
     got = banded.banded_lu_kernelized(a, bw=bw)
     assert banded.banded_lu_kernelized.launches - before == 1
+    assert banded.banded_lu_kernelized.last_path == banded.band_lu_walk(n, bw)
     close_band_lu(got, plain, bw)
     assert torch.equal(got, plain)
+
+
+def c7_band():
+    """n = 12, bw = 2 with entries outside the matrix; pivot row 3's upper
+    tail is set by the caller."""
+    rng = np.random.default_rng(0)
+    a = rng.uniform(-1, 1, (12, 5)).astype(np.float32)
+    a[:, 2] = np.abs(a).sum(1) + 1
+    return a
+
+
+def scalar_poisoned(n, bw, poison):
+    """The NaN pivot of the solve service's poisoned band (row 5), or an
+    inf, a NaN or two opposite infs in pivot row n // 3's upper tail."""
+    a = band_dd(n, bw, 3 * n + bw)
+    k = 5 if poison == "nan pivot" else n // 3
+    at = {"nan pivot": [(bw, np.nan)], "inf tail": [(bw + 1 + k % bw, np.inf)],
+          "nan tail": [(2 * bw, np.nan)], "two infs": [(bw + 1, np.inf), (2 * bw, -np.inf)]}[poison]
+    for col, value in at:
+        a[k, col] = value
+    return a
+
+
+# fault C7 on the card: B18's NaN and inf positions are its plain version's
+# (the reference kernel's one-hot contraction) on every walk
+@pytest.mark.parametrize("poison", ["nan pivot", "inf tail", "nan tail", "two infs"])
+@pytest.mark.parametrize("n,bw", BAND_SHAPES + [(16000, 5)])
+def test_scalar_band_factor_on_non_finite_values_gives_the_plain_pattern(n, bw, poison, card):
+    a = torch.from_numpy(scalar_poisoned(n, bw, poison)).to(card)
+    got, want = banded.banded_lu_kernelized(a, bw=bw), banded.banded_lu_scalar_plain(a, bw=bw)
+    assert banded.banded_lu_kernelized.last_path == banded.band_lu_walk(n, bw)
+    assert not bool(torch.isfinite(want).all())
+    assert_same_non_finite(got, want)
+
+
+@pytest.mark.parametrize("col,value", [(3, np.inf), (4, np.nan), (4, -np.inf), (3, -np.inf)])
+def test_scalar_band_factor_on_the_c7_band_gives_the_plain_pattern(col, value, card):
+    a = c7_band()
+    a[3, col] = value
+    a = torch.from_numpy(a).to(card)
+    got, want = banded.banded_lu_kernelized(a, bw=2), banded.banded_lu_scalar_plain(a, bw=2)
+    assert banded.banded_lu_kernelized.last_path == "warp walk"
+    assert_same_non_finite(got, want)
+    assert int((~torch.isfinite(want)).sum()) == 40
+
+
+def test_scalar_band_factor_takes_an_empty_band(card):
+    for bw in (5, 40):
+        before = banded.banded_lu_kernelized.launches
+        got = banded.banded_lu_kernelized(torch.zeros((0, 2 * bw + 1), device=card), bw=bw)
+        assert got.shape == (0, 2 * bw + 1) and banded.banded_lu_kernelized.launches == before
+        assert banded.banded_lu_kernelized.last_path == banded.band_lu_walk(0, bw)
 
 
 def test_band_factors_leave_their_input_alone(card):
@@ -712,10 +766,49 @@ def test_batched_band_factor_kernel_is_bitwise_its_plain_version(n, bw, card):
     before = banded.batched_banded_lu_vmem.launches
     got = banded.batched_banded_lu_vmem(a, bw=bw)
     assert banded.batched_banded_lu_vmem.launches == before + 1
+    assert banded.batched_banded_lu_vmem.last_path == banded.band_lu_walk(n, bw)
     torch.cuda.synchronize()
     assert torch.equal(got, banded.banded_lu_plain(a, bw=bw))
     # each system's factor is the unbatched kernel's
     assert torch.equal(got[1], banded.banded_lu_blocked(a[1], bw=bw))
+
+
+# B11 on the warp walk (bw <= 31), one warp a system: one system, a few,
+# and more systems than the card has SMs; bands with entries outside the
+# matrix; the ring walk past it (bw = 32)
+@pytest.mark.parametrize("bsz", [1, 3, 200])
+@pytest.mark.parametrize("bw", [1, 5, 16, 31, 32])
+def test_batched_band_factor_warp_walk_is_bitwise_its_plain_version(bw, bsz, card):
+    n = 257 if bsz == 200 else 1000 + bw
+    a = torch.from_numpy(np.stack([any_band(n, bw, 19 * n + bw + i) for i in range(bsz)])).to(card)
+    before = banded.batched_banded_lu_vmem.launches
+    got = banded.batched_banded_lu_vmem(a, bw=bw)
+    assert banded.batched_banded_lu_vmem.launches - before == 1
+    assert banded.batched_banded_lu_vmem.last_path == banded.band_lu_walk(n, bw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, banded.banded_lu_plain(a, bw=bw))
+
+
+# the warp walk keeps the plain factor's NaN and inf positions system by system
+@pytest.mark.parametrize("bw", [2, 5, 31])
+def test_batched_band_factor_warp_walk_on_non_finite_systems(bw, card):
+    n = 300
+    a = np.stack([any_band(n, bw, n + bw + i, zero_pivot=i == 1) for i in range(4)])
+    a[2, 7, bw] = np.nan
+    a[3, 9, bw + 2] = np.inf
+    a = torch.from_numpy(a).to(card)
+    got, want = banded.batched_banded_lu_vmem(a, bw=bw), banded.banded_lu_plain(a, bw=bw)
+    assert banded.batched_banded_lu_vmem.last_path == "warp walk"
+    assert bool(torch.isfinite(want[0]).all()) and not bool(torch.isfinite(want[1:]).all())
+    assert_same_non_finite(got, want)
+
+
+@pytest.mark.parametrize("bsz,n,bw", [(0, 300, 5), (3, 0, 5), (0, 300, 40)])
+def test_batched_band_factor_takes_an_empty_stack(bsz, n, bw, card):
+    before = banded.batched_banded_lu_vmem.launches
+    got = banded.batched_banded_lu_vmem(torch.zeros((bsz, n, 2 * bw + 1), device=card), bw=bw)
+    assert got.shape == (bsz, n, 2 * bw + 1) and banded.batched_banded_lu_vmem.launches == before
+    assert banded.batched_banded_lu_vmem.last_path == banded.band_lu_walk(n, bw)
 
 
 def test_batched_band_factor_leaves_its_input_alone(card):

@@ -170,80 +170,120 @@ def test_strip_solve_matches_the_reference_kernel(m, b, w, ct):
 
 
 # ---------------------------------------------------------------------------
-# B5: the warp walk
+# B5, B11 and B18: the warp walk
 # ---------------------------------------------------------------------------
-def warp_walk_emulation(arow, bw):
-    """The factor band_lu_warp_kernel<bw> writes, with its ring's slots
-    tagged by the row each holds.  What a lane reads from a row past the
+def warp_walk_emulation(arow, bw, window=False):
+    """The factor band_lu_warp_kernel<bw, window> writes, with its ring's
+    slots tagged by the row each holds.  ``arow`` is one band (n, 2bw+1) or a
+    stack (B, n, 2bw+1) (B11): a warp a system, system s walking the band at
+    s * n * (2bw+1) floats of the stack.  ``window``: B18's step (fault C7):
+    the reach takes a - l * u', u' NaN where another tail entry is not
+    finite; a live row whose multiplier or whose pivot row's tail is not
+    finite turns NaN the column it reads ahead (its multiplier at every
+    later pivot is then not finite either) and its L part left of the
+    pivot, by a count a ring slot that the chunk's write-back applies.  What a lane reads from a row past the
     band or from a column outside its row's band is NaN here (the kernel
     reads whatever the slot holds), so such a value reaching the factor
     shows."""
-    n, width = arow.shape
+    a = np.asarray(arow, F32)
+    stack = a.reshape(-1, *a.shape[-2:])
+    n, width = stack.shape[1:]
+    flat = stack.reshape(-1).copy()
+    for system in range(stack.shape[0]):
+        _walk_system(flat, system * n * width, n, bw, window)
+    return flat.reshape(a.shape)
+
+
+def _walk_system(flat, off, n, bw, window):
+    """One warp's walk over the band at ``flat[off:]``, in place."""
+    width = 2 * bw + 1
     ring_rows = CHUNK * CHUNKS
     preload = 2 * bw <= 31  # a lane gathers its next row a column a pivot while it idles
-    band = np.asarray(arow, F32).copy()
     ring = np.full((ring_rows, width + 1), np.nan, F32)  # rows padded to 2bw+2
     tag = np.full(ring_rows, -1)
+    nan_left = np.zeros(ring_rows, int)  # B18: the slot's row has band entries 0 .. nan_left-1 NaN
     landed = np.zeros(ring_rows, bool)  # the slot's copy group has been waited for
     groups = []  # the copy groups in flight, oldest first: their slots
     chunks = -(-n // CHUNK)
 
+    def band_rows(r0, r1):
+        return flat[off + r0 * width:off + r1 * width].reshape(r1 - r0, width)
+
     def stage(c):
-        rows = range(c * CHUNK, min(n, (c + 1) * CHUNK)) if c < chunks else range(0)
-        for i in rows:
-            ring[i % ring_rows, :width] = band[i]
-            tag[i % ring_rows] = i
-            landed[i % ring_rows] = False
-        groups.append([i % ring_rows for i in rows])
+        rows = np.arange(c * CHUNK, min(n, (c + 1) * CHUNK)) if c < chunks else np.arange(0)
+        slot = rows % ring_rows
+        if rows.size:
+            ring[slot, :width] = band_rows(rows[0], rows[-1] + 1)
+        tag[slot] = rows
+        landed[slot] = False
+        groups.append(slot)
 
     def wait(pending):  # cp.async.wait_group
         while len(groups) > pending:
             landed[groups.pop(0)] = True
 
-    def row_at(i):
-        assert tag[i % ring_rows] == i, f"row {i}'s slot holds row {tag[i % ring_rows]}"
-        assert landed[i % ring_rows], f"row {i} is read before its copy was waited for"
-        return ring[i % ring_rows]
+    def slots(rows):  # the ring slots of `rows`, which the ring must hold, landed
+        slot = np.asarray(rows) % ring_rows
+        held = tag[slot] == rows
+        assert held.all(), f"row {np.asarray(rows)[~held][0]}'s slot holds another row"
+        assert landed[slot].all(), "a row is read before its copy was waited for"
+        return slot
 
-    def read(i, t):  # band entry t of row i, as a lane reads it
-        return row_at(i)[t] if i < n and 0 <= t < width else np.float32(np.nan)
+    def read(rows, cols):  # band entries (rows, cols), as the lanes read them
+        rows, cols = np.broadcast_arrays(rows, cols)
+        ok = (rows < n) & (cols >= 0) & (cols < width)
+        got = np.full(rows.shape, np.nan, F32)
+        got[ok] = ring[slots(rows[ok]), cols[ok]]
+        return got
 
     def write_back(c):
-        for i in range(c * CHUNK, min(n, (c + 1) * CHUNK)):
-            band[i] = row_at(i)[:width]
+        rows = np.arange(c * CHUNK, min(n, (c + 1) * CHUNK))
+        slot = slots(rows)
+        band_rows(rows[0], rows[-1] + 1)[:] = np.where(cols[None, :] < nan_left[slot][:, None], np.nan,
+                                                       ring[slot, :width])
+
+    def clear_nan_left(c):  # the chunk's slots take new rows
+        nan_left[(c * CHUNK + np.arange(32)) % ring_rows] = 0
 
     lanes = np.arange(32)
+    cols = np.arange(width)
     for c in range(CHUNKS):
         stage(c)
+        clear_nan_left(c)
     wait(CHUNKS - 2)
     # r[lane, k]: column p+k of the lane's row p + ((lane - p) mod 32)
-    r = np.array([[read(lane, k - lane + bw) for k in range(bw + 1)] for lane in lanes], F32)
+    r = read(lanes[:, None], np.arange(bw + 1)[None, :] - lanes[:, None] + bw)
     with np.errstate(all="ignore"):
         for p in range(n):
             if p > 0 and p % CHUNK == 0:
                 write_back(p // CHUNK - 1)
+                clear_nan_left(p // CHUNK - 1)
                 stage(p // CHUNK + CHUNKS - 1)
                 wait(CHUNKS - 2)
             d = (lanes - p) & 31
             dn = (d - 1) & 31
             i, nxt_row = p + d, p + 1 + dn
             live = (d >= 1) & (d <= bw) & (i < n)
-            # the reads for pivot p+1, before pivot p's stores
-            nxt = np.array([read(nxt_row[ln], 2 * bw - dn[ln]) for ln in lanes], F32)
-            enter = None if preload else np.array(
-                [[read(nxt_row[ln], k) for k in range(bw)] for ln in lanes], F32)
+            # the reads for pivot p+1, before pivot p's stores: a column of
+            # each lane's next row, and the row entering, read whole by every lane
+            nxt = read(nxt_row, 2 * bw - dn)
+            enter = None if preload else np.broadcast_to(read(p + 1 + bw, np.arange(bw)), (32, bw))
             pl = p & 31
             piv, u = r[pl, 0], r[pl, 1:].copy()
+            bad = ~np.isfinite(u) if window else np.zeros(bw, bool)
+            us = np.where(bad.sum() - bad > 0, np.float32(np.nan), u)  # u'
             l = np.where(live, r[:, 0], piv) / piv
-            upd = r[:, 1:] - l[:, None] * u[None, :]
-            for ln in lanes[live]:
-                row_at(i[ln])[bw - d[ln]] = l[ln]
-            row_at(p)[bw:2 * bw + 1] = np.concatenate([[piv], u])
+            upd = r[:, 1:] - l[:, None] * us[None, :]
+            if window:
+                hit = live & (bad.any() | ~np.isfinite(l))
+                nxt = np.where(hit, np.float32(np.nan), nxt)
+                nan_left[i[hit] % ring_rows] = bw - d[hit]
+            ring[slots(i[live]), bw - d[live]] = l[live]
+            ring[slots(p), bw:2 * bw + 1] = np.concatenate([[piv], u])
             shifted = r[:, 1:] if preload else enter
             r = np.concatenate([np.where(live[:, None], upd, shifted), nxt[:, None]], axis=1).astype(F32)
     if chunks:
         write_back(chunks - 1)
-    return band
 
 
 def any_band(n, bw, seed, zero_pivot=False):
@@ -275,6 +315,66 @@ def test_warp_walk_on_a_zero_pivot_is_the_plain_factor(n, bw):
     want = tbanded.banded_lu_blocked(torch.from_numpy(a), bw=bw).numpy()
     assert not np.isfinite(want).all()
     np.testing.assert_array_equal(warp_walk_emulation(a, bw), want)  # NaN and inf where the plain has them
+
+
+POISONS = ("any", "zero pivot", "nan pivot", "inf tail", "nan tail", "two infs")
+
+
+def poisoned_band(n, bw, poison, seed):
+    """:func:`any_band` with, but for "any", pivot row k = min(5, n - 2) (a
+    row with rows below it) poisoned: its pivot 0 or NaN, an inf or a NaN in
+    its upper tail (column k+1 + k mod bw), or "two infs": inf and -inf at
+    the tail's two ends (-inf alone where bw = 1)."""
+    a = any_band(n, bw, seed, zero_pivot=poison == "zero pivot")
+    k = min(5, n - 2)
+    at = {"nan pivot": [(bw, np.nan)], "inf tail": [(bw + 1 + k % bw, np.inf)],
+          "nan tail": [(bw + 1 + k % bw, np.nan)],
+          "two infs": [(bw + 1, np.inf), (2 * bw, -np.inf)]}.get(poison, [])
+    for col, value in at:
+        a[k, col] = value
+    return a
+
+
+WALK_SIZES = pytest.mark.parametrize(
+    "n_of", [lambda bw: bw + 1, lambda bw: 2 * bw + 3, lambda bw: 257, lambda bw: 4000],
+    ids=["bw+1", "2bw+3", "257", "4000"])
+
+
+# B18: the window step (fault C7) against its plain version, NaN and inf
+# where the plain version has them and every finite value bit for bit
+@WALK_SIZES
+@pytest.mark.parametrize("poison", POISONS)
+@pytest.mark.parametrize("bw", [1, 2, 5, 11, 16, 31])
+def test_warp_walk_window_step_is_bitwise_its_plain_version(bw, poison, n_of):
+    n = n_of(bw)
+    a = poisoned_band(n, bw, poison, 11 * n + bw)
+    want = kband.banded_lu_window_plain(torch.from_numpy(a), bw=bw).numpy()
+    assert np.isfinite(want).all() == (poison == "any")
+    np.testing.assert_array_equal(warp_walk_emulation(a, bw, window=True), want)
+
+
+# B11: a warp a system over a stack, each system at its own offset
+@WALK_SIZES
+@pytest.mark.parametrize("poison", POISONS)
+@pytest.mark.parametrize("bw", [1, 2, 5, 11, 16, 31])
+def test_warp_walk_over_a_stack_is_bitwise_the_plain_factor(bw, poison, n_of):
+    n = n_of(bw)
+    a = np.stack([any_band(n, bw, 13 * n + bw), poisoned_band(n, bw, poison, 17 * n + bw)])
+    want = kband.banded_lu_plain(torch.from_numpy(a), bw=bw).numpy()
+    assert np.isfinite(want).all() == (poison == "any")
+    np.testing.assert_array_equal(warp_walk_emulation(a, bw), want)
+
+
+# C7 is B18's alone: on an inf in a tail B5's walk keeps the entries its
+# pivot does not reach, where B18's window step turns them NaN
+@pytest.mark.parametrize("bw", [1, 2, 5, 16, 31])
+def test_b5_walk_is_not_the_window_step_on_an_inf_tail(bw):
+    a = poisoned_band(2 * bw + 40, bw, "inf tail", bw)
+    b5, b18 = warp_walk_emulation(a, bw), warp_walk_emulation(a, bw, window=True)
+    want = kband.banded_lu_window_plain(torch.from_numpy(a), bw=bw).numpy()
+    np.testing.assert_array_equal(b18, want)
+    assert np.isnan(want).sum() > np.isnan(b5).sum()
+    assert not np.array_equal(np.isnan(b5), np.isnan(want))
 
 
 @pytest.mark.parametrize("n,bw,want", [
