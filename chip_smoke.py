@@ -27,7 +27,8 @@ Phases (any failure exits non-zero):
    ``band_lu_walk``, and on a zero pivot, and there too the batched band
    factor B11 (a stack of 3) and the scalar band factor B18 bit for bit on
    the walks they share with B5; 3c the batched kernels (B9-B12)
-   at the batched paths' shapes (B11 and B12 at the three stacks of 4e), B9
+   at the batched paths' shapes (B11 and B12 at the three stacks of 4e, B12
+   also system by system bitwise B7 on each alone, its plan checked), B9
    also where its plan changes, B10 also on both of its paths at shapes on
    either side of its plan's split (each plan checked against its Python
    mirror); 3d the legacy
@@ -43,7 +44,11 @@ Phases (any failure exits non-zero):
    against the plain version's); 3e the
    paged decode attention (B13) at the served shape and at a decode-heavy
    one (32 rows of 4096 positions), fp32 and bf16, with holes, through its
-   wrapper and forced onto clusters of every size, 1 to 16 CTAs;
+   wrapper and forced onto clusters of every size, 1 to 16 CTAs; 3f 70,000
+   systems through B10 (n = 4, bit for bit) and B12 (n = 8, bw = 1, within
+   1e-5, five systems bitwise B7) in one launch each (fault C8), and a
+   tridiagonal band of 65,537 diagonal blocks (n = 2,097,157) through B8
+   in six launches, within 1e-5 of B7 (fault C9);
 4. the main paths, each with its kernels' launch counters set to 0 just
    before and read just after:
    - dense: ``repro_torch.kernels.ops.linear_solve`` at n = 500, 2000,
@@ -108,7 +113,10 @@ Phases (any failure exits non-zero):
    Table 1's largest band, the shootout band (m = 64) and the Poisson band
    over its warps a block and staged strips, beside the per-warp kernel
    it replaced; B5, B11 and B18 on the warp walk (B11 over its systems
-   and bw); B13 at both of its shapes over its CTAs a cluster
+   and bw); B12 at its three stacks beside the per-warp kernel it ran
+   before (the parent's kernel, in the same call), over its systems and
+   warps a block at (16000, 5) and over its warps a block at 32 x (4096,
+   64); B13 at both of its shapes over its CTAs a cluster
    (``src/repro_torch/launch/time_kernels.py``'s sweeps); the
    optimizer step's time; device time by kernel (B1, B3 and
    B4 at n = 8000 among them) and each dense factor and solve step's time
@@ -183,6 +191,9 @@ OPT_D, OPT_LEAVES = 128, 4  # benchmarks/run.py:184-197, opt_step_d128
 ENSEMBLE_T1 = (16, 16000, 5)
 ENSEMBLE_NX, ENSEMBLE_MEMBERS = 64, 32
 ENSEMBLE_SMALL = (4, 500, 5)  # four of Table 1's smallest band
+# C8: a stack past a grid's y extent (65,535) for B10 and B12; C9: a
+# tridiagonal band of 65,537 diagonal blocks of 32 rows for B8 (past z's)
+C8_SYSTEMS, C9_ROWS = 70_000, 2_097_157
 # the legacy kernels: B14 and B15 against their plain versions normwise
 # (their products sum in another order than cuBLAS); B16 and B17 bit for bit;
 # bf16 B14 at the reference test's absolute tolerance (tests/test_kernels.py)
@@ -654,6 +665,17 @@ def main() -> int:
               f"rel {rel:.3e}", flush=True)
         if not (bool(torch.isfinite(got).all()) and rel <= BATCHED_SOLVE_TOL):
             fail(f"batched_banded_solve_vmem {shape}: kernel disagrees with its plain version ({rel:.3e})")
+        # B12 is B7's kernel and plan over the stack: each system bitwise B7 on it alone
+        report, plan = banded.batched_banded_solve_vmem.last_plan, banded.band_solve_plan(n, bw, 1)
+        print(f"    plan (path 1 staged / 0 per-warp, warps, columns a block, stages, shared-memory bytes): "
+              f"{report}; band_solve_plan: {tuple(plan)}", flush=True)
+        if report != (1, plan.warps, plan.cols, plan.stages, plan.bytes):
+            fail(f"batched_banded_solve_vmem {shape}: launched {report}, not band_solve_plan's {plan}")
+        same = sum(bool(torch.equal(got[s], banded.banded_solve_kernelized(eplain[(bsz, n, bw)][s], b[s], bw=bw)))
+                   for s in range(bsz))
+        print(f"    systems bitwise B7 (banded_solve_kernelized) on each alone: {same} of {bsz}", flush=True)
+        if same != bsz:
+            fail(f"batched_banded_solve_vmem {shape}: {bsz - same} systems differ from B7 on them alone")
 
     # ---- 3d. the legacy dense kernels against their plain versions --------
     print(f"phase 3d: legacy kernels vs plain (B16, B17 bit for bit; B14, B15 normwise, "
@@ -850,6 +872,58 @@ def main() -> int:
                         compare("paged_decode_attention", f"B={b} NP={np_} K={k} {dname}",
                                 paged_attn._attend(*args, plan), want, PAGED_TOL[dname])
                 del args, want
+
+    # ---- 3f. grids past 65,535 systems or diagonal blocks (C8, C9) -------
+    print(f"phase 3f: {C8_SYSTEMS} systems in one launch of B10 and B12 (C8), a band of "
+          f"{-(-C9_ROWS // 32)} diagonal blocks through B8 (C9)", flush=True)
+
+    def one_launch(wrapper, call):
+        before = wrapper.launches
+        got = call()
+        torch.cuda.synchronize()
+        return got, wrapper.launches - before
+
+    g = torch.Generator(device=dev).manual_seed(1400)
+    a = torch.rand((C8_SYSTEMS, 4, 4), generator=g, device=dev) * 2 - 1
+    a.diagonal(dim1=-2, dim2=-1).copy_(a.abs().sum(dim=-1) + 1)
+    lu, b = batched_lu.batched_lu_vmem(a), torch.randn((C8_SYSTEMS, 4), generator=g, device=dev)
+    got, count = one_launch(batched_lu.batched_lu_solve_vmem, lambda: batched_lu.batched_lu_solve_vmem(lu, b))
+    compare_bitwise("batched_lu_solve_vmem", f"B={C8_SYSTEMS} n=4 m=1", got,
+                    batched_lu.batched_lu_solve_plain(lu, b))
+    print(f"    {count} launch(es), plan {batched_lu.batched_lu_solve_vmem.last_plan}", flush=True)
+    if count != 1:
+        fail(f"batched_lu_solve_vmem B={C8_SYSTEMS}: {count} launches, not 1")
+    a = torch.rand((C8_SYSTEMS, 8, 3), generator=g, device=dev) * 2 - 1  # tridiagonal bands, zero off the matrix
+    a[:, 0, 0] = 0.0
+    a[:, -1, 2] = 0.0
+    a[:, :, 1] = a.abs().sum(dim=-1) + 1
+    lu, b = banded.batched_banded_lu_vmem(a, bw=1), rhs_stack(C8_SYSTEMS, 8, 1, 1420)
+    got, count = one_launch(banded.batched_banded_solve_vmem,
+                            lambda: banded.batched_banded_solve_vmem(lu, b, bw=1))
+    compare("batched_banded_solve_vmem", f"B={C8_SYSTEMS} n=8 bw=1 m=1", got, banded_solve_blocked(lu, b, bw=1),
+            BATCHED_SOLVE_TOL)
+    same = [s for s in (0, 65_534, 65_535, 65_536, C8_SYSTEMS - 1)
+            if torch.equal(got[s], banded.banded_solve_kernelized(lu[s], b[s], bw=1))]
+    print(f"    {count} launch(es), plan {banded.batched_banded_solve_vmem.last_plan}; systems {same} bitwise "
+          "B7 on each alone", flush=True)
+    if count != 1 or len(same) != 5:
+        fail(f"batched_banded_solve_vmem B={C8_SYSTEMS}: {count} launches, systems {same} bitwise B7")
+    lu = banded.banded_lu_blocked(band(C9_ROWS, 1, 1430), bw=1)
+    f9 = factorize_banded(lu, bw=1)
+    b = rhs(C9_ROWS, 1, 1440)
+    got, count = one_launch(banded.banded_solve_inverted,
+                            lambda: banded.banded_solve_inverted(f9.linv, f9.uinv, f9.tlo, f9.tup, b, n=C9_ROWS,
+                                                                 bw=1))
+    want = banded.banded_solve_kernelized(lu, b, bw=1)
+    torch.cuda.synchronize()
+    rel = float((got.double() - want.double()).abs().max() / want.double().abs().max())
+    print(f"  banded_solve_inverted n={C9_ROWS} bw=1 (S = {f9.linv.shape[0]}) against B7: rel {rel:.3e}, "
+          f"{count} launches", flush=True)
+    if not (bool(torch.isfinite(got).all()) and rel <= BATCHED_SOLVE_TOL and count == 6
+            and f9.linv.shape[0] > 65_535):
+        fail(f"banded_solve_inverted n={C9_ROWS}: rel {rel:.3e} against B7, {count} launches, "
+             f"S = {f9.linv.shape[0]}")
+    del a, lu, b, got, want, f9
 
     # ---- 4. the main paths -----------------------------------------------
     print("phase 4: main path", flush=True)
@@ -1744,6 +1818,15 @@ def main() -> int:
         record("batched_banded_solve_vmem", shape + " m=1", timed(kernel), eplain_ms[shape + " m=1"],
                None, bsz * 4 * n * bw, bsz * (n * (2 * bw + 1) + 2 * n) * 4,
                per_call(banded.batched_banded_solve_vmem, kernel))
+        # the parent's B12: band_solve_kernel, a warp a system, launched as the
+        # parent launched it (its grid's system axis now folded into x)
+        ms, report = rows[("batched_banded_solve_vmem", shape + " m=1")]["ms"], banded.batched_banded_solve_vmem.last_plan
+        warp = banded.BandSolvePlan("warp", 1, 1, 0, 0)
+        parent = timed(lambda: banded.batched_banded_solve_vmem(lu, b, bw=bw, plan=warp))
+        strips = 2 * -(-n // 32)
+        print(f"    batched_banded_solve_vmem {shape} m=1 on B7's staged kernel (plan {report}): {ms:.4f} ms, "
+              f"{1e3 * ms / strips:.3f} us a strip; the parent's per-warp kernel, same call: {parent:.4f} ms, "
+              f"{parent / ms:.2f}x this (card: {card})", flush=True)
     # the legacy kernels; library: lu_factor(pivot=False) for B17 and, on the
     # (m, b) panel, for B16; two calls (solve_triangular + addmm) for B15;
     # addmm for B14
@@ -1838,6 +1921,10 @@ def main() -> int:
     print(f"  B5 at Table 1's bands and over bw at n = 16384, B6's slab steps beside it from bw = 12 and B18; "
           f"B11 at the three stacks, over its systems and over bw (ms; card: {card}):", flush=True)
     time_kernels.narrow_bands(dev)
+    print(f"  B12 at the three stacks beside the per-warp kernel it ran before, over its systems and warps a "
+          f"block at (16000, 5) and over warps a block at 32 x (4096, 64), each system bitwise B7 (ms; card: "
+          f"{card}):", flush=True)
+    time_kernels.batched_band_solves(dev)
 
     print("  optimizer step (host clock around a synchronized step, median of 3):", flush=True)
     opt_ms = {}
@@ -2099,6 +2186,8 @@ def main() -> int:
             "launches": launches[name], "max_abs_err": max_err[name], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": row["library_ms"], "shape": line_shape[name],
+            # B12's CUDA kernel since it took B7's (before: band_solve_kernel)
+            **({"kernel": "band_solve_staged_kernel"} if name == "batched_banded_solve_vmem" else {}),
         })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card_line(), flush=True)

@@ -83,7 +83,7 @@
 //   (bw past ~870) keep band_solve_kernel.
 //
 // band_solve_kernel — B7 before its staged redesign, kept for the bands too
-//   wide to stage and for B12 (below).  One warp per RHS column walks the
+//   wide to stage (for B7 and B12).  One warp per RHS column walks the
 //   rows in 32-row strips, forward then backward: each lane holds one row,
 //   first retires the rows of earlier strips (at most bw terms, read from a
 //   ring of the warp's last solved values in shared memory), then the
@@ -97,6 +97,9 @@
 //   blocks (many blocks in flight), the (bw, m) tail recurrence over S (one
 //   block per 32 columns), and a second batched product: six launches in
 //   stream order (two when S = 1).  Bound: the inverses' 2*S*C*C*4 bytes.
+//   The products' grid folds (column tile, row tile, s) into blockIdx.x, so
+//   S may pass the 65,535 of a grid's z extent (n past 65,535 * C rows,
+//   2,097,120 for a tridiagonal band); offsets are 64-bit.
 // batched_band_lu (ebv_batched_band_lu) — replaces src/repro/kernels/
 //   banded.py:batched_banded_lu_vmem, one grid program per system running
 //   the band_block_step loop on its VMEM-resident skewed band.  Up to
@@ -110,10 +113,19 @@
 //   equal to the plain version (repro_torch.core.banded.banded_lu_blocked
 //   over the stack).
 //
-// batched_band_solve (ebv_batched_band_solve) — replaces src/repro/kernels/
+// batched band solve (ebv_band_solve over a stack) — replaces src/repro/kernels/
 //   banded.py:batched_banded_solve_vmem, one grid program per system.  Here
-//   it is band_solve_kernel on a grid over (32-column RHS tile, system):
-//   blockIdx.y picks the system.  Bound and latency as for B7, per system.
+//   it is B7's band_solve_staged_kernel over the stack in one launch, with
+//   B7's plan for one system (kernels/banded.py:band_solve_plan): one block
+//   per (system, tile of RHS columns), blockIdx.x = system * tiles + tile,
+//   so any number of systems fits the grid (up to 2^31 - 1 blocks); bands
+//   past the staged kernel's reach keep band_solve_kernel with the same
+//   fold.  A system's band starts s * n * (2bw+1) floats into the stack
+//   (64-bit offsets), not always on a 16-byte boundary, so the staged
+//   strips' chunks are aligned on the stack's base.  Each system runs B7's
+//   operations in B7's order: its x is bitwise B7's on that system alone.
+//   Bound and latency as for B7, per system: a stack of m = 1 systems is
+//   one system's chain while the systems fit the card at once.
 //
 // band_lu_resident_kernel<true> (ebv_band_lu_scalar) — replaces src/repro/
 //   kernels/banded.py:banded_lu_kernelized, the legacy scalar-sequential
@@ -136,6 +148,7 @@
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
+#include <climits>
 #include <cstddef>
 
 #include "async_copy.cuh"
@@ -571,20 +584,22 @@ band_lu_cluster_kernel(float* band, int n, int bw, int RK, int ldu, size_t up_at
 }
 
 // x = (LU)^-1 b; one warp per RHS column, blockDim.x / 32 columns per block;
-// blockIdx.y picks the system (0 when unbatched).
+// blockIdx.x = system * tiles + RHS tile (system 0 when unbatched), so a
+// stack of any size fits the grid's x extent.
 // With cap > 0 each warp keeps the last cap (>= min(bw, n) + 32) solved
 // values of its column in a ring in shared memory, so the next strip reads
 // them without a round trip through L2; with cap = 0 it reads them back
 // from x.
 __global__ void band_solve_kernel(const float* __restrict__ lu, const float* __restrict__ b,
-                                  float* x, int n, int bw, int m, int cap) {
+                                  float* x, int n, int bw, int m, int cap, int tiles) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int col = blockIdx.x * (blockDim.x >> 5) + warp;
+  const int sys = blockIdx.x / tiles;
+  const int col = (blockIdx.x - sys * tiles) * (blockDim.x >> 5) + warp;
   if (col >= m) return;  // uniform across the warp
   const int W = 2 * bw + 1;
-  lu += (size_t)blockIdx.y * n * W;
-  b += (size_t)blockIdx.y * n * m;
-  x += (size_t)blockIdx.y * n * m;
+  lu += (size_t)sys * n * W;
+  b += (size_t)sys * n * m;
+  x += (size_t)sys * n * m;
   const unsigned full = 0xffffffffu;
   float* ring = cap ? smem + (size_t)warp * cap : nullptr;
 
@@ -683,7 +698,12 @@ inline SolveLayout solve_layout(int bw, int cols, int warps, int stages) {
 
 // x = (LU)^-1 b on the packed band, RHS columns c0 .. c0 + ct - 1 of the
 // block's tile (ct <= kSolveCols), strips of 32 rows forward then backward,
-// one block barrier a strip.  Solver warp w < cols owns column c0 + w and
+// one block barrier a strip.  In a stack of `batch` bands blockIdx.x =
+// system * tiles + tile; system s's band starts s * n * (2bw+1) floats past
+// the stack's base, which need not be a multiple of 4, so each strip row's
+// 16-byte chunks are aligned on the stack's base and bounded by its end (a
+// chunk may take floats of the next or the previous system into the
+// buffer, which entry() never reads).  Solver warp w < cols owns column c0 + w and
 // walks the chain: its lanes' rows start from b (y) less the partial sums
 // the helpers left, then retire the previous strip's 32 x 32 block (the
 // previous strip's values in registers, passed by __shfl_sync) and solve the
@@ -699,11 +719,12 @@ inline SolveLayout solve_layout(int bw, int cols, int warps, int stages) {
 template <int R>
 __global__ void __launch_bounds__(kSolveMaxThreads)
 band_solve_staged_kernel(const float* __restrict__ lu, const float* __restrict__ b, float* x, int n,
-                         int bw, int m, int cols, int S, int stage_floats, int cap) {
+                         int bw, int m, int cols, int S, int stage_floats, int cap, int tiles, int batch) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nw = blockDim.x >> 5;
   const int tid = threadIdx.x, nt = blockDim.x;
   const int W = 2 * bw + 1;
-  const int c0 = blockIdx.x * cols, ct = min(cols, m - c0);
+  const int sys = blockIdx.x / tiles;
+  const int c0 = (blockIdx.x - sys * tiles) * cols, ct = min(cols, m - c0);
   const bool solver = warp < ct;
   const int col = c0 + warp;
   const bool helper = nw > cols ? warp >= cols : true;
@@ -713,7 +734,9 @@ band_solve_staged_kernel(const float* __restrict__ lu, const float* __restrict__
   float* ring = smem + (size_t)R * stage_floats;
   float* part = ring + (size_t)cols * cap;  // [2][nh][cols][32]
   const unsigned full = 0xffffffffu;
-  const size_t end = (size_t)n * W;
+  const size_t base = (size_t)sys * n * W, end = (size_t)batch * n * W;  // in the stack's floats
+  b += (size_t)sys * n * m;
+  x += (size_t)sys * n * m;
 
   // stage strip k's half into buffer `buf` (nothing past the last strip);
   // one commit group either way
@@ -723,7 +746,7 @@ band_solve_staged_kernel(const float* __restrict__ lu, const float* __restrict__
       const int rows = min(32, n - 32 * k), chunks = S / 4, len = upper ? bw + 1 : bw;
       for (int idx = tid; idx < rows * chunks; idx += nt) {
         const int rr = idx / chunks, cc = idx - rr * chunks;
-        const size_t start = (size_t)(32 * k + rr) * W + (upper ? bw : 0);
+        const size_t start = base + (size_t)(32 * k + rr) * W + (upper ? bw : 0);
         const size_t a = (start & ~(size_t)3) + 4 * (size_t)cc;
         if (a >= start + len) continue;
         cp_async16(dst + rr * S + 4 * (rr >> 3) + 4 * cc, lu + a, a + 4 <= end ? 16 : (int)(end - a) * 4);
@@ -733,7 +756,7 @@ band_solve_staged_kernel(const float* __restrict__ lu, const float* __restrict__
   };
   // entry e of row rr's half in buffer `buf`
   auto entry = [&](int buf, int k, int rr, bool upper) -> const float* {
-    const size_t start = (size_t)(32 * k + rr) * W + (upper ? bw : 0);
+    const size_t start = base + (size_t)(32 * k + rr) * W + (upper ? bw : 0);
     return stages + (size_t)buf * stage_floats + rr * S + 4 * (rr >> 3) + (int)(start & 3);
   };
 
@@ -905,13 +928,18 @@ band_solve_staged_kernel(const float* __restrict__ lu, const float* __restrict__
 
 // out[s] = base[s] - A[s] @ X[s + shift]   (base == nullptr: out[s] = A[s] @ X[s + shift]);
 // A is (S, M, K), X (S, K, m), out and base (S, M, m); X[s + shift] outside
-// 0..S-1 is zero.  One 32x32 output tile per block, 256 threads, 4 outputs each.
+// 0..S-1 is zero.  One 32x32 output tile of one block s per CUDA block, 256
+// threads, 4 outputs each.  blockIdx.x = (s * row tiles + row tile) *
+// column tiles + column tile, the order of a (column, row, s) grid, so any S
+// fits the grid (a z extent would stop at 65,535).
 __global__ void band_gemm_kernel(const float* __restrict__ A, const float* __restrict__ X,
                                  const float* __restrict__ base, float* __restrict__ out, int S,
                                  int M, int K, int m, int shift) {
   __shared__ float As[kTile][kTile + 1];
   __shared__ float Xs[kTile][kTile + 1];
-  const int s = blockIdx.z, r0 = blockIdx.y * kTile, c0 = blockIdx.x * kTile;
+  const int tc = (m + kTile - 1) / kTile, tr = (M + kTile - 1) / kTile;
+  const int sr = blockIdx.x / tc, s = sr / tr;  // sr = s * tr + row tile
+  const int r0 = (sr - s * tr) * kTile, c0 = (blockIdx.x - sr * tc) * kTile;
   const int xs = s + shift;
   const int tx = threadIdx.x % kTile, ty = threadIdx.x / kTile;  // ty 0..7
   float acc[4] = {0.f, 0.f, 0.f, 0.f};
@@ -1032,7 +1060,8 @@ int band_lu_one_launch(float* band, int batch, int n, int bw, cudaStream_t strea
 }
 
 // x (batch, n, m) = (LU)^-1 b on the packed bands (batch, n, 2bw+1);
-// `cols` RHS columns (one warp each, at most 32) per block.
+// `cols` RHS columns (one warp each, at most 32) per block, a block per
+// (system, tile) on the grid's x axis.
 int band_solve_launch(const void* lu, const void* b, void* x, int batch, int n, int bw, int m,
                       int cols, cudaStream_t stream, int* launches) {
   *launches = 0;
@@ -1043,14 +1072,15 @@ int band_solve_launch(const void* lu, const void* b, void* x, int batch, int n, 
   if (fit < 1) cap = 0;
   else if (cols > fit) cols = fit;
   const size_t bytes = (size_t)cols * cap * sizeof(float);
+  const int tiles = (m + cols - 1) / cols;
+  if ((long long)batch * tiles > INT_MAX) return cudaErrorInvalidValue;
   cudaError_t err;
   if ((err = cudaFuncSetAttribute(band_solve_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                   (int)bytes)))
     return err;
-  const dim3 grid((m + cols - 1) / cols, batch);
-  band_solve_kernel<<<grid, 32 * cols, bytes, stream>>>(
+  band_solve_kernel<<<batch * tiles, 32 * cols, bytes, stream>>>(
       static_cast<const float*>(lu), static_cast<const float*>(b), static_cast<float*>(x), n, bw,
-      m, cap);
+      m, cap, tiles);
   if ((err = cudaGetLastError())) return err;
   ++*launches;
   return 0;
@@ -1158,23 +1188,26 @@ extern "C" int ebv_band_lu_steps(void* band_ptr, int n, int bw, int path, int C,
   return 0;
 }
 
-// x (n, m) = (LU)^-1 b (n, m) on the packed band.  Path 1: one launch of
-// band_solve_staged_kernel, blocks of `warps` warps over tiles of `cols` RHS
-// columns (at most 8 and at most `warps`) with `stages` (2-4) staged strips;
-// path 0: band_solve_kernel, `cols` columns (one warp each, at most 32) a
-// block (kernels/banded.py:band_solve_plan picks the path and its sizes).
-// plan[0..4]: the path, warps, columns a block, stages and shared-memory
-// bytes a block.  A plan whose shared memory no block holds returns
-// cudaErrorInvalidValue; the band must start on a 16-byte boundary.
-extern "C" int ebv_band_solve(const void* lu, const void* b, void* x, int n, int bw, int m, int path,
-                              int warps, int cols, int stages, int* plan, void* stream_ptr,
+// x (batch, n, m) = (LU)^-1 b per system on the packed bands (batch, n,
+// 2bw+1), in one launch of the plan kernels/banded.py:band_solve_plan picks
+// for one system (B7: batch = 1; B12: the stack): path 1
+// band_solve_staged_kernel, a block of `warps` warps per (system, tile of
+// `cols` RHS columns: at most 8 and at most `warps`) with `stages` (2-4)
+// staged strips; path 0 band_solve_kernel, `cols` columns (one warp each,
+// at most 32) a block.  Every system runs the same plan, so its x is
+// bitwise the unbatched solve's on it alone.  plan[0..4]: the path, warps,
+// columns a block, stages and shared-memory bytes a block.  A plan whose
+// shared memory no block holds, or a grid of more than 2^31 - 1 blocks,
+// returns cudaErrorInvalidValue; the stack must start on a 16-byte boundary.
+extern "C" int ebv_band_solve(const void* lu, const void* b, void* x, int batch, int n, int bw, int m,
+                              int path, int warps, int cols, int stages, int* plan, void* stream_ptr,
                               int* launches) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   *launches = 0;
   for (int i = 0; i < 5; ++i) plan[i] = 0;
   if (path == 0) {
     plan[2] = cols;
-    return band_solve_launch(lu, b, x, 1, n, bw, m, cols, stream, launches);
+    return band_solve_launch(lu, b, x, batch, n, bw, m, cols, stream, launches);
   }
   const SolveLayout l = solve_layout(bw, cols, warps, stages);
   plan[0] = 1;
@@ -1185,25 +1218,19 @@ extern "C" int ebv_band_solve(const void* lu, const void* b, void* x, int n, int
   if (path != 1 || cols < 1 || cols > kSolveCols || warps < cols || 32 * warps > kSolveMaxThreads ||
       stages < 2 || stages > 4 || l.bytes > kSmemBytes || reinterpret_cast<size_t>(lu) % 16)
     return cudaErrorInvalidValue;
+  const int tiles = (m + cols - 1) / cols;
+  if ((long long)batch * tiles > INT_MAX) return cudaErrorInvalidValue;
   auto kernel = stages == 2 ? band_solve_staged_kernel<2>
               : stages == 3 ? band_solve_staged_kernel<3> : band_solve_staged_kernel<4>;
   cudaError_t err;
   if ((err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, l.bytes)))
     return err;
-  kernel<<<(m + cols - 1) / cols, 32 * warps, l.bytes, stream>>>(
+  kernel<<<batch * tiles, 32 * warps, l.bytes, stream>>>(
       static_cast<const float*>(lu), static_cast<const float*>(b), static_cast<float*>(x), n, bw, m,
-      cols, l.S, l.stage, l.cap);
+      cols, l.S, l.stage, l.cap, tiles, batch);
   if ((err = cudaGetLastError())) return err;
   ++*launches;
   return 0;
-}
-
-// x (batch, n, m) = (LU)^-1 b per system on the packed bands (batch, n, 2bw+1);
-// one block per system and tile of `cols` RHS columns.
-extern "C" int ebv_batched_band_solve(const void* lu, const void* b, void* x, int batch, int n,
-                                      int bw, int m, int cols, void* stream_ptr, int* launches) {
-  return band_solve_launch(lu, b, x, batch, n, bw, m, cols, static_cast<cudaStream_t>(stream_ptr),
-                           launches);
 }
 
 // out (S, C, m) = the inverted-diagonal band solve of xb (S, C, m) from
@@ -1223,7 +1250,10 @@ extern "C" int ebv_band_solve_inverted(const void* linv, const void* uinv, const
   float* Y = static_cast<float*>(y);
   float* T = static_cast<float*>(t);
   float* O = static_cast<float*>(out);
-  const dim3 grid_c((m + kTile - 1) / kTile, (C + kTile - 1) / kTile, S);
+  // (column tile, row tile, s) on the grid's x axis, at most 2^31 - 1 blocks
+  const long long tiles = (long long)((m + kTile - 1) / kTile) * ((C + kTile - 1) / kTile) * S;
+  if (tiles > INT_MAX) return cudaErrorInvalidValue;
+  const int grid_c = (int)tiles;
   const int scan_blocks = (m + kTile - 1) / kTile;
   const size_t scan_bytes = 2 * (size_t)bw * kTile * sizeof(float);
   cudaError_t err;

@@ -47,8 +47,10 @@
 //   rate.  Which kernel runs, with which tile and cluster, is
 //   kernels/batched_lu.py:batched_solve_plan's choice; the C entry launches it:
 //   - wide (the grid of RHS tiles x systems fills the card): one block of 256
-//     threads per (tile of W = 4 ... 64 RHS columns, system), the tile in
-//     shared memory (row-major, stride W+4).  The sweep walks 32-column strips
+//     threads per (tile of W = 4 ... 64 RHS columns, system), both folded
+//     into blockIdx.x (system * tiles + tile: any number of systems, up to
+//     2^31 - 1 blocks, fits the grid), the tile in shared memory (row-major,
+//     stride W+4).  The sweep walks 32-column strips
 //     of the factor: L below (forward) or U above (backward) the strip is
 //     staged by 16-byte cp.async in chunks of up to 256 rows, double buffered
 //     so the next chunk's copy overlaps this chunk's update; every warp
@@ -422,20 +424,21 @@ __device__ void wide_update(float* ys, const float* buf, int k0, int r0, int r1)
   }
 }
 
-// x = (LU)^-1 b per system; grid (RHS tiles of W columns, systems).
+// x = (LU)^-1 b per system; one block per (system, RHS tile of W columns),
+// blockIdx.x = system * tiles + tile, so any number of systems fits the grid.
 template <int W>
 __global__ void __launch_bounds__(kSolveThreads)
 batched_solve_wide_kernel(const float* __restrict__ lu, const float* __restrict__ b,
-                          float* __restrict__ x, int n, int m, int vec) {
+                          float* __restrict__ x, int n, int m, int tiles, int vec) {
   using S = WideShape<W>;
-  const size_t sys = blockIdx.y;
-  lu += sys * n * n;
-  b += sys * n * m;
-  x += sys * n * m;
+  const int sys = blockIdx.x / tiles;
+  lu += (size_t)sys * n * n;
+  b += (size_t)sys * n * m;
+  x += (size_t)sys * n * m;
   const int n32 = (n + kStrip - 1) / kStrip * kStrip;
   float* ys = smem;
   float* lbuf = smem + (size_t)n32 * S::LDY;
-  const int c0 = blockIdx.x * W, w = min(W, m - c0);
+  const int c0 = (blockIdx.x - sys * tiles) * W, w = min(W, m - c0);
   for (int idx = threadIdx.x; idx < n32 * W; idx += blockDim.x) {
     const int i = idx / W, c = idx % W;
     ys[i * S::LDY + c] = (i < n && c < w) ? b[(size_t)i * m + c0 + c] : 0.f;
@@ -699,7 +702,9 @@ cudaError_t launch_wide(const float* lu, const float* b, float* x, int batch, in
   cudaError_t err;
   if ((err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes)))
     return err;
-  kernel<<<dim3((m + W - 1) / W, batch), kSolveThreads, bytes, stream>>>(lu, b, x, n, m, vec);
+  const int tiles = (m + W - 1) / W;
+  if ((long long)batch * tiles > INT_MAX) return cudaErrorInvalidValue;
+  kernel<<<batch * tiles, kSolveThreads, bytes, stream>>>(lu, b, x, n, m, tiles, vec);
   return cudaGetLastError();
 }
 

@@ -49,14 +49,13 @@ _SIGNATURES = {
     "ebv_band_lu_resident": [_P, _I, _I, _N, _P, _N],
     "ebv_band_lu_steps": [_P, _I, _I, _I, _I, _I, _I, _N, _P, _N],
     "ebv_band_lu_scalar": [_P, _I, _I, _N, _P, _N],
-    "ebv_band_solve": [_P, _P, _P] + [_I] * 7 + [_N, _P, _N],
+    "ebv_band_solve": [_P, _P, _P] + [_I] * 8 + [_N, _P, _N],
     "ebv_band_solve_inverted": [_P] * 9 + [_I] * 4 + [_P, _N],
     "ebv_batched_lu": [_P, _I, _I, _N, _P, _N],
     "ebv_batched_cluster_room": [_N],
     "ebv_batched_solve_cluster_room": [_N],
     "ebv_batched_lu_solve": [_P, _P, _P] + [_I] * 6 + [_N, _P, _N],
     "ebv_batched_band_lu": [_P, _I, _I, _I, _N, _P, _N],
-    "ebv_batched_band_solve": [_P, _P, _P, _I, _I, _I, _I, _I, _P, _N],
     "ebv_legacy_walk": [_P, _I, _I, _I, _I, _P, _P, _N, _N],
     "ebv_legacy_fused_step": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _N],
     "ebv_legacy_update": [_P, _P, _P, _P, _I, _I, _I, _I, _P],

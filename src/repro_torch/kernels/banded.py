@@ -39,9 +39,10 @@ bw = 31) and their plain PyTorch versions.
                                     :func:`banded_lu_blocked` over a
                                     ``(B, n, 2bw+1)`` stack: one warp per
                                     band up to bw = 31, else one block.
-* :func:`batched_banded_solve_vmem` — the walk of
-                                    :func:`banded_solve_kernelized` with one
-                                    block per (system, RHS tile).
+* :func:`batched_banded_solve_vmem` — the staged solve of
+                                    :func:`banded_solve_kernelized` over a
+                                    stack in one launch, one block per
+                                    (system, RHS tile).
 
 The factors compute the plain version's packed band factor
 (:func:`repro_torch.core.banded.banded_lu_blocked`, over the stack for the
@@ -81,7 +82,6 @@ __all__ = [
 _WARP_COLS = 32  # RHS columns (one warp each) a band_solve_kernel block takes at most
 _SOLVE_COLS = 8  # RHS columns (a solver warp each) a staged band solve block takes at most
 SOLVE_STAGES = (4, 3, 2)  # staged strips it tries in turn (three steps of lookahead, then two, one)
-_MAX_SOLVE_BATCH = 65535  # systems of one batched solve launch (the grid's y extent)
 BAND_SMEM = 232_448  # dynamic shared memory one H100 block may use (kSmemBytes)
 CLUSTER_THREADS = 512  # a CTA of the cluster walk: a thread for each of a panel's rows (kClusterThreads)
 # (K, g) the cluster walk tries in turn, fastest first at the Poisson band in
@@ -425,19 +425,28 @@ def _solve(lu_band, b: torch.Tensor, *, bw: int, plan: BandSolvePlan) -> torch.T
         raise ValueError(f"{name}: factors {tuple(lu_band.shape)} do not match n={n}, bw={bw}")
     if m == 0:  # no column to solve: nothing to launch
         return torch.empty_like(b)
+    x = _solve_stack(banded_solve_kernelized, lu_band, bm[None], bw=bw, plan=plan)[0]
+    return x[:, 0] if squeeze else x
+
+
+def _solve_stack(wrapper, lu_band, bm: torch.Tensor, *, bw: int, plan: BandSolvePlan) -> torch.Tensor:
+    """One launch of ``plan`` over the factors ``(B, n, 2bw+1)`` (or, for
+    one system, ``(n, 2bw+1)``) and the RHS ``(B, n, m)`` on the card, the
+    same plan for every system; ``x`` in the RHS dtype and the C entry's
+    report in ``wrapper.last_plan``."""
+    bsz, n, m = bm.shape
+    name = wrapper.__name__
     lu32, b32 = _f32(lu_band, name), _f32(bm, name)
-    if lu32.data_ptr() % 16:  # the staged strips are copied in 16-byte chunks
+    if lu32.data_ptr() % 16:  # the staged strips are copied in 16-byte chunks from the stack's base
         lu32 = lu32.clone()
     x = torch.empty_like(b32)
     got = (ctypes.c_int * 5)()
     try:
-        _launch(banded_solve_kernelized, "ebv_band_solve", lu_band.device, lu32.data_ptr(),
-                b32.data_ptr(), x.data_ptr(), n, bw, m, int(plan.path == "staged"), plan.warps,
-                plan.cols, plan.stages, got)
+        _launch(wrapper, "ebv_band_solve", lu_band.device, lu32.data_ptr(), b32.data_ptr(), x.data_ptr(),
+                bsz, n, bw, m, int(plan.path == "staged"), plan.warps, plan.cols, plan.stages, got)
     finally:
-        banded_solve_kernelized.last_plan = tuple(got)
-    x = x.to(bm.dtype)
-    return x[:, 0] if squeeze else x
+        wrapper.last_plan = tuple(got)
+    return x.to(bm.dtype)
 
 
 banded_solve_kernelized.launches = 0
@@ -508,13 +517,17 @@ batched_banded_lu_vmem.last_path = None
 
 
 def batched_banded_solve_vmem(lu_band, b: torch.Tensor, *, bw: int, block: int | None = None,
-                              rhs_tile: int = 256) -> torch.Tensor:
+                              rhs_tile: int = 256, plan: BandSolvePlan | None = None) -> torch.Tensor:
     """Solve ``(LU)_s x_s = b_s`` for every system of packed band factors
     ``(B, n, 2bw+1)``; ``b`` is ``(B, n)`` or ``(B, n, m)`` and the result
-    has its shape and dtype.  On the card one warp sweeps each RHS column
-    of each system; a block takes one system and an equal tile of at most
-    ``min(rhs_tile, 32)`` columns.  ``block`` sets the plain version's
-    blocking."""
+    has its shape and dtype.  On the card one launch of
+    :func:`banded_solve_kernelized`'s kernel and plan for one system
+    (:func:`band_solve_plan`, or ``plan`` where given, so that the tests
+    and the sweeps can force one): a block per (system, RHS tile), any
+    number of systems, each system's ``x`` bitwise
+    :func:`banded_solve_kernelized`'s on that system alone.  ``block``
+    sets the plain version's blocking.  The C entry's report (as
+    :func:`banded_solve_kernelized`'s) in ``.last_plan``."""
     lu_band = packed_of(lu_band)
     if lu_band.device.type == "cpu":
         return banded_solve_blocked(lu_band, b, bw=bw, block=block)
@@ -527,18 +540,12 @@ def batched_banded_solve_vmem(lu_band, b: torch.Tensor, *, bw: int, block: int |
         raise ValueError(f"{name}: factors {tuple(lu_band.shape)} and RHS {tuple(b.shape)} are "
                          f"not (B, n, 2bw+1) and (B, n[, m]) with bw={bw}")
     bsz, n, m = bm.shape
-    if bsz > _MAX_SOLVE_BATCH:
-        raise ValueError(f"{name}: {bsz} systems in one launch, at most {_MAX_SOLVE_BATCH}")
     if bsz == 0 or n == 0 or m == 0:  # nothing to launch
         return torch.empty_like(b)
-    rt = max(1, min(rhs_tile, m, _WARP_COLS))
-    rt = -(-m // (-(-m // rt)))  # equal tiles
-    lu32, b32 = _f32(lu_band, name), _f32(bm, name)
-    x = torch.empty_like(b32)
-    _launch(batched_banded_solve_vmem, "ebv_batched_band_solve", lu_band.device, lu32.data_ptr(),
-            b32.data_ptr(), x.data_ptr(), bsz, n, bw, m, rt)
-    x = x.to(bm.dtype)
+    plan = plan or band_solve_plan(n, bw, m, rhs_tile=rhs_tile)
+    x = _solve_stack(batched_banded_solve_vmem, lu_band, bm, bw=bw, plan=plan)
     return x[..., 0] if squeeze else x
 
 
 batched_banded_solve_vmem.launches = 0
+batched_banded_solve_vmem.last_plan = None

@@ -41,7 +41,7 @@ import torch
 from ..core.batched import batched_ebv_lu, batched_lu_solve
 from ..core.factorization import packed_of
 from . import _build
-from .banded import _MAX_SOLVE_BATCH, _launch
+from .banded import _launch
 from .ebv_lu import H100_SMS, WALK_SMEM, walk_plan
 from .trsm import _check_cuda, _f32
 
@@ -263,9 +263,6 @@ def _solve(lu, b: torch.Tensor, plan: SolvePlan | None) -> torch.Tensor:
         raise ValueError(f"batched_lu_solve_vmem: factors {tuple(lu.shape)} and RHS "
                          f"{tuple(b.shape)} are not (B, n, n) and (B, n[, m])")
     bsz, n, m = bm.shape
-    if bsz > _MAX_SOLVE_BATCH:
-        raise ValueError(f"batched_lu_solve_vmem: {bsz} systems in one launch, at most "
-                         f"{_MAX_SOLVE_BATCH}")
     if bsz == 0 or n == 0 or m == 0:  # nothing to launch
         return torch.empty_like(b)
     index = lu.device.index if lu.device.index is not None else torch.cuda.current_device()

@@ -20,13 +20,16 @@ and the narrow-band factors on the warp walk (:func:`narrow_bands`): B5
 at n = 16384, beside B6's slab steps from bw = 12 and the scalar factor
 B18 (``banded_lu_kernelized``), and the batched factor B11
 (``batched_banded_lu_vmem``) at ``chip_smoke.py``'s three stacks, over
-its systems at (16000, 5) and over bw at 16 x 16384; ``chip_smoke.py``
-runs the sweeps once.
+its systems at (16000, 5) and over bw at 16 x 16384, and the batched band
+solve B12 (``batched_banded_solve_vmem``) at the same stacks and systems,
+beside the per-warp kernel it ran before and over its warps a block
+(:func:`batched_band_solves`); ``chip_smoke.py`` runs the sweeps once.
 
     PYTHONPATH=src python src/repro_torch/launch/time_kernels.py [section ...]
 
 Sections (all by default): factor (B1), update (B14), batched (B10), band
-(B6), solve (B7), paged (B13), vmem (B2), blocked (B15), narrow (B5, B11, B18).
+(B6), solve (B7), paged (B13), vmem (B2), blocked (B15), narrow (B5, B11, B18),
+batched_band_solve (B12), grid (B10 and B8 at ``chip_smoke.py``'s shapes).
 
 It runs as a file and imports ``repro_torch`` absolutely, so it times the
 package that ``PYTHONPATH`` names: with another checkout's ``src`` there it
@@ -36,6 +39,7 @@ between CUDA events after a warm-up call, and the mean of 20 calls back to
 back between two events (the device's time without the host's before each
 launch).  The first line is the card's name and power limit.
 """
+import hashlib
 import statistics
 import subprocess
 import sys
@@ -66,6 +70,10 @@ NARROW_BWS = (1, 2, 5, 11, 16, 31)
 # SM of the H100's 132, 4 and 8 an SM; then bw at 16 x 16384
 NARROW_STACKS = ((4, 500, 5), (16, 16000, 5), (32, 4096, 64))
 NARROW_SYSTEMS = (1, 16, 132, 528, 1056)
+# B12 at (16000, 5): warps a block (band_solve_plan takes 4 where bw <= 32)
+BAND_STACK_WARPS = (1, 2, 4)
+# B10 at chip_smoke.py's stacks (B, n, RHS widths): the batched dense path's and the optimizer's
+GRID_STACKS = ((8, 128, (1, 128)), (32, 256, (1, 256)), (8, 1024, (1, 1024)), (2, 384, (51968,)))
 # B10: (B, n, m) on either side of the plan's split between its two paths
 SOLVE_SPLIT = ((8, 1024, 1), (8, 1024, 16), (8, 1024, 64), (8, 1024, 1024), (32, 256, 1), (32, 256, 16),
                (32, 256, 256), (8, 128, 1), (8, 128, 128), (2, 384, 51968))
@@ -451,7 +459,126 @@ def narrow_bands(dev) -> dict:
     return out
 
 
-SECTIONS = ("factor", "update", "batched", "band", "solve", "paged", "vmem", "blocked", "narrow")
+def digest(t: torch.Tensor) -> str:
+    """The first 16 hex digits of the SHA-256 of ``t``'s bytes."""
+    return hashlib.sha256(t.contiguous().cpu().numpy().tobytes()).hexdigest()[:16]
+
+
+def batched_band_solves(dev) -> dict:
+    """B12 (``batched_banded_solve_vmem``) at :data:`NARROW_STACKS`, over
+    :data:`NARROW_SYSTEMS` at (16000, 5) and, on a tree whose B12 takes a
+    plan, at 32 x (4096, 64) over :data:`SWEEP_WARPS` a block, at 16 and
+    1056 x (16000, 5) over :data:`BAND_STACK_WARPS`, and on the per-warp
+    kernel (``band_solve_kernel``, the one B12 ran before it took
+    B7's staged kernel) at the three stacks.  Where B12 runs B7's kernel
+    each call is checked bitwise, system by system, against B7
+    (``banded_solve_kernelized``, or ``banded._solve`` under a forced plan)
+    on that system alone; on an older tree, within 1e-5 normwise of the
+    plain version.  {label: (ms one call, ms back to back)}."""
+    from repro_torch.core.banded import banded_solve_blocked
+    from repro_torch.kernels import banded
+
+    staged = hasattr(banded.batched_banded_solve_vmem, "last_plan")  # B12 on B7's kernel, with a plan
+
+    def solve(lu, b, bw, plan):
+        return (banded.batched_banded_solve_vmem(lu, b, bw=bw) if plan is None
+                else banded.batched_banded_solve_vmem(lu, b, bw=bw, plan=plan))
+
+    def checked(label, lu, b, bw, plan=None):
+        got = solve(lu, b, bw, plan)
+        torch.cuda.synchronize()
+        if staged:
+            for s in range(lu.shape[0]):
+                alone = (banded.banded_solve_kernelized(lu[s], b[s], bw=bw) if plan is None
+                         else banded._solve(lu[s], b[s], bw=bw, plan=plan))
+                if not torch.equal(got[s], alone):
+                    raise RuntimeError(f"batched_banded_solve_vmem {label}: system {s} differs from B7 on it")
+        else:
+            want = banded_solve_blocked(lu, b, bw=bw)
+            err = float((got - want).abs().max() / want.abs().max())
+            if not err <= 1e-5:
+                raise RuntimeError(f"batched_banded_solve_vmem {label}: normwise {err:.2e}")
+        t = out[label] = timed(lambda: solve(lu, b, bw, plan))
+        n = lu.shape[1]
+        report = banded.batched_banded_solve_vmem.last_plan if staged else "the per-warp kernel"
+        print(f"batched_banded_solve_vmem {label} (plan {report}), one call / back to back: {t[0]:.4f} / "
+              f"{t[1]:.4f} ms, {1e3 * t[0] / (2 * -(-n // 32)):.3f} us a strip", flush=True)
+        return t
+
+    def stack_of(bsz, n, bw, seed=0):
+        if bw == 64:  # the Poisson ensemble, member s with diagonal 4.05 + 0.01 s
+            a = poisson_band(64, dev).expand(bsz, -1, -1).clone()
+            a[:, :, 64] += 0.01 * torch.arange(bsz, device=dev)[:, None]
+        else:
+            a = torch.stack([band_of(n, bw, dev, seed + s % 16) for s in range(bsz)])
+        g = torch.Generator(device=dev).manual_seed(bsz + n + bw)
+        return banded.batched_banded_lu_vmem(a, bw=bw), torch.randn((bsz, n), generator=g, device=dev)
+
+    out = {}
+    for bsz, n, bw in NARROW_STACKS:
+        lu, b = stack_of(bsz, n, bw)
+        checked(f"B={bsz} n={n} bw={bw}", lu, b, bw)
+        if staged:
+            warp = banded.BandSolvePlan("warp", 1, 1, 0, 0)
+            checked(f"B={bsz} n={n} bw={bw} on the per-warp kernel", lu, b, bw, warp)
+        if (n, bw) == (4096, 64) and staged:
+            for w in SWEEP_WARPS:
+                checked(f"B={bsz} n={n} bw={bw} warps={w}", lu, b, bw, banded.band_solve_plan(n, bw, 1, warps=w))
+    for bsz in NARROW_SYSTEMS:
+        lu, b = stack_of(bsz, 16000, 5)
+        checked(f"B={bsz} n=16000 bw=5 (systems)", lu, b, 5)
+        if bsz in (16, NARROW_SYSTEMS[-1]) and staged:  # fewer warps a block: more blocks an SM
+            for w in BAND_STACK_WARPS:
+                checked(f"B={bsz} n=16000 bw=5 warps={w}", lu, b, 5, banded.band_solve_plan(16000, 5, 1, warps=w))
+    return out
+
+
+def grid_folds(dev) -> dict:
+    """The kernels whose grid folds the system or the diagonal block into
+    one axis: B10 (``batched_lu_solve_vmem``) at ``chip_smoke.py``'s four
+    stacks, each checked bitwise against the plain version, and B8
+    (``banded_solve_inverted``) at the shootout band with 1 and 64 RHS
+    columns, checked within 1e-4 normwise.  Each line ends with the first
+    16 hex digits of the SHA-256 of the output's bytes: the inputs come
+    from seeded generators, so two trees run on one card print the same
+    digest where their kernels' results are bitwise the same.  {label: (ms
+    one call, ms back to back)}."""
+    from repro_torch.core.factorization import banded_inverted_solve, factorize_banded
+    from repro_torch.kernels import banded, batched_lu
+
+    out = {}
+    for bsz, n, ms in GRID_STACKS:
+        g = torch.Generator(device=dev).manual_seed(bsz + n)
+        a = torch.rand((bsz, n, n), generator=g, device=dev) * 2 - 1
+        a.diagonal(dim1=-2, dim2=-1).copy_(a.abs().sum(dim=-1) + 1)
+        lu = batched_lu.batched_lu_vmem(a)
+        for m in ms:
+            b = torch.randn((bsz, n, m), generator=g, device=dev)
+            got = batched_lu.batched_lu_solve_vmem(lu, b)
+            if not torch.equal(got, batched_lu.batched_lu_solve_plain(lu, b)):
+                raise RuntimeError(f"batched_lu_solve_vmem B={bsz} n={n} m={m} differs from its plain version")
+            t = out[f"batched_lu_solve_vmem B={bsz} n={n} m={m}"] = timed(lambda: batched_lu.batched_lu_solve_vmem(lu, b))
+            print(f"batched_lu_solve_vmem B={bsz} n={n} m={m}, one call / back to back: {t[0]:.4f} / {t[1]:.4f} ms; "
+                  f"output sha256 {digest(got)}", flush=True)
+    n, bw = SOLVE_BANDS[1][:2]
+    f = factorize_banded(banded.banded_lu_blocked(band_of(n, bw, dev), bw=bw), bw=bw)
+    args = (f.linv, f.uinv, f.tlo, f.tup)
+    for m in (1, 64):
+        b = torch.randn((n, m), generator=torch.Generator(device=dev).manual_seed(m), device=dev)
+        want = banded_inverted_solve(*args, b, n=n, bw=bw)
+        got = banded.banded_solve_inverted(*args, b, n=n, bw=bw)
+        err = float((got - want).abs().max() / want.abs().max())
+        if not err <= 1e-4:
+            raise RuntimeError(f"banded_solve_inverted n={n} bw={bw} m={m}: normwise {err:.2e}")
+        t = out[f"banded_solve_inverted n={n} bw={bw} m={m}"] = timed(
+            lambda: banded.banded_solve_inverted(*args, b, n=n, bw=bw))
+        print(f"banded_solve_inverted n={n} bw={bw} m={m}, one call / back to back: {t[0]:.4f} / {t[1]:.4f} ms; "
+              f"output sha256 {digest(got)}", flush=True)
+    return out
+
+
+SECTIONS = ("factor", "update", "batched", "band", "solve", "paged", "vmem", "blocked", "narrow",
+            "batched_band_solve", "grid")
 
 
 def main(argv: list[str]) -> int:
@@ -504,6 +631,10 @@ def main(argv: list[str]) -> int:
         blocked_steps(dev)
     if "narrow" in wanted:
         narrow_bands(dev)
+    if "batched_band_solve" in wanted:
+        batched_band_solves(dev)
+    if "grid" in wanted:
+        grid_folds(dev)
     return 0
 
 

@@ -347,7 +347,8 @@ register(Backend(
 # * the batched solve (B10) holds one (n, <=32)-column RHS tile in shared
 #   memory and walks the RHS tile by tile, so the RHS width has no cap and
 #   n has the one of a single column's tile (n <= 58080); the band solve
-#   (B12) keeps no operand whole on chip and has no cap.
+#   (B12) keeps no operand whole on chip and has no cap.  Neither solve caps
+#   the batch: each folds the system into its grid's x axis.
 # Where the reference overflows to its vmapped mirror (n > 1024, rhs > 4n,
 # a skewed band over 6 MiB) the port stays on its kernels.
 # ---------------------------------------------------------------------------

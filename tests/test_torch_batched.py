@@ -393,6 +393,18 @@ def test_batched_solve_cap_follows_one_columns_tile():
     assert solvers.select(fits).name == "cuda_vmem" and solvers.select(past).name == "torch"
 
 
+# C8: the batched solves take any number of systems (past the 65,535 of a
+# grid's y extent too), so their slot's supports never looks at the batch
+@pytest.mark.parametrize("kw", [
+    dict(op="solve", structure="batched_dense", n=4, batch=70_000, rhs=1),
+    dict(op="solve", structure="batched_banded", n=8, bw=1, batch=70_000, rhs=1),
+])
+def test_the_batched_solves_take_any_number_of_systems(kw):
+    assert selected(solvers, **kw) == "cuda_vmem" == counterpart(selected(jsolvers, **kw))
+    slot = solvers.get_backend(kw["op"], kw["structure"], "cuda_vmem")
+    assert slot.supports(solvers.Problem(**kw)) and slot.supports(solvers.Problem(**{**kw, "batch": 1}))
+
+
 def test_the_cache_key_ignores_the_batch_as_the_reference_does():
     p1 = solvers.Problem(op="factor", structure="batched_dense", n=64, batch=1)
     p8 = solvers.Problem(op="factor", structure="batched_dense", n=64, batch=8)

@@ -819,17 +819,126 @@ def test_batched_band_factor_leaves_its_input_alone(card):
     assert torch.equal(a, before)
 
 
+def band_solve_report(plan):
+    """The C entry's report of a band solve launched by ``plan``."""
+    if plan.path == "staged":
+        return (1, plan.warps, plan.cols, plan.stages, plan.bytes)
+    return (0, 0, plan.cols, 0, 0)
+
+
+def assert_systems_are_b7(got, lu, b, bw, systems=None):
+    """Each system of B12's ``got`` is bitwise B7 on that system alone,
+    under the same plan."""
+    torch.cuda.synchronize()
+    for s in range(lu.shape[0]) if systems is None else systems:
+        want = banded.banded_solve_kernelized(lu[s], b[s], bw=bw)
+        torch.cuda.synchronize()
+        assert torch.equal(got[s], want), f"system {s} differs from B7 on it alone"
+
+
+# one system, a few and more than the card's SMs; every band shape (n (2bw+1)
+# a multiple of 4 or not: the systems' bands start off 16-byte boundaries)
+@pytest.mark.parametrize("bsz", [1, 3, 200])
 @pytest.mark.parametrize("m", [None, 3, 40])
 @pytest.mark.parametrize("n,bw", BAND_SHAPES)
-def test_batched_band_solve_kernel_matches_plain(n, bw, m, card):
-    lu = banded.banded_lu_plain(torch.from_numpy(band_stack(3, n, bw, n)).to(card), bw=bw)
-    b = torch.from_numpy(np.stack([rhs(n, m, 5 + i) for i in range(3)])).to(card)
+def test_batched_band_solve_kernel_matches_plain(n, bw, m, bsz, card):
+    lu = banded.banded_lu_plain(torch.from_numpy(band_stack(bsz, n, bw, n)).to(card), bw=bw)
+    b = torch.from_numpy(np.stack([rhs(n, m, 5 + i) for i in range(bsz)])).to(card)
     lu0, b0 = lu.clone(), b.clone()
     before = banded.batched_banded_solve_vmem.launches
     got = banded.batched_banded_solve_vmem(lu, b, bw=bw)
     assert banded.batched_banded_solve_vmem.launches == before + 1
+    assert banded.batched_banded_solve_vmem.last_plan == band_solve_report(banded.band_solve_plan(n, bw, m or 1))
     close(got, banded_solve_blocked(lu, b, bw=bw), 1e-5)
     assert torch.equal(lu, lu0) and torch.equal(b, b0)
+    assert_systems_are_b7(got, lu, b, bw)
+
+
+# the Poisson ensemble's shape (16 warps a block) and a band past the staged
+# kernel's reach (bw = 900: two strips take 240 KB), on the per-warp kernel
+@pytest.mark.parametrize("m", [None, 3])
+@pytest.mark.parametrize("bsz,n,bw,path", [(3, 4096, 64, "staged"), (2, 2000, 900, "warp")])
+def test_batched_band_solve_on_wide_bands(bsz, n, bw, path, m, card):
+    lu = banded.banded_lu_plain(torch.from_numpy(band_stack(bsz, n, bw, 7 * n)).to(card), bw=bw)
+    b = torch.from_numpy(np.stack([rhs(n, m, 70 + i) for i in range(bsz)])).to(card)
+    plan = banded.band_solve_plan(n, bw, m or 1)
+    assert plan.path == path
+    before = banded.batched_banded_solve_vmem.launches
+    got = banded.batched_banded_solve_vmem(lu, b, bw=bw)
+    assert banded.batched_banded_solve_vmem.launches == before + 1
+    assert banded.batched_banded_solve_vmem.last_plan == band_solve_report(plan)
+    close(got, banded_solve_blocked(lu, b, bw=bw), 1e-5)
+    assert_systems_are_b7(got, lu, b, bw)
+
+
+# a plan forced onto the per-warp kernel, as the sweeps force it
+def test_batched_band_solve_on_a_forced_warp_plan(card):
+    n, bw = 257, 5
+    lu = banded.banded_lu_plain(torch.from_numpy(band_stack(5, n, bw, 11)).to(card), bw=bw)
+    b = torch.from_numpy(np.stack([rhs(n, 6, 80 + i) for i in range(5)])).to(card)
+    warp = banded.BandSolvePlan("warp", 4, 4, 0, 0)
+    got = banded.batched_banded_solve_vmem(lu, b, bw=bw, plan=warp)
+    assert banded.batched_banded_solve_vmem.last_plan == (0, 0, 4, 0, 0)
+    close(got, banded_solve_blocked(lu, b, bw=bw), 1e-5)
+    for s in range(5):
+        assert torch.equal(got[s], banded._solve(lu[s], b[s], bw=bw, plan=warp))
+
+
+@pytest.mark.parametrize("bsz,n,m", [(0, 300, None), (3, 0, None), (3, 300, 0), (0, 300, 4)])
+def test_batched_band_solve_takes_an_empty_stack(bsz, n, m, card):
+    lu = torch.zeros((bsz, n, 11), device=card)
+    b = torch.zeros((bsz, n) if m is None else (bsz, n, m), device=card)
+    before = banded.batched_banded_solve_vmem.launches
+    got = banded.batched_banded_solve_vmem(lu, b, bw=5)
+    assert got.shape == b.shape and banded.batched_banded_solve_vmem.launches == before
+
+
+def many_small_stack(bsz, n, seed):
+    rng = np.random.default_rng(seed)
+    a = rng.uniform(-1.0, 1.0, (bsz, n, n)).astype(np.float32)
+    a[:, np.arange(n), np.arange(n)] = np.abs(a).sum(axis=2) + 1.0
+    return a
+
+
+# C8: more systems than a grid's y extent (65,535), in one launch each
+def test_batched_solves_take_more_systems_than_a_grid_axis(card):
+    bsz = 70_000
+    lu = batched_lu.batched_lu_plain(torch.from_numpy(many_small_stack(bsz, 4, 90)).to(card))
+    b = torch.from_numpy(np.random.default_rng(91).standard_normal((bsz, 4)).astype(np.float32)).to(card)
+    before = batched_lu.batched_lu_solve_vmem.launches
+    got = batched_lu.batched_lu_solve_vmem(lu, b)
+    assert batched_lu.batched_lu_solve_vmem.launches == before + 1
+    solve_plan_matches(card, bsz, 4, 1)
+    torch.cuda.synchronize()
+    assert torch.equal(got, batched_lu.batched_lu_solve_plain(lu, b))
+
+    n, bw = 8, 1
+    rng = np.random.default_rng(92)
+    band = rng.uniform(-1.0, 1.0, (bsz, n, 3)).astype(np.float32)
+    band[:, 0, 0] = band[:, -1, 2] = 0.0
+    band[:, :, 1] = np.abs(band).sum(axis=2) + 1.0
+    lub = banded.banded_lu_plain(torch.from_numpy(band).to(card), bw=bw)
+    bb = torch.from_numpy(rng.standard_normal((bsz, n)).astype(np.float32)).to(card)
+    before = banded.batched_banded_solve_vmem.launches
+    got = banded.batched_banded_solve_vmem(lub, bb, bw=bw)
+    assert banded.batched_banded_solve_vmem.launches == before + 1
+    assert banded.batched_banded_solve_vmem.last_plan == band_solve_report(banded.band_solve_plan(n, bw, 1))
+    close(got, banded_solve_blocked(lub, bb, bw=bw), 1e-5)
+    assert_systems_are_b7(got, lub, bb, bw, (0, 1, 65_534, 65_535, 65_536, bsz - 1))
+
+
+# C9: a tridiagonal band of S = 65,537 diagonal blocks of C = 32 rows, past
+# the grid's z extent, in six launches, against B7 on the same factor
+def test_inverted_band_solve_past_a_grid_axis_of_blocks(card):
+    n, bw = 2_097_157, 1
+    lu = banded.banded_lu_blocked(torch.from_numpy(band_dd(n, bw, 93)).to(card), bw=bw)
+    f = factorize_banded(lu, bw=bw)
+    assert f.linv.shape[:2] == (65_537, 32)
+    b = torch.from_numpy(rhs(n, None, 94)).to(card)
+    before = banded.banded_solve_inverted.launches
+    got = banded.banded_solve_inverted(f.linv, f.uinv, f.tlo, f.tup, b, n=n, bw=bw)
+    assert banded.banded_solve_inverted.launches - before == 6
+    close(got, banded.banded_solve_kernelized(lu, b, bw=bw), 1e-5)
 
 
 def test_batched_main_paths_dispatch_the_kernels(card):

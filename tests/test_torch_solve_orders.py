@@ -22,6 +22,9 @@ B6 emulation also tags every ring slot with the row it holds and fails
 if a read, an update or a gather finds another row there: the check that
 K * ring_rows covers the rows live in a group.
 """
+import importlib.util
+import pathlib
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -35,6 +38,7 @@ from repro_torch.core import batched as tbatched
 from repro_torch.kernels import banded as kband
 from repro_torch.kernels import batched_lu as kbatched
 
+ROOT = pathlib.Path(__file__).resolve().parents[1]
 SMEM = 232448  # dynamic shared memory one H100 block may use
 STRIP = 32
 F32 = np.float32
@@ -444,23 +448,40 @@ def staged_solve_emulation(lu, b, bw, warps, cols, stages):
     of the step before, retire the previous strip's block and solve the
     triangle; the helpers split the next strip's diagonals into slices
     against a ring of ``cap`` solved values a column, tagged with the row
-    each slot holds, so a read of an overwritten slot fails."""
-    n, w = lu.shape
-    m = b.shape[1]
+    each slot holds, so a read of an overwritten slot fails.
+
+    ``lu`` ``(B, n, 2bw+1)`` and ``b`` ``(B, n, m)`` are a stack, as B12
+    launches it: one flat array, system s's band ``s * n * (2bw+1)`` floats
+    past its base.  Each strip row is copied into its buffer in the
+    kernel's 16-byte chunks, aligned on the stack's base and cut (zero
+    filled) at the stack's end, with each buffer float tagged with the
+    flat index it came from; a read must find its own row's entry there,
+    so a chunk's floats of a neighbouring system are never used.  A
+    ``(n, 2bw+1)`` band and ``(n, m)`` RHS are a stack of one."""
+    if lu.ndim == 2:
+        return staged_solve_emulation(lu[None], b[None], bw, warps, cols, stages)[0]
+    bsz, n, w = lu.shape
+    m = b.shape[2]
     strips = -(-n // 32)
     q4 = (bw + 10) // 4
     q4 += 1 - q4 % 2
     S, cap = 4 * q4, -(-(bw + 64) // 32) * 32
-    x = np.zeros((n, m), F32)
-    flat = lu.reshape(-1)
-    for c0 in range(0, m, cols):
+    stage_floats = 32 * S + 16
+    x = np.zeros((bsz, n, m), F32)
+    flat, end = lu.reshape(-1), bsz * n * w
+    for sys_, c0 in ((s_, c) for s_ in range(bsz) for c in range(0, m, cols)):
+        base = sys_ * n * w
         ct = min(cols, m - c0)
         nh = warps - cols if warps > cols else warps
         ring = np.zeros((ct, cap), F32)
         ring_tag = -np.ones((ct, cap), np.int64)
+        bs, xs = b[sys_], x[sys_]
         for upper in (False, True):
             strip_of = (lambda q: strips - 1 - q) if upper else (lambda q: q)
+            length = bw + 1 if upper else bw  # the half's entries a row
             buf_tag = [None] * stages   # (strip, upper) a buffer holds
+            bufv = np.zeros((stages, stage_floats), F32)
+            bufsrc = -np.ones((stages, stage_floats), np.int64)  # the flat index each float came from
             issued = []                 # (buffer, tag) per commit group, in order
             done = 0                    # groups the waits have covered
             epoch = 0                   # block barriers so far
@@ -470,9 +491,23 @@ def staged_solve_emulation(lu, b, bw, warps, cols, stages):
                 nonlocal epoch
                 epoch += 1
 
+            def row_start(k, rr):
+                return base + (32 * k + rr) * w + (bw if upper else 0)
+
             def stage(k, buf):
                 if 0 <= k < strips:
                     assert last_read[buf] < epoch, f"buffer {buf} copied over before a barrier"
+                    # chunk cc of row rr: floats a .. a+3 from a = (start & ~3) + 4 cc,
+                    # those from start + length on skipped, those past the stack zero
+                    rr = np.arange(min(32, n - 32 * k))[:, None, None]
+                    cc, j = np.arange(S // 4)[None, :, None], np.arange(4)[None, None, :]
+                    start = row_start(k, rr)
+                    a = (start & ~3) + 4 * cc
+                    copied = np.broadcast_to(a < start + length, (rr.size, S // 4, 4))
+                    src, dst = a + j, rr * S + 4 * (rr >> 3) + 4 * cc + j
+                    bufv[buf, dst[copied]], bufsrc[buf, dst[copied]] = 0, -1
+                    real = copied & (src < end)
+                    bufv[buf, dst[real]], bufsrc[buf, dst[real]] = flat[src[real]], src[real]
                 issued.append((buf, (k, upper) if 0 <= k < strips else None))
                 buf_tag[buf] = ("pending", len(issued) - 1)
 
@@ -487,9 +522,11 @@ def staged_solve_emulation(lu, b, bw, warps, cols, stages):
             def entry(buf, k, rr, e):
                 assert buf_tag[buf] == (k, upper), f"buffer {buf} holds {buf_tag[buf]}, not strip {k}"
                 last_read[buf] = epoch
-                start = (32 * k + rr) * w + (bw if upper else 0)
-                assert (start & 3) + e < S and 0 <= e < (bw + 1 if upper else bw)
-                return flat[start + e]
+                start = row_start(k, rr)
+                assert (start & 3) + e < S and 0 <= e < length
+                d = rr * S + 4 * (rr >> 3) + (start & 3) + e
+                assert bufsrc[buf, d] == start + e, f"entry {e} of row {rr} reads flat {bufsrc[buf, d]}"
+                return bufv[buf, d]
 
             for qq in range(stages):
                 stage(strip_of(qq), qq)
@@ -515,7 +552,7 @@ def staged_solve_emulation(lu, b, bw, warps, cols, stages):
                             tri[lane, s] = entry(buf, k, lane, ut) if s > lane and ut <= bw and 32 * k + s < n else 0
                     if upper:
                         diag[lane] = entry(buf, k, lane, 0)
-                    nb[lane] = (x if upper else b)[i, c0:c0 + ct]
+                    nb[lane] = (xs if upper else bs)[i, c0:c0 + ct]
                 return near, tri, diag, nb
 
             regs = preload(strip_of(0), 0)
@@ -544,7 +581,7 @@ def staged_solve_emulation(lu, b, bw, warps, cols, stages):
                     if i < n:
                         ring[:, i % cap] = acc[lane]
                         ring_tag[:, i % cap] = i
-                        x[i, c0:c0 + ct] = acc[lane]
+                        xs[i, c0:c0 + ct] = acc[lane]
                 prev = np.where((32 * k + np.arange(32) < n)[:, None], acc, 0).astype(F32)
                 stage(strip_of(q + stages), q % stages)
                 # the helpers: the next strip's terms against strips solved before this one
@@ -588,3 +625,46 @@ def test_staged_band_solve_order_is_within_tol_of_the_reference(n, bw, warps, co
     got = staged_solve_emulation(lu, b, bw, warps, cols, stages)
     want = np.asarray(jkband.banded_solve_kernelized(jnp.asarray(lu), jnp.asarray(b), bw=bw, interpret=True))
     assert normwise(got, want) <= SOLVE_TOL
+
+
+# B12: B7's staged kernel over a stack of systems, each band at its offset
+# in one flat array, so the strips' 16-byte chunks are aligned on the
+# stack's base: n (2bw+1) is no multiple of 4 in any of these, and the
+# chunks take floats of the neighbouring systems into the buffers
+@pytest.mark.parametrize("m", [1, 3])
+@pytest.mark.parametrize("bsz,n,bw", [(3, 37, 1), (3, 33, 5), (2, 65, 16), (2, 70, 33)])
+def test_staged_band_solve_over_a_stack_is_each_system_alone(bsz, n, bw, m):
+    assert n * (2 * bw + 1) % 4
+    lu = np.stack([tbanded.banded_lu_blocked(torch.from_numpy(band_dd(n, bw, 7 * n + bw + s)), bw=bw).numpy()
+                   for s in range(bsz)])
+    b = np.random.default_rng(n + m).standard_normal((bsz, n, m)).astype(F32)
+    plan = kband.band_solve_plan(n, bw, m)
+    assert plan.path == "staged"
+    got = staged_solve_emulation(lu, b, bw, plan.warps, plan.cols, plan.stages)
+    for s in range(bsz):
+        alone = staged_solve_emulation(lu[s], b[s], bw, plan.warps, plan.cols, plan.stages)
+        assert np.array_equal(got[s], alone), f"system {s} differs from the solve of it alone"
+    want = tbanded.banded_solve_blocked(torch.from_numpy(lu), torch.from_numpy(b), bw=bw).numpy()
+    assert normwise(got, want) <= TOL
+
+
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location("chip_smoke", ROOT / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)  # its imports are the standard library's; torch loads in main()
+    return mod
+
+
+_SMOKE = _chip_smoke()
+
+
+# B12's plan at every ensemble chip_smoke.py drives (phase 3c and 4e, m = 1):
+# B7's staged kernel with its plan for one system, 4 warps a block up to
+# bw = 32 and 16 past it, 4 stages
+@pytest.mark.parametrize("bsz,n,bw", [_SMOKE.ENSEMBLE_T1, (_SMOKE.ENSEMBLE_MEMBERS, _SMOKE.ENSEMBLE_NX ** 2,
+                                                            _SMOKE.ENSEMBLE_NX), _SMOKE.ENSEMBLE_SMALL])
+def test_band_solve_plan_gives_the_ensembles_the_staged_kernel(bsz, n, bw):
+    warps = 4 if bw <= 32 else 16
+    plan = kband.band_solve_plan(n, bw, 1)
+    assert plan == kband.BandSolvePlan("staged", warps, 1, 4, kband._solve_bytes(bw, 1, warps, 4))
+    assert plan.bytes <= kband.BAND_SMEM
