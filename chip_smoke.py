@@ -48,7 +48,15 @@ Phases (any failure exits non-zero):
    systems through B10 (n = 4, bit for bit) and B12 (n = 8, bw = 1, within
    1e-5, five systems bitwise B7) in one launch each (fault C8), and a
    tridiagonal band of 65,537 diagonal blocks (n = 2,097,157) through B8
-   in six launches, within 1e-5 of B7 (fault C9);
+   in six launches, within 1e-5 of B7 (fault C9); 3g the factors and
+   solves on non-finite values (faults C10, C11: B1 at n = 40 with block 16
+   and at n = 500, B9 at 3 x 24 and the optimizer's 2 x 384, B2, B3 and
+   B10 at n = 40 and 2000, B7 and B12 at (97, 5) and (16000, 5)), NaN, inf
+   and -inf positions equal to the plain versions' and the finite values
+   within the tolerance or bit for bit, and B3 and B4 at n = 64 with
+   4,194,305 RHS columns, 65,537 column tiles on one grid axis (fault C12);
+   B8 also at the Poisson band, its tail scans on one warp bit for bit the
+   block kernel's;
 4. the main paths, each with its kernels' launch counters set to 0 just
    before and read just after:
    - dense: ``repro_torch.kernels.ops.linear_solve`` at n = 500, 2000,
@@ -194,6 +202,8 @@ ENSEMBLE_SMALL = (4, 500, 5)  # four of Table 1's smallest band
 # C8: a stack past a grid's y extent (65,535) for B10 and B12; C9: a
 # tridiagonal band of 65,537 diagonal blocks of 32 rows for B8 (past z's)
 C8_SYSTEMS, C9_ROWS = 70_000, 2_097_157
+# C12: B3 and B4 on 65,537 column tiles of 64 (b, y and x 1.07 GB each)
+WIDE_RHS = (64, 4_194_305)
 # the legacy kernels: B14 and B15 against their plain versions normwise
 # (their products sum in another order than cuBLAS); B16 and B17 bit for bit;
 # bf16 B14 at the reference test's absolute tolerance (tests/test_kernels.py)
@@ -483,7 +493,7 @@ def main() -> int:
             (16000, 5, ("banded_lu_blocked",), (1,), False),
             (*SHOOTOUT, ("banded_lu_blocked", "banded_lu_tiled"), (1, WIDE), True),
             (4096, 256, ("banded_lu_blocked", "banded_lu_tiled"), (1, WIDE), True),
-            (pn, POISSON_NX, ("banded_lu_tiled",), (1,), False),
+            (pn, POISSON_NX, ("banded_lu_tiled",), (1,), True),
             (*PAST_CLUSTERS, ("banded_lu_tiled",), (1, WIDE), False)):
         a = apoisson if n == pn else band(n, bw, n + bw)
         plain, plain_ms = once(lambda: banded.banded_lu_plain(a, bw=bw))
@@ -504,9 +514,15 @@ def main() -> int:
             compare("banded_solve_kernelized", shape, banded.banded_solve_kernelized(plain, b, bw=bw), want)
             print(f"    plan {banded.banded_solve_kernelized.last_plan}", flush=True)
             if inverted:
-                compare("banded_solve_inverted", shape,
-                        banded.banded_solve_inverted(f.linv, f.uinv, f.tlo, f.tup, b, n=n, bw=bw),
+                got = banded.banded_solve_inverted(f.linv, f.uinv, f.tlo, f.tup, b, n=n, bw=bw)
+                compare("banded_solve_inverted", shape, got,
                         banded_inverted_solve(f.linv, f.uinv, f.tlo, f.tup, b, n=n, bw=bw))
+                # the narrow products and the warp scans sum as the tiles and the block scan do
+                same = bool(torch.equal(got, banded._solve_inverted(f.linv, f.uinv, f.tlo, f.tup, b, n=n, bw=bw,
+                                                                    tiles=True)))
+                print(f"    bitwise equal to the block kernels: {same}", flush=True)
+                if not same:
+                    fail(f"banded_solve_inverted {shape}: differs from the block kernels")
     pshape = f"n={pn} bw={POISSON_NX}"
     print(f"  plain versions at the Poisson band, one call each: factor {plain_once[pshape]:.1f} ms, "
           f"solve m=1 {plain_once[pshape + ' m=1']:.1f} ms", flush=True)
@@ -906,8 +922,8 @@ def main() -> int:
             if torch.equal(got[s], banded.banded_solve_kernelized(lu[s], b[s], bw=1))]
     print(f"    {count} launch(es), plan {banded.batched_banded_solve_vmem.last_plan}; systems {same} bitwise "
           "B7 on each alone", flush=True)
-    if count != 1 or len(same) != 5:
-        fail(f"batched_banded_solve_vmem B={C8_SYSTEMS}: {count} launches, systems {same} bitwise B7")
+    if count != 2 or len(same) != 5:  # the solve and the non-finite pass
+        fail(f"batched_banded_solve_vmem B={C8_SYSTEMS}: {count} launches (not 2), systems {same} bitwise B7")
     lu = banded.banded_lu_blocked(band(C9_ROWS, 1, 1430), bw=1)
     f9 = factorize_banded(lu, bw=1)
     b = rhs(C9_ROWS, 1, 1440)
@@ -924,6 +940,84 @@ def main() -> int:
         fail(f"banded_solve_inverted n={C9_ROWS}: rel {rel:.3e} against B7, {count} launches, "
              f"S = {f9.linv.shape[0]}")
     del a, lu, b, got, want, f9
+
+    # ---- 3g. non-finite values (C10, C11) and any RHS width (C12) --------
+    print("phase 3g: the factors and solves on non-finite values against their plain versions (C10, C11: "
+          "NaN, inf and -inf positions equal, finite values normwise or bit for bit), B3 and B4 past a "
+          "grid axis of column tiles (C12)", flush=True)
+
+    def same_non_finite(name, shape, got, want, tol=KERNEL_TOL, bitwise=False):
+        torch.cuda.synchronize()
+        got, want = got.double(), want.double()
+        same = all(bool(torch.equal(f(got), f(want))) for f in (torch.isnan, torch.isposinf, torch.isneginf))
+        fin = torch.isfinite(want)
+        bad = int((~fin).sum())
+        gf, wf = got.masked_fill(~fin, 0), want.masked_fill(~fin, 0)
+        err = float((gf - wf).abs().max()) / max(float(wf.abs().max()), 1e-30)
+        ok = same and bad > 0 and (bool(torch.equal(gf, wf)) if bitwise else err <= tol)
+        print(f"  {name:25s} {shape:34s} non-finite {bad:7d}  positions equal: {same}  finite rel {err:.2e}",
+              flush=True)
+        if not ok:
+            fail(f"{name} {shape}: the non-finite pattern or the finite values differ from the plain version")
+
+    def poisoned(t, where):
+        t = t.clone()
+        for idx, v in where:
+            t[idx] = v
+        return t
+
+    inf, nan = float("inf"), float("nan")
+    a40, a500 = matrix(40, 1600), matrix(500, 1601)
+    for where in ([((2, 30), inf)], [((30, 2), inf)], [((20, 20), nan)]):
+        a = poisoned(a40, where)
+        same_non_finite("lu_fused", f"n=40 block=16 {where[0][0]}", ebv_lu.lu_fused(a, block=16),
+                        ebv_lu.lu_fused_plain(a, block=16))
+    a = poisoned(a500, [((7, 300), inf), ((400, 20), -inf)])
+    same_non_finite("lu_fused", "n=500 (7, 300) inf, (400, 20) -inf", ebv_lu.lu_fused(a),
+                    ebv_lu.lu_fused_plain(a))
+    for bsz, n, where in ((3, 24, [((1, 2, 20), inf)]), (2, 384, [((1, 5, 300), -inf), ((0, 200, 100), nan)])):
+        a = poisoned(stack(bsz, n, 1610 + n), where)
+        same_non_finite("batched_lu_vmem", f"B={bsz} n={n}", batched_lu.batched_lu_vmem(a),
+                        batched_lu.batched_lu_plain(a), bitwise=True)
+    for n, m, lu_at, b_at in ((40, 3, [(5, 30)], []), (40, 3, [], [(39, 1)]), (2000, 64, [(100, 1500)], [])):
+        lu = poisoned(ebv_lu.lu_fused(matrix(n, 1620 + n)), [(idx, nan) for idx in lu_at])
+        b = poisoned(rhs(n, m, 1630 + n), [(idx, inf) for idx in b_at])
+        shape = f"n={n} m={m} " + ("lu nan" if lu_at else "b inf")
+        same_non_finite("solve_vmem", shape, trsm.solve_vmem(lu, b), trsm.solve_vmem_plain(lu, b))
+        blk = 16 if n == 40 else 256
+        same_non_finite("solve_tiled", f"{shape} block={blk}", trsm.solve_tiled(lu, b, block=blk),
+                        trsm.solve_tiled_plain(lu, b, block=blk))
+        stack_lu, stack_b = torch.stack([lu, lu]), torch.stack([b, rhs(n, m, 1640 + n).reshape(b.shape)])
+        same_non_finite("batched_lu_solve_vmem", f"B=2 {shape}", batched_lu.batched_lu_solve_vmem(stack_lu, stack_b),
+                        batched_lu.batched_lu_solve_plain(stack_lu, stack_b), bitwise=True)
+    for n, bw, m, at in ((97, 5, 2, (10, 6)), (16000, 5, 1, (5000, 7))):
+        clean = banded.banded_lu_blocked(band(n, bw, 1650 + n), bw=bw)
+        lu = poisoned(clean, [(at, inf)])
+        b = rhs(n, m, 1660 + n)
+        shape = f"n={n} bw={bw} m={m} lu{at} inf"
+        same_non_finite("banded_solve_kernelized", shape, banded.banded_solve_kernelized(lu, b, bw=bw),
+                        banded_solve_blocked(lu, b, bw=bw))
+        stack_lu, stack_b = torch.stack([lu, clean]), torch.stack([b, b])
+        same_non_finite("batched_banded_solve_vmem", f"B=2 {shape}",
+                        banded.batched_banded_solve_vmem(stack_lu, stack_b, bw=bw),
+                        banded_solve_blocked(stack_lu, stack_b, bw=bw), BATCHED_SOLVE_TOL)
+    del a, lu, b, stack_lu, stack_b, clean
+    n, m = WIDE_RHS
+    lu = ebv_lu.lu_fused(matrix(n, 1670))
+    linv, uinv = dense_block_inverses(lu, block=32)
+    b = torch.randn((n, m), generator=torch.Generator(device=dev).manual_seed(1671), device=dev)
+    for name, call, plain in (
+            ("solve_tiled", lambda: trsm.solve_tiled(lu, b), lambda: trsm.solve_tiled_plain(lu, b)),
+            ("solve_inverted", lambda: trsm.solve_inverted(lu, linv, uinv, b),
+             lambda: dense_inverted_solve(lu, linv, uinv, b))):
+        got, count = one_launch(getattr(trsm, name), call)
+        compare(name, f"n={n} m={m}", got, plain(), BATCHED_SOLVE_TOL)
+        grid = getattr(trsm, name).last_grid
+        print(f"    {count} launches, one grid axis of {grid} blocks at most", flush=True)
+        if not grid > 65_535:
+            fail(f"{name} n={n} m={m}: its largest step grid is {grid} blocks, not past 65,535")
+        del got
+    del lu, linv, uinv, b
 
     # ---- 4. the main paths -----------------------------------------------
     print("phase 4: main path", flush=True)
@@ -959,9 +1053,10 @@ def main() -> int:
         if not res <= solvers.VERIFY_RESIDUAL_DEFAULT_BOUND:
             fail(f"{label}: residual {res:.3e} > {solvers.VERIFY_RESIDUAL_DEFAULT_BOUND}")
     # the C drivers report what they launched: 4S-4 per factor, one step per
-    # launch of solve_tiled (2S), two of solve_inverted (4S-2)
+    # launch of solve_tiled (2S), two of solve_inverted (4S-2), and the
+    # non-finite pass after the factor, solve_vmem and solve_tiled
     expected = {"lu_fused": sum(ebv_lu.fused_launches(n) for n, _, _, _ in cases) + ebv_lu.fused_launches(8000),
-                "solve_vmem": sum(1 for n, _, _, _ in cases if n <= 2048),
+                "solve_vmem": sum(2 for n, _, _, _ in cases if n <= 2048),
                 "solve_tiled": sum(trsm.tiled_launches(n) for n, _, _, _ in cases if n > 2048),
                 "solve_inverted": trsm.inverted_launches(8000, f.linv.shape[1])}
     if launches != expected:
@@ -996,7 +1091,7 @@ def main() -> int:
             bresults.append((f"banded_linear_solve n={n} bw={bw} m={m}", a, b, x, bw,
                              [nm for _, nm in log[mark:]], [factor, "cuda"]))
             expected[factor_wrapper[factor]] += 1 if factor == "cuda_blocked" else banded.tiled_launches(n, bw)
-            expected["banded_solve_kernelized"] += 1
+            expected["banded_solve_kernelized"] += 2  # the solve and the non-finite pass
         mark = len(log)
         f = ops.banded_lu(a16, bw=SHOOTOUT[1], enrich=True)
         x = ops.banded_solve(f, b16, bw=SHOOTOUT[1], impl="cuda_inverted")
@@ -1069,8 +1164,9 @@ def main() -> int:
                     x = ops.linear_solve(a, b)
                 label = f"{'lu(enrich)+lu_solve' if enrich else 'linear_solve'} B={bsz} n={n} m={m}"
                 dresults.append((label, a, b, x, [nm for _, nm in log[mark:]], ["cuda_vmem"] * 2))
-    calls = 2 * len(dcases)
-    batched_launches = read(dwrappers, {k: calls for k in dwrappers}, "batched dense path")
+    calls = 2 * len(dcases)  # the factor with its non-finite pass, two launches a call
+    batched_launches = read(dwrappers, {"batched_lu_vmem": 2 * calls, "batched_lu_solve_vmem": calls},
+                            "batched dense path")
     check_results(dresults)
     bsz, n, _, a, b = dcases[0]
     want = ref.batched_solve_ref(ref.batched_lu_ref(a.double().cpu().numpy()), b.double().cpu().numpy())
@@ -1144,7 +1240,8 @@ def main() -> int:
                                      [(p.op, p.n, p.batch, p.rhs, nm) for p, nm in log[mark:]]))
     finally:
         ops.linear_solve = plain_ls
-    opt_launches = read(dwrappers, {k: 3 * OPT_STEPS for k in dwrappers}, "optimizer path")
+    opt_launches = read(dwrappers, {"batched_lu_vmem": 6 * OPT_STEPS, "batched_lu_solve_vmem": 3 * OPT_STEPS},
+                        "optimizer path")
     for k in dwrappers:
         batched_launches[k] += opt_launches[k]
     # whisper-tiny: the stacked norm scales (L, d) are 2-D too, one order-L
@@ -1205,7 +1302,8 @@ def main() -> int:
             x = ops.banded_linear_solve(a, b, bw=bw)
             eresults.append((f"banded_linear_solve B={bsz} n={n} bw={bw} m=1", a, b, x, bw,
                              [nm for _, nm in log[mark:]]))
-    ens_launches = read(ewrappers, {k: len(ecases) for k in ewrappers}, "batched banded path")
+    ens_launches = read(ewrappers, {"batched_banded_lu_vmem": len(ecases),
+                                    "batched_banded_solve_vmem": 2 * len(ecases)}, "batched banded path")
     batched_launches.update(ens_launches)
     for label, a, b, x, bw, got in eresults:
         check_results([(label, a, b, x, got, ["cuda_vmem"] * 2)], residual_bw=bw)
@@ -1982,7 +2080,7 @@ def main() -> int:
     print(f"  the steps of the dense factor (card: {card}):", flush=True)
     a = matrix(128, 128)  # one step: the diagonal tile alone (and the copy of the matrix)
     tile_us = 1e3 * timed(lambda: [ebv_lu.lu_fused(a) for _ in range(20)]) / 20
-    print(f"    lu_fused n=  128: one launch, {tile_us:.2f} us a call over 20 calls back to back (events)",
+    print(f"    lu_fused n=  128: one step and the non-finite pass, {tile_us:.2f} us a call over 20 calls back to back (events)",
           flush=True)
     for n in SIZES:
         a = matrix(n, n)

@@ -14,6 +14,7 @@ from __future__ import annotations
 import torch
 
 from . import blocked as _blocked
+from .nonfinite import lu_spread, nan_above_last, nan_below_first
 
 __all__ = [
     "batched_ebv_lu",
@@ -26,13 +27,15 @@ __all__ = [
 def batched_ebv_lu(a: torch.Tensor) -> torch.Tensor:
     """Unblocked EbV LU (no pivoting) of every ``(n, n)`` system of a
     ``(..., n, n)`` stack: per step the column below the pivot is divided
-    by the pivot and one rank-1 update retires it.  Returns the packed
+    by the pivot and one rank-1 update retires it; non-finite entries
+    spread NaN as the reference's masked steps do
+    (:func:`~repro_torch.core.nonfinite.lu_spread`).  Returns the packed
     factors in a new tensor."""
     a = a.clone()
     for k in range(a.shape[-1] - 1):
         a[..., k + 1:, k] /= a[..., k, k:k + 1]
         a[..., k + 1:, k + 1:] -= a[..., k + 1:, k:k + 1] * a[..., k:k + 1, k + 1:]
-    return a
+    return lu_spread(a)
 
 
 def batched_lu_solve(lu, b: torch.Tensor) -> torch.Tensor:
@@ -41,16 +44,19 @@ def batched_lu_solve(lu, b: torch.Tensor) -> torch.Tensor:
     ``(..., n, m)``.  Column-oriented like :func:`repro_torch.core.solve.lu_solve`:
     once ``y[k]`` is final, one axpy eliminates it from every later row;
     backward, ``x[k]`` is divided by the pivot, then eliminated from every
-    earlier row."""
+    earlier row.  Non-finite values spread NaN as the reference's masked
+    axpys do (:mod:`repro_torch.core.nonfinite`)."""
     lu = getattr(lu, "packed", lu)  # accept Factorization artifacts
     squeeze = b.ndim == lu.ndim - 1
     x = (b[..., None] if squeeze else b).clone()
     n = lu.shape[-1]
     for k in range(n - 1):
         x[..., k + 1:, :] -= lu[..., k + 1:, k:k + 1] * x[..., k:k + 1, :]
+    x = nan_above_last(x, n - 1)
     for k in range(n - 1, -1, -1):
         x[..., k:k + 1, :] /= lu[..., k:k + 1, k:k + 1]
         x[..., :k, :] -= lu[..., :k, k:k + 1] * x[..., k:k + 1, :]
+    x = nan_below_first(x)
     return x[..., 0] if squeeze else x
 
 

@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import torch
 
+from .nonfinite import nan_above_last, nan_below_first, nan_left_of_last
 from .solve import unit_lower_solve_packed
 
 __all__ = [
@@ -62,45 +63,62 @@ def pad_identity_tail(a: torch.Tensor, n_to: int) -> torch.Tensor:
 
 def strip_trsm(ldiag: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
     """Unit-lower solve of a ``(C2, w)`` strip against the ``(C2, C2)``
-    diagonal block, as a sequential axpy recurrence.  Returns a new tensor."""
+    diagonal block, as a sequential axpy recurrence; a non-finite ``u[k]``
+    turns NaN the strip's rows at or above it, as the reference's masked
+    recurrence does.  Returns a new tensor."""
     u = rhs.clone()
-    for k in range(ldiag.shape[-1] - 1):
+    c2 = ldiag.shape[-1]
+    for k in range(c2 - 1):
         u[..., k + 1:, :] -= ldiag[..., k + 1:, k:k + 1] * u[..., k:k + 1, :]
-    return u
+    return nan_above_last(u, c2 - 1)
 
 
 def strip_utrsm(udiag: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
     """Upper-triangular solve (diagonal division included) of a ``(C2, w)``
     strip against the ``(C2, C2)`` diagonal block — the backward twin of
-    :func:`strip_trsm`.  Returns a new tensor."""
+    :func:`strip_trsm` (a non-finite ``x[k]`` turns NaN the strip's rows at
+    or below it).  Returns a new tensor."""
     x = rhs.clone()
     for k in range(udiag.shape[-1] - 1, -1, -1):
         x[..., k:k + 1, :] /= udiag[..., k:k + 1, k:k + 1]
         x[..., :k, :] -= udiag[..., :k, k:k + 1] * x[..., k:k + 1, :]
-    return x
+    return nan_below_first(x)
 
 
 def factor_diag_strip(dblk: torch.Tensor, j: int) -> torch.Tensor:
     """Bi-vectorized (rank-1) factorization of the ``(B, C2)`` diagonal-block
     strip whose pivot rows start at local row ``j``; rows at or above each
-    pivot row hold final U values and are left alone."""
+    pivot row hold final U values and are left alone, except that, as in
+    the reference's masked steps, a non-finite pivot-row entry turns NaN the
+    rows above it and a non-finite multiplier the strip's columns left of
+    it."""
     d = dblk.clone()
-    for k in range(d.shape[1]):
+    b, c2 = d.shape
+    for k in range(c2):
         p = j + k
         d[p + 1:, k] /= d[p, k]
         d[p + 1:, k + 1:] -= d[p + 1:, k:k + 1] * d[p:p + 1, k + 1:]
-    return d
+    rows = torch.arange(b, device=d.device)[:, None]
+    cols = torch.arange(c2, device=d.device)[None, :]
+    out = nan_left_of_last(d, rows > j + cols)
+    # rows 0..j+k of column c > k, for the last such k whose pivot-row entry is not finite
+    piv = torch.zeros_like(d, dtype=torch.bool)
+    piv[j:j + c2] = ~torch.isfinite(d[j:j + c2]) & (cols[:, :c2] > rows[:c2])
+    bad = piv.flip(0).cummax(0).values.flip(0)
+    return out.masked_fill(bad, float("nan"))
 
 
 def solve_below_strip(diag: torch.Tensor, strip: torch.Tensor, j: int) -> torch.Tensor:
     """Multipliers of a below-diagonal ``(B, C2)`` strip: right-solve against
-    the factored diagonal strip (every row lies below the pivots)."""
+    the factored diagonal strip (every row lies below the pivots); a
+    non-finite multiplier turns NaN the strip's columns left of it, as the
+    reference's masked steps do."""
     st = strip.clone()
     for k in range(st.shape[1]):
         p = j + k
         st[:, k] /= diag[p, k]
         st[:, k + 1:] -= st[:, k:k + 1] * diag[p:p + 1, k + 1:]
-    return st
+    return nan_left_of_last(st, torch.ones((), dtype=torch.bool, device=st.device))
 
 
 def fused_block_size(n: int, block: int) -> int:
@@ -160,7 +178,12 @@ def fused_lu_steps(a: torch.Tensor, *, block: int, num_steps: int) -> torch.Tens
     tensor, updated in place and returned: per step a two-level panel
     factorization (rank-1 loop in ``C2``-wide strips, strip trsm, rank-C2
     retirement per row block), then per trailing tile a two-level
-    unit-lower trsm and the rank-B update per row block."""
+    unit-lower trsm and the rank-B update per row block.
+
+    ``csrc/nonfinite.cuh:lu_replay_kernel`` replays this loop's blocking on
+    the CUDA factor's result to spread NaN as these masked strips do: a
+    change to the loop needs the same change there (the CPU emulation
+    ``tests/test_torch_nonfinite.py:lu_replay`` fails until both agree)."""
     B, S = block, num_steps
     C2 = sub_block_width(B)
     for s in range(S):

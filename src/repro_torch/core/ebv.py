@@ -15,6 +15,7 @@ from __future__ import annotations
 import torch
 
 from .. import device as _device
+from .nonfinite import lu_spread
 
 __all__ = [
     "ebv_lu",
@@ -90,20 +91,30 @@ def tile_schedule_work(num_steps: int) -> list[int]:
 def ebv_step(a: torch.Tensor, k: int) -> torch.Tensor:
     """One bi-vectorized elimination step on the packed array (paper eqs.
     6-a..6-c): scale the L-column by the pivot, take the U-row, apply one
-    rank-1 Schur update and store the scaled column.  Returns a new tensor."""
-    a = a.clone()
-    a[k + 1:, k] /= a[k, k]
-    a[k + 1:, k + 1:] -= a[k + 1:, k:k + 1] * a[k:k + 1, k + 1:]
+    rank-1 Schur update and store the scaled column.  Written as the
+    reference's fixed-shape masked update, so a non-finite entry of the
+    bi-vector turns NaN the rows above its U entry and the columns left of
+    its multiplier.  Returns a new tensor."""
+    rows = torch.arange(a.shape[-2], device=a.device)[:, None]
+    cols = torch.arange(a.shape[-1], device=a.device)[None, :]
+    zero = torch.zeros((), dtype=a.dtype, device=a.device)
+    col = a[:, k:k + 1]
+    l_col = torch.where(rows > k, col / a[k, k], zero)
+    a = a - l_col * torch.where(cols > k, a[k:k + 1, :], zero)
+    a[:, k:k + 1] = torch.where(rows > k, l_col, a[:, k:k + 1])
     return a
 
 
 def ebv_lu(a: torch.Tensor) -> torch.Tensor:
-    """Unblocked paper-faithful EbV LU (no pivoting); returns the packed LU."""
+    """Unblocked paper-faithful EbV LU (no pivoting); returns the packed LU.
+    The steps update the live rows only; the NaN the reference's masked
+    steps spread from a non-finite entry are added after them
+    (:func:`~repro_torch.core.nonfinite.lu_spread`)."""
     a = a.clone()
     for k in range(a.shape[-1] - 1):
         a[k + 1:, k] /= a[k, k]
         a[k + 1:, k + 1:] -= a[k + 1:, k:k + 1] * a[k:k + 1, k + 1:]
-    return a
+    return lu_spread(a)
 
 
 def unpack_lu(lu) -> tuple[torch.Tensor, torch.Tensor]:

@@ -10,6 +10,7 @@ from __future__ import annotations
 import torch
 
 from . import ebv as _ebv
+from .nonfinite import nan_above_last, nan_below_first
 
 __all__ = [
     "forward_substitution",
@@ -27,21 +28,27 @@ __all__ = [
 def forward_substitution(lu: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Solve ``L y = b`` with the packed factor's implicit unit diagonal.
     Column-oriented: once ``y[k]`` is final, one axpy eliminates it from
-    every later row."""
+    every later row; a non-finite ``y[k]`` turns NaN the rows at or above
+    it, as the reference's masked axpy does (:mod:`.nonfinite`)."""
     squeeze = b.ndim == 1
     y = (b[:, None] if squeeze else b).clone()
-    for k in range(lu.shape[-1] - 1):
+    n = lu.shape[-1]
+    for k in range(n - 1):
         y[k + 1:] -= lu[k + 1:, k:k + 1] * y[k:k + 1]
+    y = nan_above_last(y, n - 1)
     return y[:, 0] if squeeze else y
 
 
 def backward_substitution(lu: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-    """Solve ``U x = y`` (the diagonal of U lives on the packed diagonal)."""
+    """Solve ``U x = y`` (the diagonal of U lives on the packed diagonal);
+    a non-finite ``x[k]`` turns NaN the rows at or below it, as the
+    reference's masked axpy does."""
     squeeze = y.ndim == 1
     x = (y[:, None] if squeeze else y).clone()
     for k in range(lu.shape[-1] - 1, -1, -1):
         x[k] /= lu[k, k]
         x[:k] -= lu[:k, k:k + 1] * x[k:k + 1]
+    x = nan_below_first(x)
     return x[:, 0] if squeeze else x
 
 

@@ -94,9 +94,24 @@
 // band_gemm_kernel + band_tail_scan_kernel — replace src/repro/kernels/
 //   banded.py:banded_solve_inverted.  From the artifact's (S, C, C) inverses
 //   and (S, C, bw) transfer blocks each sweep is a batched product over all S
-//   blocks (many blocks in flight), the (bw, m) tail recurrence over S (one
-//   block per 32 columns), and a second batched product: six launches in
-//   stream order (two when S = 1).  Bound: the inverses' 2*S*C*C*4 bytes.
+//   blocks (many blocks in flight), the (bw, m) tail recurrence over S, and a
+//   second batched product: six launches in stream order (two when S = 1).
+//   Bound: the inverses' 2*S*C*C*4 bytes.  Up to 4 RHS columns a product is
+//   band_gemv_kernel, a thread per row (a 32-wide tile would keep 4 of its
+//   32 columns).  The recurrence is a chain of S steps y_i = z_i - T_i
+//   y_{i-1}, each a (bw, bw) by (bw, m) product; up to bw = 32 it is
+//   band_scan_warp_kernel: a block of two warps per group of KC RHS columns
+//   (one up to m = 512, at most 8).  A producer warp copies T_i's (bw, bw) tail and z_i's rows up to
+//   32 steps ahead into a shared-memory ring (cp.async, a full and an empty
+//   mbarrier a slot); the solver warp's lane r computes row r of the state,
+//   the last state coming by __shfl_sync, so no block barrier and no
+//   device-memory load sits on the chain.  Wider bands keep
+//   band_tail_scan_kernel (one block per 32 columns, the state in shared
+//   memory; at bw = 256 one step's T is 256 KB, more than a block's shared
+//   memory), its threads on the (row, column) pairs that exist and each
+//   thread's row of T read in chunks of 16 16-byte loads.  Every sum runs as
+//   the tile product's and the block scan's do (k ascending), so the values
+//   are theirs.
 //   The products' grid folds (column tile, row tile, s) into blockIdx.x, so
 //   S may pass the 65,535 of a grid's z extent (n past 65,535 * C rows,
 //   2,097,120 for a tridiagonal band); offsets are 64-bit.
@@ -153,6 +168,7 @@
 
 #include "async_copy.cuh"
 #include "cluster.cuh"
+#include "nonfinite.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -166,6 +182,7 @@ constexpr int kWarpWalkMaxBw = 31;  // the widest band the warp walk takes (band
 
 constexpr int kSmemBytes = 232448;  // dynamic shared memory one H100 block may use
 constexpr int kTile = 32;           // batched-product tile and scan column group
+constexpr int kGemvCols = 4;        // widest RHS of the narrow product (band_gemv_kernel)
 constexpr int kInFlight = 8;        // band updates a factor thread loads before it stores
 
 extern __shared__ __align__(16) float smem[];  // 16 bytes for cp.async and float4
@@ -973,37 +990,334 @@ __global__ void band_gemm_kernel(const float* __restrict__ A, const float* __res
   }
 }
 
+// band_gemm_kernel's product for m <= 4 columns, where its 32-wide tiles
+// would keep at most 4 of 32: one thread per row of A (all S * M rows over
+// the grid), its row read in 16-byte pieces where `vec`, each sum over k
+// ascending as band_gemm_kernel's, so the same values.
+__global__ void __launch_bounds__(256) band_gemv_kernel(const float* __restrict__ A, const float* __restrict__ X,
+                                                        const float* __restrict__ base, float* __restrict__ out,
+                                                        int S, int M, int K, int m, int shift, int vec) {
+  const size_t row = (size_t)blockIdx.x * blockDim.x + threadIdx.x;  // s * M + r
+  if (row >= (size_t)S * M) return;
+  const int xs = (int)(row / M) + shift;
+  float acc[kGemvCols] = {0.f, 0.f, 0.f, 0.f};
+  if (xs >= 0 && xs < S) {
+    const float* a = A + row * K;
+    const float* x = X + (size_t)xs * K * m;
+    int k = 0;
+    if (vec) {
+#pragma unroll 4
+      for (; k + 4 <= K; k += 4) {
+        const float4 a4 = __ldg(reinterpret_cast<const float4*>(a + k));
+#pragma unroll
+        for (int c = 0; c < kGemvCols; ++c)
+          if (c < m) {
+            acc[c] += a4.x * __ldg(x + k * m + c);
+            acc[c] += a4.y * __ldg(x + (k + 1) * m + c);
+            acc[c] += a4.z * __ldg(x + (k + 2) * m + c);
+            acc[c] += a4.w * __ldg(x + (k + 3) * m + c);
+          }
+      }
+    }
+    for (; k < K; ++k) {
+      const float av = __ldg(a + k);
+#pragma unroll
+      for (int c = 0; c < kGemvCols; ++c)
+        if (c < m) acc[c] += av * __ldg(x + k * m + c);
+    }
+  }
+#pragma unroll
+  for (int c = 0; c < kGemvCols; ++c)
+    if (c < m) {
+      const size_t o = row * m + c;
+      out[o] = base ? base[o] - acc[c] : acc[c];
+    }
+}
+
+// out[s] = base[s] - A[s] @ X[s + shift] on the narrow kernel for m <= 4,
+// else (or where `tiles`) on band_gemm_kernel's 32 x 32 tiles.
+cudaError_t launch_product(const float* A, const float* X, const float* base, float* out, int S, int M, int K,
+                           int m, int shift, bool tiles, cudaStream_t stream) {
+  if (m <= kGemvCols && !tiles) {
+    const long long rows = (long long)S * M;
+    if ((rows + 255) / 256 > INT_MAX) return cudaErrorInvalidValue;
+    const int vec = K % 4 == 0 && reinterpret_cast<size_t>(A) % 16 == 0;
+    band_gemv_kernel<<<(unsigned)((rows + 255) / 256), 256, 0, stream>>>(A, X, base, out, S, M, K, m, shift, vec);
+    return cudaGetLastError();
+  }
+  const long long grid = (long long)((m + kTile - 1) / kTile) * ((M + kTile - 1) / kTile) * S;
+  if (grid > INT_MAX) return cudaErrorInvalidValue;
+  band_gemm_kernel<<<(unsigned)grid, 256, 0, stream>>>(A, X, base, out, S, M, K, m, shift);
+  return cudaGetLastError();
+}
+
 // Y[i] = Z[i][roff .. roff+bw) - T_i @ Y[i -+ 1] over the S blocks, forward
 // (reverse = 0: i = 0 .. S-1) or backward (reverse = 1: i = S-1 .. 0), with
 // T_i = A[i][roff .. roff+bw) and the first state Y = Z rows.  A is
-// (S, C, bw), Z (S, C, m), Y (S, bw, m).  One block per 32 columns; the
-// previous state lives in shared memory (two (bw, 32) buffers).
+// (S, C, bw), Z (S, C, m), Y (S, bw, m).  One block per group of w <= 32
+// columns: the group's bw * w outputs split over the threads, columns
+// fastest (a warp's threads of one row share its loads of T), the previous
+// state in shared memory (two (bw, w) buffers).  A thread reads its row of
+// T in 16-byte pieces where `vec` and asks L2 for its next row ahead of
+// the step; each sum runs over k ascending.
 __global__ void band_tail_scan_kernel(const float* __restrict__ A, const float* __restrict__ Z,
                                       float* __restrict__ Y, int S, int C, int bw, int m,
-                                      int roff, int reverse) {
+                                      int roff, int reverse, int vec) {
   float* prev = smem;
   float* cur = smem + bw * kTile;
-  const int c0 = blockIdx.x * kTile;
+  const int c0 = blockIdx.x * kTile, w = min(kTile, m - c0);
   for (int q = 0; q < S; ++q) {
     const int i = reverse ? S - 1 - q : q;
-    for (int idx = threadIdx.x; idx < bw * kTile; idx += blockDim.x) {
-      const int r = idx / kTile, c = idx % kTile;
-      float v = 0.f;
-      if (c0 + c < m) {
-        v = Z[((size_t)i * C + roff + r) * m + c0 + c];
-        if (q) {
-          const float* t = A + ((size_t)i * C + roff + r) * bw;
-          for (int k = 0; k < bw; ++k) v -= t[k] * prev[k * kTile + c];
-        }
-        Y[((size_t)i * bw + r) * m + c0 + c] = v;
+    const int inext = reverse ? i - 1 : i + 1;
+    for (int idx = threadIdx.x; idx < bw * w; idx += blockDim.x) {
+      const int r = idx / w, c = idx % w;
+      if (q + 1 < S && c == 0) {  // the next step's row of T, into L2
+        const char* nt = reinterpret_cast<const char*>(A + ((size_t)inext * C + roff + r) * bw);
+        for (int off = 0; off < bw * (int)sizeof(float); off += 128)
+          asm volatile("prefetch.global.L2 [%0];" ::"l"(nt + off));
       }
-      cur[idx] = v;
+      float v = Z[((size_t)i * C + roff + r) * m + c0 + c];
+      if (q) {
+        const float* t = A + ((size_t)i * C + roff + r) * bw;
+        const float* p = prev + c;
+        int k = 0;
+        if (vec) {  // chunks of 64: the chunk's 16 loads in flight before its sums
+          for (; k + 64 <= bw; k += 64) {
+            float4 t4[16];
+#pragma unroll
+            for (int j = 0; j < 16; ++j) t4[j] = __ldg(reinterpret_cast<const float4*>(t + k) + j);
+#pragma unroll
+            for (int j = 0; j < 16; ++j) {
+              const int kk = k + 4 * j;
+              v -= t4[j].x * p[kk * w];
+              v -= t4[j].y * p[(kk + 1) * w];
+              v -= t4[j].z * p[(kk + 2) * w];
+              v -= t4[j].w * p[(kk + 3) * w];
+            }
+          }
+          for (; k + 4 <= bw; k += 4) {
+            const float4 t4 = __ldg(reinterpret_cast<const float4*>(t + k));
+            v -= t4.x * p[k * w];
+            v -= t4.y * p[(k + 1) * w];
+            v -= t4.z * p[(k + 2) * w];
+            v -= t4.w * p[(k + 3) * w];
+          }
+        }
+        for (; k < bw; ++k) v -= t[k] * p[k * w];
+      }
+      Y[((size_t)i * bw + r) * m + c0 + c] = v;
+      cur[r * w + c] = v;
     }
     __syncthreads();
     float* swap = prev;
     prev = cur;
     cur = swap;
   }
+}
+
+// The recurrence of band_tail_scan_kernel for bw <= 32: a block of two
+// warps per group of KC columns (blockIdx.x; KC = 1 up to kScanGroups
+// columns: the state's shuffles grow with KC and the groups run apart).  The producer warp stages step
+// q's rows of T (the (bw, bw) tail, contiguous in A) and of Z into ring slot
+// q % D with cp.async (16-byte pieces where `vec`), each lane's copies
+// signalling the slot's `full` mbarrier as they land, up to D steps ahead;
+// it refills a slot once the solver warp has arrived on its `empty` one.
+// The solver warp waits on `full`, lane r < bw computes state row r from
+// the slot and the previous state, which stays in registers and comes to
+// the other lanes by __shfl_sync, writes it out and releases the slot: only
+// shared-memory reads, shuffles and the sums sit on the chain.  T's rows lie
+// ldt = bw rounded up to 4, plus 4, floats apart, so a lane's 16-byte reads
+// of its row meet no bank conflict.
+constexpr int kScanMaxStages = 32;
+constexpr int kScanGroups = 512;  // column groups (blocks) past which a block takes more columns
+
+__host__ __device__ inline int scan_ldt(int bw) { return (bw + 3) / 4 * 4 + 4; }
+
+template <int KC>
+__host__ __device__ size_t scan_slot_floats(int bw) {
+  return ((size_t)bw * scan_ldt(bw) + (size_t)bw * KC + 3) / 4 * 4;
+}
+
+__device__ __forceinline__ unsigned bar_addr(const unsigned long long* b) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(b));
+}
+__device__ __forceinline__ void bar_init(unsigned long long* b, int count) {
+  asm volatile("mbarrier.init.shared.b64 [%0], %1;" ::"r"(bar_addr(b)), "r"(count) : "memory");
+}
+__device__ __forceinline__ void bar_arrive(unsigned long long* b) {
+  asm volatile("{\n .reg .b64 st;\n mbarrier.arrive.shared.b64 st, [%0];\n}" ::"r"(bar_addr(b)) : "memory");
+}
+// the barrier's arrival once this thread's cp.async copies so far have landed
+__device__ __forceinline__ void bar_arrive_copies(unsigned long long* b) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared.b64 [%0];" ::"r"(bar_addr(b)) : "memory");
+}
+__device__ __forceinline__ void bar_wait(unsigned long long* b, unsigned parity) {
+  unsigned done;
+  do {
+    asm volatile("{\n .reg .pred p;\n mbarrier.try_wait.parity.shared.b64 p, [%1], %2;\n selp.u32 %0, 1, 0, p;\n}"
+                 : "=r"(done)
+                 : "r"(bar_addr(b)), "r"(parity)
+                 : "memory");
+  } while (!done);
+}
+
+// KC columns a group, BW4 = ceil(bw / 4) (1 .. 8) known to the compiler, so
+// a step's loads of T all start before its sums; a producer lane's copies
+// are the same every step, so their offsets are computed once.
+template <int KC, int BW4>
+__global__ void __launch_bounds__(64) band_scan_warp_kernel(const float* __restrict__ A, const float* __restrict__ Z,
+                                                            float* __restrict__ Y, int S, int C, int bw, int m,
+                                                            int roff, int reverse, int vec, int D) {
+  const int lane = threadIdx.x % 32, c0 = blockIdx.x * KC, ldt = scan_ldt(bw);
+  const size_t slot = scan_slot_floats<KC>(bw);
+  unsigned long long* full = reinterpret_cast<unsigned long long*>(smem + D * slot);
+  unsigned long long* empty = full + D;
+  if (threadIdx.x == 0)
+    for (int d = 0; d < D; ++d) {
+      bar_init(full + d, 32);  // every producer lane's copies
+      bar_init(empty + d, 1);  // the solver warp, once it has read the slot
+    }
+  __syncthreads();
+  if (threadIdx.x >= 32) {  // the producer warp
+    constexpr int kChunks = (4 * BW4 * BW4 + 31) / 32;  // 16-byte pieces of T's tail a lane copies, at most
+    constexpr int kZ = (4 * BW4 * KC + 31) / 32;        // values of Z a lane copies, at most
+    int tsrc[kChunks], tdst[kChunks], zsrc[kZ], zbytes[kZ];
+#pragma unroll
+    for (int j = 0; j < kChunks; ++j) {
+      const int per = bw / 4, ch = lane + 32 * j;
+      tsrc[j] = vec && ch < bw * per ? 4 * ch : -1;
+      tdst[j] = per ? ch / per * ldt + 4 * (ch % per) : 0;
+    }
+#pragma unroll
+    for (int j = 0; j < kZ; ++j) {
+      const int e = lane + 32 * j, c = c0 + e % KC;
+      zsrc[j] = e < bw * KC ? e / KC * m + (c < m ? c : 0) : -1;
+      zbytes[j] = c < m ? 4 : 0;
+    }
+    // step q's rows of T and Z, stepping a block of C rows a step
+    const long long tstep = reverse ? -(long long)C * bw : (long long)C * bw;
+    const long long zstep = reverse ? -(long long)C * m : (long long)C * m;
+    const float* t = A + ((size_t)(reverse ? S - 1 : 0) * C + roff) * bw;
+    const float* z = Z + ((size_t)(reverse ? S - 1 : 0) * C + roff) * m;
+    for (int q = 0, d = 0, phase = 1; q < S; ++q, t += tstep, z += zstep) {
+      if (q >= D) bar_wait(empty + d, phase);  // the solver is done with step q - D
+      float* dt = smem + (size_t)d * slot;
+      if (q && vec) {
+#pragma unroll
+        for (int j = 0; j < kChunks; ++j)
+          if (tsrc[j] >= 0) cp_async16(dt + tdst[j], t + tsrc[j]);
+      } else if (q) {
+        for (int e = lane; e < bw * bw; e += 32) cp_async4(dt + e / bw * ldt + e % bw, t + e);
+      }
+      float* dz = dt + (size_t)bw * ldt;
+#pragma unroll
+      for (int j = 0; j < kZ; ++j)
+        if (zsrc[j] >= 0) cp_async4(dz + lane + 32 * j, z + zsrc[j], zbytes[j]);
+      bar_arrive_copies(full + d);
+      if (++d == D) d = 0, phase ^= 1;
+    }
+    asm volatile("cp.async.wait_all;" ::: "memory");  // no copy outlives its warp
+    return;
+  }
+  float prev[KC];  // this lane's row of the previous state (0 past bw)
+#pragma unroll
+  for (int c = 0; c < KC; ++c) prev[c] = 0.f;
+  const long long ystep = reverse ? -(long long)bw * m : (long long)bw * m;
+  float* y = Y + ((size_t)(reverse ? S - 1 : 0) * bw + (lane < bw ? lane : 0)) * m + c0;
+  for (int q = 0, d = 0, phase = 0; q < S; ++q, y += ystep) {
+    bar_wait(full + d, phase);
+    const float* dt = smem + (size_t)d * slot;
+    float v[KC];
+#pragma unroll
+    for (int c = 0; c < KC; ++c) v[c] = lane < bw ? dt[(size_t)bw * ldt + lane * KC + c] : 0.f;
+    if (q) {
+      const float* tr = dt + (lane < bw ? lane : 0) * ldt;
+#pragma unroll
+      for (int k4 = 0; k4 < BW4; ++k4) {  // k ascending, as band_tail_scan_kernel sums
+        const int k = 4 * k4;
+        float4 t4 = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (k + 4 <= bw) {
+          t4 = *reinterpret_cast<const float4*>(tr + k);
+        } else {
+          t4.x = tr[k];
+          if (k + 1 < bw) t4.y = tr[k + 1];
+          if (k + 2 < bw) t4.z = tr[k + 2];
+        }
+#pragma unroll
+        for (int c = 0; c < KC; ++c) {
+          const float p0 = __shfl_sync(0xffffffffu, prev[c], k), p1 = __shfl_sync(0xffffffffu, prev[c], k + 1);
+          const float p2 = __shfl_sync(0xffffffffu, prev[c], k + 2), p3 = __shfl_sync(0xffffffffu, prev[c], k + 3);
+          v[c] -= t4.x * p0;
+          if (k + 1 < bw) v[c] -= t4.y * p1;
+          if (k + 2 < bw) v[c] -= t4.z * p2;
+          if (k + 3 < bw) v[c] -= t4.w * p3;
+        }
+      }
+    }
+    __syncwarp();  // every lane has read the slot
+    if (lane == 0) bar_arrive(empty + d);
+    if (++d == D) d = 0, phase ^= 1;
+    if (lane < bw)
+#pragma unroll
+      for (int c = 0; c < KC; ++c)
+        if (c0 + c < m) y[c] = v[c];
+#pragma unroll
+    for (int c = 0; c < KC; ++c) prev[c] = v[c];
+  }
+}
+
+// The ring's depth: up to kScanMaxStages slots, no more than the steps.
+template <int KC>
+int scan_stages(int bw, int S) {
+  const int per = (int)(scan_slot_floats<KC>(bw) * sizeof(float) + 2 * sizeof(unsigned long long));
+  const int D = S < kScanMaxStages ? S : kScanMaxStages, cap = kSmemBytes / per;
+  return D < cap ? D : cap;
+}
+
+template <int KC, int BW4>
+cudaError_t launch_scan_warp_bw(const float* A, const float* Z, float* Y, int S, int C, int bw, int m, int roff,
+                                int reverse, cudaStream_t stream) {
+  const int D = scan_stages<KC>(bw, S);
+  const size_t bytes = D * (scan_slot_floats<KC>(bw) * sizeof(float) + 2 * sizeof(unsigned long long));
+  auto kernel = band_scan_warp_kernel<KC, BW4>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err) return err;
+  const int vec = bw % 4 == 0 && reinterpret_cast<size_t>(A) % 16 == 0;
+  kernel<<<(m + KC - 1) / KC, 64, bytes, stream>>>(A, Z, Y, S, C, bw, m, roff, reverse, vec, D);
+  return cudaGetLastError();
+}
+
+template <int KC>
+cudaError_t launch_scan_warp(const float* A, const float* Z, float* Y, int S, int C, int bw, int m, int roff,
+                             int reverse, cudaStream_t stream) {
+  switch ((bw + 3) / 4) {
+    case 1: return launch_scan_warp_bw<KC, 1>(A, Z, Y, S, C, bw, m, roff, reverse, stream);
+    case 2: return launch_scan_warp_bw<KC, 2>(A, Z, Y, S, C, bw, m, roff, reverse, stream);
+    case 3: return launch_scan_warp_bw<KC, 3>(A, Z, Y, S, C, bw, m, roff, reverse, stream);
+    case 4: return launch_scan_warp_bw<KC, 4>(A, Z, Y, S, C, bw, m, roff, reverse, stream);
+    case 5: return launch_scan_warp_bw<KC, 5>(A, Z, Y, S, C, bw, m, roff, reverse, stream);
+    case 6: return launch_scan_warp_bw<KC, 6>(A, Z, Y, S, C, bw, m, roff, reverse, stream);
+    case 7: return launch_scan_warp_bw<KC, 7>(A, Z, Y, S, C, bw, m, roff, reverse, stream);
+    default: return launch_scan_warp_bw<KC, 8>(A, Z, Y, S, C, bw, m, roff, reverse, stream);
+  }
+}
+
+// One sweep's tail recurrence: the warp kernel up to bw = 32, else, or
+// where `block`, band_tail_scan_kernel.
+cudaError_t launch_scan(const float* A, const float* Z, float* Y, int S, int C, int bw, int m, int roff, int reverse,
+                        bool block, cudaStream_t stream) {
+  if (bw <= 32 && !block) {  // a column a block while the blocks number at most kScanGroups
+    if (m <= kScanGroups) return launch_scan_warp<1>(A, Z, Y, S, C, bw, m, roff, reverse, stream);
+    if (m <= 2 * kScanGroups) return launch_scan_warp<2>(A, Z, Y, S, C, bw, m, roff, reverse, stream);
+    if (m <= 4 * kScanGroups) return launch_scan_warp<4>(A, Z, Y, S, C, bw, m, roff, reverse, stream);
+    return launch_scan_warp<8>(A, Z, Y, S, C, bw, m, roff, reverse, stream);
+  }
+  const size_t bytes = 2 * (size_t)bw * kTile * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(band_tail_scan_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err) return err;
+  const int vec = bw % 4 == 0 && reinterpret_cast<size_t>(A) % 16 == 0;
+  band_tail_scan_kernel<<<(m + kTile - 1) / kTile, 256, bytes, stream>>>(A, Z, Y, S, C, bw, m, roff, reverse, vec);
+  return cudaGetLastError();
 }
 
 // Block of the factor walks: x over the bw columns of the bw x bw block (at
@@ -1200,14 +1514,17 @@ extern "C" int ebv_band_lu_steps(void* band_ptr, int n, int bw, int path, int C,
 // shared memory no block holds, or a grid of more than 2^31 - 1 blocks,
 // returns cudaErrorInvalidValue; the stack must start on a 16-byte boundary.
 extern "C" int ebv_band_solve(const void* lu, const void* b, void* x, int batch, int n, int bw, int m,
-                              int path, int warps, int cols, int stages, int* plan, void* stream_ptr,
-                              int* launches) {
+                              int path, int warps, int cols, int stages, int strip, int* plan,
+                              void* stream_ptr, int* launches) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   *launches = 0;
   for (int i = 0; i < 5; ++i) plan[i] = 0;
+  cudaError_t err;
   if (path == 0) {
     plan[2] = cols;
-    return band_solve_launch(lu, b, x, batch, n, bw, m, cols, stream, launches);
+    if ((err = static_cast<cudaError_t>(band_solve_launch(lu, b, x, batch, n, bw, m, cols, stream, launches))))
+      return err;
+    return nonfinite::launch_solve_fill(static_cast<float*>(x), batch, n, m, strip, stream, launches);
   }
   const SolveLayout l = solve_layout(bw, cols, warps, stages);
   plan[0] = 1;
@@ -1222,7 +1539,6 @@ extern "C" int ebv_band_solve(const void* lu, const void* b, void* x, int batch,
   if ((long long)batch * tiles > INT_MAX) return cudaErrorInvalidValue;
   auto kernel = stages == 2 ? band_solve_staged_kernel<2>
               : stages == 3 ? band_solve_staged_kernel<3> : band_solve_staged_kernel<4>;
-  cudaError_t err;
   if ((err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, l.bytes)))
     return err;
   kernel<<<batch * tiles, 32 * warps, l.bytes, stream>>>(
@@ -1230,16 +1546,21 @@ extern "C" int ebv_band_solve(const void* lu, const void* b, void* x, int batch,
       cols, l.S, l.stage, l.cap, tiles, batch);
   if ((err = cudaGetLastError())) return err;
   ++*launches;
-  return 0;
+  // the NaN the plain version's masked strips of `strip` rows spread
+  // (nonfinite.cuh), one more launch
+  return nonfinite::launch_solve_fill(static_cast<float*>(x), batch, n, m, strip, stream, launches);
 }
 
 // out (S, C, m) = the inverted-diagonal band solve of xb (S, C, m) from
 // linv/uinv (S, C, C) and tlo/tup (S, C, bw).  z and y are (S, C, m) and
-// t (S, bw, m) scratch the caller allocates.
+// t (S, bw, m) scratch the caller allocates.  path 0: band_gemv_kernel for
+// m <= 4 and the warp scan up to bw = 32; path 1 (the tests' reference):
+// the products on band_gemm_kernel's tiles at any m and the recurrences on
+// band_tail_scan_kernel at any bw; the same values either way.
 extern "C" int ebv_band_solve_inverted(const void* linv, const void* uinv, const void* tlo,
                                        const void* tup, const void* xb, void* out, void* z,
                                        void* y, void* t, int S, int C, int bw, int m,
-                                       void* stream_ptr, int* launches) {
+                                       int path, void* stream_ptr, int* launches) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   *launches = 0;
   const float* Li = static_cast<const float*>(linv);
@@ -1250,43 +1571,30 @@ extern "C" int ebv_band_solve_inverted(const void* linv, const void* uinv, const
   float* Y = static_cast<float*>(y);
   float* T = static_cast<float*>(t);
   float* O = static_cast<float*>(out);
-  // (column tile, row tile, s) on the grid's x axis, at most 2^31 - 1 blocks
-  const long long tiles = (long long)((m + kTile - 1) / kTile) * ((C + kTile - 1) / kTile) * S;
-  if (tiles > INT_MAX) return cudaErrorInvalidValue;
-  const int grid_c = (int)tiles;
-  const int scan_blocks = (m + kTile - 1) / kTile;
-  const size_t scan_bytes = 2 * (size_t)bw * kTile * sizeof(float);
+  // each product's grid on one axis, at most 2^31 - 1 blocks (launch_product)
   cudaError_t err;
-#define EBV_LAUNCHED()                        \
-  if ((err = cudaGetLastError())) return err; \
-  ++*launches
+  if (path < 0 || path > 1) return cudaErrorInvalidValue;
+  const bool tiles = path == 1;
   if (S == 1) {  // one block: no coupling
-    band_gemm_kernel<<<grid_c, 256, 0, stream>>>(Li, static_cast<const float*>(xb), nullptr, Z,
-                                                 S, C, C, m, 0);
-    EBV_LAUNCHED();
-    band_gemm_kernel<<<grid_c, 256, 0, stream>>>(Ui, Z, nullptr, O, S, C, C, m, 0);
-    EBV_LAUNCHED();
+    if ((err = launch_product(Li, static_cast<const float*>(xb), nullptr, Z, S, C, C, m, 0, tiles, stream))) return err;
+    ++*launches;
+    if ((err = launch_product(Ui, Z, nullptr, O, S, C, C, m, 0, tiles, stream))) return err;
+    ++*launches;
     return 0;
   }
-  if ((err = cudaFuncSetAttribute(band_tail_scan_kernel,
-                                  cudaFuncAttributeMaxDynamicSharedMemorySize, (int)scan_bytes)))
-    return err;
   // forward: z = linv @ xb; tails; y = z - tlo @ ytail[i-1]
-  band_gemm_kernel<<<grid_c, 256, 0, stream>>>(Li, static_cast<const float*>(xb), nullptr, Z, S,
-                                               C, C, m, 0);
-  EBV_LAUNCHED();
-  band_tail_scan_kernel<<<scan_blocks, 256, scan_bytes, stream>>>(Tl, Z, T, S, C, bw, m, C - bw,
-                                                                   0);
-  EBV_LAUNCHED();
-  band_gemm_kernel<<<grid_c, 256, 0, stream>>>(Tl, T, Z, Y, S, C, bw, m, -1);
-  EBV_LAUNCHED();
+  if ((err = launch_product(Li, static_cast<const float*>(xb), nullptr, Z, S, C, C, m, 0, tiles, stream))) return err;
+  ++*launches;
+  if ((err = launch_scan(Tl, Z, T, S, C, bw, m, C - bw, 0, tiles, stream))) return err;
+  ++*launches;
+  if ((err = launch_product(Tl, T, Z, Y, S, C, bw, m, -1, tiles, stream))) return err;
+  ++*launches;
   // backward: w = uinv @ y (into z); heads; x = w - tup @ xhead[i+1]
-  band_gemm_kernel<<<grid_c, 256, 0, stream>>>(Ui, Y, nullptr, Z, S, C, C, m, 0);
-  EBV_LAUNCHED();
-  band_tail_scan_kernel<<<scan_blocks, 256, scan_bytes, stream>>>(Tu, Z, T, S, C, bw, m, 0, 1);
-  EBV_LAUNCHED();
-  band_gemm_kernel<<<grid_c, 256, 0, stream>>>(Tu, T, Z, O, S, C, bw, m, 1);
-  EBV_LAUNCHED();
-#undef EBV_LAUNCHED
+  if ((err = launch_product(Ui, Y, nullptr, Z, S, C, C, m, 0, tiles, stream))) return err;
+  ++*launches;
+  if ((err = launch_scan(Tu, Z, T, S, C, bw, m, 0, 1, tiles, stream))) return err;
+  ++*launches;
+  if ((err = launch_product(Tu, T, Z, O, S, C, bw, m, 1, tiles, stream))) return err;
+  ++*launches;
   return 0;
 }

@@ -80,6 +80,7 @@
 #include "async_copy.cuh"
 #include "cluster.cuh"
 #include "ebv_walk.cuh"
+#include "nonfinite.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -461,9 +462,12 @@ batched_solve_wide_kernel(const float* __restrict__ lu, const float* __restrict_
     if (!more) break;
     cur = nxt;
   }
+  // a column whose row 0 is not finite comes out NaN throughout, as the plain
+  // version's masked sweeps make it (nonfinite.cuh: its non-finite rows are
+  // a prefix, and the strip is the whole column)
   for (int idx = threadIdx.x; idx < n * W; idx += blockDim.x) {
     const int i = idx / W, c = idx % W;
-    if (c < w) x[(size_t)i * m + c0 + c] = ys[i * S::LDY + c];
+    if (c < w) x[(size_t)i * m + c0 + c] = isfinite(ys[c]) ? ys[i * S::LDY + c] : nonfinite::qnan();
   }
 }
 
@@ -646,10 +650,14 @@ batched_solve_cluster_kernel(const float* __restrict__ lu, const float* __restri
     }
     __syncthreads();  // the own rows' values, for the next link's triangle
   }
+  // the last link's values are strip 0's, row 0 first: a column whose row 0
+  // is not finite comes out NaN throughout, as the plain version's masked
+  // sweeps make it (nonfinite.cuh)
+  const float* first = recv + ((2 * S - 1) % 3) * span;
   for (int idx = tid; idx < nslots * span; idx += nt) {
     const int slot = idx / span, r = idx % span / mt, c = idx % mt;
     const int s = sp.strip(rank, slot), i = s * kStrip + r;
-    if (s >= 0 && i < n && c < w) x[(size_t)i * m + c0 + c] = own[idx];
+    if (s >= 0 && i < n && c < w) x[(size_t)i * m + c0 + c] = isfinite(first[c]) ? own[idx] : nonfinite::qnan();
   }
 }
 
@@ -746,7 +754,9 @@ extern "C" int ebv_batched_lu(void* a_ptr, int batch, int n, int* plan, void* st
   }
   if (err) return err;
   ++*launches;
-  return 0;
+  // the NaN the plain version's masked steps spread (nonfinite.cuh), one
+  // more launch (n >= 3): it returns at once on a finite factor
+  return nonfinite::launch_lu_spread(a, batch, n, stream, launches);
 }
 
 // room[0..3]: how many clusters of 2, 4, 8 and 16 CTAs of the factor's

@@ -16,7 +16,8 @@
 // That is 4S-4 launches for S = ceil(n / W) >= 2 steps (one for S = 1): the
 // first diagonal tile, then per step but the last the panels, the next
 // block row and column, the next diagonal tile and the rest (none after the
-// last panels, where nothing is left).  The last step's tile may be
+// last panels, where nothing is left), and for n >= 2 one launch of the
+// non-finite pass (nonfinite.cuh).  The last step's tile may be
 // narrower than W; the kernels mask it, so the matrix is never padded (the
 // reference's identity tail is inert, and rows and columns past n simply do
 // not exist here).  Every launch after the first is a programmatic
@@ -86,6 +87,7 @@
 #include <type_traits>
 
 #include "async_copy.cuh"
+#include "nonfinite.cuh"
 #include "pdl.cuh"
 #include "sgemm.cuh"
 
@@ -273,6 +275,9 @@ __global__ void __launch_bounds__(kPanelWarps * 32) panel_kernel(float* a, int n
   for_each_slot([&](auto slot) {  // position k = 32*kb + kl: slot kb of lane kl
     constexpr int kb = decltype(slot)::value;
     const int kend = min(32, w - 1 - 32 * kb);
+    float v0[kGroup];  // the slot before its steps, for the second solve below
+#pragma unroll
+    for (int r = 0; r < kGroup; ++r) v0[r] = v[r][kb];
 #pragma unroll 4
     for (int kl = 0; kl < kend; ++kl) {
       const int k = 32 * kb + kl;
@@ -285,6 +290,27 @@ __global__ void __launch_bounds__(kPanelWarps * 32) panel_kernel(float* a, int n
         const float tc = tk[32 * c];
 #pragma unroll
         for (int r = 0; r < kGroup; ++r) v[r][c] = fmaf(-x[r], tc, v[r][c]);
+      }
+    }
+    // T's zeros at the positions at and before k turn a non-finite solved x
+    // into NaN there: a pattern of this kernel's tiles, not of the plain
+    // version's strips (csrc/nonfinite.cuh replays those).  Where the slot
+    // holds a non-finite value, solve it again on the positions past k only,
+    // as the diagonal tile's rows: the same operations there, so the same
+    // values, and the solved positions as they were solved.
+    bool bad = false;
+#pragma unroll
+    for (int r = 0; r < kGroup; ++r) bad |= !isfinite(v[r][kb]);
+    if (__any_sync(0xffffffffu, bad)) {
+#pragma unroll
+      for (int r = 0; r < kGroup; ++r) v[r][kb] = v0[r];
+      for (int kl = 0; kl < kend; ++kl) {
+        const float tc = T[(32 * kb + kl) * kTld + 32 * kb + lane];
+#pragma unroll
+        for (int r = 0; r < kGroup; ++r) {
+          const float x = __shfl_sync(0xffffffffu, v[r][kb], kl);
+          if (lane > kl) v[r][kb] = fmaf(-x, tc, v[r][kb]);
+        }
       }
     }
   });
@@ -350,11 +376,15 @@ extern "C" const char* ebv_error_string(int code) {
 // columns (1 <= W <= 128; a multiple of 4 when n > W, since the update
 // copies its operands from the scratch in 16-byte pieces at the step's
 // offsets): 4S-4 launches on `stream` for S = ceil(n / W) >= 2 (one for
-// S = 1), counted in *launches.  `scratch` holds 2 * W * ldt + W floats (ldt
-// a multiple of 4, at least n - W + 128; unused when n <= W): the panels'
-// copies and the diagonal tile's reciprocal pivots.  Returns the first
-// launch error, or 0.
-extern "C" int ebv_lu_fused(void* a_ptr, int n, int W, void* scratch, int ldt, void* stream_ptr, int* launches) {
+// S = 1), then for n >= 2 the non-finite pass, counted in *launches.
+// `scratch` holds 2 * W * ldt + W floats (ldt a multiple of 4, at least
+// n - W + 128; unused when n <= W): the panels' copies and the diagonal
+// tile's reciprocal pivots.  pB, pC2: the plain
+// version's block and strip (core/blocked.py), whose masked strips the pass
+// after the steps follows on a non-finite factor (nonfinite.cuh).  Returns
+// the first launch error, or 0.
+extern "C" int ebv_lu_fused(void* a_ptr, int n, int W, void* scratch, int ldt, int pB, int pC2, void* stream_ptr,
+                            int* launches) {
   *launches = 0;
   if (n < 1 || W < 1 || W > kTileMax) return cudaErrorInvalidValue;
   if (n > W && (W % 4 || ldt % 4 || ldt < n - W + kTileMax)) return cudaErrorInvalidValue;
@@ -398,5 +428,5 @@ extern "C" int ebv_lu_fused(void* a_ptr, int n, int W, void* scratch, int ldt, v
       ++*launches;
     }
   }
-  return 0;
+  return nonfinite::launch_lu_replay(a, n, pB, pC2, stream, launches);
 }

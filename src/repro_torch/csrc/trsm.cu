@@ -94,6 +94,7 @@
 
 #include "async_copy.cuh"
 #include "handoff.cuh"
+#include "nonfinite.cuh"
 #include "pdl.cuh"
 
 namespace {
@@ -476,15 +477,16 @@ enum Head { kNoHead, kLowerHead, kUpperHead };
 struct Step {
   const float* a;     // row 0, column 0 of the product's left operand
   int lda;            // its row stride
-  int rows, chunk;    // rows of the product; rows per block (blockIdx.x)
+  int rows, chunk;    // rows of the product; rows per block
   int depth;          // columns of `a`, rows of xk
   const float* xk;    // the (depth, m) right operand, row stride m
   const float* diag;  // the diagonal tile a head solves against, row stride lda
   float* solved;      // where a head launch writes the solved xk (row stride m)
   const float* src;   // the rows updated (row stride m), or null
   float* dst;
-  int m, tile;        // RHS width; RHS columns per block (blockIdx.y)
+  int m, tile;        // RHS width; RHS columns per block
   int vec;            // rows of `a` and `diag` start 16-byte aligned and depth % 4 == 0
+  int chunks;         // row chunks: block b takes chunk b % chunks of column tile b / chunks
 };
 
 // dst[r * ld + k] = a[r][k] for r < R, k < kc, copied asynchronously.
@@ -687,9 +689,11 @@ __global__ void __launch_bounds__(kThreads) step_kernel(Step s) {
   float* As = smem;                            // (kRows, kLd) slice of the left operand
   const Operand<BN, kP> xs{As + kRows * kLd};  // (kP, BN) right operand
   float* ring = xs.p + xs.kFloats;             // a head's two (kP, kRingLd) strip buffers
-  const int c0 = blockIdx.y * s.tile;
+  // (row chunk, column tile) folded into blockIdx.x, chunks fastest: any RHS width
+  const int chunk = blockIdx.x % s.chunks;
+  const int c0 = blockIdx.x / s.chunks * s.tile;
   const int w = min(s.tile, s.m - c0);
-  const int r0 = blockIdx.x * s.chunk;
+  const int r0 = chunk * s.chunk;
   const int R = max(0, min(s.chunk, s.rows - r0));
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int tx = threadIdx.x % T::kTx, ty = threadIdx.x / T::kTx;
@@ -725,17 +729,17 @@ __global__ void __launch_bounds__(kThreads) step_kernel(Step s) {
         for (int i = 0; i < kI; ++i)
 #pragma unroll
           for (int j = 0; j < kJ; ++j)
-            if (ty + kTy * i < R && 4 * tx + j < w) old[i][j] = __ldcg(row0 + (ty + kTy * i) * s.m + 4 * tx + j);
+            if (ty + kTy * i < R && 4 * tx + j < w) old[i][j] = __ldcg(row0 + (size_t)(ty + kTy * i) * s.m + 4 * tx + j);
       } else if (warp + 8 * (lane / kJ) < R && lane % kJ < w) {
-        old[0][0] = __ldcg(row0 + (warp + 8 * (lane / kJ)) * s.m + lane % kJ);
+        old[0][0] = __ldcg(row0 + (size_t)(warp + 8 * (lane / kJ)) * s.m + lane % kJ);
       }
     }
     if constexpr (kSolve) {
       solve_head<kHead, BN>(xs, ring, s.diag, s.lda, kc, w, s.vec);
-      // the solved block out, rows blockIdx.x, blockIdx.x + gridDim.x, ...
-      const int mine = blockIdx.x < kc ? (kc - blockIdx.x + gridDim.x - 1) / gridDim.x : 0;
+      // the solved block out, rows chunk, chunk + chunks, ...
+      const int mine = chunk < kc ? (kc - chunk + s.chunks - 1) / s.chunks : 0;
       for (int idx = threadIdx.x; idx < mine * w; idx += kThreads) {
-        const int i = blockIdx.x + (idx / w) * gridDim.x, c = idx % w;
+        const int i = chunk + (idx / w) * s.chunks, c = idx % w;
         s.solved[(size_t)i * s.m + c0 + c] = xs(i, c);
       }
     }
@@ -781,7 +785,7 @@ __global__ void __launch_bounds__(kThreads) step_kernel(Step s) {
 #pragma unroll
       for (int j = 0; j < kJ; ++j)
         if (ty + kTy * i < R && 4 * tx + j < w)
-          out0[(ty + kTy * i) * s.m + 4 * tx + j] = update ? old[i][j] - acc[i][j] : acc[i][j];
+          out0[(size_t)(ty + kTy * i) * s.m + 4 * tx + j] = update ? old[i][j] - acc[i][j] : acc[i][j];
   } else {
     // reduce-scatter over the warp: after the stage of offset o a lane keeps
     // the half of its partial sums whose index has o's bit equal to its own,
@@ -798,7 +802,7 @@ __global__ void __launch_bounds__(kThreads) step_kernel(Step s) {
     fold(v4, v2, lane);
     fold(v2, v1, lane);
     const int i = lane / kJ, j = lane % kJ;
-    if (warp + 8 * i < R && j < w) out0[(warp + 8 * i) * s.m + j] = update ? old[0][0] - v1[0] : v1[0];
+    if (warp + 8 * i < R && j < w) out0[(size_t)(warp + 8 * i) * s.m + j] = update ? old[0][0] - v1[0] : v1[0];
   }
 }
 
@@ -827,7 +831,13 @@ cudaError_t allow_kernels_smem() {
   return allow_smem(solve_vmem_kernel, kSmemBytes);
 }
 
-// Launches the steps of one solve on `stream`, counting them in *launches.
+// What ebv_solve_tiled / ebv_solve_inverted return where a step would need
+// more than 2^31 - 1 blocks (kernels/_build.py:GRID_PAST_AXIS), before any
+// launch.
+constexpr int kGridPastAxis = 100000;
+
+// Launches the steps of one solve on `stream`, counting them in *launches
+// and keeping the largest grid in `widest`; where `dry`, launches nothing.
 // Every launch after the first is a programmatic dependent launch: it may
 // start while the step before it runs (see allow_next_step).  The first
 // waits for whatever ran before it in full, since that may have written the
@@ -836,16 +846,23 @@ struct Sweep {
   cudaStream_t stream;
   int* launches;
   int m, tile, tiles, sms;
+  bool dry;
+  long long widest;
 
   // One launch of s over equal row chunks: about one block per SM over the
-  // column tiles, each chunk of rmin..kRows rows.
+  // column tiles, each chunk of rmin..kRows rows; (chunk, tile) folded into
+  // one grid axis.
   template <int kHead>
-  cudaError_t run(Step s, int rmin) {
+  int run(Step s, int rmin) {
     const int per_tile = (sms + tiles - 1) / tiles;
     int chunk = (s.rows + per_tile - 1) / per_tile;
     chunk = min(kRows, max(rmin, chunk));
     const int blocks = s.rows > 0 ? (s.rows + chunk - 1) / chunk : 1;
+    const long long grid = (long long)blocks * tiles;
+    if (grid > widest) widest = grid;
+    if (dry) return widest > 0x7fffffffLL ? kGridPastAxis : 0;
     s.chunk = s.rows > 0 ? (s.rows + blocks - 1) / blocks : 1;
+    s.chunks = blocks;
     s.m = m;
     s.tile = tile;
     s.vec = aligned(s.a) && aligned(s.diag) && s.lda % 4 == 0 && s.depth % 4 == 0;
@@ -853,8 +870,8 @@ struct Sweep {
     const size_t smem = step_smem(bn, kHead != kNoHead);
     const bool chained = *launches > 0;
     cudaError_t err = bn == kNarrow
-        ? launch_step(step_kernel<kNarrow, kHead>, dim3(blocks, tiles), dim3(kThreads), smem, stream, chained, s)
-        : launch_step(step_kernel<kWide, kHead>, dim3(blocks, tiles), dim3(kThreads), smem, stream, chained, s);
+        ? launch_step(step_kernel<kNarrow, kHead>, dim3(blocks * tiles), dim3(kThreads), smem, stream, chained, s)
+        : launch_step(step_kernel<kWide, kHead>, dim3(blocks * tiles), dim3(kThreads), smem, stream, chained, s);
     if (!err) ++*launches;
     return err;
   }
@@ -908,51 +925,67 @@ extern "C" int ebv_solve_vmem(const void* lu, const void* b, void* x, void* cell
                                          bytes, static_cast<cudaStream_t>(stream))))
     return err;
   *launched = 1;
-  return cudaGetLastError();
+  if ((err = cudaGetLastError())) return err;
+  // the NaN the plain version's masked axpys spread: one recurrence over n
+  // (nonfinite.cuh), one more launch
+  return nonfinite::launch_solve_fill(static_cast<float*>(x), 1, n, m, n, static_cast<cudaStream_t>(stream),
+                                      launched);
 }
 
 // Same solve with (B, B) LU tiles, B <= 128, S = ceil(n / B): one launch per
 // diagonal step, 2S in all, counted in *launches.  RHS columns go in tiles
-// of `tile` (<= 64); y is an (n, m) scratch buffer.
+// of `tile` (<= 64); y is an (n, m) scratch buffer.  *grid: the most blocks
+// a step takes; past 2^31 - 1 nothing is launched (kGridPastAxis).
 extern "C" int ebv_solve_tiled(const void* lu_ptr, const void* b_ptr, void* x_ptr, void* y_ptr, int n,
-                               int m, int B, int tile, void* stream, int* launches) {
+                               int m, int B, int tile, void* stream, int* launches, long long* grid) {
   *launches = 0;
+  *grid = 0;
   if (B < 1 || B > kHeadDepth || tile < 1 || tile > kWide) return cudaErrorInvalidValue;
   if (n < 1 || m < 1) return 0;
   const float* lu = static_cast<const float*>(lu_ptr);
   const float* b = static_cast<const float*>(b_ptr);
   float* x = static_cast<float*>(x_ptr);
   float* y = static_cast<float*>(y_ptr);
-  Sweep sw{static_cast<cudaStream_t>(stream), launches, m, tile, (m + tile - 1) / tile, 0};
-  cudaError_t err = device_sms<allow_kernels_smem>(&sw.sms);
+  Sweep sw{static_cast<cudaStream_t>(stream), launches, m, tile, (m + tile - 1) / tile, 0, true, 0};
+  int err = device_sms<allow_kernels_smem>(&sw.sms);
   if (err) return err;
   const int S = (n + B - 1) / B;
-  for (int k = 0; k < S; ++k) {  // L y = b: block k solved into y, rows below retired in x
-    const size_t kb = (size_t)k * B;
-    const int kw = min(B, n - (int)kb), r0 = (int)kb + kw;
-    const float* cur = k ? x : b;
-    Step s{lu + (size_t)r0 * n + kb, n, n - r0, 0, kw, cur + kb * m, lu + kb * n + kb, y + kb * m,
-           cur + (size_t)r0 * m, x + (size_t)r0 * m};
-    if ((err = sw.run<kLowerHead>(s, kRows / 2))) return err;
+  // every step's grid first, then the launches; a step takes chunks of 8
+  // rows at least, so where tiles * ceil(n / 8) fits one axis, none can pass
+  sw.dry = (long long)sw.tiles * ((n + 7) / 8) > 0x7fffffffLL;
+  for (int pass = sw.dry ? 0 : 1; pass < 2; ++pass, sw.dry = false) {
+    for (int k = 0; k < S; ++k) {  // L y = b: block k solved into y, rows below retired in x
+      const size_t kb = (size_t)k * B;
+      const int kw = min(B, n - (int)kb), r0 = (int)kb + kw;
+      const float* cur = k ? x : b;
+      Step s{lu + (size_t)r0 * n + kb, n, n - r0, 0, kw, cur + kb * m, lu + kb * n + kb, y + kb * m,
+             cur + (size_t)r0 * m, x + (size_t)r0 * m};
+      if ((err = sw.run<kLowerHead>(s, kRows / 2))) break;
+    }
+    for (int k = S - 1; k >= 0 && !err; --k) {  // U x = y: block k solved into x, rows above retired in y
+      const size_t kb = (size_t)k * B;
+      const int kw = min(B, n - (int)kb);
+      Step s{lu + kb, n, (int)kb, 0, kw, y + kb * m, lu + kb * n + kb, x + kb * m, y, y};
+      err = sw.run<kUpperHead>(s, kRows / 2);
+    }
+    *grid = sw.widest;
+    if (err) return err;
   }
-  for (int k = S - 1; k >= 0; --k) {  // U x = y: block k solved into x, rows above retired in y
-    const size_t kb = (size_t)k * B;
-    const int kw = min(B, n - (int)kb);
-    Step s{lu + kb, n, (int)kb, 0, kw, y + kb * m, lu + kb * n + kb, x + kb * m, y, y};
-    if ((err = sw.run<kUpperHead>(s, kRows / 2))) return err;
-  }
-  return 0;
+  // the NaN the plain version's masked B-row tiles spread (nonfinite.cuh),
+  // one more launch
+  return nonfinite::launch_solve_fill(x, 1, n, m, B, sw.stream, launches);
 }
 
 // Same solve from the (S', B, B) inverses (S' >= ceil(n / B)) of the
 // identity-padded LU's diagonal blocks: per step one launch for the inverse
 // product and one for the retirement, 4S-2 in all (S = ceil(n / B)), counted
 // in *launches.  Only the inverses' leading (kw, kw) corner is read: past n
-// they are the identity acting on zero rows.
+// they are the identity acting on zero rows.  *grid as ebv_solve_tiled's.
 extern "C" int ebv_solve_inverted(const void* lu_ptr, const void* linv_ptr, const void* uinv_ptr,
                                   const void* b_ptr, void* x_ptr, void* y_ptr, int n, int m, int B,
-                                  int tile, void* stream, int* launches) {
+                                  int tile, void* stream, int* launches, long long* grid) {
   *launches = 0;
+  *grid = 0;
   if (B < 1 || tile < 1 || tile > kWide) return cudaErrorInvalidValue;
   if (n < 1 || m < 1) return 0;
   const float* lu = static_cast<const float*>(lu_ptr);
@@ -961,31 +994,34 @@ extern "C" int ebv_solve_inverted(const void* lu_ptr, const void* linv_ptr, cons
   const float* b = static_cast<const float*>(b_ptr);
   float* x = static_cast<float*>(x_ptr);
   float* y = static_cast<float*>(y_ptr);
-  Sweep sw{static_cast<cudaStream_t>(stream), launches, m, tile, (m + tile - 1) / tile, 0};
-  cudaError_t err = device_sms<allow_kernels_smem>(&sw.sms);
+  Sweep sw{static_cast<cudaStream_t>(stream), launches, m, tile, (m + tile - 1) / tile, 0, true, 0};
+  int err = device_sms<allow_kernels_smem>(&sw.sms);
   if (err) return err;
   const int S = (n + B - 1) / B;
   const size_t bb = (size_t)B * B;
   const int rmin = tile > kNarrow ? 16 : 8;
-  for (int k = 0; k < S; ++k) {  // y_k = linv[k] cur_k; x[below] = cur[below] - L y_k
-    const size_t kb = (size_t)k * B;
-    const int kw = min(B, n - (int)kb), r0 = (int)kb + kw;
-    const float* cur = k ? x : b;
-    Step inv{linv + k * bb, B, kw, 0, kw, cur + kb * m, nullptr, nullptr, nullptr, y + kb * m};
-    if ((err = sw.run<kNoHead>(inv, rmin))) return err;
-    if (r0 == n) break;
-    Step ret{lu + (size_t)r0 * n + kb, n, n - r0, 0, kw, y + kb * m, nullptr, nullptr,
-             cur + (size_t)r0 * m, x + (size_t)r0 * m};
-    if ((err = sw.run<kNoHead>(ret, rmin))) return err;
-  }
-  for (int k = S - 1; k >= 0; --k) {  // x_k = uinv[k] y_k; y[above] -= U x_k
-    const size_t kb = (size_t)k * B;
-    const int kw = min(B, n - (int)kb);
-    Step inv{uinv + k * bb, B, kw, 0, kw, y + kb * m, nullptr, nullptr, nullptr, x + kb * m};
-    if ((err = sw.run<kNoHead>(inv, rmin))) return err;
-    if (!kb) break;
-    Step ret{lu + kb, n, (int)kb, 0, kw, x + kb * m, nullptr, nullptr, y, y};
-    if ((err = sw.run<kNoHead>(ret, rmin))) return err;
+  sw.dry = (long long)sw.tiles * ((n + 7) / 8) > 0x7fffffffLL;  // as ebv_solve_tiled's
+  for (int pass = sw.dry ? 0 : 1; pass < 2; ++pass, sw.dry = false) {
+    for (int k = 0; k < S; ++k) {  // y_k = linv[k] cur_k; x[below] = cur[below] - L y_k
+      const size_t kb = (size_t)k * B;
+      const int kw = min(B, n - (int)kb), r0 = (int)kb + kw;
+      const float* cur = k ? x : b;
+      Step inv{linv + k * bb, B, kw, 0, kw, cur + kb * m, nullptr, nullptr, nullptr, y + kb * m};
+      if ((err = sw.run<kNoHead>(inv, rmin)) || r0 == n) break;
+      Step ret{lu + (size_t)r0 * n + kb, n, n - r0, 0, kw, y + kb * m, nullptr, nullptr,
+               cur + (size_t)r0 * m, x + (size_t)r0 * m};
+      if ((err = sw.run<kNoHead>(ret, rmin))) break;
+    }
+    for (int k = S - 1; k >= 0 && !err; --k) {  // x_k = uinv[k] y_k; y[above] -= U x_k
+      const size_t kb = (size_t)k * B;
+      const int kw = min(B, n - (int)kb);
+      Step inv{uinv + k * bb, B, kw, 0, kw, y + kb * m, nullptr, nullptr, nullptr, x + kb * m};
+      if ((err = sw.run<kNoHead>(inv, rmin)) || !kb) break;
+      Step ret{lu + kb, n, (int)kb, 0, kw, x + kb * m, nullptr, nullptr, y, y};
+      err = sw.run<kNoHead>(ret, rmin);
+    }
+    *grid = sw.widest;
+    if (err) return err;
   }
   return 0;
 }

@@ -36,21 +36,24 @@ _lib: ctypes.CDLL | None = None
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _N = ctypes.POINTER(_I)
+_NL = ctypes.POINTER(ctypes.c_longlong)
 # C entry points: name -> argument types.  Every entry returns the
 # cudaError_t of its launches as an int (0 = success); ebv_lu_fused,
 # ebv_solve_vmem, ebv_solve_tiled, ebv_solve_inverted, the ebv_band_* and
 # ebv_batched_* entries, ebv_legacy_walk and ebv_legacy_fused_step also
-# report through their last argument how many kernels they launched.
+# report how many kernels they launched, through their last argument or,
+# for ebv_solve_tiled and ebv_solve_inverted, the one before it (the last
+# reports the most blocks a step's grid takes).
 _SIGNATURES = {
-    "ebv_lu_fused": [_P, _I, _I, _P, _I, _P, _N],
+    "ebv_lu_fused": [_P, _I, _I, _P, _I, _I, _I, _P, _N],
     "ebv_solve_vmem": [_P] * 4 + [_I] * 6 + [_P, _N, _N],
-    "ebv_solve_tiled": [_P] * 4 + [_I] * 4 + [_P, _N],
-    "ebv_solve_inverted": [_P] * 6 + [_I] * 4 + [_P, _N],
+    "ebv_solve_tiled": [_P] * 4 + [_I] * 4 + [_P, _N, _NL],
+    "ebv_solve_inverted": [_P] * 6 + [_I] * 4 + [_P, _N, _NL],
     "ebv_band_lu_resident": [_P, _I, _I, _N, _P, _N],
     "ebv_band_lu_steps": [_P, _I, _I, _I, _I, _I, _I, _N, _P, _N],
     "ebv_band_lu_scalar": [_P, _I, _I, _N, _P, _N],
-    "ebv_band_solve": [_P, _P, _P] + [_I] * 8 + [_N, _P, _N],
-    "ebv_band_solve_inverted": [_P] * 9 + [_I] * 4 + [_P, _N],
+    "ebv_band_solve": [_P, _P, _P] + [_I] * 9 + [_N, _P, _N],
+    "ebv_band_solve_inverted": [_P] * 9 + [_I] * 5 + [_P, _N],
     "ebv_batched_lu": [_P, _I, _I, _N, _P, _N],
     "ebv_batched_cluster_room": [_N],
     "ebv_batched_solve_cluster_room": [_N],
@@ -139,8 +142,15 @@ def library() -> ctypes.CDLL:
         return _lib
 
 
+GRID_PAST_AXIS = 100_000  # a step of the dense solves past one grid axis (csrc/trsm.cu:kGridPastAxis)
+
+
 def check(code: int, what: str) -> None:
-    """Raise if a C entry point reported a CUDA error."""
+    """Raise if a C entry point reported a CUDA error: ``ValueError`` where a
+    launch would need more blocks than one grid axis holds (nothing was
+    launched), else ``RuntimeError``."""
+    if code == GRID_PAST_AXIS:
+        raise ValueError(f"{what}: a step needs more than 2^31 - 1 blocks, past one grid axis")
     if code:
         msg = library().ebv_error_string(code).decode()
         raise RuntimeError(f"{what}: CUDA error {code} ({msg})")

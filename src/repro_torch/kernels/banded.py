@@ -30,7 +30,8 @@ bw = 31) and their plain PyTorch versions.
 * :func:`banded_solve_kernelized` — forward and backward band substitution
                                     in strips of 32 rows, staged ahead of a
                                     solver warp a RHS column and helper
-                                    warps (:func:`band_solve_plan`).
+                                    warps (:func:`band_solve_plan`), then a
+                                    launch of the non-finite pass.
 * :func:`banded_solve_inverted`   — the substitution from an enriched
                                     ``Factorization``'s inverses and transfer
                                     blocks: batched products and a tail
@@ -42,7 +43,7 @@ bw = 31) and their plain PyTorch versions.
 * :func:`batched_banded_solve_vmem` — the staged solve of
                                     :func:`banded_solve_kernelized` over a
                                     stack in one launch, one block per
-                                    (system, RHS tile).
+                                    (system, RHS tile), and the pass.
 
 The factors compute the plain version's packed band factor
 (:func:`repro_torch.core.banded.banded_lu_blocked`, over the stack for the
@@ -63,6 +64,7 @@ from typing import NamedTuple
 import torch
 
 from ..core.banded import band_block_size
+from ..core.blocked import sub_block_width
 from ..core.banded import banded_lu_blocked as _banded_lu_plain
 from ..core.banded import banded_solve_blocked
 from ..core.factorization import banded_inverted_solve, packed_of
@@ -401,7 +403,8 @@ def banded_solve_kernelized(lu_band, b: torch.Tensor, *, bw: int, block: int | N
                             rhs_tile: int = 256) -> torch.Tensor:
     """Solve ``(LU) x = b`` on packed band factors ``(n, 2bw+1)``, ``b``
     ``(n,)`` or ``(n, m)``, in the RHS dtype.  On the card one launch of
-    :func:`band_solve_plan`'s kernel: a block per tile of at most
+    :func:`band_solve_plan`'s kernel and one of the non-finite pass (two
+    launches in all): a block per tile of at most
     ``min(rhs_tile, 8)`` columns, strips of 32 rows staged ahead of a solver
     warp a column and helper warps.  ``block`` sets the plain version's
     blocking.  The C entry's report (path 1 staged / 0 warp, warps, columns
@@ -412,10 +415,10 @@ def banded_solve_kernelized(lu_band, b: torch.Tensor, *, bw: int, block: int | N
     _check_cuda("banded_solve_kernelized", lu_band, b)
     bm, _ = _as_matrix(b)
     n, m = bm.shape
-    return _solve(lu_band, b, bw=bw, plan=band_solve_plan(n, bw, m, rhs_tile=rhs_tile))
+    return _solve(lu_band, b, bw=bw, plan=band_solve_plan(n, bw, m, rhs_tile=rhs_tile), block=block)
 
 
-def _solve(lu_band, b: torch.Tensor, *, bw: int, plan: BandSolvePlan) -> torch.Tensor:
+def _solve(lu_band, b: torch.Tensor, *, bw: int, plan: BandSolvePlan, block: int | None = None) -> torch.Tensor:
     """:func:`banded_solve_kernelized` on the card by ``plan``, so that the
     tests and the sweeps can launch any path, warps a block and stages."""
     name = "banded_solve_kernelized"
@@ -425,15 +428,19 @@ def _solve(lu_band, b: torch.Tensor, *, bw: int, plan: BandSolvePlan) -> torch.T
         raise ValueError(f"{name}: factors {tuple(lu_band.shape)} do not match n={n}, bw={bw}")
     if m == 0:  # no column to solve: nothing to launch
         return torch.empty_like(b)
-    x = _solve_stack(banded_solve_kernelized, lu_band, bm[None], bw=bw, plan=plan)[0]
+    x = _solve_stack(banded_solve_kernelized, lu_band, bm[None], bw=bw, plan=plan, block=block)[0]
     return x[:, 0] if squeeze else x
 
 
-def _solve_stack(wrapper, lu_band, bm: torch.Tensor, *, bw: int, plan: BandSolvePlan) -> torch.Tensor:
+def _solve_stack(wrapper, lu_band, bm: torch.Tensor, *, bw: int, plan: BandSolvePlan,
+                 block: int | None = None) -> torch.Tensor:
     """One launch of ``plan`` over the factors ``(B, n, 2bw+1)`` (or, for
     one system, ``(n, 2bw+1)``) and the RHS ``(B, n, m)`` on the card, the
     same plan for every system; ``x`` in the RHS dtype and the C entry's
-    report in ``wrapper.last_plan``."""
+    report in ``wrapper.last_plan``.  The C entry then spreads NaN as the
+    plain version's masked strips of ``sub_block_width(band_block_size(n,
+    bw, block))`` rows do, in one more launch, which ``wrapper.launches``
+    counts (it leaves a finite result as it is)."""
     bsz, n, m = bm.shape
     name = wrapper.__name__
     lu32, b32 = _f32(lu_band, name), _f32(bm, name)
@@ -443,7 +450,8 @@ def _solve_stack(wrapper, lu_band, bm: torch.Tensor, *, bw: int, plan: BandSolve
     got = (ctypes.c_int * 5)()
     try:
         _launch(wrapper, "ebv_band_solve", lu_band.device, lu32.data_ptr(), b32.data_ptr(), x.data_ptr(),
-                bsz, n, bw, m, int(plan.path == "staged"), plan.warps, plan.cols, plan.stages, got)
+                bsz, n, bw, m, int(plan.path == "staged"), plan.warps, plan.cols, plan.stages,
+                sub_block_width(band_block_size(n, bw, block)), got)
     finally:
         wrapper.last_plan = tuple(got)
     return x.to(bm.dtype)
@@ -458,9 +466,20 @@ def banded_solve_inverted(linv: torch.Tensor, uinv: torch.Tensor, tlo: torch.Ten
     """Solve ``(LU) x = b`` from an enriched banded ``Factorization``: the
     ``(S, C, C)`` inverses ``linv``/``uinv`` and ``(S, C, bw)`` transfer
     blocks ``tlo``/``tup``.  Each sweep is a batched product over all ``S``
-    blocks, the ``(bw, m)`` tail recurrence and a second batched product."""
+    blocks, the ``(bw, m)`` tail recurrence and a second batched product.
+    On the card the products are a thread per row for up to 4 RHS columns
+    and 32 x 32 tiles past that; the recurrence up to bw = 32 is a solver
+    warp per group of up to 8 RHS columns, its loads staged ahead of it by a
+    producer warp, and one block per 32 columns past that."""
     if linv.device.type == "cpu":
         return banded_inverted_solve(linv, uinv, tlo, tup, b, n=n, bw=bw)
+    return _solve_inverted(linv, uinv, tlo, tup, b, n=n, bw=bw, tiles=False)
+
+
+def _solve_inverted(linv, uinv, tlo, tup, b, *, n: int, bw: int, tiles: bool) -> torch.Tensor:
+    """:func:`banded_solve_inverted` on the card; ``tiles`` runs the products
+    on 32 x 32 tiles and the block recurrence at every shape, which give the
+    same values: the tests and the sweeps hold the other paths to it."""
     _check_cuda("banded_solve_inverted", linv, uinv, tlo, tup, b)
     bm, squeeze = _as_matrix(b)
     m = bm.shape[1]
@@ -479,7 +498,7 @@ def banded_solve_inverted(linv: torch.Tensor, uinv: torch.Tensor, tlo: torch.Ten
     t = torch.empty((S * bw, m), dtype=torch.float32, device=bm.device)
     _launch(banded_solve_inverted, "ebv_band_solve_inverted", bm.device, li.data_ptr(),
             ui.data_ptr(), lo.data_ptr(), up.data_ptr(), xb.data_ptr(), out.data_ptr(),
-            z.data_ptr(), y.data_ptr(), t.data_ptr(), S, C, bw, m)
+            z.data_ptr(), y.data_ptr(), t.data_ptr(), S, C, bw, m, int(tiles))
     x = out[:n].to(bm.dtype)
     return x[:, 0] if squeeze else x
 
@@ -523,7 +542,8 @@ def batched_banded_solve_vmem(lu_band, b: torch.Tensor, *, bw: int, block: int |
     has its shape and dtype.  On the card one launch of
     :func:`banded_solve_kernelized`'s kernel and plan for one system
     (:func:`band_solve_plan`, or ``plan`` where given, so that the tests
-    and the sweeps can force one): a block per (system, RHS tile), any
+    and the sweeps can force one), and one of the non-finite pass: a block
+    per (system, RHS tile), any
     number of systems, each system's ``x`` bitwise
     :func:`banded_solve_kernelized`'s on that system alone.  ``block``
     sets the plain version's blocking.  The C entry's report (as
@@ -543,7 +563,7 @@ def batched_banded_solve_vmem(lu_band, b: torch.Tensor, *, bw: int, block: int |
     if bsz == 0 or n == 0 or m == 0:  # nothing to launch
         return torch.empty_like(b)
     plan = plan or band_solve_plan(n, bw, m, rhs_tile=rhs_tile)
-    x = _solve_stack(batched_banded_solve_vmem, lu_band, bm, bw=bw, plan=plan)
+    x = _solve_stack(batched_banded_solve_vmem, lu_band, bm, bw=bw, plan=plan, block=block)
     return x[..., 0] if squeeze else x
 
 

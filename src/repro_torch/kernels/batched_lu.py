@@ -28,7 +28,12 @@ caller's tensor is never written.
 
 Each wrapper runs its plain version for tensors on the CPU and, for tensors
 on the card, launches its kernel and adds to ``wrapper.launches`` the count
-its C driver reports.
+its C entry reports.  Both follow their plain versions on a non-finite
+value: the factor's C entry makes one more launch (n ≥ 3), which its count
+includes, of the pass that spreads NaN as the masked steps do
+(``csrc/nonfinite.cuh``; it returns at once on a finite factor), and the
+solve's kernels write a column whose
+first row is not finite as NaN throughout, as the masked sweeps make it.
 """
 from __future__ import annotations
 
@@ -213,7 +218,8 @@ def _solve_room(index: int) -> dict:
 
 def batched_lu_vmem(a: torch.Tensor) -> torch.Tensor:
     """Packed no-pivot LU of every system of a ``(B, n, n)`` fp32 stack in
-    one launch of the kernel :func:`batched_lu_plan` names; the C entry's
+    one launch of the kernel :func:`batched_lu_plan` names, then for n ≥ 3
+    one of the non-finite pass (two launches in all); the C entry's
     plan (kind 0 staged / 1 global / 2 cluster, CTAs per system, and for a
     cluster theta, shared-memory bytes and clusters the card holds at once)
     in ``batched_lu_vmem.last_plan``."""

@@ -35,7 +35,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..core.blocked import fused_blocked_lu
+from ..core.blocked import fused_block_size, fused_blocked_lu, sub_block_width
 from . import _build
 
 __all__ = ["lu_fused", "lu_fused_plain", "fused_launches", "fused_step_width", "lu_vmem", "lu_vmem_plain",
@@ -68,9 +68,10 @@ def fused_launches(n: int, block: int = 256) -> int:
     (the count it adds to ``lu_fused.launches`` is the one the C driver
     reports): per step but the last the panels, the next step's block row
     and column, the next diagonal tile and the rest of the trailing update
-    (none after the last panels), plus the first diagonal tile."""
+    (none after the last panels), plus the first diagonal tile, and for
+    n ≥ 2 the pass that spreads NaN as the plain version does."""
     steps = -(-n // fused_step_width(n, block))
-    return 4 * steps - 4 if steps > 1 else 1
+    return (4 * steps - 4 if steps > 1 else 1) + (n >= 2)
 
 
 def lu_fused(a: torch.Tensor, *, block: int = 256) -> torch.Tensor:
@@ -78,7 +79,11 @@ def lu_fused(a: torch.Tensor, *, block: int = 256) -> torch.Tensor:
     the diagonal, U on and above it.
 
     A tensor on the CPU runs the plain version; a CUDA tensor launches the
-    kernels (``lu_fused.launches`` adds the count the C driver reports)."""
+    kernels, then one launch of the pass that spreads NaN as the plain
+    version's masked strips do where the factor holds a non-finite value
+    (``csrc/nonfinite.cuh``; it returns at once on a finite factor), and
+    ``lu_fused.launches`` adds the count the C entry reports
+    (:func:`fused_launches`)."""
     if a.ndim != 2 or a.shape[0] != a.shape[1]:
         raise ValueError(f"lu_fused expects a square matrix, got shape {tuple(a.shape)}")
     if a.dtype != torch.float32:
@@ -95,10 +100,13 @@ def lu_fused(a: torch.Tensor, *, block: int = 256) -> torch.Tensor:
     # pivots of the diagonal tile
     ldt = 4 * -(-(n - width + FUSED_TILE_MAX) // 4)
     scratch = torch.empty(2 * width * ldt + width if n > width else 0, dtype=a.dtype, device=a.device)
+    # the plain version's blocking, whose masked strips the C entry's pass
+    # after the steps follows where the factor holds a non-finite value
+    pb = fused_block_size(n, block)
     lib = _build.library()
     launched = ctypes.c_int(0)
     with torch.cuda.device(a.device):
-        code = lib.ebv_lu_fused(work.data_ptr(), n, width, scratch.data_ptr(), ldt,
+        code = lib.ebv_lu_fused(work.data_ptr(), n, width, scratch.data_ptr(), ldt, pb, sub_block_width(pb),
                                 torch.cuda.current_stream().cuda_stream, ctypes.byref(launched))
     lu_fused.launches += launched.value
     _build.check(code, "lu_fused")

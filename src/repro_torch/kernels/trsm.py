@@ -10,7 +10,8 @@
                            (:func:`solve_vmem_plan`, and the source's note).
 * :func:`solve_tiled`    — x in device memory, (B, B) LU tiles with
                            B ≤ 128; one launch per diagonal step (2S in
-                           all), each spread over every SM: its blocks solve
+                           all, 2S + 1 with the pass below), each spread
+                           over every SM: its blocks solve
                            the diagonal tile and retire equal chunks of the
                            trailing rows.
 * :func:`solve_inverted` — the same sweep with every diagonal step one
@@ -20,6 +21,11 @@
 
 Each wrapper runs its plain version for tensors on the CPU and launches its
 kernel for tensors on the card, counting the launches the C entry reports.
+:func:`solve_vmem` and :func:`solve_tiled` then make one more launch, which
+the count includes, of the pass that spreads NaN from a non-finite value as
+their plain versions' masked sweeps do (``csrc/nonfinite.cuh``: it reads x
+and leaves a finite one as it is); :func:`solve_inverted`'s products need
+none.
 An (n, 0) right-hand side returns an (n, 0) result and launches nothing.
 """
 from __future__ import annotations
@@ -79,6 +85,19 @@ def _launch_counted(wrapper, fn_name: str, *args, extra: tuple = ()) -> None:
     code = getattr(lib, fn_name)(*args, torch.cuda.current_stream().cuda_stream, *extra,
                                  ctypes.byref(launched))
     wrapper.launches += launched.value
+    _build.check(code, fn_name)
+
+
+def _launch_steps(wrapper, fn_name: str, *args) -> None:
+    """Call the C entry of a step solve: it computes every step's grid
+    before it launches anything, leaves the largest in
+    ``wrapper.last_grid`` and refuses one past a grid axis (``ValueError``);
+    its launches are added to ``wrapper.launches``."""
+    launched, grid = ctypes.c_int(0), ctypes.c_longlong(0)
+    code = getattr(_build.library(), fn_name)(*args, torch.cuda.current_stream().cuda_stream,
+                                              ctypes.byref(launched), ctypes.byref(grid))
+    wrapper.launches += launched.value
+    wrapper.last_grid = grid.value
     _build.check(code, fn_name)
 
 
@@ -168,7 +187,8 @@ def solve_vmem_plan(n: int, m: int, sms: int = H100_SMS, smem_bytes: int = SMEM_
 def solve_vmem(lu, b: torch.Tensor, *, rhs_tile: int = 256) -> torch.Tensor:
     """Solve ``(LU) x = b`` for packed ``lu`` (n, n) and ``b`` (n,) or
     (n, m), in the RHS dtype: one cooperative launch (:func:`solve_vmem_plan`;
-    the plan the C entry launched is left in ``solve_vmem.last_plan``).
+    the plan the C entry launched is left in ``solve_vmem.last_plan``) and
+    the non-finite pass, two launches in all.
     ``rhs_tile`` is the reference's argument, which the registry passes; it
     steers nothing here: the plan groups the RHS columns."""
     lu = packed_of(lu)
@@ -208,8 +228,9 @@ def tiled_block(n: int, block: int) -> int:
 
 def tiled_launches(n: int, block: int = 256) -> int:
     """Kernel launches :func:`solve_tiled` makes for an (n, n) factor and a
-    non-empty RHS: one per diagonal step of each sweep."""
-    return 2 * (-(-n // tiled_block(n, block)))
+    non-empty RHS: one per diagonal step of each sweep, then the non-finite
+    pass."""
+    return 2 * (-(-n // tiled_block(n, block))) + 1
 
 
 def inverted_launches(n: int, block: int) -> int:
@@ -268,17 +289,18 @@ def solve_tiled(lu, b: torch.Tensor, *, block: int = 256) -> torch.Tensor:
     n, m = bm.shape
     if m == 0:
         return torch.empty_like(bm)  # an (n, 0) RHS: nothing to launch
+    B, tile = tiled_block(n, block), _rhs_tile(m, RHS_COLS)
     lu32, b32 = _f32(lu, "solve_tiled"), _f32(bm, "solve_tiled")
     x, y = torch.empty_like(b32), torch.empty_like(b32)
     with torch.cuda.device(lu.device):
-        _launch_counted(solve_tiled, "ebv_solve_tiled", lu32.data_ptr(), b32.data_ptr(),
-                        x.data_ptr(), y.data_ptr(), n, m, tiled_block(n, block),
-                        _rhs_tile(m, RHS_COLS))
+        _launch_steps(solve_tiled, "ebv_solve_tiled", lu32.data_ptr(), b32.data_ptr(),
+                      x.data_ptr(), y.data_ptr(), n, m, B, tile)
     x = x.to(bm.dtype)
     return x[:, 0] if squeeze else x
 
 
 solve_tiled.launches = 0
+solve_tiled.last_grid = None
 
 
 # ---------------------------------------------------------------------------
@@ -303,15 +325,16 @@ def solve_inverted(lu, linv: torch.Tensor, uinv: torch.Tensor, b: torch.Tensor, 
         raise ValueError(f"solve_inverted: inverses {tuple(linv.shape)} do not cover n={n}")
     if m == 0:
         return torch.empty_like(bm)  # an (n, 0) RHS: nothing to launch
+    tile = _rhs_tile(m, rhs_tile)
     lu32, b32 = _f32(lu, "solve_inverted"), _f32(bm, "solve_inverted")
     li32, ui32 = _f32(linv, "solve_inverted"), _f32(uinv, "solve_inverted")
     x, y = torch.empty_like(b32), torch.empty_like(b32)
     with torch.cuda.device(lu.device):
-        _launch_counted(solve_inverted, "ebv_solve_inverted", lu32.data_ptr(), li32.data_ptr(),
-                        ui32.data_ptr(), b32.data_ptr(), x.data_ptr(), y.data_ptr(), n, m, B,
-                        _rhs_tile(m, rhs_tile))
+        _launch_steps(solve_inverted, "ebv_solve_inverted", lu32.data_ptr(), li32.data_ptr(),
+                      ui32.data_ptr(), b32.data_ptr(), x.data_ptr(), y.data_ptr(), n, m, B, tile)
     x = x.to(bm.dtype)
     return x[:, 0] if squeeze else x
 
 
 solve_inverted.launches = 0
+solve_inverted.last_grid = None

@@ -29,7 +29,11 @@ beside the per-warp kernel it ran before and over its warps a block
 
 Sections (all by default): factor (B1), update (B14), batched (B10), band
 (B6), solve (B7), paged (B13), vmem (B2), blocked (B15), narrow (B5, B11, B18),
-batched_band_solve (B12), grid (B10 and B8 at ``chip_smoke.py``'s shapes).
+batched_band_solve (B12), grid (B10 and B8 at ``chip_smoke.py``'s shapes, B3
+and B4 at n = 2000 / 8000 and past a grid axis of column tiles), inverted
+(B8's launches at the shootout and the Poisson band), finite (the kernels the
+non-finite passes follow, at their table shapes), poisoned (B1 on matrices
+whose factor is not finite), scan (B8's tail scan a step, over bw).
 
 It runs as a file and imports ``repro_torch`` absolutely, so it times the
 package that ``PYTHONPATH`` names: with another checkout's ``src`` there it
@@ -40,6 +44,7 @@ back between two events (the device's time without the host's before each
 launch).  The first line is the card's name and power limit.
 """
 import hashlib
+import inspect
 import statistics
 import subprocess
 import sys
@@ -74,6 +79,14 @@ NARROW_SYSTEMS = (1, 16, 132, 528, 1056)
 BAND_STACK_WARPS = (1, 2, 4)
 # B10 at chip_smoke.py's stacks (B, n, RHS widths): the batched dense path's and the optimizer's
 GRID_STACKS = ((8, 128, (1, 128)), (32, 256, (1, 256)), (8, 1024, (1, 1024)), (2, 384, (51968,)))
+# B8: the shootout band with 1 and 64 RHS columns, the Poisson band of a 256 x 256 grid
+INVERTED_SHAPES = ((16384, 16, 1), (16384, 16, 64), (65536, 256, 1))
+POISONED_SIZES = (1024, 2000, 8000)
+# B8's scan at S = 128 over the band (and RHS) width
+SCAN_BANDS = ((4096, 1, 1), (4096, 4, 1), (8192, 8, 1), (16384, 16, 1), (32768, 32, 1), (16384, 16, 64),
+              (16384, 16, 512))  # B1 on a NaN entry and on a zero first pivot
+# B3 and B4 past a grid axis of column tiles (fault C12)
+WIDE_RHS = (64, 4_194_305)
 # B10: (B, n, m) on either side of the plan's split between its two paths
 SOLVE_SPLIT = ((8, 1024, 1), (8, 1024, 16), (8, 1024, 64), (8, 1024, 1024), (32, 256, 1), (32, 256, 16),
                (32, 256, 256), (8, 128, 1), (8, 128, 128), (2, 384, 51968))
@@ -560,6 +573,30 @@ def grid_folds(dev) -> dict:
             t = out[f"batched_lu_solve_vmem B={bsz} n={n} m={m}"] = timed(lambda: batched_lu.batched_lu_solve_vmem(lu, b))
             print(f"batched_lu_solve_vmem B={bsz} n={n} m={m}, one call / back to back: {t[0]:.4f} / {t[1]:.4f} ms; "
                   f"output sha256 {digest(got)}", flush=True)
+    from repro_torch.core.factorization import dense_block_inverses
+    from repro_torch.kernels import ebv_lu, trsm
+
+    # past a grid axis only where the tree folds the column tiles (C12): a
+    # refused launch would leave its error for the next one to report
+    wide = (WIDE_RHS,) if hasattr(trsm.solve_tiled, "last_grid") or hasattr(trsm, "largest_step_grid") else ()
+    for n, m in ((2000, 1), (2000, 64), (8000, 1), (8000, 64), *wide):
+        g = torch.Generator(device=dev).manual_seed(n + m)
+        a = torch.rand((n, n), generator=g, device=dev) * 2 - 1
+        a.diagonal().copy_(a.abs().sum(dim=1) + 1)
+        lu = ebv_lu.lu_fused(a)
+        linv, uinv = dense_block_inverses(lu, block=min(n, 256))
+        b = torch.randn((n, m), generator=g, device=dev)
+        for name, fn in (("solve_tiled", lambda: trsm.solve_tiled(lu, b)),
+                         ("solve_inverted", lambda: trsm.solve_inverted(lu, linv, uinv, b))):
+            try:
+                got = fn()
+            except RuntimeError as err:  # a tree whose grid stops at 65,535 column tiles
+                print(f"{name} n={n} m={m}: {str(err).splitlines()[0]}", flush=True)
+                continue
+            t = out[f"{name} n={n} m={m}"] = timed(fn)
+            print(f"{name} n={n} m={m}, one call / back to back: {t[0]:.4f} / {t[1]:.4f} ms; "
+                  f"output sha256 {digest(got)}", flush=True)
+        del lu, linv, uinv, b
     n, bw = SOLVE_BANDS[1][:2]
     f = factorize_banded(banded.banded_lu_blocked(band_of(n, bw, dev), bw=bw), bw=bw)
     args = (f.linv, f.uinv, f.tlo, f.tup)
@@ -577,8 +614,182 @@ def grid_folds(dev) -> dict:
     return out
 
 
+def b8_inputs(n: int, bw: int, m: int, dev):
+    """The enriched factors and the RHS of B8 at ``(n, bw, m)``: the Poisson
+    band of a 256 x 256 grid where bw = 256, else :func:`band_of`."""
+    from repro_torch.core.factorization import factorize_banded
+    from repro_torch.kernels import banded
+
+    a = poisson_band(256, dev) if (n, bw) == (65536, 256) else band_of(n, bw, dev)
+    f = factorize_banded(banded.banded_lu_tiled(a, bw=bw) if bw > 32 else banded.banded_lu_blocked(a, bw=bw), bw=bw)
+    b = torch.randn((n, m), generator=torch.Generator(device=dev).manual_seed(n + m), device=dev)
+    return (f.linv, f.uinv, f.tlo, f.tup), b
+
+
+def launch_split(fn, names: tuple, calls: int = 10) -> list[tuple[str, float]]:
+    """The mean device time (us) of each launch of ``fn`` whose kernel name
+    holds one of ``names``, in launch order within a call, over ``calls``
+    calls traced by ``torch.profiler``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    kernels = sorted((e for e in prof.events() if str(e.device_type).endswith("CUDA")
+                      and any(k in e.name for k in names)), key=lambda e: e.time_range.start)
+    per = len(kernels) // calls if calls else 0
+    out = []
+    for j in range(per):
+        us = [kernels[c * per + j].time_range.elapsed_us() for c in range(calls)]
+        name = kernels[j].name.replace("(anonymous namespace)::", "").split("(")[0]
+        out.append((name.removeprefix("void "), statistics.mean(us)))
+    return out
+
+
+def inverted_split(dev) -> dict:
+    """B8 (``banded_solve_inverted``) at :data:`INVERTED_SHAPES`: one call and
+    back to back, and each of its launches' device time by ``torch.profiler``
+    (the two inverse products, the two tail scans, the two coupling
+    products); checked within 1e-4 normwise of its plain version.
+    On a tree that has them, the products on tiles and the block recurrence
+    at every shape (``banded._solve_inverted(..., tiles=True)``) are timed
+    beside it.
+    {(n, bw, m, label): (ms one call, ms back to back, [(kernel, us), ...])}."""
+    from repro_torch.core.factorization import banded_inverted_solve
+    from repro_torch.kernels import banded
+
+    out = {}
+    for n, bw, m in INVERTED_SHAPES:
+        args, b = b8_inputs(n, bw, m, dev)
+        want = banded_inverted_solve(*args, b, n=n, bw=bw)
+        got = banded.banded_solve_inverted(*args, b, n=n, bw=bw)
+        err = float((got - want).abs().max() / want.abs().max())
+        if not err <= 1e-4:
+            raise RuntimeError(f"banded_solve_inverted n={n} bw={bw} m={m}: normwise {err:.2e}")
+        kinds = {"": lambda: banded.banded_solve_inverted(*args, b, n=n, bw=bw)}
+        if hasattr(banded, "_solve_inverted"):
+            kinds[" (block kernels)"] = lambda: banded._solve_inverted(*args, b, n=n, bw=bw, tiles=True)
+        elif "block_kernels" in inspect.signature(banded.banded_solve_inverted).parameters:  # an older tree
+            kinds[" (block kernels)"] = lambda: banded.banded_solve_inverted(*args, b, n=n, bw=bw, block_kernels=True)
+        for label, fn in kinds.items():
+            k1, k20 = timed(fn)
+            split = launch_split(fn, ("band_gemm", "band_gemv", "band_tail", "band_scan"))
+            out[(n, bw, m, label)] = (k1, k20, split)
+            print(f"banded_solve_inverted{label} n={n} bw={bw} m={m}, one call / back to back: {k1:.4f} / "
+                  f"{k20:.4f} ms; normwise {err:.1e}; output sha256 {digest(fn())}; launches (us): "
+                  + ", ".join(f"{name} {us:.1f}" for name, us in split), flush=True)
+    return out
+
+
+def scan_split(dev) -> dict:
+    """B8's tail scan on its own, S = 128 diagonal blocks at every band of
+    :data:`SCAN_BANDS` (C = 8 bw clamped to [32, 256]), m = 1 and, at
+    bw = 16, m = 64 and 512: each scan launch's device time by
+    ``torch.profiler`` over S steps, so the time a step takes against the
+    terms its row sums (bw).  {(n, bw, m): us a step}."""
+    from repro_torch.kernels import banded
+
+    out = {}
+    for n, bw, m in SCAN_BANDS:
+        args, b = b8_inputs(n, bw, m, dev)
+        S = args[0].shape[0]
+        split = launch_split(lambda: banded.banded_solve_inverted(*args, b, n=n, bw=bw), ("band_scan", "band_tail"))
+        us = statistics.mean(t for _, t in split)
+        out[(n, bw, m)] = us / S
+        print(f"tail scan n={n} bw={bw} m={m} S={S}: {us:.1f} us a scan ({split[0][0]}), {1e3 * us / S:.0f} ns a step",
+              flush=True)
+    return out
+
+
+def finite_times(dev) -> dict:
+    """The kernels that the non-finite passes follow (csrc/nonfinite.cuh), on
+    finite inputs at ``PERF.md``'s table shapes: B1 at :data:`FACTOR_SIZES`,
+    B2 at (500, 2000) x (1, 64) columns, B3 and B4 at (2000, 8000) x (1,
+    64), B7 at :data:`SOLVE_BANDS`, B9 at :data:`GRID_STACKS`' stacks and
+    B12 at :data:`NARROW_STACKS`, each with its output's digest.  {label:
+    (ms one call, ms back to back)}."""
+    from repro_torch.core.factorization import dense_block_inverses
+    from repro_torch.kernels import banded, batched_lu, ebv_lu, trsm
+
+    out = {}
+
+    def row(label, fn):
+        got = fn()
+        t = out[label] = timed(fn)
+        print(f"{label}, one call / back to back: {t[0]:.4f} / {t[1]:.4f} ms; output sha256 {digest(got)}",
+              flush=True)
+
+    for n in FACTOR_SIZES:
+        g = torch.Generator(device=dev).manual_seed(n)
+        a = torch.rand((n, n), generator=g, device=dev) * 2 - 1
+        a.diagonal().copy_(a.abs().sum(dim=1) + 1)
+        row(f"lu_fused n={n}", lambda: ebv_lu.lu_fused(a))
+        lu = ebv_lu.lu_fused(a)
+        for m in (1, 64):
+            b = torch.randn((n, m), generator=g, device=dev)
+            if n <= 2000:
+                row(f"solve_vmem n={n} m={m}", lambda: trsm.solve_vmem(lu, b))
+            if n >= 2000:
+                linv, uinv = dense_block_inverses(lu, block=256)
+                row(f"solve_tiled n={n} m={m}", lambda: trsm.solve_tiled(lu, b))
+                row(f"solve_inverted n={n} m={m}", lambda: trsm.solve_inverted(lu, linv, uinv, b))
+    for n, bw, m in SOLVE_BANDS:
+        a = poisson_band(256, dev) if bw == 256 else band_of(n, bw, dev)
+        lu = banded.banded_lu_tiled(a, bw=bw) if bw > 32 else banded.banded_lu_blocked(a, bw=bw)
+        b = torch.randn((n, m), generator=torch.Generator(device=dev).manual_seed(n), device=dev)
+        row(f"banded_solve_kernelized n={n} bw={bw} m={m}", lambda: banded.banded_solve_kernelized(lu, b, bw=bw))
+    for bsz, n, _ in GRID_STACKS:
+        g = torch.Generator(device=dev).manual_seed(bsz + n)
+        a = torch.rand((bsz, n, n), generator=g, device=dev) * 2 - 1
+        a.diagonal(dim1=-2, dim2=-1).copy_(a.abs().sum(dim=-1) + 1)
+        row(f"batched_lu_vmem B={bsz} n={n}", lambda: batched_lu.batched_lu_vmem(a))
+    for bsz, n, bw in NARROW_STACKS:
+        a = torch.stack([band_of(n, bw, dev, s) for s in range(bsz)])
+        lu = banded.batched_banded_lu_vmem(a, bw=bw)
+        b = torch.randn((bsz, n, 1), generator=torch.Generator(device=dev).manual_seed(bsz), device=dev)
+        row(f"batched_banded_solve_vmem B={bsz} n={n} bw={bw}", lambda: banded.batched_banded_solve_vmem(lu, b, bw=bw))
+    return out
+
+
+def poisoned_times(dev) -> dict:
+    """B1 (``lu_fused``) on matrices whose factor is not finite, as a hostile
+    request to the solve service gives it: a NaN at (n/3, n/2), and a zero
+    first pivot, at :data:`POISONED_SIZES`: the median of 3 single calls
+    after one more, with the digest of the result's NaN mask (an older
+    tree's one-block pass takes seconds there).  {label: ms one call}."""
+    from repro_torch.kernels import ebv_lu
+
+    out = {}
+    for n in POISONED_SIZES:
+        g = torch.Generator(device=dev).manual_seed(n)
+        a = torch.rand((n, n), generator=g, device=dev) * 2 - 1
+        a.diagonal().copy_(a.abs().sum(dim=1) + 1)
+        for kind in ("nan", "zero pivot"):
+            p = a.clone()
+            if kind == "nan":
+                p[n // 3, n // 2] = float("nan")
+            else:
+                p[0, 0] = 0.0
+            got = ebv_lu.lu_fused(p)
+            times = []
+            for _ in range(3):
+                start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                start.record()
+                ebv_lu.lu_fused(p)
+                end.record()
+                end.synchronize()
+                times.append(start.elapsed_time(end))
+            t = out[f"lu_fused n={n} {kind}"] = statistics.median(times)
+            print(f"lu_fused n={n} {kind}, one call: {t:.4f} ms; {int(torch.isnan(got).sum())} NaN, "
+                  f"mask sha256 {digest(torch.isnan(got))}", flush=True)
+    return out
+
+
 SECTIONS = ("factor", "update", "batched", "band", "solve", "paged", "vmem", "blocked", "narrow",
-            "batched_band_solve", "grid")
+            "batched_band_solve", "grid", "inverted", "finite", "poisoned", "scan")
 
 
 def main(argv: list[str]) -> int:
@@ -635,6 +846,14 @@ def main(argv: list[str]) -> int:
         batched_band_solves(dev)
     if "grid" in wanted:
         grid_folds(dev)
+    if "inverted" in wanted:
+        inverted_split(dev)
+    if "finite" in wanted:
+        finite_times(dev)
+    if "poisoned" in wanted:
+        poisoned_times(dev)
+    if "scan" in wanted:
+        scan_split(dev)
     return 0
 
 

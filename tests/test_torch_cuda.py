@@ -150,9 +150,10 @@ def test_solve_kernels_match_plain(n, m, card):
     close(trsm.solve_tiled(lu, b), trsm.solve_tiled_plain(lu, b))
     close(trsm.solve_inverted(lu, linv, uinv, b), dense_inverted_solve(lu, linv, uinv, b))
     after = (trsm.solve_vmem.launches, trsm.solve_tiled.launches, trsm.solve_inverted.launches)
-    # as the C entries counted: one launch per step of solve_tiled, two of solve_inverted
+    # as the C entries counted: solve_vmem's and the non-finite pass, one launch
+    # per step of solve_tiled and the pass, two a step of solve_inverted
     assert [y - x for x, y in zip(counts, after)] == [
-        1, trsm.tiled_launches(n), trsm.inverted_launches(n, linv.shape[1])]
+        2, trsm.tiled_launches(n), trsm.inverted_launches(n, linv.shape[1])]
 
 
 @pytest.fixture(scope="module")
@@ -181,7 +182,7 @@ def test_solve_vmem_is_one_launch_of_its_plan(n, m, card, factors_on_card):
     b = torch.from_numpy(rhs(n, m, 3 * n + (m or 0))).to(card)
     before = trsm.solve_vmem.launches
     got = trsm.solve_vmem(lu, b)
-    assert trsm.solve_vmem.launches - before == 1  # one cooperative launch, as the C entry counted
+    assert trsm.solve_vmem.launches - before == 2  # one cooperative launch and the pass, as the C entry counted
     sms = torch.cuda.get_device_properties(card).multi_processor_count
     assert trsm.solve_vmem.last_plan == tuple(trsm.solve_vmem_plan(n, m or 1, sms))[:6]
     assert got.shape == b.shape
@@ -196,7 +197,7 @@ def test_solve_vmem_past_32_rows_a_block(m, card, factors_on_card):
     b = torch.from_numpy(rhs(8000, m, 11)).to(card)
     before = trsm.solve_vmem.launches
     got = trsm.solve_vmem(lu, b)
-    assert trsm.solve_vmem.launches - before == 1
+    assert trsm.solve_vmem.launches - before == 2
     sms = torch.cuda.get_device_properties(card).multi_processor_count
     assert trsm.solve_vmem.last_plan == tuple(trsm.solve_vmem_plan(8000, m or 1, sms))[:6]
     close(got, trsm.solve_vmem_plain(lu, b))
@@ -222,7 +223,7 @@ def test_solve_vmem_past_the_diagonal_tiles_room(n, m, card):
     assert plan.theta > 0 and plan.copy == (n == 30000 and m is None)
     before = trsm.solve_vmem.launches
     got = trsm.solve_vmem(lu, b)
-    assert trsm.solve_vmem.launches - before == 1
+    assert trsm.solve_vmem.launches - before == 2
     assert trsm.solve_vmem.last_plan == tuple(plan)[:6]
     bm = b if m else b[:, None]
     y = torch.linalg.solve_triangular(lu, bm, upper=False, unitriangular=True)
@@ -267,7 +268,7 @@ def test_main_path_dispatches_the_kernels(card):
     before = (ebv_lu.lu_fused.launches, trsm.solve_vmem.launches)
     x = ops.linear_solve(a, b)
     assert (ebv_lu.lu_fused.launches - before[0], trsm.solve_vmem.launches - before[1]) == (
-        ebv_lu.fused_launches(300), 1)
+        ebv_lu.fused_launches(300), 2)
     torch.cuda.synchronize()
     assert float(torch.linalg.norm(a @ x - b) / torch.linalg.norm(b)) < 1e-5
 
@@ -507,7 +508,7 @@ def test_band_solve_kernels_match_plain(n, bw, m, rhs_tile, card):
           banded_solve_blocked(lu, b, bw=bw))
     close(banded.banded_solve_inverted(f.linv, f.uinv, f.tlo, f.tup, b, n=n, bw=bw),
           banded_inverted_solve(f.linv, f.uinv, f.tlo, f.tup, b, n=n, bw=bw))
-    assert banded.banded_solve_kernelized.launches - counts[0] == 1
+    assert banded.banded_solve_kernelized.launches - counts[0] == 2  # the solve and the pass
     assert banded.banded_solve_inverted.launches - counts[1] == (2 if f.linv.shape[0] == 1 else 6)
 
 
@@ -535,7 +536,7 @@ def test_band_solve_kernel_on_the_wide_bands(n, bw, m, card):
     b = torch.from_numpy(rhs(n, m, 62)).to(card)
     before = banded.banded_solve_kernelized.launches
     got = banded.banded_solve_kernelized(lu, b, bw=bw)
-    assert banded.banded_solve_kernelized.launches - before == 1
+    assert banded.banded_solve_kernelized.launches - before == 2
     plan = banded.band_solve_plan(n, bw, m or 1)
     assert banded.banded_solve_kernelized.last_plan == (1, plan.warps, plan.cols, plan.stages, plan.bytes)
     close(got, banded_solve_blocked(lu, b, bw=bw))
@@ -591,7 +592,7 @@ def test_banded_main_path_dispatches_the_kernels(bw, factor, card):
     assert [name for _, name in log] == [factor, "cuda"]
     per_call = 1 if factor == "cuda_blocked" else banded.tiled_launches(2000, bw)
     assert (wrapper.launches - before[0],
-            banded.banded_solve_kernelized.launches - before[1]) == (per_call, 1)
+            banded.banded_solve_kernelized.launches - before[1]) == (per_call, 2)
     assert float(relative_residual(a, b, x, bw=bw)) < 1e-5
 
 
@@ -629,7 +630,7 @@ def test_batched_factor_kernel_is_bitwise_its_plain_version(bsz, n, card):
     a = torch.from_numpy(dd_stack(bsz, n, n)).to(card)
     before = batched_lu.batched_lu_vmem.launches
     got = batched_lu.batched_lu_vmem(a)
-    assert batched_lu.batched_lu_vmem.launches == before + 1
+    assert batched_lu.batched_lu_vmem.launches == before + 2  # the factor and the non-finite pass
     torch.cuda.synchronize()
     assert torch.equal(got, batched_lu.batched_lu_plain(a))
     close_lu(got[-1], torch.from_numpy(ref.lu_ref(dd(n, n + bsz - 1))))
@@ -847,7 +848,7 @@ def test_batched_band_solve_kernel_matches_plain(n, bw, m, bsz, card):
     lu0, b0 = lu.clone(), b.clone()
     before = banded.batched_banded_solve_vmem.launches
     got = banded.batched_banded_solve_vmem(lu, b, bw=bw)
-    assert banded.batched_banded_solve_vmem.launches == before + 1
+    assert banded.batched_banded_solve_vmem.launches == before + 2
     assert banded.batched_banded_solve_vmem.last_plan == band_solve_report(banded.band_solve_plan(n, bw, m or 1))
     close(got, banded_solve_blocked(lu, b, bw=bw), 1e-5)
     assert torch.equal(lu, lu0) and torch.equal(b, b0)
@@ -865,7 +866,7 @@ def test_batched_band_solve_on_wide_bands(bsz, n, bw, path, m, card):
     assert plan.path == path
     before = banded.batched_banded_solve_vmem.launches
     got = banded.batched_banded_solve_vmem(lu, b, bw=bw)
-    assert banded.batched_banded_solve_vmem.launches == before + 1
+    assert banded.batched_banded_solve_vmem.launches == before + 2
     assert banded.batched_banded_solve_vmem.last_plan == band_solve_report(plan)
     close(got, banded_solve_blocked(lu, b, bw=bw), 1e-5)
     assert_systems_are_b7(got, lu, b, bw)
@@ -921,7 +922,7 @@ def test_batched_solves_take_more_systems_than_a_grid_axis(card):
     bb = torch.from_numpy(rng.standard_normal((bsz, n)).astype(np.float32)).to(card)
     before = banded.batched_banded_solve_vmem.launches
     got = banded.batched_banded_solve_vmem(lub, bb, bw=bw)
-    assert banded.batched_banded_solve_vmem.launches == before + 1
+    assert banded.batched_banded_solve_vmem.launches == before + 2
     assert banded.batched_banded_solve_vmem.last_plan == band_solve_report(banded.band_solve_plan(n, bw, 1))
     close(got, banded_solve_blocked(lub, bb, bw=bw), 1e-5)
     assert_systems_are_b7(got, lub, bb, bw, (0, 1, 65_534, 65_535, 65_536, bsz - 1))
@@ -953,7 +954,8 @@ def test_batched_main_paths_dispatch_the_kernels(card):
         x = ops.linear_solve(a, b)
         xb = ops.banded_linear_solve(ab, bb, bw=5)
     assert [name for _, name in log] == ["cuda_vmem"] * 4
-    assert [w.launches - c for w, c in zip(wrappers, before)] == [1, 1, 1, 1]
+    # the dense factor and the band solve each with their non-finite pass
+    assert [w.launches - c for w, c in zip(wrappers, before)] == [2, 1, 1, 2]
     assert float(relative_residual(a, b, x)) < 1e-5
     assert float(relative_residual(ab, bb, xb, bw=5)) < 1e-5
 
@@ -978,7 +980,7 @@ def test_the_optimizer_step_runs_the_batched_kernels(card):
         assert [name for _, name in log] == ["cuda_vmem", "cuda_vmem"]
         if dev == card:
             assert (batched_lu.batched_lu_vmem.launches - before[0],
-                    batched_lu.batched_lu_solve_vmem.launches - before[1]) == (1, 1)
+                    batched_lu.batched_lu_solve_vmem.launches - before[1]) == (2, 1)
     for k in shapes:
         close(steps["cuda"][k], steps["cpu"][k])
 
@@ -1366,3 +1368,215 @@ def test_a_paged_serve_on_the_card_equals_the_dense_one(card):
         cfg.num_layers * paged.stats.decode_dispatches
     for a, b in zip(want, got):
         np.testing.assert_array_equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# faults C10-C12: the factors and solves on a non-finite value spread NaN as
+# their plain versions' masked steps do (csrc/nonfinite.cuh), and the dense
+# solves take any RHS width
+# ---------------------------------------------------------------------------
+def assert_same_positions(got, want, tol=TOL):
+    """NaN, inf and -inf where the plain version has them, the finite
+    entries within ``tol`` normwise (the kernels sum in other orders)."""
+    torch.cuda.synchronize()
+    got, want = got.double().cpu(), want.double().cpu()
+    for where in (torch.isnan, torch.isposinf, torch.isneginf):
+        assert torch.equal(where(got), where(want))
+    fin = torch.isfinite(want)
+    assert not bool(fin.all())
+    close(got.masked_fill(~fin, 0), want.masked_fill(~fin, 0), tol)
+
+
+def poisoned(a, where):
+    a = a.copy()
+    for idx, v in where:
+        a[idx] = v
+    return a
+
+
+DENSE_POISONS = {"upper inf": [((2, 30), np.inf)], "lower inf": [((30, 2), np.inf)],
+                 "diagonal nan": [((20, 20), np.nan)]}
+
+
+@pytest.mark.parametrize("poison", DENSE_POISONS)
+def test_fused_factor_on_a_non_finite_entry_gives_the_plain_pattern(poison, card):
+    a = torch.from_numpy(poisoned(dd(40, 1), DENSE_POISONS[poison])).to(card)
+    want = ebv_lu.lu_fused_plain(a, block=16)
+    assert_same_positions(ebv_lu.lu_fused(a, block=16), want)
+
+
+@pytest.mark.parametrize("where", [[((7, 300), np.inf)], [((300, 7), -np.inf)], [((250, 250), np.nan)],
+                                   [((499, 3), np.inf)], [((130, 131), np.nan), ((400, 20), -np.inf)]])
+def test_fused_factor_at_n500_on_non_finite_entries_gives_the_plain_pattern(where, card):
+    a = torch.from_numpy(poisoned(dd(500, 5), where)).to(card)
+    assert_same_positions(ebv_lu.lu_fused(a), ebv_lu.lu_fused_plain(a))
+
+
+# the replay's two paths: bit masks where the plain strip is at most 64
+# columns (n = 1000: B = 128, C2 = 32, 8 steps; block 50: C2 = 50), entry by
+# entry past it (n = 251: B = C2 = 125, 3 steps; block 100: C2 = 100, 7 steps)
+@pytest.mark.parametrize("n,block", [(1000, 256), (600, 50), (251, 256), (700, 100)])
+def test_fused_factor_replay_paths_give_the_plain_pattern(n, block, card):
+    for where in ([((n // 3, n // 2), np.nan)], [((0, 0), 0.0)], [((n - 1, 2), np.inf), ((5, n - 2), -np.inf)]):
+        a = torch.from_numpy(poisoned(dd(n, 7), where)).to(card)
+        assert_same_positions(ebv_lu.lu_fused(a, block=block), ebv_lu.lu_fused_plain(a, block=block))
+
+
+def test_fused_factor_stays_finite_and_unchanged_without_a_non_finite_entry(card):
+    a = torch.from_numpy(dd(600, 6)).to(card)
+    got = ebv_lu.lu_fused(a, block=50)
+    close_lu(got, ebv_lu.lu_fused_plain(a, block=50))
+
+
+@pytest.mark.parametrize("stack,where", [
+    ((24, 3), [((1, 2, 20), np.inf)]),
+    ((384, 2), [((1, 5, 300), -np.inf), ((0, 200, 100), np.nan)]),
+    ((256, 4), [((3, 0, 0), 0.0)]),
+])
+def test_batched_factor_on_non_finite_entries_equals_the_plain_pattern(stack, where, card):
+    n, bsz = stack
+    a = torch.from_numpy(poisoned(np.stack([dd(n, s) for s in range(bsz)]), where)).to(card)
+    want = batched_lu.batched_lu_plain(a)
+    assert_same_non_finite(batched_lu.batched_lu_vmem(a), want)
+    assert not bool(torch.isfinite(want).all())
+
+
+def _dense_solve_inputs(n, m, card, lu_at, b_at):
+    lu = ebv_lu.lu_fused(torch.from_numpy(dd(n, 1)).to(card))
+    b = torch.from_numpy(rhs(n, m, 3)).to(card)
+    for idx in lu_at:
+        lu[idx] = float("nan")
+    for idx in b_at:
+        b[idx] = float("inf")
+    return lu, b
+
+
+SOLVE_POISONS = {"factor nan": ([(5, 30)], []), "b inf in the last row": ([], [(39, 1)]),
+                 "b inf above": ([], [(11, 0)])}
+
+
+@pytest.mark.parametrize("poison", SOLVE_POISONS)
+def test_dense_solves_on_a_non_finite_value_give_the_plain_pattern(poison, card):
+    lu, b = _dense_solve_inputs(40, 3, card, *SOLVE_POISONS[poison])
+    assert_same_positions(trsm.solve_vmem(lu, b), trsm.solve_vmem_plain(lu, b))
+    assert_same_positions(trsm.solve_tiled(lu, b, block=16), trsm.solve_tiled_plain(lu, b, block=16))
+    lus = torch.stack([lu, torch.eye(40, device=card) * 2, lu])
+    bs = torch.stack([b, torch.ones_like(b), torch.zeros_like(b)])
+    assert_same_non_finite(batched_lu.batched_lu_solve_vmem(lus, bs), batched_lu.batched_lu_solve_plain(lus, bs))
+
+
+@pytest.mark.parametrize("n,m", [(2000, 1), (2000, 64), (8000, 1)])
+def test_dense_solves_at_their_shapes_on_non_finite_values(n, m, card):
+    lu, b = _dense_solve_inputs(n, m, card, [(100, n - 500)], [(n - 1, 0)])
+    assert_same_positions(trsm.solve_tiled(lu, b), trsm.solve_tiled_plain(lu, b))
+    if n <= 2000:
+        assert_same_positions(trsm.solve_vmem(lu, b), trsm.solve_vmem_plain(lu, b))
+
+
+@pytest.mark.parametrize("path", ["wide", "cluster"])
+def test_batched_solve_paths_on_non_finite_values_equal_the_plain_pattern(path, card):
+    n, m = 384, 8
+    lu = batched_lu.batched_lu_vmem(torch.from_numpy(np.stack([dd(n, s) for s in range(2)])).to(card))
+    b = torch.from_numpy(np.stack([rhs(n, m, s) for s in range(2)])).to(card)
+    lu[0, 40, 300] = float("nan")
+    b[1, n - 1, 3] = -float("inf")
+    assert_same_non_finite(solve_on(card, lu, b, path), batched_lu.batched_lu_solve_plain(lu, b))
+
+
+@pytest.mark.parametrize("n,bw,m,at", [(97, 5, 2, (10, 6)), (97, 5, 2, (50, 1)), (16000, 5, 1, (5000, 7)),
+                                       (4096, 64, 1, (4000, 10)), (300, 16, 8, (299, 3))])
+def test_band_solves_on_a_non_finite_factor_entry_give_the_plain_pattern(n, bw, m, at, card):
+    clean = banded.banded_lu_blocked(torch.from_numpy(band_dd(n, bw, 4)).to(card), bw=bw)
+    lu = clean.clone()
+    lu[at] = float("inf")
+    b = torch.from_numpy(rhs(n, m, 5)).to(card)
+    want = banded_solve_blocked(lu, b, bw=bw)
+    assert_same_positions(banded.banded_solve_kernelized(lu, b, bw=bw), want)
+    lus, bs = torch.stack([lu, clean, lu]), torch.stack([b, b, b])
+    assert_same_positions(banded.batched_banded_solve_vmem(lus, bs, bw=bw), banded_solve_blocked(lus, bs, bw=bw))
+
+
+def test_band_solve_on_an_inf_in_b_follows_the_plain_blocking(card):
+    n, bw = 200, 3
+    lu = banded.banded_lu_blocked(torch.from_numpy(band_dd(n, bw, 6)).to(card), bw=bw)
+    b = torch.from_numpy(rhs(n, 2, 7))
+    b[150, 1] = float("inf")
+    b = b.to(card)
+    for block in (None, 16, 64):
+        assert_same_positions(banded.banded_solve_kernelized(lu, b, bw=bw, block=block),
+                              banded_solve_blocked(lu, b, bw=bw, block=block))
+
+
+def test_dense_solves_take_more_columns_than_a_grid_axis_of_tiles(card):
+    # C12: 65,537 column tiles of 64 on one grid axis; b, x and y 1.07 GB each
+    n, m = 64, 4_194_305
+    lu = ebv_lu.lu_fused(torch.from_numpy(dd(n, 8)).to(card))
+    b = torch.randn((n, m), generator=torch.Generator(device=card).manual_seed(9), device=card)
+    before = trsm.solve_tiled.launches
+    x = trsm.solve_tiled(lu, b)
+    assert trsm.solve_tiled.launches - before == trsm.tiled_launches(n) == 3
+    assert trsm.solve_tiled.last_grid > 65_535  # the C entry's largest step grid
+    close(x, trsm.solve_tiled_plain(lu, b), 1e-5)
+    linv, uinv = dense_block_inverses(lu, block=32)
+    before = trsm.solve_inverted.launches
+    xi = trsm.solve_inverted(lu, linv, uinv, b)
+    assert trsm.solve_inverted.launches - before == trsm.inverted_launches(n, 32)
+    close(xi, dense_inverted_solve(lu, linv, uinv, b), 1e-5)
+
+
+# B8: the products a thread per row up to 4 RHS columns, the tail recurrence
+# one warp per group of RHS columns up to bw = 32 (the block kernel past
+# it), the same sums in the same order as the tiles and the block kernel
+# (banded._solve_inverted(..., tiles=True)), so bitwise equal to them, and
+# within 1e-4 of the plain
+# version (a sequential loop of batched products, rounded otherwise); S =
+# 1, 2 and 128 diagonal blocks at each bw
+B8_BANDS = {1: (32, 33, 4065), 5: (40, 41, 5081), 16: (128, 129, 16257), 31: (248, 249, 31497),
+            64: (256, 257, 32513), 256: (256, 257, 32513)}
+
+
+@pytest.mark.parametrize("blocks", [0, 1, 2])
+@pytest.mark.parametrize("bw", list(B8_BANDS))
+def test_inverted_band_solve_scan_paths(bw, blocks, card):
+    n = B8_BANDS[bw][blocks]
+    lu = banded.banded_lu_tiled(torch.from_numpy(band_dd(n, bw, bw + blocks)).to(card), bw=bw)
+    f = factorize_banded(lu, bw=bw)
+    assert f.linv.shape[0] == (1, 2, 128)[blocks]
+    args = (f.linv, f.uinv, f.tlo, f.tup)
+    for m in (1, 8, 64):
+        b = torch.from_numpy(rhs(n, m, m)).to(card)
+        got = banded.banded_solve_inverted(*args, b, n=n, bw=bw)
+        assert torch.equal(got, banded._solve_inverted(*args, b, n=n, bw=bw, tiles=True))
+        close(got, banded_inverted_solve(*args, b, n=n, bw=bw), 1e-4)
+
+
+# past 512 RHS columns a scan block takes 2, 4 and then 8 columns
+@pytest.mark.parametrize("m", [513, 1025, 2049])
+@pytest.mark.parametrize("bw", [5, 16])
+def test_inverted_band_solve_scan_takes_more_columns_a_block(bw, m, card):
+    n = B8_BANDS[bw][2]
+    lu = banded.banded_lu_tiled(torch.from_numpy(band_dd(n, bw, bw + m)).to(card), bw=bw)
+    f = factorize_banded(lu, bw=bw)
+    args = (f.linv, f.uinv, f.tlo, f.tup)
+    b = torch.from_numpy(rhs(n, m, m)).to(card)
+    got = banded.banded_solve_inverted(*args, b, n=n, bw=bw)
+    assert torch.equal(got, banded._solve_inverted(*args, b, n=n, bw=bw, tiles=True))
+    close(got, banded_inverted_solve(*args, b, n=n, bw=bw), 1e-4)
+
+
+@pytest.mark.parametrize("bw", [5, 16, 64])
+def test_inverted_band_solve_on_non_finite_values_gives_the_plain_pattern(bw, card):
+    n = B8_BANDS[bw][2] // 4
+    lu = banded.banded_lu_tiled(torch.from_numpy(band_dd(n, bw, 11)).to(card), bw=bw)
+    f = factorize_banded(lu, bw=bw)
+    s = f.linv.shape[0]
+    b = torch.from_numpy(rhs(n, 3, 12)).to(card)
+    tlo = f.tlo.clone()
+    tlo[s // 2, -1, 0] = float("inf")  # a transfer block's tail row
+    args = (f.linv, f.uinv, tlo, f.tup)
+    assert_same_positions(banded.banded_solve_inverted(*args, b, n=n, bw=bw),
+                          banded_inverted_solve(*args, b, n=n, bw=bw))
+    b[n // 3, 1] = float("nan")
+    args = (f.linv, f.uinv, f.tlo, f.tup)
+    assert_same_positions(banded.banded_solve_inverted(*args, b, n=n, bw=bw),
+                          banded_inverted_solve(*args, b, n=n, bw=bw))

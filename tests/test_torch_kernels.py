@@ -146,10 +146,11 @@ def test_dense_solves_of_an_empty_rhs_return_it_without_a_launch(n):
 
 
 @pytest.mark.parametrize("n,block,tiled,inverted", [
-    (1, 256, 2, 2), (100, 256, 2, 2), (2049, 128, 34, 66), (2049, 256, 34, 34),
-    (8000, 128, 126, 250), (8000, 256, 126, 126)])
+    (1, 256, 3, 2), (100, 256, 3, 2), (2049, 128, 35, 66), (2049, 256, 35, 34),
+    (8000, 128, 127, 250), (8000, 256, 127, 126)])
 def test_solve_launch_counts(n, block, tiled, inverted):
-    # solve_tiled: one launch per diagonal step of each sweep (B <= 128);
+    # solve_tiled: one launch per diagonal step of each sweep (B <= 128),
+    # then the non-finite pass;
     # solve_inverted: the inverse product and the retirement per step, no
     # retirement after either sweep's last step
     assert trsm.tiled_launches(n, block) == tiled
@@ -179,9 +180,10 @@ def test_lu_fused_takes_float32_only(dtype):
         ebv_lu.lu_fused(torch.eye(8, dtype=dtype))
 
 
-@pytest.mark.parametrize("n,launches", [(1, 1), (128, 1), (129, 4), (257, 8), (2049, 64)])
+@pytest.mark.parametrize("n,launches", [(1, 1), (128, 2), (129, 5), (257, 9), (2049, 65)])
 def test_fused_launches_at_the_step_edges(n, launches):
-    # steps of 128 columns (B = 160 at n = 257 steps by 128 too)
+    # steps of 128 columns (B = 160 at n = 257 steps by 128 too), and the
+    # non-finite pass past n = 1
     assert ebv_lu.fused_step_width(n) == min(n, 128)
     assert ebv_lu.fused_launches(n) == launches
 
@@ -190,10 +192,11 @@ def test_fused_launches_at_the_step_edges(n, launches):
 def test_fused_launch_count(n, block):
     # the first diagonal tile, then per step but the last: both panels, the
     # next step's block row and column, the next diagonal tile and the rest
-    # of the trailing update (none after the last panels); a step is at most
-    # 128 columns (the kernel's register tile), B = 160 at n = 257 included
+    # of the trailing update (none after the last panels), then the
+    # non-finite pass; a step is at most 128 columns (the kernel's register
+    # tile), B = 160 at n = 257 included
     S = -(-n // min(block, n, 128))
-    assert ebv_lu.fused_launches(n, block) == (4 * S - 4 if S > 1 else 1)
+    assert ebv_lu.fused_launches(n, block) == (4 * S - 4 if S > 1 else 1) + 1
 
 
 @pytest.mark.parametrize("n,block,width", [
@@ -205,4 +208,4 @@ def test_fused_step_width_keeps_the_update_aligned(n, block, width):
     # offset); the plain version's halving (B = 121 at n = 243) plays no part
     assert ebv_lu.fused_step_width(n, block) == width
     S = -(-n // width)
-    assert ebv_lu.fused_launches(n, block) == (4 * S - 4 if S > 1 else 1)
+    assert ebv_lu.fused_launches(n, block) == (4 * S - 4 if S > 1 else 1) + 1

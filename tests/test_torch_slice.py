@@ -147,7 +147,7 @@ def test_importing_the_port_loads_neither_jax_nor_the_reference():
         "repro_torch.serve.scheduler, repro_torch.core.refine, repro_torch.core.randomized, "
         "repro_torch.configs, repro_torch.models.common, repro_torch.models.blocks, "
         "repro_torch.models.lm, repro_torch.kernels.paged_attn, repro_torch.serve.paged, "
-        "repro_torch.serve.engine, repro_torch.launch.serve; "
+        "repro_torch.serve.engine, repro_torch.launch.serve, repro_torch.core.nonfinite; "
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m == 'repro' or m.startswith('repro.')); print(bad); sys.exit(1 if bad else 0)"
     )
