@@ -102,6 +102,22 @@ Phases (any failure exits non-zero):
      EOS token), the paged decode step's logits against the dense one's
      teacher-forced over 8 steps, and ``python -m repro_torch.launch.serve
      --arch llama3_8b --paged``;
+   - training (4j; run after phase 5, whose decode step needs the serving
+     model's memory): llama3-8b at full width cut to 4 layers, global batch
+     8 x 512, 5 ``train.loop.make_train_step`` steps with AdamW and 5 with
+     EbV, each from a fresh model on one repeated pipeline batch: (a) finite
+     losses, the last below the first; (b) ``train_loss`` at step 0 against
+     one full fp32 ``x @ unembed`` and ``F.cross_entropy``; (c) under EbV
+     one batched factor and solve (B9, B10) per order group per step, the
+     groups read from the leaf shapes (one of two order-4 systems, the
+     stacked norm scales); (d) ``llama3_8b.reduced()`` in fp32, 3 steps on
+     the card against the CPU, both optimizers, 1 and 2 microbatches; (e)
+     ``repro_torch.launch.train --reduced --steps 6 --ckpt-every 2`` in this
+     process, then ``python -m repro_torch.launch.train`` with the same
+     flags from its checkpoints cut after step 4: it resumes at step 4 and
+     its parameters equal the first run's; the
+     step time (forward-backward and optimizer apart), tokens/s, the idle
+     share, peak memory and the step's bound;
    checks the dispatches, the counters, the residuals and small answers
    against the float64 oracles;
 5. times: each kernel, its plain version and a PyTorch library yardstick
@@ -256,6 +272,16 @@ PAGED_TOL = {"float32": 1e-5, "bfloat16": 1e-2}
 # the paged decode step's logits against the dense one's, normwise: bf16
 # attention outputs that differ by a rounding, carried through 32 layers
 LOGITS_TOL = 5e-2
+# training (4j): llama3-8b at full width (configs/llama3_8b.py), its depth cut
+# to 4 layers (32 do not fit 80 GB under EbV: ~24 B a parameter between its
+# two passes); global batch 8 x 512 tokens, one repeated pipeline batch
+TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 8, 512, 5
+PEAK_BF16_FLOPS = 989e12  # H100 SXM data sheet, dense
+# (b) train_loss against one full fp32 logits product and F.cross_entropy,
+# relative: the chunked CE's sums in another order; (d) 3 reduced fp32 steps
+# on the card against the CPU, normwise a leaf; (e) a resumed run against an
+# uninterrupted one, normwise a leaf: the embedding's backward sums by atomics
+TRAIN_CE_TOL, TRAIN_CPU_TOL, TRAIN_RESUME_TOL = 1e-3, 1e-4, 1e-5
 
 
 def fail(msg: str) -> None:
@@ -269,6 +295,230 @@ def card_line() -> str:
     if out.returncode:
         fail(f"nvidia-smi failed: {out.stderr.strip()}")
     return out.stdout.strip().splitlines()[0]
+
+
+def train_phase(dev, card: str) -> dict:
+    """Phase 4j: the training path, llama3-8b at full width and 4 layers,
+    5 AdamW and 5 EbV steps, each from a fresh model on one repeated batch,
+    with gates (a)-(e) (see the module docstring).  Returns the batched
+    kernels' launches on the EbV run."""
+    import gc
+    import math
+    import shutil
+
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import solvers, train
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenPipeline
+    from repro_torch.kernels import batched_lu
+    from repro_torch.models import lm
+    from repro_torch.train import loop
+
+    t_phase = time.perf_counter()
+    cfg = get_config(LM_ARCH).replace(num_layers=TRAIN_LAYERS)
+    tc = loop.TrainConfig(steps=TRAIN_STEPS, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH)
+    pipe = TokenPipeline(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH, seed=0)
+    batch = loop.make_batch_fn(cfg, tc, device=dev)(next(pipe)["tokens"])
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    shapes = lm._train_shapes(cfg)
+    nparams = sum(math.prod(s) for s, _ in shapes.values())
+    # the weights of the matmuls: every leaf but the embedding (a gather) and the norm scales
+    n_matmul = sum(math.prod(s) for k, (s, _) in shapes.items() if k != "embed" and not k.endswith("scale"))
+    bound_ms = 8 * n_matmul * tokens / PEAK_BF16_FLOPS * 1e3  # 6 N T, and the forward again under remat
+    groups = {}  # EbV's order groups from the leaf shapes: 2-D, min(shape) <= 1024
+    for s, _ in shapes.values():
+        if len(s) == 2 and min(s) <= 1024:
+            groups[min(s)] = groups.get(min(s), 0) + 1
+    print(f"  {cfg.name}: {TRAIN_LAYERS} layers (cut from 32), d={cfg.d_model}, {cfg.num_heads} heads, "
+          f"{cfg.num_kv_heads} KV heads, d_ff={cfg.d_ff}, vocab {cfg.vocab_size}, {cfg.dtype}: "
+          f"{nparams / 1e9:.3f} G parameters in {len(shapes)} stacked leaves, {n_matmul / 1e9:.3f} G in "
+          f"matmuls; batch {TRAIN_BATCH} x {TRAIN_SEQ} = {tokens} tokens a step; EbV order groups "
+          f"(order: systems) {groups}; memory in use before {torch.cuda.memory_allocated() / 1e9:.2f} GB",
+          flush=True)
+    if groups != {TRAIN_LAYERS: 2}:
+        fail(f"EbV order groups {groups}: expected one group of two order-{TRAIN_LAYERS} systems "
+             "(the stacked norm scales)")
+
+    def fresh():
+        params = lm.train_params(lm.init_params(torch.Generator(device=dev).manual_seed(2700), cfg))
+        gc.collect()
+        torch.cuda.empty_cache()
+        return params
+
+    # (b) the chunked CE against one full fp32 product and F.cross_entropy
+    params = fresh()
+    with torch.no_grad():
+        _, met0 = lm.train_loss(params, batch, cfg)
+        x, _, _, toks, _ = lm._final_hidden(params, batch, cfg)
+        logits = x[:, :-1].float() @ params["unembed"].float()
+        full = float(F.cross_entropy(logits.reshape(-1, logits.shape[-1]), toks[:, 1:].reshape(-1)))
+        del x, logits
+    ce0 = float(met0["ce"])
+    rel = abs(ce0 - full) / abs(full)
+    print(f"  (b) train_loss at step 0: CE {ce0:.6f}; one fp32 x @ unembed with F.cross_entropy {full:.6f}; "
+          f"relative {rel:.3e} (tolerance {TRAIN_CE_TOL:.0e})", flush=True)
+    if not rel <= TRAIN_CE_TOL:
+        fail(f"train_loss {ce0} against the full fp32 CE {full}")
+
+    wrappers = {"batched_lu_vmem": batched_lu.batched_lu_vmem,
+                "batched_lu_solve_vmem": batched_lu.batched_lu_solve_vmem}
+    launches = {}
+    for name in ("adamw", "ebv"):
+        if params is None:
+            params = fresh()
+        opt = train.get_optimizer(name, list(params.values()),
+                                  train.warmup_cosine(tc.learning_rate, 2, TRAIN_STEPS))
+        step_fn = loop.make_train_step(cfg, opt)
+        opt_events = []
+        plain_step = opt.step
+
+        def timed_opt_step(closure=None, plain_step=plain_step, opt_events=opt_events):
+            s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            s.record()
+            out = plain_step(closure)
+            e.record()
+            opt_events.append((s, e))
+            return out
+
+        opt.step = timed_opt_step
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for w in wrappers.values():
+            w.launches = 0
+        losses, step_ms, host_ms, logs = [], [], [], []
+        with solvers.record_dispatches() as log:
+            for _ in range(TRAIN_STEPS):
+                mark = len(log)
+                s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                s.record()
+                met = step_fn(params, batch)
+                e.record()
+                losses.append(float(met["loss"]))
+                torch.cuda.synchronize()
+                host_ms.append((time.perf_counter() - t0) * 1e3)
+                step_ms.append(s.elapsed_time(e))
+                logs.append([(p.op, p.n, p.batch, nm) for p, nm in log[mark:]])
+        torch.cuda.synchronize()
+        got = {k: w.launches for k, w in wrappers.items()}
+        peak = torch.cuda.max_memory_allocated()
+        opt_ms = [a.elapsed_time(b) for a, b in opt_events]
+        # the device's busy share over one more step, by torch.profiler
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            step_fn(params, batch)
+            torch.cuda.synchronize()
+        busy = sum(ev.self_device_time_total for ev in prof.key_averages()
+                   if ev.self_device_time_total > 0 and ev.device_type != DeviceType.CPU
+                   and not getattr(ev, "is_user_annotation", False)) / 1e3
+        last = slice(TRAIN_STEPS - 3, TRAIN_STEPS)
+        med, med_opt = statistics.median(step_ms[last]), statistics.median(opt_ms[last])
+        med_host = statistics.median(host_ms[last])
+        idle = f"{max(0.0, 1 - busy / med_host):.3f}" if busy > 0 else "not measured"
+        print(f"  {name}: losses {[round(v, 4) for v in losses]}; step {med:.1f} ms (events, median of the "
+              f"last 3: forward-backward {med - med_opt:.1f}, optimizer {med_opt:.1f}), host clock "
+              f"{med_host:.1f} ms, {tokens / med * 1e3:,.0f} tokens/s; device busy {busy:.1f} ms of a "
+              f"profiled step, idle share {idle}; peak memory {peak / 1e9:.2f} GB "
+              f"(max_memory_allocated); bound {bound_ms:.1f} ms (8 x {n_matmul / 1e9:.3f} G x {tokens} "
+              f"tokens / 989 TFLOP/s bf16) = {bound_ms / med:.3f} of the step; card: {card}", flush=True)
+        # (a) finite losses, the last below the first
+        if not all(math.isfinite(v) for v in losses) or not losses[-1] < losses[0]:
+            fail(f"{name}: losses {losses}: not finite or not falling")
+        # (c) EbV: the batched CUDA slots, one factor and one solve a group a step
+        per_step = [("factor", TRAIN_LAYERS, 2, "cuda_vmem"), ("solve", TRAIN_LAYERS, 2, "cuda_vmem")]
+        # B9 adds its non-finite pass from n = 3 (kernels/batched_lu.py)
+        want = ({"batched_lu_vmem": TRAIN_STEPS * sum(1 + (n >= 3) for n in groups),
+                 "batched_lu_solve_vmem": TRAIN_STEPS * len(groups)} if name == "ebv"
+                else dict.fromkeys(wrappers, 0))
+        print(f"  {name}: launches {got} (expected {want}); dispatches a step {logs[0]}", flush=True)
+        if got != want or logs != ([per_step] * TRAIN_STEPS if name == "ebv" else [[]] * TRAIN_STEPS):
+            fail(f"{name}: launches {got} or dispatches {logs}")
+        if name == "ebv":
+            launches = got
+        del params, opt, step_fn, prof
+        params = None
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # (d) llama3_8b.reduced() in fp32: 3 steps on the card against the CPU at
+    # the trainer's default learning rate, and the first batch's gradients.
+    # Adam moves an entry by about lr * sign(g) however small g is, so
+    # round-off-sized gradients part the leaves by up to 2 lr: the same at
+    # lr 1e-2 is printed, not gated
+    rcfg = get_config(LM_ARCH).reduced()
+    rng = np.random.default_rng(2701)
+    rbatches = [rng.integers(0, rcfg.vocab_size, (4, 64)).astype(np.int32) for _ in range(3)]
+    start = lm.train_params(lm.init_params(2702, rcfg, device="cpu"))
+    rel = lambda a, b: float((a - b).abs().max() / b.abs().max())
+    for name, mb, lr in [(name, mb, tc.learning_rate) for name in ("adamw", "ebv") for mb in (1, 2)] + \
+            [("adamw", 1, 1e-2), ("ebv", 1, 1e-2)]:
+        out = []
+        for d in (torch.device("cpu"), dev):
+            ps = {k: torch.nn.Parameter(v.detach().clone().to(d)) for k, v in start.items()}
+            first = {"tokens": torch.from_numpy(rbatches[0]).to(d)}
+            grads = torch.autograd.grad(lm.train_loss(ps, first, rcfg)[0], list(ps.values()))
+            o = train.get_optimizer(name, list(ps.values()), train.warmup_cosine(lr, 2, 10))
+            fn = loop.make_train_step(rcfg, o, microbatches=mb)
+            losses = [float(fn(ps, {"tokens": torch.from_numpy(b).to(d)})["loss"]) for b in rbatches]
+            out.append(([g.cpu() for g in grads], {k: p.detach().cpu() for k, p in ps.items()}, losses))
+        gworst = max(rel(g, w) for g, w in zip(out[1][0], out[0][0]))
+        worst = max(rel(out[1][1][k], w) for k, w in out[0][1].items())
+        lworst = max(abs(a - b) / abs(b) for a, b in zip(out[1][2], out[0][2]))
+        gated = lr == tc.learning_rate
+        print(f"  (d) {rcfg.name} reduced, fp32, {name}, microbatches {mb}, lr {lr}: the card against the "
+              f"CPU, first gradients worst leaf normwise {gworst:.3e}, after 3 steps worst leaf {worst:.3e}, "
+              f"losses {lworst:.3e} " + (f"(tolerances {TRAIN_CPU_TOL:.0e}, {TRAIN_CPU_TOL:.0e}, 1e-05)"
+                                         if gated else "(not gated)"), flush=True)
+        if gated and not (gworst <= TRAIN_CPU_TOL and worst <= TRAIN_CPU_TOL and lworst <= 1e-5):
+            fail(f"{name} microbatches {mb}: the card's steps differ from the CPU's")
+
+    # (e) the launcher, checkpointed, cut after step 4's checkpoint and run
+    # again in a new process: it resumes at step 4 and ends where the
+    # uninterrupted run (the same entry point, in this process) ends
+    from repro_torch.launch import train as launch_train
+
+    base = os.path.join(ROOT, "build", "chip_smoke_train")
+    shutil.rmtree(base, ignore_errors=True)
+    whole, resumed = os.path.join(base, "whole"), os.path.join(base, "resumed")
+    args = ["--arch", LM_ARCH, "--reduced", "--steps", "6", "--ckpt-every", "2", "--device", dev.type,
+            "--ckpt-dir"]
+    t0 = time.perf_counter()
+    launch_train.main(args + [whole])
+    print(f"  (e) repro_torch.launch.train.main({' '.join(args)} {os.path.relpath(whole, ROOT)}) in this "
+          f"process: {time.perf_counter() - t0:.1f} s", flush=True)
+    shutil.copytree(whole, resumed)
+    shutil.rmtree(os.path.join(resumed, "step_000000006"))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "repro_torch.launch.train"] + args + [resumed], cwd=ROOT,
+                          env=dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src")), capture_output=True,
+                          text=True, timeout=300)
+    print(f"  (e) python -m repro_torch.launch.train {' '.join(args)} {os.path.relpath(resumed, ROOT)}: exit "
+          f"{proc.returncode} in {time.perf_counter() - t0:.1f} s (process start included); "
+          f"{proc.stdout.strip().splitlines()}", flush=True)
+    if proc.returncode:
+        fail(f"the training launcher: {proc.stderr.strip()[-2000:]}")
+    if "[train] resumed from step 4" not in proc.stdout:
+        fail("the second launcher run did not resume at step 4")
+    with np.load(os.path.join(whole, "step_000000006", "arrays.npz")) as a, \
+            np.load(os.path.join(resumed, "step_000000006", "arrays.npz")) as b:
+        worst = {"0": 0.0, "1": 0.0}  # the parameters, the optimizer state
+        for k in a.files:
+            x, y = a[k].astype(np.float64), b[k].astype(np.float64)
+            if x.size:
+                err = float(np.abs(x - y).max() / max(np.abs(x).max(), 1e-30))
+                worst[k[0]] = max(worst[k[0]], err)
+    print(f"  (e) resumed at step 4 against the uninterrupted run at step 6: parameters worst leaf normwise "
+          f"{worst['0']:.3e}, optimizer state {worst['1']:.3e} (tolerance {TRAIN_RESUME_TOL:.0e})", flush=True)
+    if not worst["0"] <= TRAIN_RESUME_TOL:
+        fail(f"the resumed run's parameters differ from the uninterrupted run's by {worst['0']:.3e}")
+    shutil.rmtree(base, ignore_errors=True)
+    print(f"  phase 4j: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return launches
 
 
 def main() -> int:
@@ -2222,6 +2472,17 @@ def main() -> int:
         for name, us, count in rows_k[:6]:
             print(f"      {name[:60]:60s} {us / 1e3:9.3f} ms  x{count}", flush=True)
 
+    # ---- 4j. training: after phase 5, whose decode step needs the serving
+    # model; the training step needs the card's memory that model held
+    print(f"phase 4j: the training path, {LM_ARCH} at full width, {TRAIN_LAYERS} layers", flush=True)
+    del model, probe, eng, engines, steps, fn, served_args, dcache, pcache
+    import gc
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    train_launches = train_phase(dev, card)
+
     # ---- 6. kernels line + result ----------------------------------------
     shoot = f"n={SHOOTOUT[0]} bw={SHOOTOUT[1]}"
     ens = f"B={ENSEMBLE_MEMBERS} n={ENSEMBLE_NX ** 2} bw={ENSEMBLE_NX}"
@@ -2271,7 +2532,7 @@ def main() -> int:
     launches.update(dict.fromkeys(qwrappers, 0))  # B18 runs on the service path only
     launches["paged_decode_attention"] = lm_launches["paged"]  # B13 runs on the serving path only
     # the kernels the tiers and the service launched, beside their own paths'
-    for counts in (tier_launches, tier_opt_launches, serve_launches):
+    for counts in (tier_launches, tier_opt_launches, serve_launches, train_launches):
         for k, v in counts.items():
             if k not in lwrappers:  # the legacy kernels' service launches are in already
                 launches[k] += v

@@ -17,7 +17,7 @@ from . import device as _device
 from .core.factorization import Factorization
 
 __all__ = ["tensor_from_numpy", "factorization_from_numpy", "named_leaves",
-           "optimizer_from_numpy", "lm_params_from_numpy"]
+           "optimizer_from_numpy", "lm_params_from_numpy", "train_state_from_numpy"]
 
 
 def tensor_from_numpy(x, *, device=None) -> torch.Tensor:
@@ -111,3 +111,24 @@ def lm_params_from_numpy(tree, cfg, *, device=None):
                                  f"{tuple(p.shape)} {p.dtype}")
             p.copy_(t)
     return model
+
+
+def train_state_from_numpy(params, state, cfg, make_optimizer, *, device=None):
+    """The reference trainer's state as the port's trainer's: ``params``,
+    the language model's tree (``models/lm.py:init_params``, block leaves
+    stacked over the layers), and ``state``, the optimizer's
+    (``{"step", "mu", "nu"}``, plus ``"cov"`` for ``ebv_preconditioned``;
+    None for a fresh one), all numpy arrays.  Returns ``(params,
+    optimizer)``: the named stacked leaves of
+    :func:`repro_torch.models.lm.train_params` (checked against ``cfg``'s
+    layout) and the optimizer ``make_optimizer`` builds over them in that
+    order, carrying ``state``; ``repro_torch.train.loop.make_train_step``
+    then takes the reference's next step."""
+    from .models import lm
+
+    named, opt = optimizer_from_numpy(params, state, make_optimizer, device=device)
+    want = lm._train_shapes(cfg)
+    got = {k: (tuple(v.shape), v.dtype) for k, v in named.items()}
+    if list(got) != list(want) or got != want:
+        raise ValueError(f"the tree's leaves {got} are not {cfg.name}'s {want}")
+    return named, opt

@@ -1,6 +1,6 @@
 """Per-layer blocks.  The port has the dense family's pre-norm residual
 block (attention sublayer, then MLP sublayer); the other families' blocks
-(moe, ssm, hybrid, encdec, vlm) raise, naming ROADMAP A13."""
+(moe, ssm, hybrid, encdec, vlm) raise, naming ROADMAP A6."""
 from __future__ import annotations
 
 import torch

@@ -10,8 +10,8 @@ norms, RoPE angles, scores and softmax sums in fp32.
 
 Not ported yet, and raising ``NotImplementedError`` where they would run:
 M-RoPE and sliding windows (the vlm, moe and hybrid families, ROADMAP
-A13), the ``tri`` schedule (ROADMAP A13) and ``ebv_attention_sharded``,
-which needs a device mesh (ROADMAP A12).
+A6), the ``tri`` schedule (ROADMAP A6) and ``ebv_attention_sharded``,
+which needs a device mesh (ROADMAP A7).
 """
 from __future__ import annotations
 
@@ -31,7 +31,7 @@ __all__ = [
 ]
 
 
-def unported(what: str, item: str = "A13") -> NotImplementedError:
+def unported(what: str, item: str = "A6") -> NotImplementedError:
     return NotImplementedError(f"{what} is not ported to repro_torch yet (ROADMAP {item})")
 
 
@@ -43,16 +43,39 @@ def dtype_of(name: str) -> torch.dtype:
     return dt
 
 
+class _MatmulF32(torch.autograd.Function):
+    """``a @ b`` of two bf16 (or fp16) card tensors, fp32 out; its backward
+    rounds the fp32 cotangent to the operands' dtype and returns gradients
+    in it, each product accumulated in fp32 (no fp32 copy of the weight)."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        return torch.mm(a.reshape(-1, a.shape[-1]), b,
+                        out_dtype=torch.float32).reshape(*a.shape[:-1], b.shape[-1])
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        g = g.to(b.dtype)
+        ga = gb = None
+        if ctx.needs_input_grad[0]:
+            ga = g @ b.t()
+        if ctx.needs_input_grad[1]:
+            gb = a.reshape(-1, a.shape[-1]).t() @ g.reshape(-1, g.shape[-1])
+        return ga, gb
+
+
 def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``a @ b`` accumulated and returned in fp32: the reference's
     ``preferred_element_type=jnp.float32``.  On the card a bf16 operand
     pair goes to ``torch.mm(..., out_dtype=torch.float32)``, so the weight
-    is read in bf16; elsewhere both are upcast (exactly) first."""
+    is read in bf16; elsewhere both are upcast (exactly) first.
+    Differentiable either way."""
     if a.dtype == torch.float32 and b.dtype == torch.float32:
         return a @ b
     if a.is_cuda and b.ndim == 2 and a.dtype == b.dtype:
-        return torch.mm(a.reshape(-1, a.shape[-1]), b,
-                        out_dtype=torch.float32).reshape(*a.shape[:-1], b.shape[-1])
+        return _MatmulF32.apply(a, b)
     return a.float() @ b.float()
 
 
@@ -228,7 +251,7 @@ def attention(q, k, v, *, q_positions, kv_positions, causal: bool, window: int |
 def ebv_attention_sharded(*args, **kwargs):
     """The reference's sequence-parallel EbV-scheduled attention; it needs a
     device mesh."""
-    raise unported("ebv_attention_sharded (a device mesh)", "A12")
+    raise unported("ebv_attention_sharded (a device mesh)", "A7")
 
 
 def apply_attention_layer(

@@ -7,17 +7,29 @@ Entry points, as the reference's ``models/lm.py``:
   ``torch.Generator`` (or an int seed) on the card unless ``device="cpu"``;
 * ``prefill(params, batch, cfg)`` — (caches, last-token logits);
 * ``decode_step(params, caches, tokens, pos, cfg)`` — (caches, logits);
-* ``init_caches`` / ``init_paged_caches`` — empty layer-stacked caches.
+* ``init_caches`` / ``init_paged_caches`` — empty layer-stacked caches;
+* ``train_params(model)`` — the trainer's parameters: the reference's
+  tree, every block leaf one layer-stacked tensor (L, ...);
+* ``train_loss(params, batch, cfg)`` — (scalar CE + aux, {"ce", "aux"}),
+  the CE in fp32 over ``seq_chunk`` slices of the sequence.
 
 The reference's ``lax.scan`` over stacked blocks is a Python loop over
 ``LM.blocks``; caches stay layer-stacked ((L, ...) leading axis), and each
 layer works on its view, so a decode step updates its caches in place.
-``train_loss`` waits for the training slice (ROADMAP A15).
+Serving keeps one :class:`~.blocks.Block` per layer.  Training keeps the
+reference's stacked leaves (the optimizers key their rules on a leaf's
+shape), unbinds them into the layers' weights once per forward (the
+backward of ``unbind`` is one stack) and runs each layer under
+``torch.utils.checkpoint``, the reference's ``jax.checkpoint``.
 """
 from __future__ import annotations
 
+from types import SimpleNamespace
+
 import torch
+import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from .. import device as _device
 from ..configs.base import ModelConfig
@@ -25,7 +37,7 @@ from . import blocks as B
 from . import common as C
 
 __all__ = ["LM", "padded_vocab_size", "init_params", "prefill", "decode_step", "init_caches",
-           "init_paged_caches"]
+           "init_paged_caches", "train_params", "train_loss"]
 
 
 def padded_vocab_size(cfg: ModelConfig) -> int:
@@ -67,24 +79,32 @@ def _run_blocks(params: LM, x, cfg: ModelConfig, *, positions, mode, caches=None
                 kv_chunk=1024, cache_len=None, seq_positions=None, page_table=None, prior=None,
                 raw_kv=False):
     """The layer loop.  ``caches`` and ``prior`` are layer-stacked; each layer
-    gets its (L,)-index view, and all share one pair of RoPE tables.
-    Returns (x, layer-stacked new caches or None)."""
+    gets its (L,)-index view, and all share one pair of RoPE tables.  In
+    ``train`` mode each layer runs under ``torch.utils.checkpoint``: only
+    its input is kept, and the backward recomputes the layer.
+    Returns (x, layer-stacked new caches or None, the layers' summed aux)."""
     rope = C.rope_tables(positions, cfg.resolved_head_dim, cfg.rope_theta) if cfg.use_rope else None
     new = []
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, bp in enumerate(params.blocks):
-        x, nc, _ = B.apply_block(
-            bp, x, cfg, positions=positions, mode=mode,
-            cache=None if caches is None else _tree_map(lambda t: t[i], caches),
-            kv_chunk=kv_chunk, cache_len=cache_len, seq_positions=seq_positions,
-            page_table=page_table, prior=None if prior is None else _tree_map(lambda t: t[i], prior),
-            raw_kv=raw_kv, rope=rope,
-        )
+        kw = dict(positions=positions, mode=mode,
+                  cache=None if caches is None else _tree_map(lambda t: t[i], caches),
+                  kv_chunk=kv_chunk, cache_len=cache_len, seq_positions=seq_positions,
+                  page_table=page_table,
+                  prior=None if prior is None else _tree_map(lambda t: t[i], prior),
+                  raw_kv=raw_kv, rope=rope)
+        if mode == "train":
+            x, nc, a = checkpoint(B.apply_block, bp, x, cfg, use_reentrant=False,
+                                  preserve_rng_state=False, **kw)
+        else:
+            x, nc, a = B.apply_block(bp, x, cfg, **kw)
+        aux = aux + a
         new.append(nc)
     if mode == "decode":
-        return x, caches  # updated in place, layer by layer
+        return x, caches, aux  # updated in place, layer by layer
     if new[0] is None:
-        return x, None
-    return x, _tree_map(lambda *ts: torch.stack(ts), *new)
+        return x, None, aux
+    return x, _tree_map(lambda *ts: torch.stack(ts), *new), aux
 
 
 def _tokens(params: LM, tokens) -> torch.Tensor:
@@ -109,9 +129,9 @@ def prefill(params: LM, batch, cfg: ModelConfig, *, cache_len=None, kv_chunk=102
     if prior is not None:
         seq_pos = seq_pos + prior["k"].shape[2]
     positions = seq_pos[None].expand(b, s)
-    x, caches = _run_blocks(params, x, cfg, positions=positions, mode="prefill", kv_chunk=kv_chunk,
-                            cache_len=cache_len, seq_positions=seq_pos,
-                            prior=prior, raw_kv=raw_kv)
+    x, caches, _ = _run_blocks(params, x, cfg, positions=positions, mode="prefill",
+                               kv_chunk=kv_chunk, cache_len=cache_len, seq_positions=seq_pos,
+                               prior=prior, raw_kv=raw_kv)
     x = C.apply_norm(params.ln_f, x, cfg.norm)
     if last is None:
         sel = x[:, -1:]
@@ -131,8 +151,8 @@ def decode_step(params: LM, caches, tokens, pos, cfg: ModelConfig, *, page_table
     x = params.embed[tokens]
     b = x.shape[0]
     pos = torch.as_tensor(pos, dtype=torch.int32, device=x.device).expand(b)
-    x, caches = _run_blocks(params, x, cfg, positions=pos[:, None], mode="decode", caches=caches,
-                            seq_positions=pos, page_table=page_table)
+    x, caches, _ = _run_blocks(params, x, cfg, positions=pos[:, None], mode="decode",
+                               caches=caches, seq_positions=pos, page_table=page_table)
     x = C.apply_norm(params.ln_f, x, cfg.norm)
     return caches, C.matmul_f32(x, params.unembed)
 
@@ -161,3 +181,120 @@ def init_paged_caches(cfg: ModelConfig, batch: int, num_pages: int, page_size: i
     dev = _device.resolve(device)
     return {"attn": {"k_pages": torch.zeros(shape, dtype=dtype, device=dev),
                      "v_pages": torch.zeros(shape, dtype=dtype, device=dev)}}
+
+
+# ---------------------------------------------------------------------------
+# training: the reference's stacked leaves, the loss
+# ---------------------------------------------------------------------------
+def _leaf_order(name: str):
+    return name.split(".")  # ``convert.named_leaves`` order: keys sorted at every level
+
+
+def train_params(model: LM) -> dict:
+    """The trainer's parameters, copied from ``model``: the reference's
+    parameter tree as named leaves (``embed``, ``ln_f.scale``, ``unembed``,
+    ``blocks.<path>``) in the order ``jax.tree`` flattens it, each block
+    leaf one ``nn.Parameter`` stacked over the layers, (L, ...).  The
+    optimizers decay, precondition and order these leaves as the
+    reference's optimizers do theirs."""
+    flat = {k: p.detach().clone() for k, p in (("embed", model.embed), ("ln_f.scale", model.ln_f.scale),
+                                                ("unembed", model.unembed))}
+    layers = [dict(b.named_parameters()) for b in model.blocks]
+    for name in layers[0]:
+        flat[f"blocks.{name}"] = torch.stack([layer[name].detach() for layer in layers])
+    return {k: nn.Parameter(flat[k]) for k in sorted(flat, key=_leaf_order)}
+
+
+def _train_shapes(cfg: ModelConfig) -> dict:
+    """``{name: (shape, dtype)}`` of :func:`train_params` for ``cfg``, in its
+    order, without drawing a model."""
+    if cfg.family != "dense":
+        raise C.unported(f"the {cfg.family} family")
+    dt, vp, d, L = C.dtype_of(cfg.dtype), padded_vocab_size(cfg), cfg.d_model, cfg.num_layers
+    hd, kvd = cfg.num_heads * cfg.resolved_head_dim, cfg.num_kv_heads * cfg.resolved_head_dim
+    f32 = torch.float32
+    shapes = {"embed": ((vp, d), dt), "ln_f.scale": ((d,), f32), "unembed": ((d, vp), dt),
+              "blocks.attn.wq": ((L, d, hd), dt), "blocks.attn.wk": ((L, d, kvd), dt),
+              "blocks.attn.wv": ((L, d, kvd), dt), "blocks.attn.wo": ((L, hd, d), dt),
+              "blocks.ln_attn.scale": ((L, d), f32), "blocks.ln_mlp.scale": ((L, d), f32),
+              "blocks.mlp.wu": ((L, d, cfg.d_ff), dt), "blocks.mlp.wd": ((L, cfg.d_ff, d), dt)}
+    if cfg.mlp_gated:
+        shapes["blocks.mlp.wg"] = ((L, d, cfg.d_ff), dt)
+    return {k: shapes[k] for k in sorted(shapes, key=_leaf_order)}
+
+
+def _nested(flat: dict) -> dict:
+    """``{"a.b": x, ...}`` → ``{"a": {"b": x}, ...}``: named leaves as a tree."""
+    tree: dict = {}
+    for name, t in flat.items():
+        *path, leaf = name.split(".")
+        node = tree
+        for part in path:
+            node = node.setdefault(part, {})
+        node[leaf] = t
+    return tree
+
+
+def _namespace(tree):
+    if not isinstance(tree, dict):
+        return tree
+    return SimpleNamespace(**{k: _namespace(v) for k, v in tree.items()})
+
+
+def _layer_view(params, cfg: ModelConfig):
+    """An :class:`LM`, or the trainer's stacked leaves unbound into per-layer
+    weights (one ``unbind`` a leaf) under the attribute names of ``LM``."""
+    if isinstance(params, LM):
+        return params
+    stacked = {k[len("blocks."):]: v.unbind(0) for k, v in params.items() if k.startswith("blocks.")}
+    blocks = [_namespace(_nested({k: v[i] for k, v in stacked.items()}))
+              for i in range(cfg.num_layers)]
+    return SimpleNamespace(embed=params["embed"], ln_f=SimpleNamespace(scale=params["ln_f.scale"]),
+                           unembed=params["unembed"], blocks=blocks)
+
+
+def _final_hidden(params, batch, cfg: ModelConfig, *, kv_chunk=1024):
+    """The training forward up to the final norm: (x (B, S, d), loss mask
+    (B, S), aux, tokens, the layer view)."""
+    if cfg.family != "dense":
+        raise C.unported(f"training the {cfg.family} family", "A6")
+    view = _layer_view(params, cfg)
+    tokens = _tokens(view, batch["tokens"])
+    x = F.embedding(tokens, view.embed)  # its backward sums a row's terms in one order on the CPU
+    b, s = tokens.shape
+    seq_pos = torch.arange(s, dtype=torch.int32, device=x.device)
+    x, _, aux = _run_blocks(view, x, cfg, positions=seq_pos[None].expand(b, s), mode="train",
+                            kv_chunk=kv_chunk, seq_positions=seq_pos)
+    x = C.apply_norm(view.ln_f, x, cfg.norm)
+    return x, torch.ones((b, s), dtype=torch.bool, device=x.device), aux, tokens, view
+
+
+def _ce_chunk(x, w, labels, mask):
+    logits = C.matmul_f32(x, w)  # (B, chunk, V) fp32
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = logits.gather(-1, labels[..., None])[..., 0]
+    return ((lse - ll) * mask).sum()
+
+
+def _chunked_ce(x, w, labels, mask, *, seq_chunk=512):
+    """Next-token CE without (B, S, V) fp32 logits: fp32 log-softmax over
+    ``seq_chunk`` slices of the sequence, each slice's logits recomputed in
+    the backward (``torch.utils.checkpoint``), so one slice's live at once."""
+    tot = torch.zeros((), dtype=torch.float32, device=x.device)
+    for c in range(0, x.shape[1], seq_chunk):
+        part = (x[:, c:c + seq_chunk], w, labels[:, c:c + seq_chunk], mask[:, c:c + seq_chunk])
+        if torch.is_grad_enabled():
+            tot = tot + checkpoint(_ce_chunk, *part, use_reentrant=False, preserve_rng_state=False)
+        else:
+            tot = tot + _ce_chunk(*part)
+    return tot / torch.clamp(mask.sum(dtype=torch.float32), min=1.0)
+
+
+def train_loss(params, batch, cfg: ModelConfig, *, kv_chunk=1024, aux_weight=0.01):
+    """(loss, {"ce", "aux"}) of ``batch`` = {"tokens": (B, S)}: the mean
+    next-token CE plus ``aux_weight`` times the blocks' aux (0 for the
+    dense family).  ``params``: the trainer's stacked leaves
+    (:func:`train_params`) or an :class:`LM`."""
+    x, mask, aux, tokens, view = _final_hidden(params, batch, cfg, kv_chunk=kv_chunk)
+    ce = _chunked_ce(x[:, :-1], view.unembed, tokens[:, 1:], mask[:, 1:].to(torch.float32))
+    return ce + aux_weight * aux, {"ce": ce, "aux": aux}

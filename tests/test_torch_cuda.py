@@ -1580,3 +1580,85 @@ def test_inverted_band_solve_on_non_finite_values_gives_the_plain_pattern(bw, ca
     args = (f.linv, f.uinv, f.tlo, f.tup)
     assert_same_positions(banded.banded_solve_inverted(*args, b, n=n, bw=bw),
                           banded_inverted_solve(*args, b, n=n, bw=bw))
+
+
+# ---------------------------------------------------------------------------
+# the training step (llama3_8b.reduced(), fp32): the card against the CPU
+# ---------------------------------------------------------------------------
+def train_steps(dev, name, microbatches, steps=3):
+    """``steps`` train steps from the same seeded model and numpy batches on
+    ``dev`` at the trainer's default learning rate: (the first batch's
+    gradients, the trainer's leaves, the losses), all on the CPU."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+    from repro_torch.train import loop
+
+    cfg = get_config("llama3_8b").reduced()
+    params = {k: torch.nn.Parameter(v.detach().to(dev))
+              for k, v in lm.train_params(lm.init_params(0, cfg, device="cpu")).items()}
+    opt = train.get_optimizer(name, list(params.values()),
+                              train.warmup_cosine(loop.TrainConfig().learning_rate, 2, 10))
+    step = loop.make_train_step(cfg, opt, microbatches=microbatches)
+    rng = np.random.default_rng(7)
+    batches = [{"tokens": torch.from_numpy(rng.integers(0, 256, (4, 32)).astype(np.int32)).to(dev)}
+               for _ in range(steps)]
+    loss, _ = lm.train_loss(params, batches[0], cfg)
+    grads = [g.cpu() for g in torch.autograd.grad(loss, list(params.values()))]
+    losses = [float(step(params, b)["loss"]) for b in batches]
+    return grads, {k: p.detach().cpu() for k, p in params.items()}, losses
+
+
+@pytest.mark.parametrize("microbatches", [1, 2])
+@pytest.mark.parametrize("name", ["adamw", "ebv"])
+def test_train_steps_on_the_card_match_the_cpu(name, microbatches, card):
+    # the first batch's gradients and each leaf after three steps normwise
+    # 1e-4, the losses 1e-5: the card's products and the embedding's
+    # backward sum in other orders than the CPU's (gradients measured
+    # <= 1.5e-6).  Adam moves an entry by about lr * sign(g) however small
+    # g is, so entries whose gradient is round-off-sized move apart by up
+    # to 2 lr; at lr 1e-2 the leaves parted by up to 2.9e-3 after three
+    # steps, at the trainer's default 3e-4 by up to 1.3e-5 on an H100
+    # (chip_smoke.py phase 4j prints both)
+    got_grads, got, got_losses = train_steps(card, name, microbatches)
+    want_grads, want, want_losses = train_steps(torch.device("cpu"), name, microbatches)
+    for g, w in zip(got_grads, want_grads):
+        close(g, w, 1e-4)
+    for k in want:
+        close(got[k], want[k], 1e-4)
+    close(torch.tensor(got_losses), torch.tensor(want_losses), 1e-5)
+
+
+def test_the_ebv_train_step_runs_b9_and_b10_once_per_order_group(card):
+    # order 2 (the two stacked norm scales, L = 2) and order 64 (embed and
+    # unembed): two groups a step; B9 adds its non-finite pass from n = 3
+    wrappers = (batched_lu.batched_lu_vmem, batched_lu.batched_lu_solve_vmem)
+    before = [w.launches for w in wrappers]
+    with solvers.record_dispatches() as log:
+        train_steps(card, "ebv", 1, steps=2)
+    assert [(p.op, p.n, p.batch, name) for p, name in log] == [
+        ("factor", 2, 2, "cuda_vmem"), ("solve", 2, 2, "cuda_vmem"),
+        ("factor", 64, 2, "cuda_vmem"), ("solve", 64, 2, "cuda_vmem")] * 2
+    assert [w.launches - b for w, b in zip(wrappers, before)] == [2 * (1 + 2), 2 * 2]
+
+
+def test_the_bf16_logits_product_and_its_backward_match_the_upcast_products(card):
+    # fp32 out of bf16 operands (torch.mm's out_dtype): the forward within
+    # 1e-5 of the upcast product; the backward rounds the fp32 cotangent to
+    # bf16 once, so its gradients are held to 2e-2 (a few bf16 units)
+    from repro_torch.models import common
+
+    g = torch.Generator().manual_seed(5)
+    x = torch.randn(3, 40, 64, generator=g).to(torch.bfloat16)
+    w = (torch.randn(64, 300, generator=g) * 0.1).to(torch.bfloat16)
+    ct = torch.randn(3, 40, 300, generator=g)
+    out = {}
+    for dev in ("cpu", card):
+        xs, ws = x.to(dev, copy=True).requires_grad_(), w.to(dev, copy=True).requires_grad_()
+        y = common.matmul_f32(xs, ws)
+        assert y.dtype == torch.float32
+        y.backward(ct.to(dev))
+        assert xs.grad.dtype == ws.grad.dtype == torch.bfloat16
+        out[str(dev)] = (y.detach(), xs.grad, ws.grad)
+    close(out["cuda"][0], out["cpu"][0], 1e-5)
+    close(out["cuda"][1], out["cpu"][1], 2e-2)
+    close(out["cuda"][2], out["cpu"][2], 2e-2)

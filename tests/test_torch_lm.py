@@ -295,9 +295,9 @@ def test_init_params_layout_and_seed():
                                   "hymba_1_5b", "whisper_tiny", "qwen2_vl_2b"])
 def test_unported_families_raise(arch):
     cfg = get_config(arch).reduced()
-    with pytest.raises(NotImplementedError, match="ROADMAP A13"):
+    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
         TL.init_params(0, cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A13"):
+    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
         TB.init_block_cache(cfg, 1, 8, torch.float32, device="cpu")
 
 
@@ -305,15 +305,15 @@ def test_unported_features_raise():
     _, tc = cfgs("llama3_8b")
     x = torch.zeros((1, 4, 2, 16))
     pos = torch.arange(4)
-    with pytest.raises(NotImplementedError, match="ROADMAP A13"):
+    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
         TC.apply_rope(x, pos[None], 1e4, mrope_sections=(2, 3, 3))
-    with pytest.raises(NotImplementedError, match="ROADMAP A13"):
+    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
         TC.attention(x, x, x, q_positions=pos, kv_positions=pos, causal=True, window=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP A13"):
+    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
         TC.attention(x, x, x, q_positions=pos, kv_positions=pos, causal=True, window=None,
                      kv_chunk=2, schedule="tri")
-    with pytest.raises(NotImplementedError, match="ROADMAP A12"):
+    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
         TC.ebv_attention_sharded(x, x, x, q_positions=pos, window=None)
     model = TL.init_params(0, tc, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A13"):
+    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
         TL.prefill(model, {"tokens": np.zeros((1, 4), np.int32)}, tc.replace(sliding_window=8))

@@ -147,7 +147,9 @@ def test_importing_the_port_loads_neither_jax_nor_the_reference():
         "repro_torch.serve.scheduler, repro_torch.core.refine, repro_torch.core.randomized, "
         "repro_torch.configs, repro_torch.models.common, repro_torch.models.blocks, "
         "repro_torch.models.lm, repro_torch.kernels.paged_attn, repro_torch.serve.paged, "
-        "repro_torch.serve.engine, repro_torch.launch.serve, repro_torch.core.nonfinite; "
+        "repro_torch.serve.engine, repro_torch.launch.serve, repro_torch.core.nonfinite, "
+        "repro_torch.data, repro_torch.data.pipeline, repro_torch.ckpt, repro_torch.ckpt.manager, "
+        "repro_torch.train.loop, repro_torch.train.grad_compress, repro_torch.launch.train; "
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m == 'repro' or m.startswith('repro.')); print(bad); sys.exit(1 if bad else 0)"
     )
