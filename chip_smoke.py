@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's dense, banded and batched main paths, the
 EbV-preconditioned optimizer, the legacy dense factors, the accuracy tiers,
-the solve service and the LM serving engine on one NVIDIA card.
+the solve service, the LM serving engine and the trainer (the dense family
+and whisper's encdec family) on one NVIDIA card.
 
     python3 chip_smoke.py
 
@@ -44,7 +45,9 @@ Phases (any failure exits non-zero):
    against the plain version's); 3e the
    paged decode attention (B13) at the served shape and at a decode-heavy
    one (32 rows of 4096 positions), fp32 and bf16, with holes, through its
-   wrapper and forced onto clusters of every size, 1 to 16 CTAs; 3f 70,000
+   wrapper and forced onto clusters of every size, 1 to 16 CTAs, and so at
+   whisper-tiny's served shape (8 rows of 28 pages, H = KV = 6, Dh = 64);
+   3f 70,000
    systems through B10 (n = 4, bit for bit) and B12 (n = 8, bw = 1, within
    1e-5, five systems bitwise B7) in one launch each (fault C8), and a
    tridiagonal band of 65,537 diagonal blocks (n = 2,097,157) through B8
@@ -74,9 +77,10 @@ Phases (any failure exits non-zero):
    - the optimizer (4d): three ``EbvPreconditioned`` steps on the parameter
      tree of whisper-tiny (``configs/whisper_tiny.py`` as
      ``models/lm.py:init_params`` lays it out: one order-384 group of two
-     systems with a (2, 384, 51968) RHS) and on the reference benchmark's
-     four (128, 128) leaves; the training loss is not ported yet
-     (ROADMAP A15), so the gradients are drawn from a seeded generator;
+     systems with a (2, 384, 51968) RHS; its leaves' names, shapes, dtypes
+     and order held to ``models/lm.py:_train_shapes``) and on the reference
+     benchmark's four (128, 128) leaves, the gradients drawn from a seeded
+     generator (phase 4k computes whisper-tiny's own);
    - batched banded (4e): ``ops.banded_linear_solve`` on 16 Table 1 bands
      (n = 16000, bw = 5) and a CFD ensemble of 32 five-point Poisson bands
      on a 64 x 64 grid (n = 4096, bw = 64), each with its own diagonal;
@@ -118,6 +122,24 @@ Phases (any failure exits non-zero):
      its parameters equal the first run's; the
      step time (forward-backward and optimizer apart), tokens/s, the idle
      share, peak memory and the step's bound;
+   - whisper-tiny (4k, after 4j): at full width and depth
+     (``configs/whisper_tiny.py``, 4 + 4 layers, bf16, weights drawn on the
+     card from a seed, the frontend's stub frames from seed 0): (a)
+     ``serve.Engine`` dense and paged (pages of 16) on 16 greedy requests
+     (8 slots, bucket 16, prompts of 16-224 and 32-224 new tokens, max_len
+     448): tokens/s, ms per decode step, B13 launched ``num_layers`` times
+     per paged decode step, the paged decode step's logits against the
+     dense one's teacher-forced over 8 steps; (b) 5 AdamW and 5 EbV
+     ``make_train_step`` steps on one repeated 64 x 448 batch: losses that
+     fall, step time (forward-backward and optimizer apart), tokens/s
+     against the bound, idle share, peak memory, and under EbV the order-4
+     group of five stacked norm scales and the order-384 group of embed and
+     unembed (m = 51968), each one factor (B9, two launches) and one solve
+     (B10) a step; (c) ``whisper_tiny.reduced()`` in fp32, 3 steps on the
+     card against the CPU, both optimizers, 1 and 2 microbatches; then
+     ``python -m repro_torch.launch.serve --arch whisper_tiny --paged`` and
+     ``python -m repro_torch.launch.train --arch whisper_tiny --optimizer
+     ebv --steps 3`` on the card;
    checks the dispatches, the counters, the residuals and small answers
    against the float64 oracles;
 5. times: each kernel, its plain version and a PyTorch library yardstick
@@ -145,7 +167,8 @@ Phases (any failure exits non-zero):
    optimizer step's time; device time by kernel (B1, B3 and
    B4 at n = 8000 among them) and each dense factor and solve step's time
    beside the host's enqueue time per launch; B13 at the
-   served and the decode-heavy shape; one full-width decode step against
+   served and the decode-heavy shape and at whisper-tiny's served shape; one
+   full-width decode step against
    its weight-bytes bound, with its device idle share;
 6. the ``kernels`` JSON line, the card line and the result line.
 
@@ -282,6 +305,13 @@ PEAK_BF16_FLOPS = 989e12  # H100 SXM data sheet, dense
 # on the card against the CPU, normwise a leaf; (e) a resumed run against an
 # uninterrupted one, normwise a leaf: the embedding's backward sums by atomics
 TRAIN_CE_TOL, TRAIN_CPU_TOL, TRAIN_RESUME_TOL = 1e-3, 1e-4, 1e-5
+# whisper-tiny (3e, 4k, 5): at full width and depth (configs/whisper_tiny.py:
+# 4 + 4 layers, d 384, 6 heads of Dh 64, one a KV head, d_ff 1536, vocab
+# 51865, bf16), served on 8 slots (bucket 16, pages of 16) to 16 greedy
+# requests of 16-224 prompt and 32-224 new tokens within whisper's decoder
+# context of 448; trained on one repeated global batch of 64 x 448 tokens
+WHISPER_ARCH, WHISPER_SLOTS, WHISPER_REQS, WHISPER_MAX_LEN = "whisper_tiny", 8, 16, 448
+WHISPER_TRAIN = (64, 448)
 
 
 def fail(msg: str) -> None:
@@ -297,85 +327,36 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def train_phase(dev, card: str) -> dict:
-    """Phase 4j: the training path, llama3-8b at full width and 4 layers,
-    5 AdamW and 5 EbV steps, each from a fresh model on one repeated batch,
-    with gates (a)-(e) (see the module docstring).  Returns the batched
-    kernels' launches on the EbV run."""
+def train_runs(dev, card: str, tag: str, cfg, batch, fresh, groups: dict, tokens: int, bounds) -> dict:
+    """TRAIN_STEPS AdamW and TRAIN_STEPS EbV ``train.loop.make_train_step``
+    steps, each run from ``fresh()`` on the repeated ``batch``: the step by
+    CUDA events (the optimizer's apart; the median of the last 3), the host
+    clock, tokens/s, one more step profiled (the device's busy time and
+    largest operations, the idle share), peak memory and each of ``bounds``
+    ((ms, what) pairs).  Fails unless the losses are finite and fall, and
+    unless EbV runs one factor (B9, with its non-finite pass from n = 3)
+    and one solve (B10) of each order group of ``groups`` ({order:
+    systems}) a step, AdamW none.  Returns the EbV run's launches."""
     import gc
     import math
-    import shutil
 
-    import numpy as np
     import torch
-    import torch.nn.functional as F
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch import solvers, train
-    from repro_torch.configs import get_config
-    from repro_torch.data import TokenPipeline
     from repro_torch.kernels import batched_lu
-    from repro_torch.models import lm
     from repro_torch.train import loop
 
-    t_phase = time.perf_counter()
-    cfg = get_config(LM_ARCH).replace(num_layers=TRAIN_LAYERS)
-    tc = loop.TrainConfig(steps=TRAIN_STEPS, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH)
-    pipe = TokenPipeline(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH, seed=0)
-    batch = loop.make_batch_fn(cfg, tc, device=dev)(next(pipe)["tokens"])
-    tokens = TRAIN_BATCH * TRAIN_SEQ
-    shapes = lm._train_shapes(cfg)
-    nparams = sum(math.prod(s) for s, _ in shapes.values())
-    # the weights of the matmuls: every leaf but the embedding (a gather) and the norm scales
-    n_matmul = sum(math.prod(s) for k, (s, _) in shapes.items() if k != "embed" and not k.endswith("scale"))
-    bound_ms = 8 * n_matmul * tokens / PEAK_BF16_FLOPS * 1e3  # 6 N T, and the forward again under remat
-    groups = {}  # EbV's order groups from the leaf shapes: 2-D, min(shape) <= 1024
-    for s, _ in shapes.values():
-        if len(s) == 2 and min(s) <= 1024:
-            groups[min(s)] = groups.get(min(s), 0) + 1
-    print(f"  {cfg.name}: {TRAIN_LAYERS} layers (cut from 32), d={cfg.d_model}, {cfg.num_heads} heads, "
-          f"{cfg.num_kv_heads} KV heads, d_ff={cfg.d_ff}, vocab {cfg.vocab_size}, {cfg.dtype}: "
-          f"{nparams / 1e9:.3f} G parameters in {len(shapes)} stacked leaves, {n_matmul / 1e9:.3f} G in "
-          f"matmuls; batch {TRAIN_BATCH} x {TRAIN_SEQ} = {tokens} tokens a step; EbV order groups "
-          f"(order: systems) {groups}; memory in use before {torch.cuda.memory_allocated() / 1e9:.2f} GB",
-          flush=True)
-    if groups != {TRAIN_LAYERS: 2}:
-        fail(f"EbV order groups {groups}: expected one group of two order-{TRAIN_LAYERS} systems "
-             "(the stacked norm scales)")
-
-    def fresh():
-        params = lm.train_params(lm.init_params(torch.Generator(device=dev).manual_seed(2700), cfg))
-        gc.collect()
-        torch.cuda.empty_cache()
-        return params
-
-    # (b) the chunked CE against one full fp32 product and F.cross_entropy
-    params = fresh()
-    with torch.no_grad():
-        _, met0 = lm.train_loss(params, batch, cfg)
-        x, _, _, toks, _ = lm._final_hidden(params, batch, cfg)
-        logits = x[:, :-1].float() @ params["unembed"].float()
-        full = float(F.cross_entropy(logits.reshape(-1, logits.shape[-1]), toks[:, 1:].reshape(-1)))
-        del x, logits
-    ce0 = float(met0["ce"])
-    rel = abs(ce0 - full) / abs(full)
-    print(f"  (b) train_loss at step 0: CE {ce0:.6f}; one fp32 x @ unembed with F.cross_entropy {full:.6f}; "
-          f"relative {rel:.3e} (tolerance {TRAIN_CE_TOL:.0e})", flush=True)
-    if not rel <= TRAIN_CE_TOL:
-        fail(f"train_loss {ce0} against the full fp32 CE {full}")
-
+    tc = loop.TrainConfig(steps=TRAIN_STEPS)
     wrappers = {"batched_lu_vmem": batched_lu.batched_lu_vmem,
                 "batched_lu_solve_vmem": batched_lu.batched_lu_solve_vmem}
     launches = {}
     for name in ("adamw", "ebv"):
-        if params is None:
-            params = fresh()
+        params = fresh()
         opt = train.get_optimizer(name, list(params.values()),
                                   train.warmup_cosine(tc.learning_rate, 2, TRAIN_STEPS))
         step_fn = loop.make_train_step(cfg, opt)
-        opt_events = []
-        plain_step = opt.step
+        opt_events, plain_step = [], opt.step
 
         def timed_opt_step(closure=None, plain_step=plain_step, opt_events=opt_events):
             s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -413,69 +394,173 @@ def train_phase(dev, card: str) -> dict:
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             step_fn(params, batch)
             torch.cuda.synchronize()
-        busy = sum(ev.self_device_time_total for ev in prof.key_averages()
-                   if ev.self_device_time_total > 0 and ev.device_type != DeviceType.CPU
-                   and not getattr(ev, "is_user_annotation", False)) / 1e3
+        ops = device_ops(prof)
+        busy = sum(r[1] for r in ops)
         last = slice(TRAIN_STEPS - 3, TRAIN_STEPS)
         med, med_opt = statistics.median(step_ms[last]), statistics.median(opt_ms[last])
         med_host = statistics.median(host_ms[last])
         idle = f"{max(0.0, 1 - busy / med_host):.3f}" if busy > 0 else "not measured"
-        print(f"  {name}: losses {[round(v, 4) for v in losses]}; step {med:.1f} ms (events, median of the "
-              f"last 3: forward-backward {med - med_opt:.1f}, optimizer {med_opt:.1f}), host clock "
-              f"{med_host:.1f} ms, {tokens / med * 1e3:,.0f} tokens/s; device busy {busy:.1f} ms of a "
-              f"profiled step, idle share {idle}; peak memory {peak / 1e9:.2f} GB "
-              f"(max_memory_allocated); bound {bound_ms:.1f} ms (8 x {n_matmul / 1e9:.3f} G x {tokens} "
-              f"tokens / 989 TFLOP/s bf16) = {bound_ms / med:.3f} of the step; card: {card}", flush=True)
-        # (a) finite losses, the last below the first
+        bound = "; ".join(f"bound {what} = {ms:.2f} ms ({ms / med:.3f} of the step)" for ms, what in bounds)
+        print(f"  {tag} {name}: losses {[round(v, 4) for v in losses]}; step {med:.1f} ms (events, median of "
+              f"the last 3: forward-backward {med - med_opt:.1f}, optimizer {med_opt:.1f}), host clock "
+              f"{med_host:.1f} ms, {tokens / med * 1e3:,.0f} tokens/s; device busy {busy:.1f} ms of a profiled "
+              f"step, idle share {idle}; peak memory {peak / 1e9:.2f} GB (max_memory_allocated); {bound}; "
+              f"card: {card}", flush=True)
+        print(f"  {tag} {name}: a profiled step's largest device operations: "
+              + ", ".join(f"{k[:48]} {v:.1f} ms x{c}" for k, v, c in ops[:6]), flush=True)
         if not all(math.isfinite(v) for v in losses) or not losses[-1] < losses[0]:
-            fail(f"{name}: losses {losses}: not finite or not falling")
-        # (c) EbV: the batched CUDA slots, one factor and one solve a group a step
-        per_step = [("factor", TRAIN_LAYERS, 2, "cuda_vmem"), ("solve", TRAIN_LAYERS, 2, "cuda_vmem")]
+            fail(f"{tag} {name}: losses {losses}: not finite or not falling")
+        per_step = [(op, n, groups[n], "cuda_vmem") for n in sorted(groups) for op in ("factor", "solve")]
         # B9 adds its non-finite pass from n = 3 (kernels/batched_lu.py)
         want = ({"batched_lu_vmem": TRAIN_STEPS * sum(1 + (n >= 3) for n in groups),
                  "batched_lu_solve_vmem": TRAIN_STEPS * len(groups)} if name == "ebv"
                 else dict.fromkeys(wrappers, 0))
-        print(f"  {name}: launches {got} (expected {want}); dispatches a step {logs[0]}", flush=True)
+        print(f"  {tag} {name}: launches {got} (expected {want}); dispatches a step {logs[0]}", flush=True)
         if got != want or logs != ([per_step] * TRAIN_STEPS if name == "ebv" else [[]] * TRAIN_STEPS):
-            fail(f"{name}: launches {got} or dispatches {logs}")
+            fail(f"{tag} {name}: launches {got} or dispatches {logs}")
         if name == "ebv":
             launches = got
         del params, opt, step_fn, prof
-        params = None
         gc.collect()
         torch.cuda.empty_cache()
+    return launches
 
-    # (d) llama3_8b.reduced() in fp32: 3 steps on the card against the CPU at
-    # the trainer's default learning rate, and the first batch's gradients.
-    # Adam moves an entry by about lr * sign(g) however small g is, so
-    # round-off-sized gradients part the leaves by up to 2 lr: the same at
-    # lr 1e-2 is printed, not gated
-    rcfg = get_config(LM_ARCH).reduced()
-    rng = np.random.default_rng(2701)
-    rbatches = [rng.integers(0, rcfg.vocab_size, (4, 64)).astype(np.int32) for _ in range(3)]
-    start = lm.train_params(lm.init_params(2702, rcfg, device="cpu"))
+
+def device_ops(prof) -> list:
+    """(name, device ms, count) of a profile's device events, largest first:
+    the device's own events (kernels, copies), not the host ops that
+    launched them, so the times add up to the device's busy time."""
+    from torch.autograd import DeviceType
+
+    rows = [(ev.key, ev.self_device_time_total / 1e3, ev.count) for ev in prof.key_averages()
+            if ev.self_device_time_total > 0 and ev.device_type != DeviceType.CPU
+            and not getattr(ev, "is_user_annotation", False)]  # a span over kernels listed anyway
+    return sorted(rows, key=lambda r: -r[1])
+
+
+def ebv_groups(shapes: dict) -> dict:
+    """{order: systems} of the EbV optimizer's order groups over leaves of
+    ``shapes`` ({name: (shape, dtype)}): 2-D, min(shape) <= 1024."""
+    groups = {}
+    for s, _ in shapes.values():
+        if len(s) == 2 and min(s) <= 1024:
+            groups[min(s)] = groups.get(min(s), 0) + 1
+    return groups
+
+
+def card_against_cpu(dev, tag: str, rcfg, start: dict, batches, cases) -> None:
+    """``rcfg`` (a reduced fp32 config) on the CPU and on the card from the
+    leaves ``start``: the first batch's gradients, then 3
+    ``make_train_step`` steps of each (optimizer, microbatches, learning
+    rate) of ``cases``; the gradients and the leaves normwise a leaf, the
+    losses relative.  Gated (TRAIN_CPU_TOL, TRAIN_CPU_TOL, 1e-5) at the
+    trainer's default learning rate: Adam moves an entry by about lr *
+    sign(g) however small g is, so round-off-sized gradients part the
+    leaves by up to 2 lr.  ``batches(device)``: the 3 steps' batches."""
+    import torch
+
+    from repro_torch import train
+    from repro_torch.models import lm
+    from repro_torch.train import loop
+
     rel = lambda a, b: float((a - b).abs().max() / b.abs().max())
-    for name, mb, lr in [(name, mb, tc.learning_rate) for name in ("adamw", "ebv") for mb in (1, 2)] + \
-            [("adamw", 1, 1e-2), ("ebv", 1, 1e-2)]:
+    for name, mb, lr in cases:
         out = []
         for d in (torch.device("cpu"), dev):
             ps = {k: torch.nn.Parameter(v.detach().clone().to(d)) for k, v in start.items()}
-            first = {"tokens": torch.from_numpy(rbatches[0]).to(d)}
-            grads = torch.autograd.grad(lm.train_loss(ps, first, rcfg)[0], list(ps.values()))
+            steps = batches(d)
+            grads = torch.autograd.grad(lm.train_loss(ps, steps[0], rcfg)[0], list(ps.values()))
             o = train.get_optimizer(name, list(ps.values()), train.warmup_cosine(lr, 2, 10))
             fn = loop.make_train_step(rcfg, o, microbatches=mb)
-            losses = [float(fn(ps, {"tokens": torch.from_numpy(b).to(d)})["loss"]) for b in rbatches]
+            losses = [float(fn(ps, b)["loss"]) for b in steps]
             out.append(([g.cpu() for g in grads], {k: p.detach().cpu() for k, p in ps.items()}, losses))
         gworst = max(rel(g, w) for g, w in zip(out[1][0], out[0][0]))
         worst = max(rel(out[1][1][k], w) for k, w in out[0][1].items())
         lworst = max(abs(a - b) / abs(b) for a, b in zip(out[1][2], out[0][2]))
-        gated = lr == tc.learning_rate
-        print(f"  (d) {rcfg.name} reduced, fp32, {name}, microbatches {mb}, lr {lr}: the card against the "
+        gated = lr == loop.TrainConfig().learning_rate
+        print(f"  {tag} {rcfg.name} reduced, fp32, {name}, microbatches {mb}, lr {lr}: the card against the "
               f"CPU, first gradients worst leaf normwise {gworst:.3e}, after 3 steps worst leaf {worst:.3e}, "
               f"losses {lworst:.3e} " + (f"(tolerances {TRAIN_CPU_TOL:.0e}, {TRAIN_CPU_TOL:.0e}, 1e-05)"
                                          if gated else "(not gated)"), flush=True)
         if gated and not (gworst <= TRAIN_CPU_TOL and worst <= TRAIN_CPU_TOL and lworst <= 1e-5):
-            fail(f"{name} microbatches {mb}: the card's steps differ from the CPU's")
+            fail(f"{rcfg.name} {name} microbatches {mb}: the card's steps differ from the CPU's")
+
+
+def train_phase(dev, card: str) -> dict:
+    """Phase 4j: the training path, llama3-8b at full width and 4 layers,
+    5 AdamW and 5 EbV steps, each from a fresh model on one repeated batch,
+    with gates (a)-(e) (see the module docstring).  Returns the batched
+    kernels' launches on the EbV run."""
+    import gc
+    import math
+    import shutil
+
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenPipeline
+    from repro_torch.models import lm
+    from repro_torch.train import loop
+
+    t_phase = time.perf_counter()
+    cfg = get_config(LM_ARCH).replace(num_layers=TRAIN_LAYERS)
+    tc = loop.TrainConfig(steps=TRAIN_STEPS, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH)
+    pipe = TokenPipeline(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH, seed=0)
+    batch = loop.make_batch_fn(cfg, tc, device=dev)(next(pipe)["tokens"])
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    shapes = lm._train_shapes(cfg)
+    nparams = sum(math.prod(s) for s, _ in shapes.values())
+    # the weights of the matmuls: every leaf but the embedding (a gather) and the norm scales
+    n_matmul = sum(math.prod(s) for k, (s, _) in shapes.items() if k != "embed" and not k.endswith("scale"))
+    bound_ms = 8 * n_matmul * tokens / PEAK_BF16_FLOPS * 1e3  # 6 N T, and the forward again under remat
+    groups = ebv_groups(shapes)
+    print(f"  {cfg.name}: {TRAIN_LAYERS} layers (cut from 32), d={cfg.d_model}, {cfg.num_heads} heads, "
+          f"{cfg.num_kv_heads} KV heads, d_ff={cfg.d_ff}, vocab {cfg.vocab_size}, {cfg.dtype}: "
+          f"{nparams / 1e9:.3f} G parameters in {len(shapes)} stacked leaves, {n_matmul / 1e9:.3f} G in "
+          f"matmuls; batch {TRAIN_BATCH} x {TRAIN_SEQ} = {tokens} tokens a step; EbV order groups "
+          f"(order: systems) {groups}; memory in use before {torch.cuda.memory_allocated() / 1e9:.2f} GB",
+          flush=True)
+    if groups != {TRAIN_LAYERS: 2}:
+        fail(f"EbV order groups {groups}: expected one group of two order-{TRAIN_LAYERS} systems "
+             "(the stacked norm scales)")
+
+    def fresh():
+        params = lm.train_params(lm.init_params(torch.Generator(device=dev).manual_seed(2700), cfg))
+        gc.collect()
+        torch.cuda.empty_cache()
+        return params
+
+    # (b) the chunked CE against one full fp32 product and F.cross_entropy
+    params = fresh()
+    with torch.no_grad():
+        ce0 = float(lm.train_loss(params, batch, cfg)[1]["ce"])
+        hidden = lm._final_hidden(params, batch, cfg)  # its layer view holds the weights
+        x, toks = hidden[0], hidden[3]
+        logits = x[:, :-1].float() @ params["unembed"].float()
+        full = float(F.cross_entropy(logits.reshape(-1, logits.shape[-1]), toks[:, 1:].reshape(-1)))
+        del hidden, x, logits
+    rel = abs(ce0 - full) / abs(full)
+    print(f"  (b) train_loss at step 0: CE {ce0:.6f}; one fp32 x @ unembed with F.cross_entropy {full:.6f}; "
+          f"relative {rel:.3e} (tolerance {TRAIN_CE_TOL:.0e})", flush=True)
+    if not rel <= TRAIN_CE_TOL:
+        fail(f"train_loss {ce0} against the full fp32 CE {full}")
+
+    del params  # each run draws its own
+    launches = train_runs(dev, card, "(a, c)", cfg, batch, fresh, groups, tokens,
+                          [(bound_ms, f"8 x {n_matmul / 1e9:.3f} G x {tokens} tokens / 989 TFLOP/s bf16")])
+
+    # (d) llama3_8b.reduced() in fp32: 3 steps on the card against the CPU at
+    # the trainer's default learning rate, and the first batch's gradients;
+    # the same at lr 1e-2 is printed, not gated
+    rcfg = get_config(LM_ARCH).reduced()
+    rng = np.random.default_rng(2701)
+    rbatches = [rng.integers(0, rcfg.vocab_size, (4, 64)).astype(np.int32) for _ in range(3)]
+    start = lm.train_params(lm.init_params(2702, rcfg, device="cpu"))
+    card_against_cpu(dev, "(d)", rcfg, start, lambda d: [{"tokens": torch.from_numpy(b).to(d)} for b in rbatches],
+                     [(name, mb, tc.learning_rate) for name in ("adamw", "ebv") for mb in (1, 2)]
+                     + [("adamw", 1, 1e-2), ("ebv", 1, 1e-2)])
 
     # (e) the launcher, checkpointed, cut after step 4's checkpoint and run
     # again in a new process: it resumes at step 4 and ends where the
@@ -519,6 +604,214 @@ def train_phase(dev, card: str) -> dict:
     shutil.rmtree(base, ignore_errors=True)
     print(f"  phase 4j: {time.perf_counter() - t_phase:.1f} s", flush=True)
     return launches
+
+
+def whisper_phase(dev, card: str) -> dict:
+    """Phase 4k: whisper-tiny at full width and depth: (a) the serving engine
+    dense and paged, (b) 5 AdamW and 5 EbV training steps, each from a fresh
+    model on one repeated batch, (c) the reduced fp32 model on the card
+    against the CPU, and both launchers in subprocesses (see the module
+    docstring).  Returns the launches of B13 (the paged serve) and of B9 and
+    B10 (the EbV run)."""
+    import gc
+    import math
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenPipeline
+    from repro_torch.kernels import paged_attn
+    from repro_torch.models import lm
+    from repro_torch.serve import Engine, GenRequest, bucket_length
+    from repro_torch.train import loop
+
+    t_phase = time.perf_counter()
+    cfg = get_config(WHISPER_ARCH)
+    L, kvh, dh = cfg.num_layers, cfg.num_kv_heads, cfg.resolved_head_dim
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model = lm.init_params(torch.Generator(device=dev).manual_seed(2800), cfg)
+    torch.cuda.synchronize()
+    nparams = sum(p.numel() for p in model.parameters())
+    print(f"  {cfg.name}: {L} decoder + {cfg.encoder_layers} encoder layers, d={cfg.d_model}, {cfg.num_heads} "
+          f"heads, {kvh} KV heads, Dh={dh}, d_ff={cfg.d_ff}, vocab {cfg.vocab_size}, {cfg.dtype}: "
+          f"{nparams / 1e6:.3f} M parameters, drawn on the card in {time.perf_counter() - t0:.2f} s", flush=True)
+
+    # ---- (a) serving, dense and paged, then teacher-forced logits
+    rng = np.random.default_rng(2801)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32) for n in rng.integers(16, 225, WHISPER_REQS)]
+    news = [int(n) for n in rng.integers(32, 225, WHISPER_REQS)]
+    reqs = [GenRequest(p, n) for p, n in zip(prompts, news)]
+    served, engines, b13 = {}, {}, {}
+    for paged in (False, True):
+        label = "paged" if paged else "dense"
+        eng = Engine(model, cfg, max_len=WHISPER_MAX_LEN, slots=WHISPER_SLOTS, bucket=LM_BUCKET,
+                     **(dict(paged=True, page_size=PAGE) if paged else {}))
+        torch.cuda.synchronize()
+        paged_attn.paged_decode_attention.launches = 0
+        t0 = time.perf_counter()
+        served[label] = eng.serve(reqs)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        b13[label] = paged_attn.paged_decode_attention.launches
+        engines[label] = eng
+        st = eng.stats
+        print(f"  (a) {label}: {len(reqs)} requests, {st.generated_tokens} new tokens in {dt * 1e3:.1f} ms (host "
+              f"clock) = {st.generated_tokens / dt:.1f} tokens/s; {st.prefill_dispatches} prefill + "
+              f"{st.decode_dispatches} decode dispatches, {dt * 1e3 / st.decode_dispatches:.2f} ms per decode "
+              f"step with the prefills; padding {st.padding_frac:.3f} (one bucket a call); B13 launches "
+              f"{b13[label]} = {b13[label] / st.decode_dispatches:.2f} per decode step"
+              + (f"; pool peak {st.pool_peak_pages}/{eng.pool.capacity} pages of {PAGE}" if paged else "")
+              + f" (card: {card})", flush=True)
+    pst = engines["paged"].stats
+    if b13["dense"] != 0 or b13["paged"] != L * pst.decode_dispatches:
+        fail(f"whisper B13 launches {b13}: expected none dense and {L} per paged decode step")
+    agree = 0
+    for i, p in enumerate(prompts):
+        for label, outs in served.items():
+            o = outs[i]
+            if len(o) != len(p) + news[i] or not np.array_equal(o[:len(p)], p) or o.min() < 0 \
+                    or o.max() >= cfg.vocab_size:
+                fail(f"whisper {label} request {i}: {len(o)} tokens for a {len(p)}-token prompt and {news[i]} new")
+        agree += int((served["dense"][i][len(p):] == served["paged"][i][len(p):]).sum())
+    print(f"  (a) served tokens that agree, paged and dense: {agree}/{sum(news)} = {agree / sum(news):.3f} "
+          f"(not gated: near ties on random weights)", flush=True)
+
+    fixed = max(bucket_length(len(p), LM_BUCKET) for p in prompts)  # the engine's one bucket
+    enc_len = max(fixed // 4, 1)
+    nrow, np_ = WHISPER_SLOTS, WHISPER_MAX_LEN // PAGE
+    dcache = lm.init_caches(cfg, nrow, WHISPER_MAX_LEN, enc_len=enc_len, device=dev)
+    pcache = lm.init_paged_caches(cfg, nrow, nrow * np_ + 1, PAGE, enc_len=enc_len, device=dev)
+    table = (1 + torch.arange(nrow * np_, device=dev, dtype=torch.int32)).reshape(nrow, np_)
+    frames = lm.stub_frames(1, enc_len, cfg, 0, device=dev)  # the engine's
+    ar = torch.arange(WHISPER_MAX_LEN, device=dev)
+    for r in range(nrow):
+        s0 = len(prompts[r])
+        toks = np.zeros((1, fixed), np.int32)
+        toks[0, :s0] = prompts[r]
+        raw, _ = lm.prefill(model, {"tokens": toks, "frames": frames}, cfg, last=[s0 - 1], raw_kv=True)
+        npg = -(-fixed // PAGE)
+        for key in ("k", "v"):
+            fresh = raw["attn"][key][:, 0]  # (L, fixed, KV, Dh)
+            dcache["attn"][key][:, r, :fixed] = fresh
+            pages = torch.nn.functional.pad(fresh, (0, 0, 0, 0, 0, npg * PAGE - fixed))
+            pcache["attn"][f"{key}_pages"][:, table[r, :npg].long()] = pages.reshape(L, npg, PAGE, kvh, dh)
+            dcache[f"cross_{key}"][:, r] = raw[f"cross_{key}"][:, 0]
+            pcache[f"cross_{key}"][:, r] = raw[f"cross_{key}"][:, 0]
+        dcache["attn"]["pos"][:, r] = torch.where(ar < s0, ar, -1).to(torch.int32)
+    pos = torch.tensor([len(prompts[r]) for r in range(nrow)], dtype=torch.int32, device=dev)
+    worst = 0.0
+    for t in range(TEACHER_STEPS):
+        tok = torch.tensor([[int(served["dense"][r][len(prompts[r]) + t])] for r in range(nrow)], device=dev)
+        _, dl = lm.decode_step(model, dcache, tok, pos, cfg)
+        _, pl = lm.decode_step(model, pcache, tok, pos, cfg, page_table=table)
+        if not bool(torch.isfinite(pl).all()) or pl.shape != dl.shape:
+            fail(f"whisper paged logits at step {t}: shape {tuple(pl.shape)} or non-finite")
+        worst = max(worst, float((pl - dl).abs().max() / dl.abs().max()))
+        pos += 1
+    print(f"  (a) teacher-forced over {TEACHER_STEPS} steps, {nrow} rows: paged against dense logits, worst "
+          f"normwise {worst:.3e} (tolerance {LOGITS_TOL:.0e})", flush=True)
+    if not worst <= LOGITS_TOL:
+        fail(f"whisper paged decode logits {worst:.3e} from the dense ones")
+    tok = torch.zeros((nrow, 1), dtype=torch.long, device=dev)
+    for label, fn in (("dense", lambda: lm.decode_step(model, dcache, tok, pos, cfg)),
+                      ("paged", lambda: lm.decode_step(model, pcache, tok, pos, cfg, page_table=table))):
+        fn()
+        ms = []
+        for _ in range(REPS):
+            s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            s.record()
+            fn()
+            e.record()
+            e.synchronize()
+            ms.append(s.elapsed_time(e))
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        ops = device_ops(prof)
+        busy, med = sum(r[1] for r in ops), statistics.median(ms)
+        idle = f"{max(0.0, 1 - busy / med):.3f}" if busy > 0 else "not measured"
+        print(f"  (a) one {label} decode step, {nrow} rows at positions {pos.tolist()}: {med:.3f} ms (CUDA "
+              f"events, median of {REPS}); device busy {busy:.3f} ms over {sum(r[2] for r in ops)} device "
+              f"operations, idle share {idle} (card: {card})", flush=True)
+    del model, eng, engines, dcache, pcache, served, fn, prof, _
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- (b) training
+    tb, ts = WHISPER_TRAIN
+    tc = loop.TrainConfig(steps=TRAIN_STEPS, seq_len=ts, global_batch=tb)
+    pipe = TokenPipeline(vocab_size=cfg.vocab_size, seq_len=ts, global_batch=tb, seed=0)
+    batch = loop.make_batch_fn(cfg, tc, device=dev)(next(pipe)["tokens"])
+    tokens, se = tb * ts, batch["frames"].shape[1]
+    shapes = lm._train_shapes(cfg)
+    # the weights of the matmuls (every leaf but the embedding, a gather, and
+    # the norm scales) and the tokens each multiplies: the encoder's layers
+    # and the cross K/V projections see the frames, the rest the tokens
+    mat = {k: math.prod(s) for k, (s, _) in shapes.items() if k != "embed" and not k.endswith("scale")}
+    seen = {k: tb * se if k.startswith("enc_blocks.") or k in ("blocks.cross.wk", "blocks.cross.wv") else tokens
+            for k in mat}
+    n_matmul = sum(mat.values())
+    bound_ms = 8 * n_matmul * tokens / PEAK_BF16_FLOPS * 1e3
+    seen_ms = 8 * sum(mat[k] * seen[k] for k in mat) / PEAK_BF16_FLOPS * 1e3
+    groups = ebv_groups(shapes)
+    print(f"  (b) {sum(math.prod(s) for s, _ in shapes.values()) / 1e6:.3f} M parameters in {len(shapes)} stacked "
+          f"leaves, {n_matmul / 1e6:.3f} M in matmuls; batch {tb} x {ts} = {tokens} tokens and {tb} x {se} "
+          f"frames a step; EbV order groups (order: systems) {groups}", flush=True)
+    if groups != {L: 5, cfg.d_model: 2}:
+        fail(f"whisper EbV order groups {groups}: expected five order-{L} systems (the stacked norm scales) "
+             f"and two of order {cfg.d_model} (embed, unembed)")
+
+    def fresh():
+        params = lm.train_params(lm.init_params(torch.Generator(device=dev).manual_seed(2802), cfg))
+        gc.collect()
+        torch.cuda.empty_cache()
+        return params
+
+    launches = train_runs(dev, card, "(b)", cfg, batch, fresh, groups, tokens, [
+        (bound_ms, f"8 x {n_matmul / 1e6:.3f} M x {tokens} tokens / 989 TFLOP/s bf16"),
+        (seen_ms, f"with the encoder's weights and the cross K/V over the {tb} x {se} frames")])
+    del batch
+
+    # ---- (c) the reduced fp32 model: 3 steps on the card against the CPU
+    rcfg = get_config(WHISPER_ARCH).reduced()
+    rng = np.random.default_rng(2803)
+    rbatches = [rng.integers(0, rcfg.vocab_size, (4, 64)).astype(np.int32) for _ in range(3)]
+    rframes = rng.standard_normal((4, 16, rcfg.d_model)).astype(np.float32)
+    start = lm.train_params(lm.init_params(2804, rcfg, device="cpu"))
+    card_against_cpu(dev, "(c)", rcfg, start,
+                     lambda d: [{"tokens": torch.from_numpy(b).to(d), "frames": torch.from_numpy(rframes).to(d)}
+                                for b in rbatches],
+                     [(name, mb, tc.learning_rate) for name in ("adamw", "ebv") for mb in (1, 2)])
+
+    # ---- the launchers, on the card by default, in two subprocesses at once
+    runs = []
+    t0 = time.perf_counter()
+    for args, expect in ((["repro_torch.launch.serve", "--arch", WHISPER_ARCH, "--paged"],
+                          "served 4 requests (64 new tokens)"),
+                         (["repro_torch.launch.train", "--arch", WHISPER_ARCH, "--optimizer", "ebv",
+                           "--steps", "3"], "[train] step     0 loss")):
+        runs.append((args, expect, subprocess.Popen(
+            [sys.executable, "-m"] + args, cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True, env=dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src")))))
+    for args, expect, proc in runs:
+        try:
+            out, err = proc.communicate(timeout=300)
+        except subprocess.TimeoutExpired:
+            for _, _, p in runs:
+                p.kill()
+            fail(f"python -m {args[0]}: no exit in 300 s")
+        print(f"  python -m {' '.join(args)}: exit {proc.returncode}, both done {time.perf_counter() - t0:.1f} s "
+              f"after the start (process start and weight draw included)", flush=True)
+        for out_line in out.strip().splitlines():
+            print(f"    {out_line}", flush=True)
+        if proc.returncode or expect not in out:
+            fail(f"python -m {args[0]}: {err.strip()[-2000:]}")
+    print(f"  phase 4k: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return {"paged_decode_attention": b13["paged"], **launches}
 
 
 def main() -> int:
@@ -1102,15 +1395,16 @@ def main() -> int:
     kvh, dh = mcfg.num_kv_heads, mcfg.resolved_head_dim
     served_np = LM_MAX_LEN // PAGE
 
-    def paged_case(b, h, np_, dtype, seed, holes=True):
+    def paged_case(b, h, np_, dtype, seed, holes=True, kv=kvh, hd=dh):
         """B13's inputs: b rows of np_ distinct pages of 16 over a pool of
-        b * np_ + 1 pages; with ``holes``, a -1 inside row 0's length and one
-        past the last row's; row 0 ends mid-page."""
+        b * np_ + 1 pages, h query and ``kv`` KV heads of ``hd``; with
+        ``holes``, a -1 inside row 0's length and one past the last row's;
+        row 0 ends mid-page."""
         g = torch.Generator(device=dev).manual_seed(seed)
         pool = b * np_ + 1
-        q = torch.randn((b, h, dh), generator=g, device=dev).to(dtype)
-        kp = torch.randn((pool, PAGE, kvh, dh), generator=g, device=dev).to(dtype)
-        vp = torch.randn((pool, PAGE, kvh, dh), generator=g, device=dev).to(dtype)
+        q = torch.randn((b, h, hd), generator=g, device=dev).to(dtype)
+        kp = torch.randn((pool, PAGE, kv, hd), generator=g, device=dev).to(dtype)
+        vp = torch.randn((pool, PAGE, kv, hd), generator=g, device=dev).to(dtype)
         table = (1 + torch.randperm(pool - 1, generator=g, device=dev)).reshape(b, np_).to(torch.int32)
         lengths = torch.full((b,), np_ * PAGE, dtype=torch.int32, device=dev)
         if holes:
@@ -1138,6 +1432,25 @@ def main() -> int:
                         compare("paged_decode_attention", f"B={b} NP={np_} K={k} {dname}",
                                 paged_attn._attend(*args, plan), want, PAGED_TOL[dname])
                 del args, want
+    # whisper-tiny's served shape (phase 4k): H = KV = 6, one query head a
+    # group, Dh = 64 (a 64-wide row on 8 or 16 lanes), through the wrapper
+    # and forced onto clusters of every size
+    wcfg = get_config(WHISPER_ARCH)
+    wh, wkv, wdh, whisper_np = wcfg.num_heads, wcfg.num_kv_heads, wcfg.resolved_head_dim, WHISPER_MAX_LEN // PAGE
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).removeprefix("torch.")
+        wshape = f"B={WHISPER_SLOTS} NP={whisper_np} H=KV={wh} Dh={wdh} {dname}"
+        args = paged_case(WHISPER_SLOTS, wh, whisper_np, dtype, 1550, kv=wkv, hd=wdh)
+        want = paged_attn.paged_decode_attention_plain(*args)
+        compare("paged_decode_attention", wshape, paged_attn.paged_decode_attention(*args), want,
+                PAGED_TOL[dname])
+        print(f"    plan {paged_attn.paged_decode_attention.last_plan}", flush=True)
+        for k in time_kernels.PAGED_CTAS:
+            plan = paged_attn.paged_plan(WHISPER_SLOTS, wh, wkv, wdh, whisper_np, PAGE, args[0].element_size(),
+                                         sms, ctas=k)
+            compare("paged_decode_attention", f"{wshape} K={k}", paged_attn._attend(*args, plan), want,
+                    PAGED_TOL[dname])
+        del args, want
 
     # ---- 3f. grids past 65,535 systems or diagonal blocks (C8, C9) -------
     print(f"phase 3f: {C8_SYSTEMS} systems in one launch of B10 and B12 (C8), a band of "
@@ -1469,6 +1782,13 @@ def main() -> int:
                  (OPT_D, OPT_D), generator=gen, device=dev)) for i in range(OPT_LEAVES)}}
     nparams = sum(p.numel() for p in trees["whisper-tiny"].values())
     print(f"  whisper-tiny tree: {len(trees['whisper-tiny'])} leaves, {nparams} parameters", flush=True)
+    # the optimizer's workload stands for the model: the trainer's leaves of
+    # configs/whisper_tiny.py, name, shape, dtype and order
+    model_tree = list(lm._train_shapes(get_config(WHISPER_ARCH)).items())
+    hand_tree = [(k, (tuple(p.shape), p.dtype)) for k, p in trees["whisper-tiny"].items()]
+    print(f"  whisper-tiny tree against lm._train_shapes: equal {hand_tree == model_tree}", flush=True)
+    if hand_tree != model_tree:
+        fail(f"the hand-built whisper-tiny tree {hand_tree} is not the model's {model_tree}")
     opts = {name: train.EbvPreconditioned(list(ps.values()), lr=train.warmup_cosine(3e-4, 2, OPT_STEPS))
             for name, ps in trees.items()}
     start = {name: {k: p.detach().clone() for k, p in ps.items()} for name, ps in trees.items()}
@@ -1960,10 +2280,7 @@ def main() -> int:
             return None
 
     def kernel_breakdown(fn):
-        """(kernel name, device µs, launches) of one call, largest first: the
-        device's own events (kernels, copies), not the host ops that launched
-        them, so the times add up to the device's busy time."""
-        from torch.autograd import DeviceType
+        """:func:`device_ops` of one call of ``fn``, after a warm-up call."""
         from torch.profiler import ProfilerActivity, profile
 
         fn()
@@ -1971,12 +2288,10 @@ def main() -> int:
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             fn()
             torch.cuda.synchronize()
-        rows = [(e.key, e.self_device_time_total, e.count) for e in prof.key_averages()
-                if e.self_device_time_total > 0 and e.device_type != DeviceType.CPU
-                and not getattr(e, "is_user_annotation", False)]  # a span over kernels listed anyway
+        rows = device_ops(prof)
         if not rows:
             print("    the profiler saw no device time: not measured", flush=True)
-        return sorted(rows, key=lambda r: -r[1])
+        return rows
 
     def bound(flops, nbytes):
         t_ops, t_bytes = flops / PEAK_FP32_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
@@ -2303,15 +2618,15 @@ def main() -> int:
                       (f"{pfactor.__name__} n={pn} bw={POISSON_NX}", lambda: pfactor(ap, bw=POISSON_NX)),
                       ("whisper-tiny optimizer step", lambda: opts["whisper-tiny"].step())):
         rows_k = kernel_breakdown(fn)
-        busy = sum(us for _, us, _ in rows_k) / 1e3
+        busy = sum(r[1] for r in rows_k)
         print(f"    {label:24s} device busy {busy:.3f} ms in all, the {min(len(rows_k), 12)} "
               "largest:", flush=True)
         if label.endswith("optimizer step") and busy > 0:
             step = opt_ms["whisper-tiny"]
             print(f"    {label:24s} against the {step:.3f} ms step (host clock): idle share "
                   f"{max(0.0, 1 - busy / step):.3f}", flush=True)
-        for name, us, count in rows_k[:12]:
-            print(f"    {label:24s} {name[:48]:48s} {us / 1e3:9.3f} ms  x{count}", flush=True)
+        for name, k_ms, count in rows_k[:12]:
+            print(f"    {label:24s} {name[:48]:48s} {k_ms:9.3f} ms  x{count}", flush=True)
 
     # a step of B1 is four launches in stream order (the panels, the next
     # block row and column, the next diagonal tile beside the rest of the
@@ -2402,7 +2717,7 @@ def main() -> int:
 
     def gather_sdpa(q, kp, vp, table, lengths):
         b, h, _ = q.shape
-        np_, page = table.shape[1], kp.shape[1]
+        np_, page, kvh, dh = table.shape[1], *kp.shape[1:]
         safe = table.clamp_min(0).long()
         k = kp[safe].reshape(b, np_ * page, kvh, dh).transpose(1, 2)
         v = vp[safe].reshape(b, np_ * page, kvh, dh).transpose(1, 2)
@@ -2413,7 +2728,7 @@ def main() -> int:
     def record_b13(shape, args):
         q, kp, vp, table, lengths = args
         b, h, _ = q.shape
-        np_, page, es = table.shape[1], kp.shape[1], q.element_size()
+        np_, es, (page, kvh, dh) = table.shape[1], q.element_size(), kp.shape[1:]
         live = lengths.clamp(0, np_ * page)
         read = (torch.arange(np_, device=dev)[None] < (live[:, None] + page - 1) // page) & (table >= 0)
         # the live pages' K and V once, q in and the output out, the table and lengths
@@ -2439,10 +2754,13 @@ def main() -> int:
     heavy_args = paged_case(DECODE_HEAVY[0], mcfg.num_heads, DECODE_HEAVY[1], torch.bfloat16, 1800,
                             holes=False)
     record_b13(heavy_shape, heavy_args)
+    whisper_shape = f"B={WHISPER_SLOTS} NP={whisper_np} H=KV={wh} Dh={wdh} bf16"
+    whisper_args = paged_case(WHISPER_SLOTS, wh, whisper_np, torch.bfloat16, 1850, holes=False, kv=wkv, hd=wdh)
+    record_b13(whisper_shape, whisper_args)
     print(f"  B13 over its CTAs a cluster (ms; card: {card}):", flush=True)
     time_kernels.paged_sweep(served_args)
     time_kernels.paged_sweep(heavy_args)
-    del heavy_args
+    del heavy_args, whisper_args
 
     kv_bytes = 2 * L * int(pos.sum()) * kvh * dh * 2  # the live K/V a step reads
     step_bound = (wbytes + kv_bytes) / PEAK_BYTES * 1e3
@@ -2463,14 +2781,14 @@ def main() -> int:
             host.append((time.perf_counter() - t0) * 1e3)
         host = statistics.median(host)
         rows_k = kernel_breakdown(fn)
-        busy = sum(us for _, us, _ in rows_k) / 1e3
+        busy = sum(r[1] for r in rows_k)
         nk = sum(c for _, _, c in rows_k)
         idle = f"{max(0.0, 1 - busy / host):.3f}" if busy > 0 else "not measured"
         print(f"    {label}: {ms:.3f} ms (events), {host:.3f} ms (host clock, median of 3), "
               f"{ms / step_bound:.2f}x the bound; device busy {busy:.3f} ms over {nk} device "
               f"operations, idle share {idle} (card: {card})", flush=True)
-        for name, us, count in rows_k[:6]:
-            print(f"      {name[:60]:60s} {us / 1e3:9.3f} ms  x{count}", flush=True)
+        for name, k_ms, count in rows_k[:6]:
+            print(f"      {name[:60]:60s} {k_ms:9.3f} ms  x{count}", flush=True)
 
     # ---- 4j. training: after phase 5, whose decode step needs the serving
     # model; the training step needs the card's memory that model held
@@ -2482,6 +2800,12 @@ def main() -> int:
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     train_launches = train_phase(dev, card)
+
+    # ---- 4k. whisper-tiny at full width: serving and training
+    print(f"phase 4k: {WHISPER_ARCH} at full width", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    whisper_launches = whisper_phase(dev, card)
 
     # ---- 6. kernels line + result ----------------------------------------
     shoot = f"n={SHOOTOUT[0]} bw={SHOOTOUT[1]}"
@@ -2530,9 +2854,9 @@ def main() -> int:
     launches.update(legacy_launches)
     launches.update(update_launches)
     launches.update(dict.fromkeys(qwrappers, 0))  # B18 runs on the service path only
-    launches["paged_decode_attention"] = lm_launches["paged"]  # B13 runs on the serving path only
+    launches["paged_decode_attention"] = lm_launches["paged"]  # B13 runs on the serving paths only (4i, 4k)
     # the kernels the tiers and the service launched, beside their own paths'
-    for counts in (tier_launches, tier_opt_launches, serve_launches, train_launches):
+    for counts in (tier_launches, tier_opt_launches, serve_launches, train_launches, whisper_launches):
         for k, v in counts.items():
             if k not in lwrappers:  # the legacy kernels' service launches are in already
                 launches[k] += v

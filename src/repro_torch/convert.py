@@ -91,7 +91,8 @@ def optimizer_from_numpy(params, state, make_optimizer, *, device=None):
 def lm_params_from_numpy(tree, cfg, *, device=None):
     """The reference's language-model parameter tree (``models/lm.py:
     init_params`` as numpy arrays: ``embed``, ``ln_f.scale``, ``unembed``
-    and ``blocks`` stacked on a leading layer axis) as this package's
+    and ``blocks`` stacked on a leading layer axis; the encdec family's
+    ``enc_blocks``, stacked too, and ``enc_ln_f.scale``) as this package's
     :class:`repro_torch.models.lm.LM`, so both compute the same function."""
     from .models import lm
 
@@ -101,8 +102,8 @@ def lm_params_from_numpy(tree, cfg, *, device=None):
     with torch.no_grad():
         for name, p in model.named_parameters():
             parts = name.split(".")
-            if parts[0] == "blocks":  # blocks.<layer>.<path> ← blocks.<path>[layer]
-                x = np.asarray(leaves[".".join(["blocks"] + parts[2:])])[int(parts[1])]
+            if parts[0] in ("blocks", "enc_blocks"):  # blocks.<layer>.<path> ← blocks.<path>[layer]
+                x = np.asarray(leaves[".".join(parts[:1] + parts[2:])])[int(parts[1])]
             else:
                 x = leaves[name]
             t = tensor_from_numpy(x, device=dev)

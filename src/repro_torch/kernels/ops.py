@@ -65,7 +65,7 @@ from ..solvers.problem import dtype_name
 
 __all__ = ["lu", "lu_solve", "linear_solve", "banded_lu", "banded_solve", "banded_linear_solve"]
 
-_MESH = "mesh= arrives with the multi-device slice (ROADMAP queue A, item 12)"
+_MESH = "mesh= arrives with the multi-device slice (ROADMAP A7)"
 
 # linear_solve slot backends that fuse factor and solve (the approximate
 # tiers need the full operand)

@@ -4,7 +4,7 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --arch llama3_8b --reduced --paged
 
 The reference's flags and output lines, minus ``--devices`` and ``--mesh``
-(a device mesh is ROADMAP A12; ``--shards`` above 1 errors for the same
+(a device mesh is ROADMAP A7; ``--shards`` above 1 errors for the same
 reason).  Runs on the card unless ``--device cpu`` is given.  The weights
 are drawn on the device from ``torch.Generator(device).manual_seed(0)``.
 """
@@ -36,11 +36,11 @@ def main(argv=None):
                     help="page-pool size incl. the reserved scrap page "
                          "(0: slots * pages-per-slot + 1)")
     ap.add_argument("--shards", type=int, default=1,
-                    help="per-shard page pools: not ported yet (ROADMAP A12), only 1")
+                    help="per-shard page pools: not ported yet (ROADMAP A7), only 1")
     args = ap.parse_args(argv)
     if args.shards != 1:
         ap.error("--shards > 1 (mesh-sharded page pools) is not ported to repro_torch yet "
-                 "(ROADMAP A12)")
+                 "(ROADMAP A7)")
 
     import numpy as np
     import torch

@@ -1,6 +1,7 @@
-"""Shared model components of the dense family: norms, RoPE, GQA attention
-(one chunk, or chunked with an online softmax), the attention sublayer in
-its prefill, decode and paged-decode modes, and the MLP.
+"""Shared model components of the dense and encdec families: norms, RoPE,
+GQA attention (one chunk, or chunked with an online softmax), the attention
+sublayer in its prefill, decode and paged-decode modes, the encoder-decoder
+cross-attention sublayer, and the MLP.
 
 The reference's ``models/common.py`` keeps weights in a dict pytree; here
 each sublayer is an ``nn.Module`` whose weights keep the reference's
@@ -27,7 +28,7 @@ __all__ = [
     "MASK_VALUE", "Norm", "Attention", "MLP", "dense_init", "dtype_of", "matmul_f32", "init_norm",
     "apply_norm", "rope_frequencies", "rope_tables", "apply_rope", "init_attention", "attention",
     "single_chunk_attention", "ebv_attention_sharded", "apply_attention_layer",
-    "init_attention_cache", "init_mlp", "apply_mlp",
+    "apply_cross_attention_layer", "init_attention_cache", "init_mlp", "apply_mlp",
 ]
 
 
@@ -356,6 +357,26 @@ def _build_cache(k, v, pos1d, cache_len: int) -> dict:
     cv = F.pad(v, (0, 0, 0, 0, 0, pad))
     cpos = F.pad(pos1d.to(torch.int32), (0, pad), value=-1)
     return {"k": ck, "v": cv, "pos": cpos[None].repeat(b, 1)}
+
+
+def apply_cross_attention_layer(p: Attention, x, cfg: ModelConfig, *, enc_out=None, cross_kv=None):
+    """Encoder-decoder cross attention (no RoPE, not causal): the decoder's
+    queries over the encoder's K/V.  Either ``enc_out`` (B, Se, d) (train
+    and prefill: K/V projected here) or ``cross_kv`` = (k, v), each
+    (B, Se, KV, Dh), from the cache (decode).  Returns (out, (k, v))."""
+    b, s, _ = x.shape
+    h, kv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    q = (x @ p.wq).reshape(b, s, h, dh)
+    if cross_kv is None:
+        se = enc_out.shape[1]
+        k = (enc_out @ p.wk).reshape(b, se, kv, dh)
+        v = (enc_out @ p.wv).reshape(b, se, kv, dh)
+    else:
+        k, v = cross_kv
+    zeros = lambda n: torch.zeros((n,), dtype=torch.int32, device=x.device)
+    out = attention(q, k, v, q_positions=zeros(s), kv_positions=zeros(k.shape[1]), causal=False,
+                    window=None, kv_chunk=k.shape[1])
+    return out @ p.wo, (k, v)
 
 
 def init_attention_cache(cfg: ModelConfig, batch: int, seq_len: int, dtype, *, device=None) -> dict:

@@ -31,11 +31,19 @@ structural.  When the pool runs dry, admission queues
 flag and truncation index beside the output buffer; the flags are read
 every ``eos_poll`` decode steps and finished slots retire early.
 
+**The encdec family** (whisper): the encoder length follows the padded
+prompt length, so one ``serve()`` call pads every prompt to one bucket, the
+largest request's, and the encoder runs over ``max(bucket // 4, 1)`` stub
+frames (:func:`repro_torch.models.lm.stub_frames`, seed 0: the same frames
+for every prompt).  A prefill's cross K/V goes into its slot's row of the
+per-slot cross caches, which the paged mode keeps dense beside the pool,
+made anew for each call's slots.  Prefix reuse stays with the dense family.
+
 Departures from the reference, by design: there is no ``jax.jit`` (the
 engine runs eagerly); sampled decoding (``temperature > 0``) draws from a
 per-request ``torch.Generator`` seeded by ``GenRequest.seed``, so only
 greedy decoding reproduces the reference's tokens; ``shards > 1`` and
-``mesh=`` (mesh-sharded pools) raise, naming ROADMAP A12.
+``mesh=`` (mesh-sharded pools) raise, naming ROADMAP A7.
 """
 from __future__ import annotations
 
@@ -96,7 +104,7 @@ class EngineStats:
 
 def _multi_shard() -> NotImplementedError:
     return NotImplementedError("mesh-sharded serving (shards > 1, mesh=) is not ported to "
-                               "repro_torch yet (ROADMAP A12)")
+                               "repro_torch yet (ROADMAP A7)")
 
 
 class Engine:
@@ -168,13 +176,17 @@ class Engine:
         the final sequence length, whichever rounds to more pages."""
         return -(-max(lb, s0 + max_new) // self.page_size)
 
-    def _paged_caches(self, nslots: int) -> dict:
-        """The pool tensors, made on the first call and kept across serve()
-        calls (prefix hits read pages written by earlier calls)."""
+    def _paged_caches(self, nslots: int, enc_len: int) -> dict:
+        """This call's caches: the pool tensors, made on the first call and
+        kept across serve() calls (prefix hits read pages written by earlier
+        calls), beside the per-slot parts (encdec's cross K/V), made anew
+        for ``nslots`` slots."""
         if self._pages is None:
             self._pages = lm.init_paged_caches(self.cfg, nslots, self.pool.num_pages,
                                                self.page_size, device=self.device)["attn"]
-        return {"attn": self._pages}
+        caches = lm.init_caches(self.cfg, nslots, 0, enc_len=enc_len, device=self.device)
+        caches["attn"] = self._pages
+        return caches
 
     def _gather_prior(self, caches, pages: list[int]) -> dict:
         """The prior-prefix K/V (L, 1, Sp, KV, Dh) of a warm prefill, read
@@ -204,6 +216,15 @@ class Engine:
                 fresh = torch.nn.functional.pad(fresh, (0, 0, 0, 0, 0, pad))
             pool[:, idx] = fresh.reshape(nl, len(pages), pg, kv, dh).to(pool.dtype)
 
+    def _model_batch(self, tokens: np.ndarray) -> dict:
+        """The model's input of prompt rows (b, s): the tokens, and for the
+        encdec family the frontend stub's (b, max(s // 4, 1), d) frames."""
+        if self.cfg.family == "encdec":
+            b, s = tokens.shape
+            return {"tokens": tokens,
+                    "frames": lm.stub_frames(b, max(s // 4, 1), self.cfg, 0, device=self.device)}
+        return {"tokens": tokens}
+
     # ------------------------------------------------------------------
     # continuous-batching serve loop
     # ------------------------------------------------------------------
@@ -214,6 +235,14 @@ class Engine:
         if not reqs:
             return []
         nslots = min(slots or self.slots, len(reqs))
+        # encdec: the cross caches' length follows the padded prompt's, so
+        # ONE bucket, the largest request's, serves the whole call
+        fixed = max(bucket_length(len(r.tokens), self.bucket) for r in reqs) \
+            if self.cfg.family == "encdec" else None
+
+        def padded(s0: int) -> int:
+            return fixed or bucket_length(s0, self.bucket)
+
         for r in reqs:
             if r.max_new_tokens < 1:
                 raise ValueError(
@@ -221,7 +250,7 @@ class Engine:
                     "(the first token comes from prefill; a slot holding a "
                     "zero-budget request would never retire)"
                 )
-            lb = bucket_length(len(r.tokens), self.bucket)
+            lb = padded(len(r.tokens))
             if lb + r.max_new_tokens > self.max_len:
                 raise ValueError(f"max_len {self.max_len} is too small for a request of "
                                  f"{lb} padded prompt and {r.max_new_tokens} new tokens")
@@ -239,7 +268,7 @@ class Engine:
         pcache = self.prefix_cache
         for i, r in enumerate(reqs):
             s0 = len(r.tokens)
-            lb = bucket_length(s0, self.bucket)
+            lb = padded(s0)
             # salt = the bucket length: prefix K/V is bitwise-exact only
             # between prompts prefilled at the same padded length
             chain = prefix_chain(r.tokens, self.page_size, salt=f"lb={lb}") \
@@ -249,12 +278,13 @@ class Engine:
 
         self.stats = stats = EngineStats()
         dev = self.device
+        enc_len = max(fixed // 4, 1) if fixed else 0
         if self.paged:
-            caches = self._paged_caches(nslots)
+            caches = self._paged_caches(nslots, enc_len)
             # idle rows sink their writes into the scrap page 0
             page_table = torch.zeros((nslots, self.pages_per_slot), dtype=torch.int32, device=dev)
         else:
-            caches = lm.init_caches(self.cfg, nslots, self.max_len, device=dev)
+            caches = lm.init_caches(self.cfg, nslots, self.max_len, enc_len=enc_len, device=dev)
             page_table = None
         out_cap = max(r.max_new_tokens for r in reqs)
         rows = torch.arange(nslots, device=dev)
@@ -306,7 +336,7 @@ class Engine:
                     slot = free.pop(0)
                     rid, r = sr.payload
                     s0 = len(r.tokens)
-                    lb = bucket_length(s0, self.bucket)
+                    lb = padded(s0)
                     hit_pages: list[int] = []
                     new_pages: list[int] = []
                     prior = None
@@ -346,17 +376,20 @@ class Engine:
                     prompt = np.zeros((1, tail_lb), np.int32)
                     prompt[0, :tail] = np.asarray(r.tokens[shared:], np.int32)
                     last = [tail - 1]
+                    batch = self._model_batch(prompt)
                     if self.paged:
-                        new_caches, logits = lm.prefill(self.params, {"tokens": prompt}, self.cfg,
-                                                        last=last, prior=prior, raw_kv=True)
+                        new_caches, logits = lm.prefill(self.params, batch, self.cfg, last=last,
+                                                        prior=prior, raw_kv=True)
                     else:
-                        new_caches, logits = lm.prefill(self.params, {"tokens": prompt}, self.cfg,
+                        new_caches, logits = lm.prefill(self.params, batch, self.cfg,
                                                         cache_len=self.max_len, last=last)
                     stats.prefill_dispatches += 1
                     stats.events.append(("prefill", rid))
                     valid = s0
                     if self.paged:
-                        raw = new_caches["attn"]
+                        raw = new_caches.pop("attn")
+                        if new_caches:  # the per-slot parts: encdec's cross K/V
+                            _insert_slot({k: caches[k] for k in new_caches}, new_caches, slot, valid)
                         npg = -(-raw["k"].shape[2] // self.page_size)
                         self._scatter_pages(caches, raw, new_pages[:npg])
                         row = hit_pages + new_pages
@@ -456,8 +489,10 @@ class Engine:
 
 def _insert_slot(live: dict, new: dict, slot: int, valid_len: int) -> None:
     """Copy a prefilled (batch-1) layer-stacked cache into row ``slot`` of
-    the live caches, in place.  ``pos`` leaves are masked by position value
-    (>= ``valid_len`` → −1), so bucket-pad K/V can never be attended."""
+    the live caches, in place, leaf by leaf of ``live`` (a leaf without
+    positions, as encdec's cross K/V, is copied as it is).  ``pos`` leaves
+    are masked by position value (>= ``valid_len`` → −1), so bucket-pad K/V
+    can never be attended."""
     for key, lv in live.items():
         nw = new[key]
         if isinstance(lv, dict):

@@ -77,7 +77,7 @@ __all__ = [
     "NotFlushed",
 ]
 
-_MESH = "mesh= arrives with the multi-device slice (ROADMAP queue A, item 12: SPIKE)"
+_MESH = "mesh= arrives with the multi-device slice (ROADMAP A7: SPIKE)"
 
 
 class UnknownTicket(KeyError):

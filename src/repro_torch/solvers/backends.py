@@ -558,7 +558,7 @@ register(Backend(
 # ---------------------------------------------------------------------------
 # backends of the reference that later slices bring
 # ---------------------------------------------------------------------------
-_MULTI = "the multi-device slice (ROADMAP queue A, item 12)"
+_MULTI = "the multi-device slice (ROADMAP A7)"
 NOT_PORTED.update({
     ("factor", "banded", "spike"): _MULTI,
     ("factor", "banded", "replicated"): _MULTI,

@@ -50,14 +50,21 @@ class TrainConfig:
 
 def make_batch_fn(model_cfg: ModelConfig, train_cfg: TrainConfig, *, device=None):
     """Pipeline token batches → the model's input dict on ``device`` (the
-    card unless ``device="cpu"``).  The dense family only: the vlm and
-    encdec families' stub frontends come with those families."""
-    if model_cfg.family in ("vlm", "encdec"):
-        raise unported(f"training batches of the {model_cfg.family} family", "A6")
+    card unless ``device="cpu"``): ``{"tokens"}``, and for the encdec family
+    also the frontend stub's ``frames`` (B, max(S // 4, 1), d), drawn from
+    ``train_cfg.seed`` (:func:`repro_torch.models.lm.stub_frames`: the same
+    frames for every batch).  The vlm family's stub comes with that family."""
+    if model_cfg.family == "vlm":
+        raise unported("training batches of the vlm family", "A6")
     dev = _device.resolve(device)
 
     def fn(tokens):
-        return {"tokens": torch.as_tensor(np.asarray(tokens), device=dev)}
+        tokens = torch.as_tensor(np.asarray(tokens), device=dev)
+        if model_cfg.family == "encdec":
+            b, s = tokens.shape
+            return {"tokens": tokens, "frames": lm.stub_frames(b, max(s // 4, 1), model_cfg,
+                                                               train_cfg.seed, device=dev)}
+        return {"tokens": tokens}
 
     return fn
 

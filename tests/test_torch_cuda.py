@@ -1271,9 +1271,10 @@ def paged_inputs(b, h, kv, dh, page, np_, pool, dtype, card, seed=0):
 
 
 # (B, H, KV, Dh, page, NP, pool): llama3-8b's served shape (rep 4); rep 1;
-# the reduced config; a row too long for its scores in shared memory
+# the reduced config; a row too long for its scores in shared memory;
+# whisper-tiny's served shape (8 slots of 448 positions, H = KV = 6, Dh 64)
 PAGED_SHAPES = [(4, 32, 8, 128, 16, 37, 149), (4, 8, 8, 128, 16, 37, 149), (3, 4, 2, 16, 8, 8, 30),
-                (2, 4, 1, 64, 16, 600, 1300)]
+                (2, 4, 1, 64, 16, 600, 1300), (8, 6, 6, 64, 16, 28, 225)]
 
 
 @pytest.mark.parametrize("shape", PAGED_SHAPES)
@@ -1362,6 +1363,28 @@ def test_a_paged_serve_on_the_card_equals_the_dense_one(card):
     dense = Engine(model, cfg, max_len=64, slots=4, bucket=4)
     want = dense.serve(reqs)
     paged = Engine(model, cfg, max_len=64, slots=4, bucket=4, paged=True, page_size=8)
+    before = paged_attn.paged_decode_attention.launches
+    got = paged.serve(reqs)
+    assert paged_attn.paged_decode_attention.launches - before == \
+        cfg.num_layers * paged.stats.decode_dispatches
+    for a, b in zip(want, got):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_a_whisper_paged_serve_on_the_card_equals_the_dense_one(card):
+    # the encdec family: one bucket a call, per-slot cross K/V beside the pool
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+    from repro_torch.serve import Engine, GenRequest
+
+    cfg = get_config("whisper_tiny").reduced()
+    model = lm.init_params(0, cfg, device=card)
+    rng = np.random.default_rng(0)
+    reqs = [GenRequest(rng.integers(0, cfg.vocab_size, (s,)).astype(np.int32), n, seed=i)
+            for i, (s, n) in enumerate([(5, 4), (8, 2), (3, 6), (11, 9), (2, 5)])]
+    dense = Engine(model, cfg, max_len=64, slots=2, bucket=4)
+    want = dense.serve(reqs)
+    paged = Engine(model, cfg, max_len=64, slots=2, bucket=4, paged=True, page_size=16)
     before = paged_attn.paged_decode_attention.launches
     got = paged.serve(reqs)
     assert paged_attn.paged_decode_attention.launches - before == \

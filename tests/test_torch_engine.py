@@ -195,9 +195,9 @@ def test_what_cannot_be_paged_or_sharded_is_refused(setup):
             Engine(None, get_config(arch).reduced(), max_len=64, paged=True, page_size=8)
     with pytest.raises(ValueError, match="multiple of bucket"):
         Engine(model, cfg, max_len=64, bucket=4, paged=True, page_size=6)
-    with pytest.raises(NotImplementedError, match="ROADMAP A12"):
+    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
         Engine(model, cfg, slots=4, paged=True, page_size=8, shards=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP A12"):
+    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
         Engine(model, cfg, paged=True, page_size=8, mesh=object())
 
 

@@ -291,8 +291,40 @@ def test_init_params_layout_and_seed():
     assert all(torch.equal(p, q) for p, q in zip(a.parameters(), b.parameters()))
 
 
+def test_init_params_layout_and_seed_encdec():
+    # whisper: the decoder blocks gain ln_cross and cross, beside one encoder
+    # block (the dense block) per encoder layer and enc_ln_f
+    rc, tc = cfgs("whisper_tiny", "bfloat16")
+    a, b = TL.init_params(0, tc, device="cpu"), TL.init_params(0, tc, device="cpu")
+    assert len(a.blocks) == tc.num_layers and len(a.enc_blocks) == tc.encoder_layers
+    hd, kvd = tc.num_heads * tc.resolved_head_dim, tc.num_kv_heads * tc.resolved_head_dim
+    dec = {n: (tuple(p.shape), p.dtype) for n, p in a.blocks[0].named_parameters()}
+    enc = {n: (tuple(p.shape), p.dtype) for n, p in a.enc_blocks[0].named_parameters()}
+    assert dec["cross.wq"] == ((tc.d_model, hd), torch.bfloat16)
+    assert dec["cross.wk"] == dec["cross.wv"] == ((tc.d_model, kvd), torch.bfloat16)
+    assert dec["ln_cross.scale"] == ((tc.d_model,), torch.float32)
+    assert set(dec) - set(enc) == {"cross.wq", "cross.wk", "cross.wv", "cross.wo", "ln_cross.scale"}
+    assert set(enc) == {"attn.wq", "attn.wk", "attn.wv", "attn.wo", "ln_attn.scale", "ln_mlp.scale",
+                        "mlp.wu", "mlp.wd"}  # whisper's MLP is not gated
+    assert a.enc_ln_f.scale.shape == (tc.d_model,) and a.enc_ln_f.scale.dtype == torch.float32
+    # the reference's tree, leaf for leaf
+    want = convert.named_leaves(jax.tree.map(np.asarray, RL.init_params(jax.random.PRNGKey(0), rc)))
+    got = {}
+    for name, p in a.named_parameters():
+        parts = name.split(".")
+        if parts[0] in ("blocks", "enc_blocks"):
+            name = ".".join(parts[:1] + parts[2:])
+            got[name] = (len(getattr(a, parts[0])),) + tuple(p.shape)
+        else:
+            got[name] = tuple(p.shape)
+    assert got == {k: v.shape for k, v in want.items()}
+    assert all(torch.equal(p, q) for p, q in zip(a.parameters(), b.parameters()))
+    c = TL.init_params(1, tc, device="cpu")
+    assert not torch.equal(a.enc_blocks[0].attn.wq, c.enc_blocks[0].attn.wq)
+
+
 @pytest.mark.parametrize("arch", ["mixtral_8x22b", "granite_moe_1b_a400m", "mamba2_1_3b",
-                                  "hymba_1_5b", "whisper_tiny", "qwen2_vl_2b"])
+                                  "hymba_1_5b", "qwen2_vl_2b"])
 def test_unported_families_raise(arch):
     cfg = get_config(arch).reduced()
     with pytest.raises(NotImplementedError, match="ROADMAP A6"):

@@ -456,7 +456,7 @@ def test_numpy_operands_go_to_the_service_device_and_tensors_stay(monkeypatch):
 
 
 def test_mesh_raises_naming_the_multi_device_slice():
-    with pytest.raises(NotImplementedError, match="item 12"):
+    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
         SolveService(mesh=object())
 
 

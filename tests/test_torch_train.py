@@ -250,7 +250,7 @@ def test_the_launcher_needs_a_card_or_the_cpu_and_no_mesh(monkeypatch):
 
 def test_other_families_name_their_roadmap_item():
     with pytest.raises(NotImplementedError, match="A6"):
-        TLOOP.make_batch_fn(get_config("whisper_tiny").reduced(), TLOOP.TrainConfig(), device="cpu")
+        TLOOP.make_batch_fn(get_config("qwen2_vl_2b").reduced(), TLOOP.TrainConfig(), device="cpu")
     with pytest.raises(NotImplementedError, match="A6"):
         TL.train_loss({}, {"tokens": tokens(1, 4)}, get_config("mamba2_1_3b").reduced())
     with pytest.raises(NotImplementedError, match="A7"):
