@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's dense, banded and batched main paths, the
 EbV-preconditioned optimizer, the legacy dense factors, the accuracy tiers,
-the solve service, the LM serving engine and the trainer (the dense family
-and whisper's encdec family) on one NVIDIA card.
+the solve service, the LM serving engine and the trainer (the dense family,
+whisper's encdec family and the moe family: mixtral, granite) on one
+NVIDIA card.
 
     python3 chip_smoke.py
 
@@ -32,7 +33,8 @@ Phases (any failure exits non-zero):
    also system by system bitwise B7 on each alone, its plan checked), B9
    also where its plan changes, B10 also on both of its paths at shapes on
    either side of its plan's split (each plan checked against its Python
-   mirror); 3d the legacy
+   mirror), B9 and B10 also at granite-moe-1b-a400m's EbV groups ((2, 24)
+   with m = 1024 and (2, 1024) with m = 49280); 3d the legacy
    dense kernels (B14-B17) at the legacy paths' shapes, B14 also at ragged
    edges, fp32 and bf16, B15's U12 bit for bit (also the n = 8000 step in
    fp32 and bf16) and a U12 column holding an inf (fault C6: NaN throughout
@@ -46,7 +48,9 @@ Phases (any failure exits non-zero):
    paged decode attention (B13) at the served shape and at a decode-heavy
    one (32 rows of 4096 positions), fp32 and bf16, with holes, through its
    wrapper and forced onto clusters of every size, 1 to 16 CTAs, and so at
-   whisper-tiny's served shape (8 rows of 28 pages, H = KV = 6, Dh = 64);
+   whisper-tiny's served shape (8 rows of 28 pages, H = KV = 6, Dh = 64)
+   and granite-moe-1b-a400m's (8 rows of 48 pages, H = 16, KV = 8, two
+   query heads a KV head, Dh = 64);
    3f 70,000
    systems through B10 (n = 4, bit for bit) and B12 (n = 8, bw = 1, within
    1e-5, five systems bitwise B7) in one launch each (fault C8), and a
@@ -140,6 +144,31 @@ Phases (any failure exits non-zero):
      ``python -m repro_torch.launch.serve --arch whisper_tiny --paged`` and
      ``python -m repro_torch.launch.train --arch whisper_tiny --optimizer
      ebv --steps 3`` on the card;
+   - the moe family (4l, after 4k), weights drawn on the card from seeds:
+     (a) mixtral-8x22b at full width (``configs/mixtral_8x22b.py``, bf16),
+     its depth cut from 56 to 4 layers (20.8 GB), through ``serve.Engine``
+     dense (the paged cache takes no sliding window) on 8 greedy requests
+     (4 slots, bucket 16, prompts of 4,000-4,500 tokens, some prefilled at
+     their exact length past the window, 128-256 new tokens, every row
+     decoding past position 4096, max_len 8192), then 4 rows teacher-forced
+     over 8 decode steps past the window against one full forward of each
+     row with the window mask (capacity factor E / k: no drops; the decode
+     steps take the full forward's router choices, and those that would
+     differ are counted, each a near tie): normwise within 5e-2; (b) granite-moe-1b-a400m at
+     full width and depth (``configs/granite_moe_1b_a400m.py``) served
+     dense and paged on 16 greedy requests (8 slots, prompts of 64-512
+     tokens, 32-256 new), B13 launched 24 times a paged decode step, the
+     paged step's logits against the dense one's teacher-forced over 8
+     steps (the paged step taking the dense step's router choices, those
+     that would differ counted, each a near tie) within 5e-2; (c) 5 AdamW and 5 EbV
+     ``make_train_step`` steps on one repeated 8 x 512 batch (B9 four and
+     B10 two launches an EbV step: the order-24 and the order-1024 group),
+     then one EbV step on 8 x 2560 = 20,480 tokens, a full group of 16,384
+     and a tail of 4,096 through the MoE layer's grouped path; (d) both
+     ``.reduced()`` configs in fp32, 3 steps on the card against the CPU,
+     both optimizers, 1 and 2 microbatches; (e) ``python -m
+     repro_torch.launch.serve --arch granite_moe_1b_a400m --paged`` and
+     ``--arch mixtral_8x22b --reduced`` in two subprocesses at once;
    checks the dispatches, the counters, the residuals and small answers
    against the float64 oracles;
 5. times: each kernel, its plain version and a PyTorch library yardstick
@@ -167,7 +196,8 @@ Phases (any failure exits non-zero):
    optimizer step's time; device time by kernel (B1, B3 and
    B4 at n = 8000 among them) and each dense factor and solve step's time
    beside the host's enqueue time per launch; B13 at the
-   served and the decode-heavy shape and at whisper-tiny's served shape; one
+   served and the decode-heavy shape and at whisper-tiny's and granite's
+   served shapes; B9 and B10 at granite's EbV groups; one
    full-width decode step against
    its weight-bytes bound, with its device idle share;
 6. the ``kernels`` JSON line, the card line and the result line.
@@ -295,6 +325,11 @@ PAGED_TOL = {"float32": 1e-5, "bfloat16": 1e-2}
 # the paged decode step's logits against the dense one's, normwise: bf16
 # attention outputs that differ by a rounding, carried through 32 layers
 LOGITS_TOL = 5e-2
+# phase 4l (a), (b): a router choice made where another was replayed must be
+# a near tie, its probability within ROUTE_GAP_TOL of the replayed one's (as
+# tests/test_torch_moe.py holds bf16), and at most ROUTE_DIFFER_SHARE of the
+# choices may differ
+ROUTE_GAP_TOL, ROUTE_DIFFER_SHARE = 1e-2, 5e-2
 # training (4j): llama3-8b at full width (configs/llama3_8b.py), its depth cut
 # to 4 layers (32 do not fit 80 GB under EbV: ~24 B a parameter between its
 # two passes); global batch 8 x 512 tokens, one repeated pipeline batch
@@ -305,6 +340,14 @@ PEAK_BF16_FLOPS = 989e12  # H100 SXM data sheet, dense
 # on the card against the CPU, normwise a leaf; (e) a resumed run against an
 # uninterrupted one, normwise a leaf: the embedding's backward sums by atomics
 TRAIN_CE_TOL, TRAIN_CPU_TOL, TRAIN_RESUME_TOL = 1e-3, 1e-4, 1e-5
+# (d) an entry whose gradient RMS over the steps is above 0 and under this
+# share of its leaf's largest is round-off sized (the round-off: ~1e-6 of
+# the leaf's largest, measured), and Adam, lr x m / sqrt(v), carries its
+# sign at lr scale; such entries may make up at most LOOSE_SHARE of a leaf
+# and are held to SPREAD_FACTOR times the most that gradients times
+# (1 + GRAD_NOISE N(0, 1)) move them on the CPU in NOISE_DRAWS draws, or to
+# TRAIN_CPU_TOL where that is larger
+COND_GRAD, LOOSE_SHARE, GRAD_NOISE, NOISE_DRAWS, SPREAD_FACTOR = 1e-5, 1e-2, 1e-6, 3, 4.0
 # whisper-tiny (3e, 4k, 5): at full width and depth (configs/whisper_tiny.py:
 # 4 + 4 layers, d 384, 6 heads of Dh 64, one a KV head, d_ff 1536, vocab
 # 51865, bf16), served on 8 slots (bucket 16, pages of 16) to 16 greedy
@@ -312,6 +355,32 @@ TRAIN_CE_TOL, TRAIN_CPU_TOL, TRAIN_RESUME_TOL = 1e-3, 1e-4, 1e-5
 # context of 448; trained on one repeated global batch of 64 x 448 tokens
 WHISPER_ARCH, WHISPER_SLOTS, WHISPER_REQS, WHISPER_MAX_LEN = "whisper_tiny", 8, 16, 448
 WHISPER_TRAIN = (64, 448)
+# the moe family (3c, 3e, 4l, 5): granite-moe-1b-a400m at full width and
+# depth (configs/granite_moe_1b_a400m.py: 24 layers, d 1024, 16 / 8 heads of
+# Dh 64, 32 experts of d_ff 512, top-8, vocab 49155 padded to 49280, bf16),
+# served on 8 slots (bucket 16, pages of 16) to 16 greedy requests of 64-512
+# prompt and 32-256 new tokens (max_len 512 + 256), trained on one repeated
+# 8 x 512 batch and once on 8 x 2560 = 20,480 tokens (a full group of 16,384
+# tokens and a padded tail: models/moe.py:GROUP_TOKENS); under EbV its
+# order-24 group (the stacked norm scales, m = 1024) and its order-1024 group
+# (embed and unembed, m = 49280)
+GRANITE_ARCH, GRANITE_SLOTS, GRANITE_REQS, GRANITE_MAX_LEN = "granite_moe_1b_a400m", 8, 16, 768
+GRANITE_PROMPTS, GRANITE_NEW = (64, 512), (32, 256)
+GRANITE = dict(d=1024, vocab=49280, layers=24)
+GRANITE_LONG = (8, 2560)
+# mixtral-8x22b (4l): at full width (configs/mixtral_8x22b.py: d 6144, 48 / 8
+# heads of Dh 128, 8 experts of d_ff 16384, top-2, vocab 32768, window 4096,
+# bf16), its depth cut from 56 to 4 layers (one layer is ~2.50 G parameters,
+# 5.0 GB; 56 are ~282 GB); served dense (the paged cache takes no window) on 4
+# slots to 8 greedy requests of 4,000-4,500 prompt and 128-256 new tokens,
+# every row decoding past position 4096, max_len 8192
+MIXTRAL_ARCH, MIXTRAL_LAYERS, MIXTRAL_SLOTS, MIXTRAL_REQS, MIXTRAL_MAX_LEN = "mixtral_8x22b", 4, 4, 8, 8192
+MIXTRAL_PROMPTS, MIXTRAL_NEW = (4000, 4500), (128, 256)
+# the batched kernels' stacks (B, n) beside the RHS widths the EbV
+# optimizer's groups give B10: whisper-tiny's order 384 (embed and unembed,
+# m = 51968), granite's order 24 (m = 1024) and 1024 (m = 49280)
+GROUP_RHS = {(2, WHISPER["d"]): (WHISPER["vocab"],), (2, GRANITE["layers"]): (GRANITE["d"],),
+             (2, GRANITE["d"]): (GRANITE["vocab"],)}
 
 
 def fail(msg: str) -> None:
@@ -452,11 +521,18 @@ def card_against_cpu(dev, tag: str, rcfg, start: dict, batches, cases) -> None:
     """``rcfg`` (a reduced fp32 config) on the CPU and on the card from the
     leaves ``start``: the first batch's gradients, then 3
     ``make_train_step`` steps of each (optimizer, microbatches, learning
-    rate) of ``cases``; the gradients and the leaves normwise a leaf, the
-    losses relative.  Gated (TRAIN_CPU_TOL, TRAIN_CPU_TOL, 1e-5) at the
-    trainer's default learning rate: Adam moves an entry by about lr *
-    sign(g) however small g is, so round-off-sized gradients part the
-    leaves by up to 2 lr.  ``batches(device)``: the 3 steps' batches."""
+    rate) of ``cases``; the gradients, the first moments ``mu`` and the
+    leaves normwise a leaf, the losses relative.  Gated (TRAIN_CPU_TOL on
+    the gradients, ``mu`` and the leaves, 1e-5 on the losses) at the
+    trainer's default learning rate.  Adam moves an entry by about lr *
+    sign(g) however small g is, so an entry whose gradient is round-off
+    sized moves by the sign of the round-off.  Such entries, a gradient
+    RMS (``nu``) on either side above 0 and under COND_GRAD of its leaf's
+    largest, may make up at most LOOSE_SHARE of a leaf, and are held to
+    the larger of TRAIN_CPU_TOL and SPREAD_FACTOR times the largest
+    spread that NOISE_DRAWS more runs, on the CPU with every step's
+    gradients times (1 + GRAD_NOISE xi), xi ~ N(0, 1), show on them; every
+    other entry is held to TRAIN_CPU_TOL.  ``batches(device)``: the 3 steps' batches."""
     import torch
 
     from repro_torch import train
@@ -464,25 +540,58 @@ def card_against_cpu(dev, tag: str, rcfg, start: dict, batches, cases) -> None:
     from repro_torch.train import loop
 
     rel = lambda a, b: float((a - b).abs().max() / b.abs().max())
+
+    def run(d, name, mb, lr, noise_seed=None):
+        ps = {k: torch.nn.Parameter(v.detach().clone().to(d)) for k, v in start.items()}
+        steps = batches(d)
+        grads = torch.autograd.grad(lm.train_loss(ps, steps[0], rcfg)[0], list(ps.values()))
+        o = train.get_optimizer(name, list(ps.values()), train.warmup_cosine(lr, 2, 10))
+        if noise_seed is not None:
+            gen, step = torch.Generator().manual_seed(noise_seed), o.step
+
+            def noisy_step():
+                with torch.no_grad():
+                    for p in ps.values():
+                        p.grad.mul_(1 + GRAD_NOISE * torch.randn(p.shape, generator=gen).to(d))
+                return step()
+
+            o.step = noisy_step
+        fn = loop.make_train_step(rcfg, o, microbatches=mb)
+        losses = [float(fn(ps, b)["loss"]) for b in steps]
+        return ([g.cpu() for g in grads], {k: p.detach().cpu() for k, p in ps.items()}, losses,
+                {k: {key: o.state[p][key].cpu() for key in ("mu", "nu")} for k, p in ps.items()})
+
     for name, mb, lr in cases:
-        out = []
-        for d in (torch.device("cpu"), dev):
-            ps = {k: torch.nn.Parameter(v.detach().clone().to(d)) for k, v in start.items()}
-            steps = batches(d)
-            grads = torch.autograd.grad(lm.train_loss(ps, steps[0], rcfg)[0], list(ps.values()))
-            o = train.get_optimizer(name, list(ps.values()), train.warmup_cosine(lr, 2, 10))
-            fn = loop.make_train_step(rcfg, o, microbatches=mb)
-            losses = [float(fn(ps, b)["loss"]) for b in steps]
-            out.append(([g.cpu() for g in grads], {k: p.detach().cpu() for k, p in ps.items()}, losses))
-        gworst = max(rel(g, w) for g, w in zip(out[1][0], out[0][0]))
-        worst = max(rel(out[1][1][k], w) for k, w in out[0][1].items())
-        lworst = max(abs(a - b) / abs(b) for a, b in zip(out[1][2], out[0][2]))
+        cpu, card = run(torch.device("cpu"), name, mb, lr), run(dev, name, mb, lr)
         gated = lr == loop.TrainConfig().learning_rate
+        noisy = [run(torch.device("cpu"), name, mb, lr, 2915 + i) for i in range(NOISE_DRAWS)] if gated else []
+        gworst = max(rel(g, w) for g, w in zip(card[0], cpu[0]))
+        mworst = max(rel(card[3][k]["mu"], st["mu"]) for k, st in cpu[3].items())
+        worst = loose = share = 0.0
+        n_loose, spreads = 0, [0.0] * len(noisy)
+        for k, w in cpu[1].items():
+            rms = torch.maximum(cpu[3][k]["nu"], card[3][k]["nu"]).sqrt()
+            lax = (rms > 0) & (rms < COND_GRAD * rms.max())
+            scale = float(w.abs().max())
+            worst = max(worst, float((card[1][k] - w).abs()[~lax].max()) / scale)
+            if bool(lax.any()):
+                n_loose += int(lax.sum())
+                share = max(share, float(lax.float().mean()))
+                loose = max(loose, float((card[1][k] - w).abs()[lax].max()) / scale)
+                spreads = [max(s, float((n[1][k] - w).abs()[lax].max()) / scale) for s, n in zip(spreads, noisy)]
+        loose_tol = max([TRAIN_CPU_TOL] + [SPREAD_FACTOR * s for s in spreads])
+        lworst = max(abs(a - b) / abs(b) for a, b in zip(card[2], cpu[2]))
         print(f"  {tag} {rcfg.name} reduced, fp32, {name}, microbatches {mb}, lr {lr}: the card against the "
-              f"CPU, first gradients worst leaf normwise {gworst:.3e}, after 3 steps worst leaf {worst:.3e}, "
-              f"losses {lworst:.3e} " + (f"(tolerances {TRAIN_CPU_TOL:.0e}, {TRAIN_CPU_TOL:.0e}, 1e-05)"
-                                         if gated else "(not gated)"), flush=True)
-        if gated and not (gworst <= TRAIN_CPU_TOL and worst <= TRAIN_CPU_TOL and lworst <= 1e-5):
+              f"CPU, first gradients worst leaf normwise {gworst:.3e}, after 3 steps mu {mworst:.3e}, worst leaf "
+              f"{worst:.3e}; {n_loose} entries (at most {share:.2e} of a leaf) with a gradient RMS above 0 and "
+              f"under {COND_GRAD:g} of the leaf's largest, worst leaf on them {loose:.3e}, "
+              + (f"the CPU with its gradients times 1 + {GRAD_NOISE:g} N(0, 1) "
+                 f"{', '.join(f'{s:.3e}' for s in spreads)} from the CPU ({NOISE_DRAWS} draws); "
+                 f"losses {lworst:.3e} (tolerances {TRAIN_CPU_TOL:.0e}, {TRAIN_CPU_TOL:.0e}, "
+                 f"{TRAIN_CPU_TOL:.0e}, share {LOOSE_SHARE:g}, {loose_tol:.3e}, 1e-05)" if gated
+                 else f"losses {lworst:.3e} (not gated)"), flush=True)
+        if gated and not (gworst <= TRAIN_CPU_TOL and mworst <= TRAIN_CPU_TOL and worst <= TRAIN_CPU_TOL
+                          and share <= LOOSE_SHARE and loose <= loose_tol and lworst <= 1e-5):
             fail(f"{rcfg.name} {name} microbatches {mb}: the card's steps differ from the CPU's")
 
 
@@ -606,6 +715,81 @@ def train_phase(dev, card: str) -> dict:
     return launches
 
 
+def serve_runs(tag: str, model, cfg, reqs, card: str, *, max_len: int, slots: int, paged=(False, True)):
+    """``serve.Engine`` on ``reqs`` (bucket LM_BUCKET; paged: pages of PAGE),
+    for each of ``paged``, with B13's counter at 0 just before: tokens/s,
+    dispatches, ms per decode step, B13 launches a decode step.  Fails
+    unless every output is its prompt and then its budget of tokens in the
+    vocabulary, and unless B13 launched ``num_layers`` times a paged decode
+    step and never dense.  Returns ({label: outputs}, {label: engine},
+    {label: B13 launches}), label "dense" or "paged"."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import paged_attn
+    from repro_torch.serve import Engine
+
+    served, engines, b13 = {}, {}, {}
+    for pg in paged:
+        label = "paged" if pg else "dense"
+        eng = Engine(model, cfg, max_len=max_len, slots=slots, bucket=LM_BUCKET,
+                     **(dict(paged=True, page_size=PAGE) if pg else {}))
+        torch.cuda.synchronize()
+        paged_attn.paged_decode_attention.launches = 0
+        t0 = time.perf_counter()
+        served[label] = eng.serve(reqs)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        b13[label] = paged_attn.paged_decode_attention.launches
+        engines[label] = eng
+        st = eng.stats
+        print(f"  {tag} {cfg.name} {label}: {len(reqs)} requests, {st.generated_tokens} new tokens in "
+              f"{dt * 1e3:.1f} ms (host clock) = {st.generated_tokens / dt:.1f} tokens/s; {st.prefill_dispatches} "
+              f"prefill + {st.decode_dispatches} decode dispatches, {dt * 1e3 / st.decode_dispatches:.2f} ms per "
+              f"decode step with the prefills; padding {st.padding_frac:.3f}; B13 launches {b13[label]} = "
+              f"{b13[label] / st.decode_dispatches:.2f} per decode step"
+              + (f"; pool peak {st.pool_peak_pages}/{eng.pool.capacity} pages of {PAGE}" if pg else "")
+              + f" (card: {card})", flush=True)
+        want = cfg.num_layers * st.decode_dispatches if pg else 0
+        if b13[label] != want:
+            fail(f"{cfg.name} {label}: B13 launches {b13[label]}, expected {want}")
+        for i, r in enumerate(reqs):
+            o, p = served[label][i], r.tokens
+            if len(o) != len(p) + r.max_new_tokens or not np.array_equal(o[:len(p)], p) or o.min() < 0 \
+                    or o.max() >= cfg.vocab_size:
+                fail(f"{cfg.name} {label} request {i}: {len(o)} tokens for a {len(p)}-token prompt and "
+                     f"{r.max_new_tokens} new")
+    return served, engines, b13
+
+
+def decode_step_line(tag: str, label: str, fn, pos, card: str) -> None:
+    """One decode step ``fn`` at the rows' positions ``pos``: CUDA events
+    (median of REPS after a warm-up), then one profiled step: the device's
+    busy time, its operations and the idle share."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    ms = []
+    for _ in range(REPS):
+        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        s.record()
+        fn()
+        e.record()
+        e.synchronize()
+        ms.append(s.elapsed_time(e))
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ops = device_ops(prof)
+    busy, med = sum(r[1] for r in ops), statistics.median(ms)
+    idle = f"{max(0.0, 1 - busy / med):.3f}" if busy > 0 else "not measured"
+    print(f"  {tag} one {label} decode step, {len(pos)} rows at positions {pos.tolist()}: {med:.3f} ms (CUDA "
+          f"events, median of {REPS}); device busy {busy:.3f} ms over {sum(r[2] for r in ops)} device "
+          f"operations, idle share {idle} (card: {card})", flush=True)
+
+
 def whisper_phase(dev, card: str) -> dict:
     """Phase 4k: whisper-tiny at full width and depth: (a) the serving engine
     dense and paged, (b) 5 AdamW and 5 EbV training steps, each from a fresh
@@ -618,13 +802,11 @@ def whisper_phase(dev, card: str) -> dict:
 
     import numpy as np
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.configs import get_config
     from repro_torch.data import TokenPipeline
-    from repro_torch.kernels import paged_attn
     from repro_torch.models import lm
-    from repro_torch.serve import Engine, GenRequest, bucket_length
+    from repro_torch.serve import GenRequest, bucket_length
     from repro_torch.train import loop
 
     t_phase = time.perf_counter()
@@ -644,38 +826,10 @@ def whisper_phase(dev, card: str) -> dict:
     prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32) for n in rng.integers(16, 225, WHISPER_REQS)]
     news = [int(n) for n in rng.integers(32, 225, WHISPER_REQS)]
     reqs = [GenRequest(p, n) for p, n in zip(prompts, news)]
-    served, engines, b13 = {}, {}, {}
-    for paged in (False, True):
-        label = "paged" if paged else "dense"
-        eng = Engine(model, cfg, max_len=WHISPER_MAX_LEN, slots=WHISPER_SLOTS, bucket=LM_BUCKET,
-                     **(dict(paged=True, page_size=PAGE) if paged else {}))
-        torch.cuda.synchronize()
-        paged_attn.paged_decode_attention.launches = 0
-        t0 = time.perf_counter()
-        served[label] = eng.serve(reqs)
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
-        b13[label] = paged_attn.paged_decode_attention.launches
-        engines[label] = eng
-        st = eng.stats
-        print(f"  (a) {label}: {len(reqs)} requests, {st.generated_tokens} new tokens in {dt * 1e3:.1f} ms (host "
-              f"clock) = {st.generated_tokens / dt:.1f} tokens/s; {st.prefill_dispatches} prefill + "
-              f"{st.decode_dispatches} decode dispatches, {dt * 1e3 / st.decode_dispatches:.2f} ms per decode "
-              f"step with the prefills; padding {st.padding_frac:.3f} (one bucket a call); B13 launches "
-              f"{b13[label]} = {b13[label] / st.decode_dispatches:.2f} per decode step"
-              + (f"; pool peak {st.pool_peak_pages}/{eng.pool.capacity} pages of {PAGE}" if paged else "")
-              + f" (card: {card})", flush=True)
-    pst = engines["paged"].stats
-    if b13["dense"] != 0 or b13["paged"] != L * pst.decode_dispatches:
-        fail(f"whisper B13 launches {b13}: expected none dense and {L} per paged decode step")
-    agree = 0
-    for i, p in enumerate(prompts):
-        for label, outs in served.items():
-            o = outs[i]
-            if len(o) != len(p) + news[i] or not np.array_equal(o[:len(p)], p) or o.min() < 0 \
-                    or o.max() >= cfg.vocab_size:
-                fail(f"whisper {label} request {i}: {len(o)} tokens for a {len(p)}-token prompt and {news[i]} new")
-        agree += int((served["dense"][i][len(p):] == served["paged"][i][len(p):]).sum())
+    served, engines, b13 = serve_runs("(a)", model, cfg, reqs, card, max_len=WHISPER_MAX_LEN,
+                                      slots=WHISPER_SLOTS)
+    agree = sum(int((served["dense"][i][len(p):] == served["paged"][i][len(p):]).sum())
+                for i, p in enumerate(prompts))
     print(f"  (a) served tokens that agree, paged and dense: {agree}/{sum(news)} = {agree / sum(news):.3f} "
           f"(not gated: near ties on random weights)", flush=True)
 
@@ -718,26 +872,8 @@ def whisper_phase(dev, card: str) -> dict:
     tok = torch.zeros((nrow, 1), dtype=torch.long, device=dev)
     for label, fn in (("dense", lambda: lm.decode_step(model, dcache, tok, pos, cfg)),
                       ("paged", lambda: lm.decode_step(model, pcache, tok, pos, cfg, page_table=table))):
-        fn()
-        ms = []
-        for _ in range(REPS):
-            s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            torch.cuda.synchronize()
-            s.record()
-            fn()
-            e.record()
-            e.synchronize()
-            ms.append(s.elapsed_time(e))
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-        ops = device_ops(prof)
-        busy, med = sum(r[1] for r in ops), statistics.median(ms)
-        idle = f"{max(0.0, 1 - busy / med):.3f}" if busy > 0 else "not measured"
-        print(f"  (a) one {label} decode step, {nrow} rows at positions {pos.tolist()}: {med:.3f} ms (CUDA "
-              f"events, median of {REPS}); device busy {busy:.3f} ms over {sum(r[2] for r in ops)} device "
-              f"operations, idle share {idle} (card: {card})", flush=True)
-    del model, eng, engines, dcache, pcache, served, fn, prof, _
+        decode_step_line("(a)", label, fn, pos, card)
+    del model, engines, dcache, pcache, served, fn, _
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -788,12 +924,21 @@ def whisper_phase(dev, card: str) -> dict:
                      [(name, mb, tc.learning_rate) for name in ("adamw", "ebv") for mb in (1, 2)])
 
     # ---- the launchers, on the card by default, in two subprocesses at once
+    run_launchers([(["repro_torch.launch.serve", "--arch", WHISPER_ARCH, "--paged"],
+                    "served 4 requests (64 new tokens)"),
+                   (["repro_torch.launch.train", "--arch", WHISPER_ARCH, "--optimizer", "ebv", "--steps", "3"],
+                    "[train] step     0 loss")])
+    print(f"  phase 4k: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return {"paged_decode_attention": b13["paged"], **launches}
+
+
+def run_launchers(specs) -> None:
+    """``python -m`` each of ``specs`` ((arguments, a line its output must
+    hold)) in subprocesses at once, on the card by default; fails unless
+    each exits 0 within 300 s and prints its line."""
     runs = []
     t0 = time.perf_counter()
-    for args, expect in ((["repro_torch.launch.serve", "--arch", WHISPER_ARCH, "--paged"],
-                          "served 4 requests (64 new tokens)"),
-                         (["repro_torch.launch.train", "--arch", WHISPER_ARCH, "--optimizer", "ebv",
-                           "--steps", "3"], "[train] step     0 loss")):
+    for args, expect in specs:
         runs.append((args, expect, subprocess.Popen(
             [sys.executable, "-m"] + args, cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
             text=True, env=dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src")))))
@@ -804,17 +949,334 @@ def whisper_phase(dev, card: str) -> dict:
             for _, _, p in runs:
                 p.kill()
             fail(f"python -m {args[0]}: no exit in 300 s")
-        print(f"  python -m {' '.join(args)}: exit {proc.returncode}, both done {time.perf_counter() - t0:.1f} s "
+        print(f"  python -m {' '.join(args)}: exit {proc.returncode}, done {time.perf_counter() - t0:.1f} s "
               f"after the start (process start and weight draw included)", flush=True)
         for out_line in out.strip().splitlines():
             print(f"    {out_line}", flush=True)
         if proc.returncode or expect not in out:
             fail(f"python -m {args[0]}: {err.strip()[-2000:]}")
-    print(f"  phase 4k: {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
+class Routing:
+    """The MoE layer's router choices (``models/moe.py:route``) call by call,
+    recorded in ``calls``; or, with ``replay`` a list of them, taken from
+    it in order, while the choices the layer would have made itself are
+    counted where they differ (``differ`` of ``total``, and the largest
+    gap between the probabilities of a differing pair, ``gap``)."""
+
+    def __init__(self):
+        self.calls, self.replay = [], None
+        self.differ = self.total = 0
+        self.gap = 0.0
+
+    def __enter__(self):
+        from repro_torch.models import moe
+
+        self._moe, self._route = moe, moe.route
+        moe.route = self._hook
+        return self
+
+    def __exit__(self, *exc):
+        self._moe.route = self._route
+
+    def _hook(self, p, xt, cfg):
+        probs, top_p, own = self._route(p, xt, cfg)
+        if self.replay is None:
+            self.calls.append(own)
+            return probs, top_p, own
+        want = self.replay.pop(0)
+        top_p, differ, gap = self._moe.replay_choices(probs, own, want)
+        self.differ += differ
+        self.total += own.numel()
+        self.gap = max(self.gap, gap)
+        return probs, top_p, want
+
+    def near_ties(self) -> bool:
+        return self.gap <= ROUTE_GAP_TOL and self.differ <= ROUTE_DIFFER_SHARE * self.total
+
+
+def moe_phase(dev, card: str) -> dict:
+    """Phase 4l: the moe family.  (a) mixtral-8x22b at full width and 4
+    layers served dense, its decode steps past the window teacher-forced
+    against full forwards; (b) granite-moe-1b-a400m at full width and depth
+    served dense and paged, the paged decode step teacher-forced against
+    the dense one; (c) granite trained, 5 AdamW and 5 EbV steps on one
+    repeated 8 x 512 batch, then one EbV step on 20,480 tokens through the
+    grouped path; (d) both reduced fp32 configs on the card against the
+    CPU; (e) the serving launcher on both, in two subprocesses (see the
+    module docstring).  Returns the launches of B13 (the paged serve) and
+    of B9 and B10 (the EbV steps)."""
+    import gc
+    import math
+
+    import numpy as np
+    import torch
+
+    from repro_torch import train
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenPipeline
+    from repro_torch.kernels import batched_lu
+    from repro_torch.models import common, lm, moe
+    from repro_torch.serve import GenRequest, bucket_length
+    from repro_torch.train import loop
+
+    t_phase = time.perf_counter()
+    rel = lambda a, b: float((a - b).abs().max() / b.abs().max())
+
+    def drawn(cfg, seed):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model = lm.init_params(torch.Generator(device=dev).manual_seed(seed), cfg)
+        torch.cuda.synchronize()
+        n = sum(p.numel() for p in model.parameters())
+        print(f"  {cfg.name}: {cfg.num_layers} layers, d={cfg.d_model}, {cfg.num_heads} heads, {cfg.num_kv_heads} "
+              f"KV heads, Dh={cfg.resolved_head_dim}, {cfg.num_experts} experts of d_ff={cfg.d_ff}, top-"
+              f"{cfg.experts_per_token}, vocab {cfg.vocab_size}, window {cfg.sliding_window}, {cfg.dtype}: "
+              f"{n / 1e9:.3f} G parameters ({2 * n / 1e9:.2f} GB), drawn on the card in "
+              f"{time.perf_counter() - t0:.2f} s", flush=True)
+        return model
+
+    def freed():
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+
+    # ---- (a) mixtral-8x22b, 4 layers, served dense past its window
+    cfg = get_config(MIXTRAL_ARCH).replace(num_layers=MIXTRAL_LAYERS)
+    w = cfg.sliding_window
+    model = drawn(cfg, 2900)
+    rng = np.random.default_rng(2901)
+    lengths = rng.integers(MIXTRAL_PROMPTS[0], MIXTRAL_PROMPTS[1] + 1, MIXTRAL_REQS)
+    lengths[:2] = (w - 6, w + 1)  # one bucket that fills the ring, one just past it
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32) for n in lengths]
+    news = [int(n) for n in rng.integers(MIXTRAL_NEW[0], MIXTRAL_NEW[1] + 1, MIXTRAL_REQS)]
+    reqs = [GenRequest(p, n) for p, n in zip(prompts, news)]
+    served, engines, _ = serve_runs("(a)", model, cfg, reqs, card, max_len=MIXTRAL_MAX_LEN, slots=MIXTRAL_SLOTS,
+                                    paged=(False,))
+    exact = [len(p) for p in prompts if bucket_length(len(p), LM_BUCKET) > w]
+    print(f"  (a) prompts of {sorted(lengths.tolist())} tokens: {len(exact)} past the window of {w} once padded to "
+          f"buckets of {LM_BUCKET}, prefilled at their exact length; each row's last position "
+          f"{min(len(p) + n - 1 for p, n in zip(prompts, news))} or more", flush=True)
+    del engines
+
+    # teacher-forced: each of MIXTRAL_SLOTS rows prefilled to a start past the
+    # window, then TEACHER_STEPS decode steps of its served tokens, against one
+    # full forward of the row with the window mask.  The capacity factor E / k
+    # lets no expert drop a token in either, so the rows share nothing, and the
+    # decode steps take the full forward's router choices (Routing): a flipped
+    # near tie in bf16 would move a row's logits by more than the window's work
+    tcfg = cfg.replace(moe_capacity_factor=cfg.num_experts / cfg.experts_per_token)
+    nrow = MIXTRAL_SLOTS
+    seqs = [served["dense"][r] for r in range(nrow)]
+    starts = [max(len(prompts[r]), w + 4) for r in range(nrow)]
+    full, routes = [], []
+    with torch.no_grad(), Routing() as rt:
+        for r in range(nrow):
+            rt.calls = []
+            x = lm._final_hidden(model, {"tokens": seqs[r][None, :starts[r] + TEACHER_STEPS]}, tcfg)[0]
+            full.append(common.matmul_f32(x[0, starts[r]:starts[r] + TEACHER_STEPS], model.unembed))
+            routes.append(rt.calls)
+            del x
+        caches = lm.init_caches(tcfg, nrow, MIXTRAL_MAX_LEN, device=dev)
+        for r in range(nrow):
+            rt.replay = [c[:starts[r]] for c in routes[r]]
+            one, _ = lm.prefill(model, {"tokens": seqs[r][None, :starts[r]]}, tcfg, cache_len=MIXTRAL_MAX_LEN)
+            for key in ("k", "v", "pos"):
+                caches["attn"][key][:, r] = one["attn"][key][:, 0]
+            del one
+        prefill_differ = rt.differ
+        pos = torch.tensor(starts, dtype=torch.int32, device=dev)
+        worst = 0.0
+        for t in range(TEACHER_STEPS):
+            tok = torch.tensor([[int(seqs[r][starts[r] + t])] for r in range(nrow)], device=dev)
+            rt.replay = [torch.stack([routes[r][layer][starts[r] + t] for r in range(nrow)])
+                         for layer in range(tcfg.num_layers)]
+            _, logits = lm.decode_step(model, caches, tok, pos, tcfg)
+            if not bool(torch.isfinite(logits).all()):
+                fail(f"mixtral decode logits at step {t}: non-finite")
+            worst = max(worst, max(rel(logits[r, 0], full[r][t]) for r in range(nrow)))
+            pos += 1
+    ring = caches["attn"]["k"].shape[2]
+    print(f"  (a) teacher-forced at positions {starts} + 0..{TEACHER_STEPS - 1}, {nrow} rows on a ring of {ring} "
+          f"slots: decode logits against a full forward of each row, worst normwise {worst:.3e} (tolerance "
+          f"{LOGITS_TOL:.0e}); router choices the prefills and decode steps would have made otherwise: "
+          f"{prefill_differ} and {rt.differ - prefill_differ} of {rt.total}, the largest probability gap of such "
+          f"a pair {rt.gap:.3e} (capacity factor {tcfg.moe_capacity_factor:g}: no drops; tolerances "
+          f"{ROUTE_DIFFER_SHARE:g} of the choices, a gap of {ROUTE_GAP_TOL:g})", flush=True)
+    if ring != w or not worst <= LOGITS_TOL or not rt.near_ties():
+        fail(f"mixtral: a ring of {ring} slots, decode logits {worst:.3e} from the full forward's, or "
+             f"{rt.differ} of {rt.total} router choices differ, by up to {rt.gap:.3e}")
+    tok = torch.zeros((nrow, 1), dtype=torch.long, device=dev)
+    decode_step_line("(a)", f"{cfg.name} dense", lambda: lm.decode_step(model, caches, tok, pos, cfg), pos, card)
+    del model, caches, full, routes, served, rt
+    freed()
+
+    # ---- (b) granite-moe-1b-a400m served dense and paged
+    cfg = get_config(GRANITE_ARCH)
+    L, kvh, dh = cfg.num_layers, cfg.num_kv_heads, cfg.resolved_head_dim
+    model = drawn(cfg, 2910)
+    rng = np.random.default_rng(2911)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in rng.integers(GRANITE_PROMPTS[0], GRANITE_PROMPTS[1] + 1, GRANITE_REQS)]
+    news = [int(n) for n in rng.integers(GRANITE_NEW[0], GRANITE_NEW[1] + 1, GRANITE_REQS)]
+    reqs = [GenRequest(p, n) for p, n in zip(prompts, news)]
+    served, engines, b13 = serve_runs("(b)", model, cfg, reqs, card, max_len=GRANITE_MAX_LEN, slots=GRANITE_SLOTS)
+    agree = sum(int((served["dense"][i][len(p):] == served["paged"][i][len(p):]).sum())
+                for i, p in enumerate(prompts))
+    print(f"  (b) served tokens that agree, paged and dense: {agree}/{sum(news)} = {agree / sum(news):.3f} "
+          f"(not gated: near ties on random weights)", flush=True)
+    del engines
+
+    # teacher-forced: the rows' prompts prefilled once into a dense cache and
+    # into pool pages, then TEACHER_STEPS steps of each; the paged step takes
+    # the dense step's router choices, and those it would have made itself are
+    # counted where they differ
+    nrow, np_ = GRANITE_SLOTS, GRANITE_MAX_LEN // PAGE
+    dcache = lm.init_caches(cfg, nrow, GRANITE_MAX_LEN, device=dev)
+    pcache = lm.init_paged_caches(cfg, nrow, nrow * np_ + 1, PAGE, device=dev)
+    table = (1 + torch.arange(nrow * np_, device=dev, dtype=torch.int32)).reshape(nrow, np_)
+    ar = torch.arange(GRANITE_MAX_LEN, device=dev)
+    for r in range(nrow):
+        s0 = len(prompts[r])
+        raw, _ = lm.prefill(model, {"tokens": prompts[r][None]}, cfg, raw_kv=True)
+        npg = -(-s0 // PAGE)
+        for key in ("k", "v"):
+            fresh = raw["attn"][key][:, 0]  # (L, s0, KV, Dh)
+            dcache["attn"][key][:, r, :s0] = fresh
+            pages = torch.nn.functional.pad(fresh, (0, 0, 0, 0, 0, npg * PAGE - s0))
+            pcache["attn"][f"{key}_pages"][:, table[r, :npg].long()] = pages.reshape(L, npg, PAGE, kvh, dh)
+        dcache["attn"]["pos"][:, r] = torch.where(ar < s0, ar, -1).to(torch.int32)
+    pos = torch.tensor([len(prompts[r]) for r in range(nrow)], dtype=torch.int32, device=dev)
+    worst = 0.0
+    with Routing() as rt:
+        for t in range(TEACHER_STEPS):
+            tok = torch.tensor([[int(served["dense"][r][len(prompts[r]) + t])] for r in range(nrow)], device=dev)
+            rt.calls, rt.replay = [], None
+            _, dl = lm.decode_step(model, dcache, tok, pos, cfg)
+            rt.replay = list(rt.calls)
+            _, pl = lm.decode_step(model, pcache, tok, pos, cfg, page_table=table)
+            if not bool(torch.isfinite(pl).all()) or pl.shape != dl.shape:
+                fail(f"granite paged logits at step {t}: shape {tuple(pl.shape)} or non-finite")
+            worst = max(worst, rel(pl, dl))
+            pos += 1
+    print(f"  (b) teacher-forced over {TEACHER_STEPS} steps, {nrow} rows: paged against dense logits, worst "
+          f"normwise {worst:.3e} (tolerance {LOGITS_TOL:.0e}); router choices of the paged steps that differ from "
+          f"the dense steps': {rt.differ} of {rt.total}, the largest probability gap of such a pair "
+          f"{rt.gap:.3e} (tolerances {ROUTE_DIFFER_SHARE:g} of the choices, a gap of {ROUTE_GAP_TOL:g})", flush=True)
+    if not worst <= LOGITS_TOL or not rt.near_ties():
+        fail(f"granite paged decode logits {worst:.3e} from the dense ones, or {rt.differ} of {rt.total} "
+             f"router choices differ, by up to {rt.gap:.3e}")
+    tok = torch.zeros((nrow, 1), dtype=torch.long, device=dev)
+    for label, fn in (("dense", lambda: lm.decode_step(model, dcache, tok, pos, cfg)),
+                      ("paged", lambda: lm.decode_step(model, pcache, tok, pos, cfg, page_table=table))):
+        decode_step_line("(b)", f"{cfg.name} {label}", fn, pos, card)
+    del model, dcache, pcache, served, fn
+    freed()
+
+    # ---- (c) granite training
+    tc = loop.TrainConfig(steps=TRAIN_STEPS, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH)
+    pipe = TokenPipeline(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH, seed=0)
+    batch = loop.make_batch_fn(cfg, tc, device=dev)(next(pipe)["tokens"])
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    shapes = lm._train_shapes(cfg)
+    # the weights of the matmuls (every leaf but the embedding, a gather, and
+    # the norm scales), an expert's at the share k / E of the tokens it sees
+    share = cfg.experts_per_token / cfg.num_experts
+    mat = {k: math.prod(s) * (share if k.startswith("blocks.moe.w") else 1)
+           for k, (s, _) in shapes.items() if k != "embed" and not k.endswith("scale")}
+    n_active = sum(mat.values())
+    bound_ms = 8 * n_active * tokens / PEAK_BF16_FLOPS * 1e3
+    cap_ms = bound_ms + 8 * sum(v for k, v in mat.items() if k.startswith("blocks.moe.w")) * tokens \
+        * (cfg.moe_capacity_factor - 1) / PEAK_BF16_FLOPS * 1e3
+    groups = ebv_groups(shapes)
+    print(f"  (c) {sum(math.prod(s) for s, _ in shapes.values()) / 1e9:.3f} G parameters in {len(shapes)} stacked "
+          f"leaves, {n_active / 1e6:.1f} M active in matmuls; batch {TRAIN_BATCH} x {TRAIN_SEQ} = {tokens} tokens "
+          f"a step; EbV order groups (order: systems) {groups}", flush=True)
+    if groups != {L: 2, cfg.d_model: 2}:
+        fail(f"granite EbV order groups {groups}: expected two order-{L} systems (the stacked norm scales) "
+             f"and two of order {cfg.d_model} (embed, unembed)")
+
+    def fresh():
+        params = lm.train_params(lm.init_params(torch.Generator(device=dev).manual_seed(2912), cfg))
+        freed()
+        return params
+
+    launches = train_runs(dev, card, "(c)", cfg, batch, fresh, groups, tokens, [
+        (bound_ms, f"8 x {n_active / 1e6:.1f} M active x {tokens} tokens / 989 TFLOP/s bf16"),
+        (cap_ms, f"with the experts' capacity rows, cf = {cfg.moe_capacity_factor:g}")])
+    del batch
+
+    # one EbV step on GRANITE_LONG tokens: a full group of GROUP_TOKENS and a
+    # padded tail, every MoE call counted by its rows and valid_count
+    lb, ls = GRANITE_LONG
+    pipe = TokenPipeline(vocab_size=cfg.vocab_size, seq_len=ls, global_batch=lb, seed=1)
+    batch = loop.make_batch_fn(cfg, loop.TrainConfig(seq_len=ls, global_batch=lb), device=dev)(
+        next(pipe)["tokens"])
+    params = fresh()
+    opt = train.get_optimizer("ebv", list(params.values()), train.warmup_cosine(tc.learning_rate, 2, TRAIN_STEPS))
+    step_fn = loop.make_train_step(cfg, opt)
+    wrappers = {"batched_lu_vmem": batched_lu.batched_lu_vmem,
+                "batched_lu_solve_vmem": batched_lu.batched_lu_solve_vmem}
+    calls, local = [], moe._moe_local
+
+    def counted(p, xt, cfg, valid_count=None):
+        calls.append((xt.shape[0], valid_count))
+        return local(p, xt, cfg, valid_count)
+
+    moe._moe_local = counted
+    try:
+        for wr in wrappers.values():
+            wr.launches = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        s.record()
+        met = step_fn(params, batch)
+        e.record()
+        torch.cuda.synchronize()
+        host = time.perf_counter() - t0
+    finally:
+        moe._moe_local = local
+    got = {k: wr.launches for k, wr in wrappers.items()}
+    ms, loss = s.elapsed_time(e), float(met["loss"])
+    kinds = sorted(set(calls))
+    print(f"  (c) one EbV step on {lb} x {ls} = {lb * ls} tokens: loss {loss:.4f}, aux {float(met['aux']):.4f}; "
+          f"{ms:.1f} ms (events; host clock {host * 1e3:.1f} ms), {lb * ls / ms * 1e3:,.0f} tokens/s; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; MoE calls (rows, valid_count) {kinds}, {len(calls)} "
+          f"in all (the forward and the checkpointed recompute); launches {got} (card: {card})", flush=True)
+    tail = lb * ls - moe.GROUP_TOKENS
+    want_calls = [(moe.GROUP_TOKENS, moe.GROUP_TOKENS), (moe.GROUP_TOKENS, tail)]
+    if not math.isfinite(loss) or kinds != sorted(want_calls) or len(calls) != 2 * 2 * L \
+            or got != {"batched_lu_vmem": 4, "batched_lu_solve_vmem": 2}:
+        fail(f"granite's {lb * ls}-token EbV step: loss {loss}, MoE calls {kinds} ({len(calls)}), launches {got}")
+    for k, v in got.items():
+        launches[k] += v
+    del params, opt, step_fn, batch, met
+    freed()
+
+    # ---- (d) the reduced fp32 configs, 3 steps on the card against the CPU,
+    # at a sequence past mixtral's reduced window of 32
+    for arch in (GRANITE_ARCH, MIXTRAL_ARCH):
+        rcfg = get_config(arch).reduced()
+        rng = np.random.default_rng(2913)
+        rbatches = [rng.integers(0, rcfg.vocab_size, (4, 64)).astype(np.int32) for _ in range(3)]
+        start = lm.train_params(lm.init_params(2914, rcfg, device="cpu"))
+        card_against_cpu(dev, "(d)", rcfg, start,
+                         lambda d, rbatches=rbatches: [{"tokens": torch.from_numpy(b).to(d)} for b in rbatches],
+                         [(name, mb, tc.learning_rate) for name in ("adamw", "ebv") for mb in (1, 2)])
+
+    # ---- (e) the serving launcher, on the card by default, in two subprocesses at once
+    run_launchers([(["repro_torch.launch.serve", "--arch", GRANITE_ARCH, "--paged"],
+                    "served 4 requests (64 new tokens)"),
+                   (["repro_torch.launch.serve", "--arch", MIXTRAL_ARCH, "--reduced"],
+                    "served 4 requests (64 new tokens)")])
+    print(f"  phase 4l: {time.perf_counter() - t_phase:.1f} s", flush=True)
     return {"paged_decode_attention": b13["paged"], **launches}
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     import torch
 
     if not torch.cuda.is_available():
@@ -1134,7 +1596,7 @@ def main() -> int:
             fail(f"{name} {shape}: kernel differs from its plain version")
 
     d, vocab = WHISPER["d"], WHISPER["vocab"]
-    bstacks = {(bsz, n): stack(bsz, n, 850 + n) for bsz, n in BATCHED_DENSE + ((2, d),)}
+    bstacks = {(bsz, n): stack(bsz, n, 850 + n) for bsz, n in BATCHED_DENSE + tuple(GROUP_RHS)}
     blus = {}
     for (bsz, n), a in bstacks.items():
         blus[(bsz, n)] = batched_lu.batched_lu_vmem(a)
@@ -1166,7 +1628,7 @@ def main() -> int:
                         batched_lu.batched_lu_plain(a))
         batched_plan_line(bsz, n)
     for (bsz, n), lu in blus.items():
-        for m in ((vocab,) if n == d else (1, n)):
+        for m in GROUP_RHS.get((bsz, n), (1, n)):
             b = rhs_stack(bsz, n, m, 870 + n + m)
             compare_bitwise("batched_lu_solve_vmem", f"B={bsz} n={n} m={m}",
                             batched_lu.batched_lu_solve_vmem(lu, b),
@@ -1449,6 +1911,25 @@ def main() -> int:
             plan = paged_attn.paged_plan(WHISPER_SLOTS, wh, wkv, wdh, whisper_np, PAGE, args[0].element_size(),
                                          sms, ctas=k)
             compare("paged_decode_attention", f"{wshape} K={k}", paged_attn._attend(*args, plan), want,
+                    PAGED_TOL[dname])
+        del args, want
+    # granite-moe-1b-a400m's served shape (phase 4l): H = 16, KV = 8, two query
+    # heads a KV head, Dh = 64, through the wrapper and forced onto clusters of
+    # every size
+    gcfg = get_config(GRANITE_ARCH)
+    gh, gkv, gdh, granite_np = gcfg.num_heads, gcfg.num_kv_heads, gcfg.resolved_head_dim, GRANITE_MAX_LEN // PAGE
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).removeprefix("torch.")
+        gshape = f"B={GRANITE_SLOTS} NP={granite_np} H={gh} KV={gkv} Dh={gdh} {dname}"
+        args = paged_case(GRANITE_SLOTS, gh, granite_np, dtype, 1560, kv=gkv, hd=gdh)
+        want = paged_attn.paged_decode_attention_plain(*args)
+        compare("paged_decode_attention", gshape, paged_attn.paged_decode_attention(*args), want,
+                PAGED_TOL[dname])
+        print(f"    plan {paged_attn.paged_decode_attention.last_plan}", flush=True)
+        for k in time_kernels.PAGED_CTAS:
+            plan = paged_attn.paged_plan(GRANITE_SLOTS, gh, gkv, gdh, granite_np, PAGE, args[0].element_size(),
+                                         sms, ctas=k)
+            compare("paged_decode_attention", f"{gshape} K={k}", paged_attn._attend(*args, plan), want,
                     PAGED_TOL[dname])
         del args, want
 
@@ -2306,7 +2787,7 @@ def main() -> int:
         share = f", resident share {plan.resident:.3f} (theta {plan.theta})" if plan is not None else ""
         print(f"    {name} {shape}: {1e3 * row['ms'] / pivots:.3f} us a pivot over {pivots} pivots "
               f"({row['ms']:.4f} ms; library {'not measured' if lib is None else f'{lib:.4f}'} ms; bound "
-              f"{row['bound_ms']:.4f} ms){share}", flush=True)
+              f"{row['bound_ms']:.4g} ms){share}", flush=True)
 
     def record(name, shape, ms, plain_ms, lib_ms, flops, nbytes, per_call):
         torch.cuda.synchronize()
@@ -2314,7 +2795,7 @@ def main() -> int:
         b_ms, b_by = bound(flops, nbytes)
         fmt = lambda v: "not measured" if v is None else f"{v:.4f}"
         print(f"  {name:15s} {shape:12s} kernel {ms:.4f}  plain {fmt(plain_ms)}  library {fmt(lib_ms)}  "
-              f"bound {b_ms:.4f} ({b_by})  launches/call {per_call}  peak {peak:.0f} MiB", flush=True)
+              f"bound {b_ms:.4g} ({b_by})  launches/call {per_call}  peak {peak:.0f} MiB", flush=True)
         rows[(name, shape)] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
                                    bound_by=b_by, per_call=per_call)
         torch.cuda.reset_peak_memory_stats()
@@ -2440,7 +2921,7 @@ def main() -> int:
                   batched_lu.batched_lu_plan(bsz, n, sms, room).walk)
     for (bsz, n), lu in blus.items():
         piv = torch.arange(1, n + 1, dtype=torch.int32, device=dev).expand(bsz, n).contiguous()
-        for m in ((vocab,) if n == d else (1, n)):
+        for m in GROUP_RHS.get((bsz, n), (1, n)):
             b = rhs_stack(bsz, n, m, 980 + n + m)
             b3 = b[..., None] if m == 1 else b
             # 2n^2 m flops per system; the factors, b and x cross once
@@ -2757,10 +3238,13 @@ def main() -> int:
     whisper_shape = f"B={WHISPER_SLOTS} NP={whisper_np} H=KV={wh} Dh={wdh} bf16"
     whisper_args = paged_case(WHISPER_SLOTS, wh, whisper_np, torch.bfloat16, 1850, holes=False, kv=wkv, hd=wdh)
     record_b13(whisper_shape, whisper_args)
+    granite_shape = f"B={GRANITE_SLOTS} NP={granite_np} H={gh} KV={gkv} Dh={gdh} bf16"
+    granite_args = paged_case(GRANITE_SLOTS, gh, granite_np, torch.bfloat16, 1860, holes=False, kv=gkv, hd=gdh)
+    record_b13(granite_shape, granite_args)
     print(f"  B13 over its CTAs a cluster (ms; card: {card}):", flush=True)
     time_kernels.paged_sweep(served_args)
     time_kernels.paged_sweep(heavy_args)
-    del heavy_args, whisper_args
+    del heavy_args, whisper_args, granite_args
 
     kv_bytes = 2 * L * int(pos.sum()) * kvh * dh * 2  # the live K/V a step reads
     step_bound = (wbytes + kv_bytes) / PEAK_BYTES * 1e3
@@ -2806,6 +3290,12 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     whisper_launches = whisper_phase(dev, card)
+
+    # ---- 4l. the moe family: mixtral-8x22b (4 layers) and granite-moe-1b-a400m
+    print(f"phase 4l: {MIXTRAL_ARCH} ({MIXTRAL_LAYERS} layers) and {GRANITE_ARCH} at full width", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    moe_launches = moe_phase(dev, card)
 
     # ---- 6. kernels line + result ----------------------------------------
     shoot = f"n={SHOOTOUT[0]} bw={SHOOTOUT[1]}"
@@ -2856,7 +3346,8 @@ def main() -> int:
     launches.update(dict.fromkeys(qwrappers, 0))  # B18 runs on the service path only
     launches["paged_decode_attention"] = lm_launches["paged"]  # B13 runs on the serving paths only (4i, 4k)
     # the kernels the tiers and the service launched, beside their own paths'
-    for counts in (tier_launches, tier_opt_launches, serve_launches, train_launches, whisper_launches):
+    for counts in (tier_launches, tier_opt_launches, serve_launches, train_launches, whisper_launches,
+                   moe_launches):
         for k, v in counts.items():
             if k not in lwrappers:  # the legacy kernels' service launches are in already
                 launches[k] += v
@@ -2872,6 +3363,7 @@ def main() -> int:
             # B12's CUDA kernel since it took B7's (before: band_solve_kernel)
             **({"kernel": "band_solve_staged_kernel"} if name == "batched_banded_solve_vmem" else {}),
         })
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s (the build included)", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,8 +1,9 @@
 """Per-layer blocks.  The port has the dense family's pre-norm residual
-block (attention sublayer, then MLP sublayer) and the encdec family's
+block (attention sublayer, then MLP sublayer), the encdec family's
 (whisper's): its decoder block adds a cross-attention sublayer between the
-two, and its encoder block is the dense block run bidirectionally.  The
-other families' blocks (moe, ssm, hybrid, vlm) raise, naming ROADMAP A6."""
+two, and its encoder block is the dense block run bidirectionally; and the
+moe family's, the MoE layer in place of the MLP.  The other families'
+blocks (ssm, hybrid, vlm) raise, naming ROADMAP A6."""
 from __future__ import annotations
 
 import torch
@@ -10,10 +11,11 @@ from torch import nn
 
 from ..configs.base import ModelConfig
 from . import common as C
+from . import moe as MOE
 
 __all__ = ["Block", "init_block", "apply_block", "apply_encoder_block", "init_block_cache"]
 
-PORTED = ("dense", "encdec")
+PORTED = ("dense", "encdec", "moe")
 
 
 def _ported(cfg: ModelConfig) -> None:
@@ -24,7 +26,8 @@ def _ported(cfg: ModelConfig) -> None:
 class Block(nn.Module):
     """``ln_attn``, ``attn``, ``ln_mlp``, ``mlp``: the reference's dense block,
     also whisper's encoder block (``encoder=True``); the encdec family's
-    decoder block adds ``ln_cross`` and ``cross``."""
+    decoder block adds ``ln_cross`` and ``cross``; the moe family's has
+    ``moe`` (:class:`~.moe.MoE`) in place of ``mlp``."""
 
     def __init__(self, gen: torch.Generator, cfg: ModelConfig, *, encoder: bool = False):
         super().__init__()
@@ -35,7 +38,10 @@ class Block(nn.Module):
             self.ln_cross = C.init_norm(cfg, device=gen.device)
             self.cross = C.init_attention(gen, cfg)
         self.ln_mlp = C.init_norm(cfg, device=gen.device)
-        self.mlp = C.init_mlp(gen, cfg)
+        if cfg.family == "moe" and not encoder:
+            self.moe = MOE.init_moe(gen, cfg)
+        else:
+            self.mlp = C.init_mlp(gen, cfg)
 
 
 def init_block(gen: torch.Generator, cfg: ModelConfig, *, encoder: bool = False) -> Block:
@@ -47,9 +53,10 @@ def apply_block(
     kv_chunk=1024, cache_len=None, seq_positions=None, lengths=None, page_table=None,
     prior=None, raw_kv=False, rope=None,
 ):
-    """One decoder layer.  Returns (x, new_cache, aux); ``aux`` (the MoE
-    balance loss in the reference) is 0 for the ported families.  ``rope``:
-    the forward's RoPE tables (``common.rope_tables``), shared by its layers.
+    """One decoder layer.  Returns (x, new_cache, aux); ``aux`` is the moe
+    family's load-balance loss (:func:`~.moe.apply_moe`), 0 for the other
+    families.  ``rope``: the forward's RoPE tables (``common.rope_tables``),
+    shared by its layers.
 
     The encdec family's cross attention reads ``enc_out`` in train and
     prefill mode (a prefill's cache gains the projected ``cross_k`` /
@@ -72,6 +79,9 @@ def apply_block(
         if mode in ("prefill", "decode"):
             new_cache["cross_k"], new_cache["cross_v"] = ckv
     h = C.apply_norm(p.ln_mlp, x, cfg.norm)
+    if cfg.family == "moe":
+        mo, aux = MOE.apply_moe(p.moe, h, cfg)
+        return x + mo, new_cache, aux
     x = x + C.apply_mlp(p.mlp, h, cfg)
     return x, new_cache, 0.0
 

@@ -1,7 +1,9 @@
-"""Shared model components of the dense and encdec families: norms, RoPE,
-GQA attention (one chunk, or chunked with an online softmax), the attention
-sublayer in its prefill, decode and paged-decode modes, the encoder-decoder
-cross-attention sublayer, and the MLP.
+"""Shared model components of the dense, encdec and moe families: norms,
+RoPE, GQA attention (one chunk, or chunked with an online softmax; causal
+and sliding-window masks), the attention sublayer in its prefill, decode
+(a ring buffer of ``window`` slots for sliding-window configs) and
+paged-decode modes, the encoder-decoder cross-attention sublayer, and the
+MLP.
 
 The reference's ``models/common.py`` keeps weights in a dict pytree; here
 each sublayer is an ``nn.Module`` whose weights keep the reference's
@@ -10,9 +12,8 @@ follows the reference's precision: activations in the config's dtype,
 norms, RoPE angles, scores and softmax sums in fp32.
 
 Not ported yet, and raising ``NotImplementedError`` where they would run:
-M-RoPE and sliding windows (the vlm, moe and hybrid families, ROADMAP
-A6), the ``tri`` schedule (ROADMAP A6) and ``ebv_attention_sharded``,
-which needs a device mesh (ROADMAP A7).
+M-RoPE (the vlm family, ROADMAP A6), the ``tri`` schedule (ROADMAP A6)
+and ``ebv_attention_sharded``, which needs a device mesh (ROADMAP A7).
 """
 from __future__ import annotations
 
@@ -204,12 +205,11 @@ def attention(q, k, v, *, q_positions, kv_positions, causal: bool, window: int |
     """Chunked GQA attention (the ``rect`` schedule).
 
     q: (B, Sq, H, Dh); k/v: (B, Sk, KV, Dh); positions are absolute token
-    indices (1-D, shared by the batch) for causal masking; a kv position
-    < 0 marks an empty slot.  One chunk runs the plain masked softmax;
-    several run the online softmax over ``kv_chunk``-wide chunks.
+    indices (1-D, shared by the batch) for causal and sliding-window
+    masking (a query sees keys with ``q_pos - k_pos < window``); a kv
+    position < 0 marks an empty slot.  One chunk runs the plain masked
+    softmax; several run the online softmax over ``kv_chunk``-wide chunks.
     Returns (B, Sq, H·Dh) in q's dtype."""
-    if window is not None:
-        raise unported("sliding-window attention (the moe and hybrid families)")
     b, sq, h, dh = q.shape
     sk, kvh = k.shape[1], k.shape[2]
     rep = h // kvh
@@ -223,6 +223,8 @@ def attention(q, k, v, *, q_positions, kv_positions, causal: bool, window: int |
         mask = kpos[None, :] >= 0
         if causal:
             mask = mask & (kpos[None, :] <= q_positions[:, None])
+        if window is not None:
+            mask = mask & (q_positions[:, None] - kpos[None, :] < window)
         return mask  # (Sq, Ck)
 
     if num_chunks == 1:
@@ -272,7 +274,10 @@ def apply_attention_layer(
       {"k","v": (B, Sp, KV, Dh)} is a cached prompt prefix: the fresh rows
       (positions already offset by Sp) attend over (prior ++ fresh).
     * ``decode`` against a dense cache: one token per row at the per-row
-      positions ``seq_positions`` (B,).  The cache is updated in place.
+      positions ``seq_positions`` (B,), written to slot ``pos`` (clamped to
+      the last slot, as the reference's ``dynamic_update_slice``), or for a
+      sliding-window config to the ring slot ``pos % Sc``; the cache is
+      updated in place.
     * ``decode`` against a paged cache {"k_pages","v_pages": (P, page, KV,
       Dh)} with ``page_table`` (B, NP) int32: the row's K/V is written into
       its page in place, and the attention runs through
@@ -283,8 +288,7 @@ def apply_attention_layer(
     """
     if cfg.mrope_sections is not None:
         raise unported("M-RoPE (the vlm family)")
-    if cfg.sliding_window is not None:
-        raise unported("sliding-window attention (the moe and hybrid families)")
+    window = cfg.sliding_window
     b, s, _ = x.shape
     h, kv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
     q = (x @ p.wq).reshape(b, s, h, dh)
@@ -303,17 +307,17 @@ def apply_attention_layer(
             kvpos = torch.cat([torch.arange(pk.shape[1], dtype=torch.int32, device=x.device),
                                pos1d.to(torch.int32)])
             out = attention(q, torch.cat([pk, k], 1), torch.cat([pv, v], 1), q_positions=pos1d,
-                            kv_positions=kvpos, causal=True, window=None, kv_chunk=kv_chunk)
+                            kv_positions=kvpos, causal=True, window=window, kv_chunk=kv_chunk)
         else:
             # "ebv" runs sharded only under a mesh, which the port has not;
             # without one the reference runs "rect" as well
             sched = cfg.attention_schedule
             out = attention(q, k, v, q_positions=pos1d, kv_positions=pos1d, causal=True,
-                            window=None, kv_chunk=kv_chunk,
+                            window=window, kv_chunk=kv_chunk,
                             schedule="rect" if sched == "ebv" else sched)
         new_cache = None
         if mode == "prefill":
-            new_cache = {"k": k, "v": v} if raw_kv else _build_cache(k, v, pos1d, cache_len or s)
+            new_cache = {"k": k, "v": v} if raw_kv else _build_cache(cfg, k, v, pos1d, cache_len or s)
     elif mode == "decode" and "k_pages" in cache:
         from ..kernels.paged_attn import paged_decode_attention
 
@@ -333,12 +337,15 @@ def apply_attention_layer(
         ck, cv, cpos = cache["k"], cache["v"], cache["pos"]
         sc = ck.shape[1]
         cur = (tpos[0] if tpos.ndim > 1 else tpos).to(torch.int32).expand(b)
-        slot = cur.clamp(max=sc - 1).long()  # the reference's dynamic_update_slice clamps
+        # the ring slot under a window; else the reference's dynamic_update_slice clamps
+        slot = (cur % sc if window is not None else cur.clamp(max=sc - 1)).long()
         rows = torch.arange(b, device=x.device)
         ck[rows, slot] = k[:, 0].to(ck.dtype)
         cv[rows, slot] = v[:, 0].to(cv.dtype)
         cpos[rows, slot] = cur
         mask = (cpos >= 0) & (cpos <= cur[:, None])  # (B, Sc): per-row causal mask
+        if window is not None:
+            mask = mask & (cur[:, None] - cpos < window)
         qg = q.reshape(b, 1, kv, h // kv, dh).permute(0, 2, 3, 1, 4)
         out = single_chunk_attention(qg, ck, cv, mask[:, None, None, None, :])
         out = out.permute(0, 3, 1, 2, 4).reshape(b, 1, h * dh).to(q.dtype)
@@ -348,10 +355,21 @@ def apply_attention_layer(
     return out @ p.wo, new_cache
 
 
-def _build_cache(k, v, pos1d, cache_len: int) -> dict:
+def _build_cache(cfg: ModelConfig, k, v, pos1d, cache_len: int) -> dict:
     """Prefill → decode cache layout, ``pos`` per sequence ((B, Sc)): decode
-    advances rows independently under continuous batching."""
+    advances rows independently under continuous batching.  A sliding-window
+    config keeps a ring of ``w = min(window, cache_len)`` slots, position p
+    in slot ``p % w``: the last ``w`` positions rolled by ``(s - w) % w``,
+    or a shorter prefill padded to ``w`` with position −1."""
     b, s = k.shape[0], k.shape[1]
+    if cfg.sliding_window is not None:
+        w = min(cfg.sliding_window, cache_len)
+        if s >= w:
+            shift = (s - w) % w
+            ck, cv = k[:, s - w:].roll(shift, 1), v[:, s - w:].roll(shift, 1)
+            cpos = pos1d[s - w:].to(torch.int32).roll(shift)
+            return {"k": ck, "v": cv, "pos": cpos[None].repeat(b, 1)}
+        cache_len = w
     pad = cache_len - s
     ck = F.pad(k, (0, 0, 0, 0, 0, pad))
     cv = F.pad(v, (0, 0, 0, 0, 0, pad))
@@ -380,13 +398,14 @@ def apply_cross_attention_layer(p: Attention, x, cfg: ModelConfig, *, enc_out=No
 
 
 def init_attention_cache(cfg: ModelConfig, batch: int, seq_len: int, dtype, *, device=None) -> dict:
-    if cfg.sliding_window is not None:
-        raise unported("sliding-window attention (the moe and hybrid families)")
+    """An empty dense cache of ``seq_len`` slots, ``min(seq_len, window)``
+    (the ring) for a sliding-window config."""
+    sc = min(seq_len, cfg.sliding_window) if cfg.sliding_window else seq_len
     kv, dh = cfg.num_kv_heads, cfg.resolved_head_dim
     return {
-        "k": torch.zeros((batch, seq_len, kv, dh), dtype=dtype, device=device),
-        "v": torch.zeros((batch, seq_len, kv, dh), dtype=dtype, device=device),
-        "pos": torch.full((batch, seq_len), -1, dtype=torch.int32, device=device),
+        "k": torch.zeros((batch, sc, kv, dh), dtype=dtype, device=device),
+        "v": torch.zeros((batch, sc, kv, dh), dtype=dtype, device=device),
+        "pos": torch.full((batch, sc), -1, dtype=torch.int32, device=device),
     }
 
 

@@ -1,5 +1,5 @@
 """Top-level language model: embedding → blocks → final norm → logits, for
-the dense and encdec families.
+the dense, encdec and moe families.
 
 Entry points, as the reference's ``models/lm.py``:
 
@@ -10,8 +10,10 @@ Entry points, as the reference's ``models/lm.py``:
 * ``init_caches`` / ``init_paged_caches`` — empty layer-stacked caches;
 * ``train_params(model)`` — the trainer's parameters: the reference's
   tree, every block leaf one layer-stacked tensor (L, ...);
-* ``train_loss(params, batch, cfg)`` — (scalar CE + aux, {"ce", "aux"}),
-  the CE in fp32 over ``seq_chunk`` slices of the sequence;
+* ``train_loss(params, batch, cfg)`` — (scalar CE + aux_weight · aux,
+  {"ce", "aux"}), the CE in fp32 over ``seq_chunk`` slices of the
+  sequence, the aux the moe family's load-balance loss summed over the
+  layers;
 * ``stub_frames(batch, enc_len, cfg, seed)`` — the encdec family's audio
   frontend stub, frame embeddings drawn from a seed.
 
@@ -19,7 +21,10 @@ The encdec family (whisper) takes ``batch = {"tokens", "frames"}``: the
 frames plus a sinusoid run through ``enc_blocks`` and ``enc_ln_f``, and the
 decoder's tokens get a sinusoid at their plain positions; each decoder
 layer's cross attention reads the encoder's output, and its decode cache
-keeps the cross K/V per slot (``cross_k`` / ``cross_v``).
+keeps the cross K/V per slot (``cross_k`` / ``cross_v``).  The moe family
+(mixtral, granite) takes ``batch = {"tokens"}``; its blocks hold a
+:class:`~.moe.MoE` layer in place of the MLP, and mixtral's sliding window
+keeps a ring of ``window`` cache slots.
 
 The reference's ``lax.scan`` over stacked blocks is a Python loop over
 ``LM.blocks``; caches stay layer-stacked ((L, ...) leading axis), and each
@@ -56,7 +61,8 @@ class LM(nn.Module):
     """``embed`` (V, d), ``blocks`` (one :class:`~.blocks.Block` per layer),
     ``ln_f``, ``unembed`` (d, V); V is the vocabulary padded to 128.  The
     encdec family adds ``enc_blocks`` (one encoder block per encoder layer)
-    and ``enc_ln_f``."""
+    and ``enc_ln_f``; the moe family's blocks hold ``moe`` in place of
+    ``mlp``."""
 
     def __init__(self, gen: torch.Generator, cfg: ModelConfig):
         super().__init__()
@@ -302,6 +308,13 @@ def _train_shapes(cfg: ModelConfig) -> dict:
         block["mlp.wg"] = ((d, cfg.d_ff), dt)
     shapes = {"embed": ((vp, d), dt), "ln_f.scale": ((d,), f32), "unembed": ((d, vp), dt)}
     stacks = [("blocks", cfg.num_layers, block)]
+    if cfg.family == "moe":  # the router fp32 (d, E), the experts (E, d, d_ff) and (E, d_ff, d)
+        e, f = cfg.num_experts, cfg.d_ff
+        experts = {"moe.router": ((d, e), f32), "moe.wu": ((e, d, f), dt), "moe.wd": ((e, f, d), dt)}
+        if cfg.mlp_gated:
+            experts["moe.wg"] = ((e, d, f), dt)
+        stacks = [("blocks", cfg.num_layers,
+                   {**{k: v for k, v in block.items() if not k.startswith("mlp.")}, **experts})]
     if cfg.family == "encdec":
         decoder = {**block, **{f"cross.{k}": v for k, v in attn.items()}, "ln_cross.scale": ((d,), f32)}
         stacks = [("blocks", cfg.num_layers, decoder), ("enc_blocks", cfg.encoder_layers, block)]
@@ -387,7 +400,8 @@ def _chunked_ce(x, w, labels, mask, *, seq_chunk=512):
 def train_loss(params, batch, cfg: ModelConfig, *, kv_chunk=1024, aux_weight=0.01):
     """(loss, {"ce", "aux"}) of ``batch`` = {"tokens": (B, S)} (the encdec
     family's also {"frames": (B, Se, d)}): the mean next-token CE plus
-    ``aux_weight`` times the blocks' aux (0 for the ported families).
+    ``aux_weight`` times the blocks' aux (the moe family's load-balance
+    loss summed over the layers; 0 for the other families).
     ``params``: the trainer's stacked leaves (:func:`train_params`) or an
     :class:`LM`."""
     x, mask, aux, tokens, view = _final_hidden(params, batch, cfg, kv_chunk=kv_chunk)

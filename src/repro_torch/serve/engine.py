@@ -39,6 +39,13 @@ for every prompt).  A prefill's cross K/V goes into its slot's row of the
 per-slot cross caches, which the paged mode keeps dense beside the pool,
 made anew for each call's slots.  Prefix reuse stays with the dense family.
 
+**The moe family** (mixtral, granite): the MoE layer's capacity counts
+every row of a call, so idle slots in decode and bucket pads in prefill
+share it with the live rows, as in the reference.  Sliding-window configs
+(mixtral) serve dense only, their cache a ring of ``window`` slots; a
+prompt whose bucket would pass the window is prefilled at its exact length
+(:meth:`Engine._bucket_len`).
+
 Departures from the reference, by design: there is no ``jax.jit`` (the
 engine runs eagerly); sampled decoding (``temperature > 0``) draws from a
 per-request ``torch.Generator`` seeded by ``GenRequest.seed``, so only
@@ -216,6 +223,16 @@ class Engine:
                 fresh = torch.nn.functional.pad(fresh, (0, 0, 0, 0, 0, pad))
             pool[:, idx] = fresh.reshape(nl, len(pages), pg, kv, dh).to(pool.dtype)
 
+    def _bucket_len(self, s0: int, fixed: int | None) -> int:
+        """A prompt's padded prefill length: ``fixed`` (encdec's one bucket a
+        call) or its bucket; for a sliding-window config the exact length
+        where the padded one would pass the window, since the prefill ring
+        keeps only the last ``window`` positions and pads past it would evict
+        prompt K/V before :func:`_insert_slot` masks them."""
+        lb = fixed if fixed is not None else bucket_length(s0, self.bucket)
+        w = self.cfg.sliding_window
+        return s0 if w is not None and lb > w else lb
+
     def _model_batch(self, tokens: np.ndarray) -> dict:
         """The model's input of prompt rows (b, s): the tokens, and for the
         encdec family the frontend stub's (b, max(s // 4, 1), d) frames."""
@@ -241,7 +258,7 @@ class Engine:
             if self.cfg.family == "encdec" else None
 
         def padded(s0: int) -> int:
-            return fixed or bucket_length(s0, self.bucket)
+            return self._bucket_len(s0, fixed)
 
         for r in reqs:
             if r.max_new_tokens < 1:
@@ -492,7 +509,8 @@ def _insert_slot(live: dict, new: dict, slot: int, valid_len: int) -> None:
     the live caches, in place, leaf by leaf of ``live`` (a leaf without
     positions, as encdec's cross K/V, is copied as it is).  ``pos`` leaves
     are masked by position value (>= ``valid_len`` → −1), so bucket-pad K/V
-    can never be attended."""
+    can never be attended.  For a sliding-window ring this relies on
+    :meth:`Engine._bucket_len` keeping the padded prompt inside the ring."""
     for key, lv in live.items():
         nw = new[key]
         if isinstance(lv, dict):

@@ -623,9 +623,11 @@ def band_stack(bsz, n, bw, seed=0):
 # (the optimizer's order at whisper-tiny width), odd n, n = 1000 and the
 # reference's cap 1024 (rows streamed below theta), 32 systems of 4 CTAs,
 # 100 systems of 2 (more clusters than the card holds at once); 133 systems,
-# one block each in device memory
+# one block each in device memory; granite-moe-1b-a400m's two EbV groups
+# (order 24, the stacked norm scales; order 1024, embed and unembed)
 @pytest.mark.parametrize("bsz,n", [(1, 8), (5, 64), (3, 240), (2, 241), (2, 384), (1, 241), (3, 385),
-                                   (5, 1000), (8, 1024), (32, 256), (100, 384), (133, 384)])
+                                   (5, 1000), (8, 1024), (32, 256), (100, 384), (133, 384), (2, 24),
+                                   (2, 1024)])
 def test_batched_factor_kernel_is_bitwise_its_plain_version(bsz, n, card):
     a = torch.from_numpy(dd_stack(bsz, n, n)).to(card)
     before = batched_lu.batched_lu_vmem.launches
@@ -652,9 +654,11 @@ def test_batched_factor_leaves_its_input_alone(card):
 
 
 # (B, n, m): a vector per system; tiles of unequal width before the
-# equalization (70 columns in three tiles of 24); the optimizer's order
+# equalization (70 columns in three tiles of 24); the optimizer's order;
+# granite-moe-1b-a400m's EbV groups (order 24 over d = 1024 columns, order
+# 1024 over the padded vocabulary's 49280)
 @pytest.mark.parametrize("bsz,n,m", [(5, 64, None), (3, 100, 3), (2, 128, 70), (1, 33, 1),
-                                     (2, 384, 40)])
+                                     (2, 384, 40), (2, 24, 1024), (2, 1024, 49280)])
 def test_batched_solve_kernel_is_bitwise_its_plain_version(bsz, n, m, card):
     lu = batched_lu.batched_lu_plain(torch.from_numpy(dd_stack(bsz, n, n)).to(card))
     b = torch.from_numpy(np.stack([rhs(n, m, 7 + i) for i in range(bsz)])).to(card)
@@ -664,6 +668,7 @@ def test_batched_solve_kernel_is_bitwise_its_plain_version(bsz, n, m, card):
     torch.cuda.synchronize()
     assert got.shape == b.shape and torch.equal(got, batched_lu.batched_lu_solve_plain(lu, b))
     close(got, torch.from_numpy(ref.batched_solve_ref(lu.cpu().numpy(), b.cpu().numpy())))
+    solve_plan_matches(card, bsz, n, m or 1)
 
 
 def solve_plan_matches(card, bsz, n, m, path=None):
@@ -1272,9 +1277,10 @@ def paged_inputs(b, h, kv, dh, page, np_, pool, dtype, card, seed=0):
 
 # (B, H, KV, Dh, page, NP, pool): llama3-8b's served shape (rep 4); rep 1;
 # the reduced config; a row too long for its scores in shared memory;
-# whisper-tiny's served shape (8 slots of 448 positions, H = KV = 6, Dh 64)
+# whisper-tiny's served shape (8 slots of 448 positions, H = KV = 6, Dh 64);
+# granite-moe-1b-a400m's (8 slots of 768 positions, H = 16, KV = 8: rep 2, Dh 64)
 PAGED_SHAPES = [(4, 32, 8, 128, 16, 37, 149), (4, 8, 8, 128, 16, 37, 149), (3, 4, 2, 16, 8, 8, 30),
-                (2, 4, 1, 64, 16, 600, 1300), (8, 6, 6, 64, 16, 28, 225)]
+                (2, 4, 1, 64, 16, 600, 1300), (8, 6, 6, 64, 16, 28, 225), (8, 16, 8, 64, 16, 48, 385)]
 
 
 @pytest.mark.parametrize("shape", PAGED_SHAPES)
@@ -1288,11 +1294,13 @@ def test_paged_attention_kernel_matches_plain(shape, dtype, card):
     close(got, paged_attn.paged_decode_attention_plain(*args), PAGED_TOL[dtype])
 
 
-# the served shape (llama3-8b, 4 rows of 36 pages) and the decode-heavy one
-# (32 rows of 256 pages): holes, a row of length 0, lengths off a page
-# boundary, a page id past the pool; every cluster size, one launch a call
-def paged_edge_inputs(b, np_, dtype, card, seed):
-    q, kp, vp, table, lengths = paged_inputs(b, 32, 8, 128, 16, np_, b * np_ + 1, dtype, card, seed)
+# the served shape (llama3-8b, 4 rows of 36 pages), the decode-heavy one
+# (32 rows of 256 pages) and granite-moe-1b-a400m's (8 rows of 48 pages,
+# H = 16, KV = 8: rep 2, Dh 64): holes, a row of length 0, lengths off a
+# page boundary, a page id past the pool; every cluster size, one launch a
+# call
+def paged_edge_inputs(b, h, kv, dh, np_, dtype, card, seed):
+    q, kp, vp, table, lengths = paged_inputs(b, h, kv, dh, 16, np_, b * np_ + 1, dtype, card, seed)
     lengths[1] = 0
     lengths[2] = 16 * (np_ // 3) + 1
     table[3, 0] = kp.shape[0] + 5  # clamped to the last page
@@ -1300,11 +1308,11 @@ def paged_edge_inputs(b, np_, dtype, card, seed):
 
 
 @pytest.mark.parametrize("ctas", [1, 2, 4, 8, 16])
-@pytest.mark.parametrize("b,np_", [(4, 36), (32, 256)])
+@pytest.mark.parametrize("b,h,kv,dh,np_", [(4, 32, 8, 128, 36), (32, 32, 8, 128, 256), (8, 16, 8, 64, 48)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_paged_attention_kernel_at_each_cluster_size(b, np_, ctas, dtype, card):
-    args = paged_edge_inputs(b, np_, dtype, card, seed=b + ctas)
-    plan = paged_attn.paged_plan(b, 32, 8, 128, np_, 16, args[0].element_size(),
+def test_paged_attention_kernel_at_each_cluster_size(b, h, kv, dh, np_, ctas, dtype, card):
+    args = paged_edge_inputs(b, h, kv, dh, np_, dtype, card, seed=b + ctas)
+    plan = paged_attn.paged_plan(b, h, kv, dh, np_, 16, args[0].element_size(),
                                  torch.cuda.get_device_properties(card).multi_processor_count, ctas=ctas)
     before = paged_attn.paged_decode_attention.launches
     got = paged_attn._attend(*args, plan)
@@ -1319,7 +1327,7 @@ def test_paged_attention_plan_reads_only_shapes(card):
     cluster at the served shape, 2 at 32 rows, whatever the lengths."""
     sms = torch.cuda.get_device_properties(card).multi_processor_count
     for b, np_, want in ((4, 36, 4 if sms >= 128 else None), (32, 256, 2)):
-        args = paged_edge_inputs(b, np_, torch.bfloat16, card, seed=7)
+        args = paged_edge_inputs(b, 32, 8, 128, np_, torch.bfloat16, card, seed=7)
         for lengths in (args[4], torch.zeros_like(args[4])):
             paged_attn.paged_decode_attention(*args[:4], lengths)
             assert paged_attn.paged_decode_attention.last_plan[0] == (
@@ -1391,6 +1399,52 @@ def test_a_whisper_paged_serve_on_the_card_equals_the_dense_one(card):
         cfg.num_layers * paged.stats.decode_dispatches
     for a, b in zip(want, got):
         np.testing.assert_array_equal(a, b)
+
+
+def test_a_moe_paged_decode_on_the_card_matches_the_dense_one(card):
+    # the moe family: B13 sums in its own order, and a router near tie can
+    # turn on that, so the paged steps are held to the dense ones teacher-
+    # forced, in fp32, and the paged serve to B13's launches
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+    from repro_torch.serve import Engine, GenRequest
+
+    cfg = get_config("granite_moe_1b_a400m").reduced()
+    model = lm.init_params(0, cfg, device=card)
+    rng = np.random.default_rng(1)
+    lengths, page, np_ = (5, 11, 3), 4, 8
+    dcache = lm.init_caches(cfg, 3, page * np_, device=card)
+    pcache = lm.init_paged_caches(cfg, 3, 3 * np_ + 1, page, device=card)
+    table = (1 + torch.arange(3 * np_, device=card, dtype=torch.int32)).reshape(3, np_)
+    for r, s0 in enumerate(lengths):
+        raw, _ = lm.prefill(model, {"tokens": rng.integers(0, cfg.vocab_size, (1, s0)).astype(np.int32)}, cfg,
+                            raw_kv=True)
+        npg = -(-s0 // page)
+        for key in ("k", "v"):
+            fresh = raw["attn"][key][:, 0]
+            dcache["attn"][key][:, r, :s0] = fresh
+            pages = torch.nn.functional.pad(fresh, (0, 0, 0, 0, 0, npg * page - s0))
+            pcache["attn"][f"{key}_pages"][:, table[r, :npg].long()] = pages.reshape(
+                cfg.num_layers, npg, page, cfg.num_kv_heads, cfg.resolved_head_dim)
+        ar = torch.arange(page * np_, device=card, dtype=torch.int32)
+        dcache["attn"]["pos"][:, r] = torch.where(ar < s0, ar, -1)
+    pos = torch.tensor(lengths, dtype=torch.int32, device=card)
+    before = paged_attn.paged_decode_attention.launches
+    for step in range(6):
+        tok = torch.from_numpy(rng.integers(0, cfg.vocab_size, (3, 1))).to(card)
+        _, want = lm.decode_step(model, dcache, tok, pos, cfg)
+        _, got = lm.decode_step(model, pcache, tok, pos, cfg, page_table=table)
+        close(got, want)
+        pos += 1
+    assert paged_attn.paged_decode_attention.launches - before == 6 * cfg.num_layers
+    reqs = [GenRequest(rng.integers(0, cfg.vocab_size, (s,)).astype(np.int32), n, seed=i)
+            for i, (s, n) in enumerate([(5, 4), (8, 2), (3, 6), (11, 9), (2, 5)])]
+    paged = Engine(model, cfg, max_len=64, slots=2, bucket=4, paged=True, page_size=16)
+    before = paged_attn.paged_decode_attention.launches
+    got = paged.serve(reqs)
+    assert paged_attn.paged_decode_attention.launches - before == \
+        cfg.num_layers * paged.stats.decode_dispatches
+    assert [len(g) for g in got] == [len(r.tokens) + r.max_new_tokens for r in reqs]
 
 
 # ---------------------------------------------------------------------------

@@ -323,8 +323,7 @@ def test_init_params_layout_and_seed_encdec():
     assert not torch.equal(a.enc_blocks[0].attn.wq, c.enc_blocks[0].attn.wq)
 
 
-@pytest.mark.parametrize("arch", ["mixtral_8x22b", "granite_moe_1b_a400m", "mamba2_1_3b",
-                                  "hymba_1_5b", "qwen2_vl_2b"])
+@pytest.mark.parametrize("arch", ["mamba2_1_3b", "hymba_1_5b", "qwen2_vl_2b"])
 def test_unported_families_raise(arch):
     cfg = get_config(arch).reduced()
     with pytest.raises(NotImplementedError, match="ROADMAP A6"):
@@ -340,12 +339,7 @@ def test_unported_features_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP A6"):
         TC.apply_rope(x, pos[None], 1e4, mrope_sections=(2, 3, 3))
     with pytest.raises(NotImplementedError, match="ROADMAP A6"):
-        TC.attention(x, x, x, q_positions=pos, kv_positions=pos, causal=True, window=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
         TC.attention(x, x, x, q_positions=pos, kv_positions=pos, causal=True, window=None,
                      kv_chunk=2, schedule="tri")
     with pytest.raises(NotImplementedError, match="ROADMAP A7"):
         TC.ebv_attention_sharded(x, x, x, q_positions=pos, window=None)
-    model = TL.init_params(0, tc, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
-        TL.prefill(model, {"tokens": np.zeros((1, 4), np.int32)}, tc.replace(sliding_window=8))

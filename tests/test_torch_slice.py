@@ -145,7 +145,7 @@ def test_importing_the_port_loads_neither_jax_nor_the_reference():
         "repro_torch.kernels.batched_lu, repro_torch.core.batched, repro_torch.train, "
         "repro_torch.train.optimizer, repro_torch.serve, repro_torch.serve.solve_service, "
         "repro_torch.serve.scheduler, repro_torch.core.refine, repro_torch.core.randomized, "
-        "repro_torch.configs, repro_torch.models.common, repro_torch.models.blocks, "
+        "repro_torch.configs, repro_torch.models.common, repro_torch.models.blocks, repro_torch.models.moe, "
         "repro_torch.models.lm, repro_torch.kernels.paged_attn, repro_torch.serve.paged, "
         "repro_torch.serve.engine, repro_torch.launch.serve, repro_torch.core.nonfinite, "
         "repro_torch.data, repro_torch.data.pipeline, repro_torch.ckpt, repro_torch.ckpt.manager, "
