@@ -2,8 +2,8 @@
 """Drive the PyTorch/CUDA port's dense, banded and batched main paths, the
 EbV-preconditioned optimizer, the legacy dense factors, the accuracy tiers,
 the solve service, the LM serving engine and the trainer (the dense family,
-whisper's encdec family and the moe family: mixtral, granite) on one
-NVIDIA card.
+whisper's encdec family, the moe family: mixtral, granite, the ssm family:
+mamba2, and the hybrid family: hymba) on one NVIDIA card.
 
     python3 chip_smoke.py
 
@@ -34,7 +34,8 @@ Phases (any failure exits non-zero):
    also where its plan changes, B10 also on both of its paths at shapes on
    either side of its plan's split (each plan checked against its Python
    mirror), B9 and B10 also at granite-moe-1b-a400m's EbV groups ((2, 24)
-   with m = 1024 and (2, 1024) with m = 49280); 3d the legacy
+   with m = 1024 and (2, 1024) with m = 49280), mamba2-1.3b's ((5, 48)
+   with m = 4096) and hymba-1.5b's ((8, 32) with m = 3200); 3d the legacy
    dense kernels (B14-B17) at the legacy paths' shapes, B14 also at ragged
    edges, fp32 and bf16, B15's U12 bit for bit (also the n = 8000 step in
    fp32 and bf16) and a U12 column holding an inf (fault C6: NaN throughout
@@ -146,7 +147,7 @@ Phases (any failure exits non-zero):
      ebv --steps 3`` on the card;
    - the moe family (4l, after 4k), weights drawn on the card from seeds:
      (a) mixtral-8x22b at full width (``configs/mixtral_8x22b.py``, bf16),
-     its depth cut from 56 to 4 layers (20.8 GB), through ``serve.Engine``
+     its depth cut from 56 to 2 layers (10.8 GB), through ``serve.Engine``
      dense (the paged cache takes no sliding window) on 8 greedy requests
      (4 slots, bucket 16, prompts of 4,000-4,500 tokens, some prefilled at
      their exact length past the window, 128-256 new tokens, every row
@@ -169,6 +170,29 @@ Phases (any failure exits non-zero):
      both optimizers, 1 and 2 microbatches; (e) ``python -m
      repro_torch.launch.serve --arch granite_moe_1b_a400m --paged`` and
      ``--arch mixtral_8x22b --reduced`` in two subprocesses at once;
+   - the ssm and hybrid families (4m, after 4l), weights drawn on the card
+     from seeds, nothing cut: (a) mamba2-1.3b (``configs/mamba2_1_3b.py``,
+     48 layers, bf16) through ``serve.Engine`` dense (nothing to page) on
+     16 greedy requests (8 slots, buckets of 64, prompts of 300-1,500
+     tokens, each carrying pads, 64-128 new tokens), each of the first 8
+     prompts' prefill padded to its bucket against its exact-length
+     prefill (logits, conv tails, state; normwise within one bf16 unit,
+     2^-8), and those 8 rows teacher-forced over 8 decode steps against
+     one full forward of each (the recurrent update against the chunked
+     scan), in bf16 and again with the model cast to fp32: fp32 within
+     1e-4, and the bf16 decode no further from the fp32 full forward than
+     1.25 times the bf16 full forward is; (b) hymba-1.5b
+     (``configs/hymba_1_5b.py``, 32 layers, bf16) served dense on 8 requests (4 slots, prompts of 1,900-2,400 tokens,
+     those whose bucket passes the window of 2048 prefilled at their exact
+     length, 128 new tokens), 4 rows teacher-forced past the window under
+     the same gates; (c) both trained, 5 AdamW and 5 EbV ``make_train_step``
+     steps on one repeated 8 x 512 batch (B9 two and B10 one launch an
+     EbV step: mamba2's order-48 group of five leaves, hymba's order-32
+     group of eight); (d) both ``.reduced()`` configs in fp32, 3 steps on
+     the card against the CPU, both optimizers, 1 and 2 microbatches; (e)
+     ``python -m repro_torch.launch.serve --arch mamba2_1_3b`` and
+     ``python -m repro_torch.launch.train --arch hymba_1_5b --optimizer
+     ebv --steps 3`` in two subprocesses at once;
    checks the dispatches, the counters, the residuals and small answers
    against the float64 oracles;
 5. times: each kernel, its plain version and a PyTorch library yardstick
@@ -197,7 +221,8 @@ Phases (any failure exits non-zero):
    B4 at n = 8000 among them) and each dense factor and solve step's time
    beside the host's enqueue time per launch; B13 at the
    served and the decode-heavy shape and at whisper-tiny's and granite's
-   served shapes; B9 and B10 at granite's EbV groups; one
+   served shapes; B9 and B10 at granite's, mamba2's and hymba's EbV
+   groups; one
    full-width decode step against
    its weight-bytes bound, with its device idle share;
 6. the ``kernels`` JSON line, the card line and the result line.
@@ -346,7 +371,10 @@ TRAIN_CE_TOL, TRAIN_CPU_TOL, TRAIN_RESUME_TOL = 1e-3, 1e-4, 1e-5
 # sign at lr scale; such entries may make up at most LOOSE_SHARE of a leaf
 # and are held to SPREAD_FACTOR times the most that gradients times
 # (1 + GRAD_NOISE N(0, 1)) move them on the CPU in NOISE_DRAWS draws, or to
-# TRAIN_CPU_TOL where that is larger
+# TRAIN_CPU_TOL where that is larger.  An entry whose first step's gradient
+# alone is that small on both sides (Adam's first step moves it by lr x
+# g / |g|) is held to TRAIN_CPU_TOL against a CPU run whose first step takes
+# the card's gradient on it
 COND_GRAD, LOOSE_SHARE, GRAD_NOISE, NOISE_DRAWS, SPREAD_FACTOR = 1e-5, 1e-2, 1e-6, 3, 4.0
 # whisper-tiny (3e, 4k, 5): at full width and depth (configs/whisper_tiny.py:
 # 4 + 4 layers, d 384, 6 heads of Dh 64, one a KV head, d_ff 1536, vocab
@@ -370,17 +398,51 @@ GRANITE = dict(d=1024, vocab=49280, layers=24)
 GRANITE_LONG = (8, 2560)
 # mixtral-8x22b (4l): at full width (configs/mixtral_8x22b.py: d 6144, 48 / 8
 # heads of Dh 128, 8 experts of d_ff 16384, top-2, vocab 32768, window 4096,
-# bf16), its depth cut from 56 to 4 layers (one layer is ~2.50 G parameters,
-# 5.0 GB; 56 are ~282 GB); served dense (the paged cache takes no window) on 4
+# bf16), its depth cut from 56 to 2 layers, which keeps the whole run inside
+# its time limit (one layer is ~2.50 G parameters, 5.0 GB; 56 are ~282 GB);
+# served dense (the paged cache takes no window) on 4
 # slots to 8 greedy requests of 4,000-4,500 prompt and 128-256 new tokens,
 # every row decoding past position 4096, max_len 8192
-MIXTRAL_ARCH, MIXTRAL_LAYERS, MIXTRAL_SLOTS, MIXTRAL_REQS, MIXTRAL_MAX_LEN = "mixtral_8x22b", 4, 4, 8, 8192
+MIXTRAL_ARCH, MIXTRAL_LAYERS, MIXTRAL_SLOTS, MIXTRAL_REQS, MIXTRAL_MAX_LEN = "mixtral_8x22b", 2, 4, 8, 8192
 MIXTRAL_PROMPTS, MIXTRAL_NEW = (4000, 4500), (128, 256)
 # the batched kernels' stacks (B, n) beside the RHS widths the EbV
 # optimizer's groups give B10: whisper-tiny's order 384 (embed and unembed,
 # m = 51968), granite's order 24 (m = 1024) and 1024 (m = 49280)
+# the ssm and hybrid families (3c, 4m, 5): mamba2-1.3b at full width and
+# depth (configs/mamba2_1_3b.py: 48 layers, d 2048, d_inner 4096, 64 SSM heads
+# of 64, state 128, chunk 256, conv 4, vocab 50280 padded to 50304, bf16),
+# served dense (no attention cache to page) on 8 slots in buckets of 64 to 16
+# greedy requests of 300-1,500 prompt tokens (none a multiple of 64: every
+# prompt carries pads) and 64-128 new; hymba-1.5b at full width and depth
+# (configs/hymba_1_5b.py: 32 layers, d 1600, 25 / 5 heads of Dh 64 in a
+# window of 2048 beside 50 SSM heads of 64, state 16, d_ff 5504, vocab 32001
+# padded to 32128, bf16), served dense (windows take no pages) on 4 slots to
+# 8 requests of 1,900-2,400 prompt and 128 new tokens; both trained on one
+# repeated 8 x 512 batch.  Under EbV mamba2's order-48 group (five stacked
+# leaves, the widest its (48, 4096) norm scale) and hymba's order-32 group
+# (eight, the widest (32, 3200))
+SSM_ARCH, SSM_SLOTS, SSM_REQS, SSM_BUCKET, SSM_MAX_LEN = "mamba2_1_3b", 8, 16, 64, 1664
+SSM_PROMPTS, SSM_NEW = (300, 1500), (64, 128)
+SSM = dict(layers=48, d_inner=4096)
+HYMBA_ARCH, HYMBA_SLOTS, HYMBA_REQS, HYMBA_MAX_LEN, HYMBA_NEW = "hymba_1_5b", 4, 8, 2560, 128
+HYMBA_PROMPTS = (1900, 2400)
+HYMBA = dict(layers=32, d_inner=3200)
+# a prefill padded to its bucket against the same prompt's exact-length
+# prefill, normwise (logits, conv tails, state): one bf16 unit, 2^-8, the
+# least that GEMMs of another row count could round apart if the library
+# took another kernel for them (measured 0 in every run on an H100)
+PAD_TOL = 2.0 ** -8
+# the teacher-forced check in fp32 (the models cast): the recurrent update
+# against the chunked scan, sums in other orders (measured 1.0e-5 and 1.6e-5
+# on an H100 for mamba2 and hymba)
+SSM_F32_TOL = 1e-4
+# in bf16: the served decode's distance from the fp32 full forward over the
+# bf16 full forward's, normwise (measured 1.009 and 0.881 on an H100 for
+# mamba2 and hymba: bf16 rounding through 48 / 32 layers, ~6-8e-2, either way)
+DECODE_FLOOR_FACTOR = 1.25
 GROUP_RHS = {(2, WHISPER["d"]): (WHISPER["vocab"],), (2, GRANITE["layers"]): (GRANITE["d"],),
-             (2, GRANITE["d"]): (GRANITE["vocab"],)}
+             (2, GRANITE["d"]): (GRANITE["vocab"],), (5, SSM["layers"]): (SSM["d_inner"],),
+             (8, HYMBA["layers"]): (HYMBA["d_inner"],)}
 
 
 def fail(msg: str) -> None:
@@ -459,8 +521,10 @@ def train_runs(dev, card: str, tag: str, cfg, batch, fresh, groups: dict, tokens
         got = {k: w.launches for k, w in wrappers.items()}
         peak = torch.cuda.max_memory_allocated()
         opt_ms = [a.elapsed_time(b) for a, b in opt_events]
-        # the device's busy share over one more step, by torch.profiler
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        # the device's busy share over one more step, by torch.profiler; the
+        # device's activity alone: device_ops reads nothing of the host's, whose
+        # events took ~20 s more to collect and sum at mamba2's ~24,000 kernels
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
             step_fn(params, batch)
             torch.cuda.synchronize()
         ops = device_ops(prof)
@@ -531,8 +595,16 @@ def card_against_cpu(dev, tag: str, rcfg, start: dict, batches, cases) -> None:
     largest, may make up at most LOOSE_SHARE of a leaf, and are held to
     the larger of TRAIN_CPU_TOL and SPREAD_FACTOR times the largest
     spread that NOISE_DRAWS more runs, on the CPU with every step's
-    gradients times (1 + GRAD_NOISE xi), xi ~ N(0, 1), show on them; every
-    other entry is held to TRAIN_CPU_TOL.  ``batches(device)``: the 3 steps' batches."""
+    gradients times (1 + GRAD_NOISE xi), xi ~ N(0, 1), show on them.  An
+    entry whose first step's gradient alone is round-off sized, under
+    COND_GRAD of its leaf's largest on the CPU and on the card, has its
+    first move, lr * g / |g|, set by that round-off's sign and later moves
+    as any other: it is held to TRAIN_CPU_TOL against one more CPU run
+    whose first step takes the card's gradient on those entries.  Every
+    other entry is held to TRAIN_CPU_TOL.  ``batches(device)``: the 3
+    steps' batches."""
+    import math
+
     import torch
 
     from repro_torch import train
@@ -541,44 +613,69 @@ def card_against_cpu(dev, tag: str, rcfg, start: dict, batches, cases) -> None:
 
     rel = lambda a, b: float((a - b).abs().max() / b.abs().max())
 
-    def run(d, name, mb, lr, noise_seed=None):
+    def run(d, name, mb, lr, noise_seed=None, first_from=None):
+        """The run on ``d``; ``noise_seed``: every step's gradients times
+        (1 + GRAD_NOISE xi); ``first_from``: {leaf: (gradient, mask)} set
+        into the first step's gradients.  Returns the first batch's
+        gradients, the leaves, the losses, the moments and the first
+        step's gradients as the optimizer took them."""
         ps = {k: torch.nn.Parameter(v.detach().clone().to(d)) for k, v in start.items()}
         steps = batches(d)
         grads = torch.autograd.grad(lm.train_loss(ps, steps[0], rcfg)[0], list(ps.values()))
         o = train.get_optimizer(name, list(ps.values()), train.warmup_cosine(lr, 2, 10))
-        if noise_seed is not None:
-            gen, step = torch.Generator().manual_seed(noise_seed), o.step
+        gen = torch.Generator().manual_seed(noise_seed) if noise_seed is not None else None
+        step, first = o.step, {}
 
-            def noisy_step():
-                with torch.no_grad():
+        def seen_step():
+            with torch.no_grad():
+                if not first:
+                    for k, p in ps.items():
+                        if first_from is not None:
+                            g, mask = (t.to(d) for t in first_from[k])
+                            p.grad[mask] = g[mask]
+                        first[k] = p.grad.cpu().clone()
+                if gen is not None:
                     for p in ps.values():
                         p.grad.mul_(1 + GRAD_NOISE * torch.randn(p.shape, generator=gen).to(d))
-                return step()
+            return step()
 
-            o.step = noisy_step
+        o.step = seen_step
         fn = loop.make_train_step(rcfg, o, microbatches=mb)
         losses = [float(fn(ps, b)["loss"]) for b in steps]
         return ([g.cpu() for g in grads], {k: p.detach().cpu() for k, p in ps.items()}, losses,
-                {k: {key: o.state[p][key].cpu() for key in ("mu", "nu")} for k, p in ps.items()})
+                {k: {key: o.state[p][key].cpu() for key in ("mu", "nu")} for k, p in ps.items()}, first)
 
     for name, mb, lr in cases:
         cpu, card = run(torch.device("cpu"), name, mb, lr), run(dev, name, mb, lr)
         gated = lr == loop.TrainConfig().learning_rate
+        sched = train.warmup_cosine(lr, 2, 10)
+        adam_most = 2 * sum(sched(s) for s in range(1, len(cpu[2]) + 1))  # the most Adam moves an entry
+        lax, first_lax = {}, {}
+        for k in cpu[1]:
+            rms = torch.maximum(cpu[3][k]["nu"], card[3][k]["nu"]).sqrt()
+            lax[k] = (rms > 0) & (rms < COND_GRAD * rms.max())
+            g0, g1 = cpu[4][k].abs(), card[4][k].abs()
+            small = COND_GRAD * float(torch.maximum(g0, g1).max())
+            first_lax[k] = (g0 < small) & (g1 < small) & ((g0 > 0) | (g1 > 0)) & ~lax[k]
+        n_first = sum(int(m.sum()) for m in first_lax.values())
+        replay = (run(torch.device("cpu"), name, mb, lr, first_from={k: (card[4][k], m) for k, m in first_lax.items()})
+                  if gated and n_first else None)
         noisy = [run(torch.device("cpu"), name, mb, lr, 2915 + i) for i in range(NOISE_DRAWS)] if gated else []
         gworst = max(rel(g, w) for g, w in zip(card[0], cpu[0]))
         mworst = max(rel(card[3][k]["mu"], st["mu"]) for k, st in cpu[3].items())
-        worst = loose = share = 0.0
-        n_loose, spreads = 0, [0.0] * len(noisy)
+        worst = loose = share = replayed = 0.0
+        n_loose, spreads, most = 0, [0.0] * len(noisy), math.inf
         for k, w in cpu[1].items():
-            rms = torch.maximum(cpu[3][k]["nu"], card[3][k]["nu"]).sqrt()
-            lax = (rms > 0) & (rms < COND_GRAD * rms.max())
             scale = float(w.abs().max())
-            worst = max(worst, float((card[1][k] - w).abs()[~lax].max()) / scale)
-            if bool(lax.any()):
-                n_loose += int(lax.sum())
-                share = max(share, float(lax.float().mean()))
-                loose = max(loose, float((card[1][k] - w).abs()[lax].max()) / scale)
-                spreads = [max(s, float((n[1][k] - w).abs()[lax].max()) / scale) for s, n in zip(spreads, noisy)]
+            worst = max(worst, float((card[1][k] - w).abs()[~(lax[k] | first_lax[k])].max()) / scale)
+            if bool(lax[k].any()):
+                n_loose += int(lax[k].sum())
+                share = max(share, float(lax[k].float().mean()))
+                loose = max(loose, float((card[1][k] - w).abs()[lax[k]].max()) / scale)
+                spreads = [max(s, float((n[1][k] - w).abs()[lax[k]].max()) / scale) for s, n in zip(spreads, noisy)]
+                most = min(most, adam_most / scale)
+            if replay is not None and bool(first_lax[k].any()):
+                replayed = max(replayed, float((card[1][k] - replay[1][k]).abs()[first_lax[k]].max()) / scale)
         loose_tol = max([TRAIN_CPU_TOL] + [SPREAD_FACTOR * s for s in spreads])
         lworst = max(abs(a - b) / abs(b) for a, b in zip(card[2], cpu[2]))
         print(f"  {tag} {rcfg.name} reduced, fp32, {name}, microbatches {mb}, lr {lr}: the card against the "
@@ -586,12 +683,18 @@ def card_against_cpu(dev, tag: str, rcfg, start: dict, batches, cases) -> None:
               f"{worst:.3e}; {n_loose} entries (at most {share:.2e} of a leaf) with a gradient RMS above 0 and "
               f"under {COND_GRAD:g} of the leaf's largest, worst leaf on them {loose:.3e}, "
               + (f"the CPU with its gradients times 1 + {GRAD_NOISE:g} N(0, 1) "
-                 f"{', '.join(f'{s:.3e}' for s in spreads)} from the CPU ({NOISE_DRAWS} draws); "
-                 f"losses {lworst:.3e} (tolerances {TRAIN_CPU_TOL:.0e}, {TRAIN_CPU_TOL:.0e}, "
-                 f"{TRAIN_CPU_TOL:.0e}, share {LOOSE_SHARE:g}, {loose_tol:.3e}, 1e-05)" if gated
-                 else f"losses {lworst:.3e} (not gated)"), flush=True)
+                 f"{', '.join(f'{s:.3e}' for s in spreads)} from the CPU ({NOISE_DRAWS} draws), twice the "
+                 f"steps' summed lr over their leaves' largest {f'{most:.3e}' if n_loose else '-'}; {n_first} "
+                 f"more entries "
+                 f"with a first gradient alone so small, worst leaf on them against the CPU run that takes the "
+                 f"card's first gradient there {replayed:.3e}; losses {lworst:.3e} (tolerances "
+                 f"{TRAIN_CPU_TOL:.0e}, {TRAIN_CPU_TOL:.0e}, {TRAIN_CPU_TOL:.0e}, share {LOOSE_SHARE:g}, "
+                 f"{loose_tol:.3e}, {TRAIN_CPU_TOL:.0e}, 1e-05)" if gated
+                 else f"{n_first} more entries with a first gradient alone so small; losses {lworst:.3e} "
+                      f"(not gated)"), flush=True)
         if gated and not (gworst <= TRAIN_CPU_TOL and mworst <= TRAIN_CPU_TOL and worst <= TRAIN_CPU_TOL
-                          and share <= LOOSE_SHARE and loose <= loose_tol and lworst <= 1e-5):
+                          and share <= LOOSE_SHARE and loose <= loose_tol and replayed <= TRAIN_CPU_TOL
+                          and lworst <= 1e-5):
             fail(f"{rcfg.name} {name} microbatches {mb}: the card's steps differ from the CPU's")
 
 
@@ -715,8 +818,9 @@ def train_phase(dev, card: str) -> dict:
     return launches
 
 
-def serve_runs(tag: str, model, cfg, reqs, card: str, *, max_len: int, slots: int, paged=(False, True)):
-    """``serve.Engine`` on ``reqs`` (bucket LM_BUCKET; paged: pages of PAGE),
+def serve_runs(tag: str, model, cfg, reqs, card: str, *, max_len: int, slots: int, paged=(False, True),
+               bucket=LM_BUCKET):
+    """``serve.Engine`` on ``reqs`` (buckets of ``bucket``; paged: pages of PAGE),
     for each of ``paged``, with B13's counter at 0 just before: tokens/s,
     dispatches, ms per decode step, B13 launches a decode step.  Fails
     unless every output is its prompt and then its budget of tokens in the
@@ -732,7 +836,7 @@ def serve_runs(tag: str, model, cfg, reqs, card: str, *, max_len: int, slots: in
     served, engines, b13 = {}, {}, {}
     for pg in paged:
         label = "paged" if pg else "dense"
-        eng = Engine(model, cfg, max_len=max_len, slots=slots, bucket=LM_BUCKET,
+        eng = Engine(model, cfg, max_len=max_len, slots=slots, bucket=bucket,
                      **(dict(paged=True, page_size=PAGE) if pg else {}))
         torch.cuda.synchronize()
         paged_attn.paged_decode_attention.launches = 0
@@ -779,7 +883,7 @@ def decode_step_line(tag: str, label: str, fn, pos, card: str) -> None:
         e.record()
         e.synchronize()
         ms.append(s.elapsed_time(e))
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:  # the device's activity alone, as train_runs
         fn()
         torch.cuda.synchronize()
     ops = device_ops(prof)
@@ -957,6 +1061,89 @@ def run_launchers(specs) -> None:
             fail(f"python -m {args[0]}: {err.strip()[-2000:]}")
 
 
+def drawn(dev, cfg, seed: int):
+    """``lm.init_params(cfg)`` drawn on the card from ``seed``, with a line
+    naming its shape, its size and the draw's time."""
+    import torch
+
+    from repro_torch.models import lm
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model = lm.init_params(torch.Generator(device=dev).manual_seed(seed), cfg)
+    torch.cuda.synchronize()
+    n = sum(p.numel() for p in model.parameters())
+    parts = [f"{cfg.num_layers} layers", f"d={cfg.d_model}"]
+    if cfg.num_heads:
+        parts.append(f"{cfg.num_heads} / {cfg.num_kv_heads} heads of Dh {cfg.resolved_head_dim}"
+                     + (f" in a window of {cfg.sliding_window}" if cfg.sliding_window else ""))
+        parts.append(f"{cfg.num_experts} experts of d_ff {cfg.d_ff}, top-{cfg.experts_per_token}"
+                     if cfg.family == "moe" else f"d_ff {cfg.d_ff}")
+    if cfg.family in ("ssm", "hybrid"):
+        parts.append(f"{cfg.ssm_heads} SSM heads of {cfg.ssm_head_dim}, d_inner {cfg.d_inner}, state "
+                     f"{cfg.ssm_state}, chunk {cfg.ssm_chunk}")
+    print(f"  {cfg.name}: {', '.join(parts)}, vocab {cfg.vocab_size}, {cfg.dtype}: {n / 1e9:.3f} G parameters "
+          f"({2 * n / 1e9:.2f} GB), drawn on the card in {time.perf_counter() - t0:.2f} s", flush=True)
+    return model
+
+
+def freed() -> None:
+    """Collect what the phase dropped and give the card's cached blocks back."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+def teacher_forced(model, cfg, seqs, starts, max_len: int, on_step=None):
+    """Each row ``seqs[r]`` prefilled at its exact length ``starts[r]`` into
+    one dense cache, then TEACHER_STEPS decode steps of its own tokens,
+    against one full forward of the row.  ``on_step(stage, i)``, where
+    given, runs before each full forward and prefill (``"full"``,
+    ``"prefill"``, ``i`` the row) and each decode step (``"decode"``, ``i``
+    the step).  Returns (caches, pos, the worst normwise gap of a row's
+    step, each row's full-forward logits (T, V), each step's decode logits
+    (rows, V))."""
+    import torch
+
+    from repro_torch.models import common, lm
+
+    dev = model.unembed.device
+    rel = lambda a, b: float((a - b).abs().max() / b.abs().max())
+    hook = on_step or (lambda stage, i: None)
+    nrow = len(seqs)
+    with torch.no_grad():
+        full = []
+        for r in range(nrow):
+            hook("full", r)
+            x = lm._final_hidden(model, {"tokens": seqs[r][None, :starts[r] + TEACHER_STEPS]}, cfg)[0]
+            full.append(common.matmul_f32(x[0, starts[r]:starts[r] + TEACHER_STEPS], model.unembed))
+            del x
+        caches = lm.init_caches(cfg, nrow, max_len, device=dev)
+        for r in range(nrow):
+            hook("prefill", r)
+            one, _ = lm.prefill(model, {"tokens": seqs[r][None, :starts[r]]}, cfg, cache_len=max_len)
+            for part, leaves in one.items():
+                for key, v in leaves.items():
+                    caches[part][key][:, r] = v[:, 0]
+            del one
+        pos = torch.tensor(starts, dtype=torch.int32, device=dev)
+        worst, steps = 0.0, []
+        for t in range(TEACHER_STEPS):
+            hook("decode", t)
+            tok = torch.tensor([[int(seqs[r][starts[r] + t])] for r in range(nrow)], device=dev)
+            _, logits = lm.decode_step(model, caches, tok, pos, cfg)
+            if not bool(torch.isfinite(logits).all()):
+                fail(f"{cfg.name} decode logits at step {t}: non-finite")
+            worst = max(worst, max(rel(logits[r, 0], full[r][t]) for r in range(nrow)))
+            steps.append(logits[:, 0])
+            pos += 1
+    return caches, pos, worst, full, steps
+
+
 class Routing:
     """The MoE layer's router choices (``models/moe.py:route``) call by call,
     recorded in ``calls``; or, with ``replay`` a list of them, taken from
@@ -1006,7 +1193,6 @@ def moe_phase(dev, card: str) -> dict:
     CPU; (e) the serving launcher on both, in two subprocesses (see the
     module docstring).  Returns the launches of B13 (the paged serve) and
     of B9 and B10 (the EbV steps)."""
-    import gc
     import math
 
     import numpy as np
@@ -1016,35 +1202,17 @@ def moe_phase(dev, card: str) -> dict:
     from repro_torch.configs import get_config
     from repro_torch.data import TokenPipeline
     from repro_torch.kernels import batched_lu
-    from repro_torch.models import common, lm, moe
+    from repro_torch.models import lm, moe
     from repro_torch.serve import GenRequest, bucket_length
     from repro_torch.train import loop
 
     t_phase = time.perf_counter()
     rel = lambda a, b: float((a - b).abs().max() / b.abs().max())
 
-    def drawn(cfg, seed):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        model = lm.init_params(torch.Generator(device=dev).manual_seed(seed), cfg)
-        torch.cuda.synchronize()
-        n = sum(p.numel() for p in model.parameters())
-        print(f"  {cfg.name}: {cfg.num_layers} layers, d={cfg.d_model}, {cfg.num_heads} heads, {cfg.num_kv_heads} "
-              f"KV heads, Dh={cfg.resolved_head_dim}, {cfg.num_experts} experts of d_ff={cfg.d_ff}, top-"
-              f"{cfg.experts_per_token}, vocab {cfg.vocab_size}, window {cfg.sliding_window}, {cfg.dtype}: "
-              f"{n / 1e9:.3f} G parameters ({2 * n / 1e9:.2f} GB), drawn on the card in "
-              f"{time.perf_counter() - t0:.2f} s", flush=True)
-        return model
-
-    def freed():
-        gc.collect()
-        torch.cuda.synchronize()
-        torch.cuda.empty_cache()
-
-    # ---- (a) mixtral-8x22b, 4 layers, served dense past its window
+    # ---- (a) mixtral-8x22b, MIXTRAL_LAYERS layers, served dense past its window
     cfg = get_config(MIXTRAL_ARCH).replace(num_layers=MIXTRAL_LAYERS)
     w = cfg.sliding_window
-    model = drawn(cfg, 2900)
+    model = drawn(dev, cfg, 2900)
     rng = np.random.default_rng(2901)
     lengths = rng.integers(MIXTRAL_PROMPTS[0], MIXTRAL_PROMPTS[1] + 1, MIXTRAL_REQS)
     lengths[:2] = (w - 6, w + 1)  # one bucket that fills the ring, one just past it
@@ -1069,33 +1237,23 @@ def moe_phase(dev, card: str) -> dict:
     nrow = MIXTRAL_SLOTS
     seqs = [served["dense"][r] for r in range(nrow)]
     starts = [max(len(prompts[r]), w + 4) for r in range(nrow)]
-    full, routes = [], []
-    with torch.no_grad(), Routing() as rt:
-        for r in range(nrow):
+    routes, prefill_differ = [], 0
+
+    def route(stage, i):
+        nonlocal prefill_differ
+        if stage == "full":  # record the row's choices
             rt.calls = []
-            x = lm._final_hidden(model, {"tokens": seqs[r][None, :starts[r] + TEACHER_STEPS]}, tcfg)[0]
-            full.append(common.matmul_f32(x[0, starts[r]:starts[r] + TEACHER_STEPS], model.unembed))
             routes.append(rt.calls)
-            del x
-        caches = lm.init_caches(tcfg, nrow, MIXTRAL_MAX_LEN, device=dev)
-        for r in range(nrow):
-            rt.replay = [c[:starts[r]] for c in routes[r]]
-            one, _ = lm.prefill(model, {"tokens": seqs[r][None, :starts[r]]}, tcfg, cache_len=MIXTRAL_MAX_LEN)
-            for key in ("k", "v", "pos"):
-                caches["attn"][key][:, r] = one["attn"][key][:, 0]
-            del one
-        prefill_differ = rt.differ
-        pos = torch.tensor(starts, dtype=torch.int32, device=dev)
-        worst = 0.0
-        for t in range(TEACHER_STEPS):
-            tok = torch.tensor([[int(seqs[r][starts[r] + t])] for r in range(nrow)], device=dev)
-            rt.replay = [torch.stack([routes[r][layer][starts[r] + t] for r in range(nrow)])
+        elif stage == "prefill":
+            rt.replay = [c[:starts[i]] for c in routes[i]]
+        else:
+            if i == 0:
+                prefill_differ = rt.differ
+            rt.replay = [torch.stack([routes[r][layer][starts[r] + i] for r in range(nrow)])
                          for layer in range(tcfg.num_layers)]
-            _, logits = lm.decode_step(model, caches, tok, pos, tcfg)
-            if not bool(torch.isfinite(logits).all()):
-                fail(f"mixtral decode logits at step {t}: non-finite")
-            worst = max(worst, max(rel(logits[r, 0], full[r][t]) for r in range(nrow)))
-            pos += 1
+
+    with Routing() as rt:
+        caches, pos, worst, _, _ = teacher_forced(model, tcfg, seqs, starts, MIXTRAL_MAX_LEN, route)
     ring = caches["attn"]["k"].shape[2]
     print(f"  (a) teacher-forced at positions {starts} + 0..{TEACHER_STEPS - 1}, {nrow} rows on a ring of {ring} "
           f"slots: decode logits against a full forward of each row, worst normwise {worst:.3e} (tolerance "
@@ -1108,13 +1266,13 @@ def moe_phase(dev, card: str) -> dict:
              f"{rt.differ} of {rt.total} router choices differ, by up to {rt.gap:.3e}")
     tok = torch.zeros((nrow, 1), dtype=torch.long, device=dev)
     decode_step_line("(a)", f"{cfg.name} dense", lambda: lm.decode_step(model, caches, tok, pos, cfg), pos, card)
-    del model, caches, full, routes, served, rt
+    del model, caches, routes, served, rt
     freed()
 
     # ---- (b) granite-moe-1b-a400m served dense and paged
     cfg = get_config(GRANITE_ARCH)
     L, kvh, dh = cfg.num_layers, cfg.num_kv_heads, cfg.resolved_head_dim
-    model = drawn(cfg, 2910)
+    model = drawn(dev, cfg, 2910)
     rng = np.random.default_rng(2911)
     prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
                for n in rng.integers(GRANITE_PROMPTS[0], GRANITE_PROMPTS[1] + 1, GRANITE_REQS)]
@@ -1273,6 +1431,189 @@ def moe_phase(dev, card: str) -> dict:
                     "served 4 requests (64 new tokens)")])
     print(f"  phase 4l: {time.perf_counter() - t_phase:.1f} s", flush=True)
     return {"paged_decode_attention": b13["paged"], **launches}
+
+
+def ssm_phase(dev, card: str) -> dict:
+    """Phase 4m: the ssm and hybrid families at full width and depth.  (a)
+    mamba2-1.3b served dense, each of the first SSM_SLOTS prompts' padded
+    prefill against its exact-length one, then those rows teacher-forced
+    over TEACHER_STEPS decode steps against full forwards; (b) hymba-1.5b
+    the same past its window (no pad check); (c) both trained, 5 AdamW and
+    5 EbV steps on one repeated 8 x 512 batch; (d) both reduced fp32
+    configs on the card against the CPU; (e) the serving launcher on
+    mamba2 and the training launcher on hymba, in two subprocesses (see the
+    module docstring).  Returns the launches of B9 and B10 (the EbV steps)."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenPipeline
+    from repro_torch.models import lm
+    from repro_torch.serve import GenRequest, bucket_length
+    from repro_torch.train import loop
+
+    t_phase = time.perf_counter()
+    rel = lambda a, b: float((a - b).abs().max() / b.abs().max())
+
+    def lap(part):
+        print(f"  {part} done {time.perf_counter() - t_phase:.1f} s into phase 4m", flush=True)
+
+    def decode_checks(tag, model, cfg, seqs, starts, max_len):
+        """The rows teacher-forced in bf16, one decode step timed, then the
+        model cast to fp32 (IEEE, TF32 off) and the rows teacher-forced
+        again.  In fp32 the recurrence must meet the chunked scan within
+        SSM_F32_TOL.  In bf16 the served decode must be no further from the
+        fp32 full forward than DECODE_FLOOR_FACTOR times the bf16 full
+        forward is: both carry bf16 rounding through every layer, and a
+        fault of the bf16 recurrence adds to it."""
+        caches, pos, worst, full, steps = teacher_forced(model, cfg, seqs, starts, max_len)
+        tok = torch.zeros((len(seqs), 1), dtype=torch.long, device=dev)
+        decode_step_line(tag, f"{cfg.name} dense", lambda: lm.decode_step(model, caches, tok, pos, cfg), pos, card)
+        ring = caches["attn"]["k"].shape[2] if "attn" in caches else None
+        del caches
+        cfg32 = cfg.replace(dtype="float32")
+        model.float()
+        _, _, worst32, full32, _ = teacher_forced(model, cfg32, seqs, starts, max_len)
+        pairs = [(r, t) for r in range(len(seqs)) for t in range(TEACHER_STEPS)]
+        floor = max(rel(full[r][t], full32[r][t]) for r, t in pairs)
+        own = max(rel(steps[t][r], full32[r][t]) for r, t in pairs)
+        window = f", and the ring of {ring} slots" if ring else ""
+        print(f"  {tag} teacher-forced at positions {starts} + 0..{TEACHER_STEPS - 1}, {len(seqs)} rows: decode "
+              f"logits (the recurrent state update{window}) against a full forward of each row (the chunked scan), "
+              f"worst normwise: fp32 {worst32:.3e} (tolerance {SSM_F32_TOL:.0e}); bf16 {worst:.3e} (not gated); "
+              f"from the fp32 full forward, the bf16 decode {own:.3e} and the bf16 full forward {floor:.3e}, a "
+              f"ratio of {own / floor:.3f} (tolerance {DECODE_FLOOR_FACTOR:g})", flush=True)
+        if not (worst32 <= SSM_F32_TOL and own <= DECODE_FLOOR_FACTOR * floor):
+            fail(f"{cfg.name}: decode logits {worst32:.3e} (fp32) from the full forward's, or the bf16 decode "
+                 f"{own:.3e} from the fp32 forward, past {DECODE_FLOOR_FACTOR:g} x the bf16 forward's {floor:.3e}")
+        if cfg.sliding_window and ring != cfg.sliding_window:
+            fail(f"{cfg.name}: a ring of {ring} slots, not the window's {cfg.sliding_window}")
+
+    # ---- (a) mamba2-1.3b served dense, pad-invariant prefill, teacher-forced
+    cfg = get_config(SSM_ARCH)
+    if (cfg.num_layers, cfg.d_inner) != (SSM["layers"], SSM["d_inner"]):
+        fail(f"{cfg.name}: {cfg.num_layers} layers of d_inner {cfg.d_inner}, not SSM's {SSM}")
+    model = drawn(dev, cfg, 3000)
+    rng = np.random.default_rng(3001)
+    lengths = rng.integers(SSM_PROMPTS[0], SSM_PROMPTS[1] + 1, SSM_REQS)
+    lengths += lengths % SSM_BUCKET == 0  # every prompt carries pads in its bucket
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32) for n in lengths]
+    news = [int(n) for n in rng.integers(SSM_NEW[0], SSM_NEW[1] + 1, SSM_REQS)]
+    reqs = [GenRequest(p, n) for p, n in zip(prompts, news)]
+    served, engines, _ = serve_runs("(a)", model, cfg, reqs, card, max_len=SSM_MAX_LEN, slots=SSM_SLOTS,
+                                    paged=(False,), bucket=SSM_BUCKET)
+    st = engines["dense"].stats
+    print(f"  (a) prompts of {sorted(lengths.tolist())} tokens in buckets of {SSM_BUCKET}: padding "
+          f"{st.padding_frac:.3f} of the prefilled tokens", flush=True)
+    del engines
+
+    # each of the first SSM_SLOTS prompts padded to its bucket (pads of
+    # random tokens) against its exact-length prefill
+    worst = {"logits": 0.0, "conv": 0.0, "state": 0.0}
+    with torch.no_grad():
+        for r in range(SSM_SLOTS):
+            s0 = len(prompts[r])
+            lb = bucket_length(s0, SSM_BUCKET)
+            padded = np.concatenate([prompts[r], rng.integers(0, cfg.vocab_size, lb - s0).astype(np.int32)])
+            ec, el = lm.prefill(model, {"tokens": prompts[r][None]}, cfg)
+            pc, pl = lm.prefill(model, {"tokens": padded[None]}, cfg, last=[s0 - 1])
+            if not bool(torch.isfinite(pl).all()):
+                fail(f"{cfg.name} padded prefill of {s0} tokens: non-finite logits")
+            worst["logits"] = max(worst["logits"], rel(pl, el))
+            worst["state"] = max(worst["state"], rel(pc["ssm"]["state"], ec["ssm"]["state"]))
+            for key in ("conv_x", "conv_b", "conv_c"):
+                worst["conv"] = max(worst["conv"], rel(pc["ssm"][key].float(), ec["ssm"][key].float()))
+            del ec, pc
+    print(f"  (a) {SSM_SLOTS} prompts prefilled padded to buckets of {SSM_BUCKET} against their exact length: "
+          f"worst normwise logits {worst['logits']:.3e}, conv tails {worst['conv']:.3e}, state "
+          f"{worst['state']:.3e} (tolerance {PAD_TOL:.3e}, one bf16 unit)", flush=True)
+    if not max(worst.values()) <= PAD_TOL:
+        fail(f"{cfg.name}: a padded prefill differs from the exact-length one: {worst}")
+    seqs = [served["dense"][r] for r in range(SSM_SLOTS)]
+    decode_checks("(a)", model, cfg, seqs, [len(prompts[r]) for r in range(SSM_SLOTS)], SSM_MAX_LEN)
+    del model, served
+    freed()
+    lap("(a)")
+
+    # ---- (b) hymba-1.5b served dense past its window, teacher-forced
+    hcfg = get_config(HYMBA_ARCH)
+    if (hcfg.num_layers, hcfg.d_inner) != (HYMBA["layers"], HYMBA["d_inner"]):
+        fail(f"{hcfg.name}: {hcfg.num_layers} layers of d_inner {hcfg.d_inner}, not HYMBA's {HYMBA}")
+    w = hcfg.sliding_window
+    model = drawn(dev, hcfg, 3010)
+    rng = np.random.default_rng(3011)
+    lengths = rng.integers(HYMBA_PROMPTS[0], HYMBA_PROMPTS[1] + 1, HYMBA_REQS)
+    lengths[:2] = (w - 6, w + 1)  # one bucket that fills the ring, one just past it
+    prompts = [rng.integers(0, hcfg.vocab_size, n).astype(np.int32) for n in lengths]
+    reqs = [GenRequest(p, HYMBA_NEW) for p in prompts]
+    served, engines, _ = serve_runs("(b)", model, hcfg, reqs, card, max_len=HYMBA_MAX_LEN, slots=HYMBA_SLOTS,
+                                    paged=(False,))
+    exact = [len(p) for p in prompts if bucket_length(len(p), LM_BUCKET) > w]
+    print(f"  (b) prompts of {sorted(lengths.tolist())} tokens: {len(exact)} past the window of {w} once padded "
+          f"to buckets of {LM_BUCKET}, prefilled at their exact length", flush=True)
+    del engines
+    seqs = [served["dense"][r] for r in range(HYMBA_SLOTS)]
+    starts = [min(max(len(prompts[r]), w + 4), len(seqs[r]) - TEACHER_STEPS) for r in range(HYMBA_SLOTS)]
+    decode_checks("(b)", model, hcfg, seqs, starts, HYMBA_MAX_LEN)
+    del model, served
+    freed()
+    lap("(b)")
+
+    # ---- (c) training, both families
+    tc = loop.TrainConfig(steps=TRAIN_STEPS, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    launches = {}
+    for c, seed, want in ((cfg, 3002, {SSM["layers"]: 5}), (hcfg, 3012, {HYMBA["layers"]: 8})):
+        pipe = TokenPipeline(vocab_size=c.vocab_size, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH, seed=0)
+        batch = loop.make_batch_fn(c, tc, device=dev)(next(pipe)["tokens"])
+        shapes = lm._train_shapes(c)
+        # the weights of the matmuls: every leaf but the embedding (a gather),
+        # the norm scales, the gates, the conv taps and the (L, H) leaves
+        mat = {k: math.prod(s) for k, (s, _) in shapes.items()
+               if len(s) == 3 and k != "embed" and ".conv_" not in k}
+        n_matmul = sum(mat.values()) + math.prod(shapes["unembed"][0])
+        bound_ms = 8 * n_matmul * tokens / PEAK_BF16_FLOPS * 1e3
+        groups = ebv_groups(shapes)
+        print(f"  (c) {c.name}: {sum(math.prod(s) for s, _ in shapes.values()) / 1e9:.3f} G parameters in "
+              f"{len(shapes)} stacked leaves, {n_matmul / 1e9:.3f} G in matmuls; batch {TRAIN_BATCH} x {TRAIN_SEQ} = "
+              f"{tokens} tokens a step; EbV order groups (order: systems) {groups}, the widest right-hand side "
+              f"{max(max(s) for s, _ in shapes.values() if len(s) == 2 and min(s) <= 1024)}", flush=True)
+        if groups != want:
+            fail(f"{c.name} EbV order groups {groups}: expected {want}")
+
+        def fresh(c=c, seed=seed):
+            params = lm.train_params(lm.init_params(torch.Generator(device=dev).manual_seed(seed), c))
+            freed()
+            return params
+
+        got = train_runs(dev, card, "(c)", c, batch, fresh, groups, tokens, [
+            (bound_ms, f"8 x {n_matmul / 1e9:.3f} G x {tokens} tokens / 989 TFLOP/s bf16")])
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+        del batch
+        freed()
+    lap("(c)")
+
+    # ---- (d) the reduced fp32 configs, 3 steps on the card against the CPU,
+    # at a sequence of four chunks (and past hymba's reduced window of 32)
+    for arch in (SSM_ARCH, HYMBA_ARCH):
+        rcfg = get_config(arch).reduced()
+        rng = np.random.default_rng(3003)
+        rbatches = [rng.integers(0, rcfg.vocab_size, (4, 64)).astype(np.int32) for _ in range(3)]
+        start = lm.train_params(lm.init_params(3004, rcfg, device="cpu"))
+        card_against_cpu(dev, "(d)", rcfg, start,
+                         lambda d, rbatches=rbatches: [{"tokens": torch.from_numpy(b).to(d)} for b in rbatches],
+                         [(name, mb, tc.learning_rate) for name in ("adamw", "ebv") for mb in (1, 2)])
+    lap("(d)")
+
+    # ---- (e) the launchers, on the card by default, in two subprocesses at once
+    run_launchers([(["repro_torch.launch.serve", "--arch", SSM_ARCH], "served 4 requests (64 new tokens)"),
+                   (["repro_torch.launch.train", "--arch", HYMBA_ARCH, "--optimizer", "ebv", "--steps", "3"],
+                    "[train] step     0 loss")])
+    print(f"  phase 4m: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return launches
 
 
 def main() -> int:
@@ -3291,11 +3632,17 @@ def main() -> int:
     torch.cuda.empty_cache()
     whisper_launches = whisper_phase(dev, card)
 
-    # ---- 4l. the moe family: mixtral-8x22b (4 layers) and granite-moe-1b-a400m
+    # ---- 4l. the moe family: mixtral-8x22b (MIXTRAL_LAYERS layers) and granite-moe-1b-a400m
     print(f"phase 4l: {MIXTRAL_ARCH} ({MIXTRAL_LAYERS} layers) and {GRANITE_ARCH} at full width", flush=True)
     gc.collect()
     torch.cuda.empty_cache()
     moe_launches = moe_phase(dev, card)
+
+    # ---- 4m. the ssm and hybrid families: mamba2-1.3b and hymba-1.5b
+    print(f"phase 4m: {SSM_ARCH} and {HYMBA_ARCH} at full width", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    ssm_launches = ssm_phase(dev, card)
 
     # ---- 6. kernels line + result ----------------------------------------
     shoot = f"n={SHOOTOUT[0]} bw={SHOOTOUT[1]}"
@@ -3347,7 +3694,7 @@ def main() -> int:
     launches["paged_decode_attention"] = lm_launches["paged"]  # B13 runs on the serving paths only (4i, 4k)
     # the kernels the tiers and the service launched, beside their own paths'
     for counts in (tier_launches, tier_opt_launches, serve_launches, train_launches, whisper_launches,
-                   moe_launches):
+                   moe_launches, ssm_launches):
         for k, v in counts.items():
             if k not in lwrappers:  # the legacy kernels' service launches are in already
                 launches[k] += v

@@ -1,5 +1,5 @@
 """Top-level language model: embedding → blocks → final norm → logits, for
-the dense, encdec and moe families.
+the dense, encdec, moe, ssm and hybrid families.
 
 Entry points, as the reference's ``models/lm.py``:
 
@@ -24,7 +24,12 @@ layer's cross attention reads the encoder's output, and its decode cache
 keeps the cross K/V per slot (``cross_k`` / ``cross_v``).  The moe family
 (mixtral, granite) takes ``batch = {"tokens"}``; its blocks hold a
 :class:`~.moe.MoE` layer in place of the MLP, and mixtral's sliding window
-keeps a ring of ``window`` cache slots.
+keeps a ring of ``window`` cache slots.  The ssm family (mamba2) and the
+hybrid family (hymba: attention in a sliding window beside the mixer) take
+``batch = {"tokens"}``; their mixer (:mod:`~.mamba2`) keeps a per-row cache
+of conv tails and a recurrent state, and a prefill of right-padded
+prompts hands the mixer each row's true length (``last + 1``), so the
+padded prompt's cache is the unpadded prompt's.
 
 The reference's ``lax.scan`` over stacked blocks is a Python loop over
 ``LM.blocks``; caches stay layer-stacked ((L, ...) leading axis), and each
@@ -96,22 +101,25 @@ def _tree_map(fn, *trees):
 
 
 def _run_blocks(params: LM, x, cfg: ModelConfig, *, positions, mode, caches=None, enc_out=None,
-                kv_chunk=1024, cache_len=None, seq_positions=None, page_table=None, prior=None,
-                raw_kv=False):
+                kv_chunk=1024, cache_len=None, seq_positions=None, lengths=None, page_table=None,
+                prior=None, raw_kv=False):
     """The layer loop.  ``caches`` and ``prior`` are layer-stacked; each layer
-    gets its (L,)-index view, and all share one pair of RoPE tables and the
-    encoder's output ``enc_out`` (encdec).  In ``train`` mode each layer
-    runs under ``torch.utils.checkpoint``: only its inputs are kept, and the
-    backward recomputes the layer.
+    gets its (L,)-index view, and all share one pair of RoPE tables (for a
+    family with attention), the encoder's output ``enc_out`` (encdec) and
+    the rows' true lengths ``lengths`` (a prefill's, for the SSM mixer).
+    In ``train`` mode each layer runs under ``torch.utils.checkpoint``: only
+    its inputs are kept, and the backward recomputes the layer.
     Returns (x, layer-stacked new caches or None, the layers' summed aux)."""
-    rope = C.rope_tables(positions, cfg.resolved_head_dim, cfg.rope_theta) if cfg.use_rope else None
+    rope = None
+    if cfg.use_rope and cfg.family != "ssm":  # mamba2 has no heads: no head dim
+        rope = C.rope_tables(positions, cfg.resolved_head_dim, cfg.rope_theta)
     new = []
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, bp in enumerate(params.blocks):
         kw = dict(positions=positions, mode=mode, enc_out=enc_out,
                   cache=None if caches is None else _tree_map(lambda t: t[i], caches),
                   kv_chunk=kv_chunk, cache_len=cache_len, seq_positions=seq_positions,
-                  page_table=page_table,
+                  lengths=lengths, page_table=page_table,
                   prior=None if prior is None else _tree_map(lambda t: t[i], prior),
                   raw_kv=raw_kv, rope=rope)
         if mode == "train":
@@ -197,21 +205,26 @@ def prefill(params: LM, batch, cfg: ModelConfig, *, cache_len=None, kv_chunk=102
     suffix at positions Sp, Sp+1, ...  ``raw_kv=True`` returns each layer's
     fresh K/V ({"attn": {"k","v"}}) instead of dense cache rows.  The encdec
     family's ``batch`` also holds ``frames`` (B, Se, d), and its caches the
-    projected ``cross_k`` / ``cross_v`` (L, B, Se, KV, Dh)."""
+    projected ``cross_k`` / ``cross_v`` (L, B, Se, KV, Dh).  The ssm and
+    hybrid families' caches hold the mixer's ``ssm`` leaves; with ``last``
+    the mixer takes ``last + 1`` as the rows' true lengths, so a padded
+    prompt's state and conv tails are those of the prompt alone."""
     tokens, x, enc_out = _embed(params, batch, cfg)
     b, s = tokens.shape
     seq_pos = torch.arange(s, dtype=torch.int32, device=x.device)
     if prior is not None:
         seq_pos = seq_pos + prior["k"].shape[2]
     positions = seq_pos[None].expand(b, s)
+    last = None if last is None else _tokens(params, last)
     x, caches, _ = _run_blocks(params, x, cfg, positions=positions, mode="prefill",
                                enc_out=enc_out, kv_chunk=kv_chunk, cache_len=cache_len,
-                               seq_positions=seq_pos, prior=prior, raw_kv=raw_kv)
+                               seq_positions=seq_pos, lengths=None if last is None else last + 1,
+                               prior=prior, raw_kv=raw_kv)
     x = C.apply_norm(params.ln_f, x, cfg.norm)
     if last is None:
         sel = x[:, -1:]
     else:
-        sel = x[torch.arange(b, device=x.device), _tokens(params, last)][:, None]
+        sel = x[torch.arange(b, device=x.device), last][:, None]
     return caches, C.matmul_f32(sel, params.unembed)
 
 
@@ -240,7 +253,8 @@ def init_caches(cfg: ModelConfig, batch: int, seq_len: int, *, enc_len: int = 0,
     """Layer-stacked dense cache {"attn": {"k","v": (L, B, S, KV, Dh), "pos":
     (L, B, S)}}, all zeros (``pos`` too, as the reference's), on the card
     unless ``device="cpu"``; the encdec family adds ``cross_k`` / ``cross_v``
-    (L, B, enc_len, KV, Dh)."""
+    (L, B, enc_len, KV, Dh), the ssm family has the mixer's ``ssm`` in place
+    of ``attn`` and the hybrid family both."""
     dtype = dtype or C.dtype_of(cfg.dtype)
     one = B.init_block_cache(cfg, batch, seq_len, dtype, enc_len=enc_len,
                              device=_device.resolve(device))
@@ -252,11 +266,15 @@ def init_paged_caches(cfg: ModelConfig, batch: int, num_pages: int, page_size: i
     """Layer-stacked cache whose attention K/V is a shared page pool
     {"attn": {"k_pages","v_pages": (L, num_pages, page_size, KV, Dh)}}.  The
     parts that do not grow with the sequence (encdec's ``cross_k`` /
-    ``cross_v``, (L, B, enc_len, KV, Dh)) stay per slot, dense."""
+    ``cross_v``, (L, B, enc_len, KV, Dh)) stay per slot, dense.  A
+    sliding-window config, and a family with no attention cache (ssm),
+    raise."""
     if cfg.sliding_window is not None:
         raise ValueError("paged KV cache does not support sliding-window archs")
     dtype = dtype or C.dtype_of(cfg.dtype)
     caches = init_caches(cfg, batch, 0, enc_len=enc_len, dtype=dtype, device=device)
+    if "attn" not in caches:
+        raise ValueError(f"family {cfg.family!r} has no attention KV cache to page")
     shape = (cfg.num_layers, num_pages, page_size, cfg.num_kv_heads, cfg.resolved_head_dim)
     dev = _device.resolve(device)
     caches["attn"] = {"k_pages": torch.zeros(shape, dtype=dtype, device=dev),
@@ -298,16 +316,29 @@ def _train_shapes(cfg: ModelConfig) -> dict:
     if cfg.family not in B.PORTED:
         raise C.unported(f"the {cfg.family} family")
     dt, vp, d = C.dtype_of(cfg.dtype), padded_vocab_size(cfg), cfg.d_model
-    hd, kvd = cfg.num_heads * cfg.resolved_head_dim, cfg.num_kv_heads * cfg.resolved_head_dim
     f32 = torch.float32
-    attn = {"wq": ((d, hd), dt), "wk": ((d, kvd), dt), "wv": ((d, kvd), dt), "wo": ((hd, d), dt)}
-    block = {**{f"attn.{k}": v for k, v in attn.items()}, "ln_attn.scale": ((d,), f32),
-             "ln_mlp.scale": ((d,), f32), "mlp.wu": ((d, cfg.d_ff), dt),
-             "mlp.wd": ((cfg.d_ff, d), dt)}
-    if cfg.mlp_gated:
-        block["mlp.wg"] = ((d, cfg.d_ff), dt)
     shapes = {"embed": ((vp, d), dt), "ln_f.scale": ((d,), f32), "unembed": ((d, vp), dt)}
-    stacks = [("blocks", cfg.num_layers, block)]
+    di, n, h, cw = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_conv
+    ssm = {f"ssm.{k}": v for k, v in {
+        "z_proj": ((d, di), dt), "x_proj": ((d, di), dt), "b_proj": ((d, n), dt),
+        "c_proj": ((d, n), dt), "dt_proj": ((d, h), dt), "conv_x": ((cw, di), dt),
+        "conv_b": ((cw, n), dt), "conv_c": ((cw, n), dt), "a_log": ((h,), f32),
+        "d_skip": ((h,), f32), "dt_bias": ((h,), f32), "norm_scale": ((di,), f32),
+        "out_proj": ((di, d), dt)}.items()}
+    if cfg.family == "ssm":  # the mixer alone: no attention, no MLP
+        stacks = [("blocks", cfg.num_layers, {"ln_ssm.scale": ((d,), f32), **ssm})]
+    else:
+        hd, kvd = cfg.num_heads * cfg.resolved_head_dim, cfg.num_kv_heads * cfg.resolved_head_dim
+        attn = {"wq": ((d, hd), dt), "wk": ((d, kvd), dt), "wv": ((d, kvd), dt), "wo": ((hd, d), dt)}
+        block = {**{f"attn.{k}": v for k, v in attn.items()}, "ln_attn.scale": ((d,), f32),
+                 "ln_mlp.scale": ((d,), f32), "mlp.wu": ((d, cfg.d_ff), dt),
+                 "mlp.wd": ((cfg.d_ff, d), dt)}
+        if cfg.mlp_gated:
+            block["mlp.wg"] = ((d, cfg.d_ff), dt)
+        stacks = [("blocks", cfg.num_layers, block)]
+    if cfg.family == "hybrid":  # the mixer beside attention, and their fp32 gates
+        stacks = [("blocks", cfg.num_layers,
+                   {**block, **ssm, "beta_attn": ((d,), f32), "beta_ssm": ((d,), f32)})]
     if cfg.family == "moe":  # the router fp32 (d, E), the experts (E, d, d_ff) and (E, d_ff, d)
         e, f = cfg.num_experts, cfg.d_ff
         experts = {"moe.router": ((d, e), f32), "moe.wu": ((e, d, f), dt), "moe.wd": ((e, f, d), dt)}

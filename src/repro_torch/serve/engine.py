@@ -46,6 +46,13 @@ share it with the live rows, as in the reference.  Sliding-window configs
 prompt whose bucket would pass the window is prefilled at its exact length
 (:meth:`Engine._bucket_len`).
 
+**The ssm and hybrid families** (mamba2; hymba, whose attention has a
+window) serve dense only: the ssm family has no attention cache to page.
+A prefill hands the mixer each row's true length, so a bucket-padded
+prompt leaves the state and conv tails of the prompt alone, and
+:func:`_insert_slot` copies those leaves (``conv_*``, ``state``) into the
+slot's row beside the attention ring.
+
 Departures from the reference, by design: there is no ``jax.jit`` (the
 engine runs eagerly); sampled decoding (``temperature > 0``) draws from a
 per-request ``torch.Generator`` seeded by ``GenRequest.seed``, so only

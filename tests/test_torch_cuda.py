@@ -624,10 +624,11 @@ def band_stack(bsz, n, bw, seed=0):
 # reference's cap 1024 (rows streamed below theta), 32 systems of 4 CTAs,
 # 100 systems of 2 (more clusters than the card holds at once); 133 systems,
 # one block each in device memory; granite-moe-1b-a400m's two EbV groups
-# (order 24, the stacked norm scales; order 1024, embed and unembed)
+# (order 24, the stacked norm scales; order 1024, embed and unembed),
+# mamba2-1.3b's (five order-48 systems) and hymba-1.5b's (eight of order 32)
 @pytest.mark.parametrize("bsz,n", [(1, 8), (5, 64), (3, 240), (2, 241), (2, 384), (1, 241), (3, 385),
                                    (5, 1000), (8, 1024), (32, 256), (100, 384), (133, 384), (2, 24),
-                                   (2, 1024)])
+                                   (2, 1024), (5, 48), (8, 32)])
 def test_batched_factor_kernel_is_bitwise_its_plain_version(bsz, n, card):
     a = torch.from_numpy(dd_stack(bsz, n, n)).to(card)
     before = batched_lu.batched_lu_vmem.launches
@@ -656,9 +657,12 @@ def test_batched_factor_leaves_its_input_alone(card):
 # (B, n, m): a vector per system; tiles of unequal width before the
 # equalization (70 columns in three tiles of 24); the optimizer's order;
 # granite-moe-1b-a400m's EbV groups (order 24 over d = 1024 columns, order
-# 1024 over the padded vocabulary's 49280)
+# 1024 over the padded vocabulary's 49280), mamba2-1.3b's (order 48, its
+# widest leaf the mixer's d_inner = 4096) and hymba-1.5b's (order 32 over
+# d_inner = 3200)
 @pytest.mark.parametrize("bsz,n,m", [(5, 64, None), (3, 100, 3), (2, 128, 70), (1, 33, 1),
-                                     (2, 384, 40), (2, 24, 1024), (2, 1024, 49280)])
+                                     (2, 384, 40), (2, 24, 1024), (2, 1024, 49280), (5, 48, 4096),
+                                     (8, 32, 3200)])
 def test_batched_solve_kernel_is_bitwise_its_plain_version(bsz, n, m, card):
     lu = batched_lu.batched_lu_plain(torch.from_numpy(dd_stack(bsz, n, n)).to(card))
     b = torch.from_numpy(np.stack([rhs(n, m, 7 + i) for i in range(bsz)])).to(card)
@@ -1716,6 +1720,25 @@ def test_the_ebv_train_step_runs_b9_and_b10_once_per_order_group(card):
         ("factor", 2, 2, "cuda_vmem"), ("solve", 2, 2, "cuda_vmem"),
         ("factor", 64, 2, "cuda_vmem"), ("solve", 64, 2, "cuda_vmem")] * 2
     assert [w.launches - b for w, b in zip(wrappers, before)] == [2 * (1 + 2), 2 * 2]
+
+
+@pytest.mark.parametrize("arch", ["mamba2_1_3b", "hymba_1_5b"])
+def test_a_full_width_ssm_layer_has_finite_gradients_on_the_card(arch, card):
+    # one layer at full width, bf16, one 512-token row: two 256-step chunks,
+    # whose decays above the diagonal pass exp's range (the reference's
+    # where(tri, exp(ldecay), 0) makes these gradients NaN; models/mamba2.py)
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+
+    cfg = get_config(arch).replace(num_layers=1)
+    params = lm.train_params(lm.init_params(torch.Generator(device=card).manual_seed(3), cfg))
+    toks = torch.from_numpy(np.random.default_rng(8).integers(0, cfg.vocab_size, (1, 512))).to(card)
+    loss, _ = lm.train_loss(params, {"tokens": toks}, cfg)
+    grads = torch.autograd.grad(loss, list(params.values()))
+    assert bool(torch.isfinite(loss))
+    bad = {k: int((~torch.isfinite(g)).sum()) for k, g in zip(params, grads) if not bool(torch.isfinite(g).all())}
+    assert not bad, bad
+    assert float(grads[list(params).index("blocks.ssm.a_log")].abs().max()) > 0
 
 
 def test_the_bf16_logits_product_and_its_backward_match_the_upcast_products(card):

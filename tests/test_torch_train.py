@@ -252,7 +252,7 @@ def test_other_families_name_their_roadmap_item():
     with pytest.raises(NotImplementedError, match="A6"):
         TLOOP.make_batch_fn(get_config("qwen2_vl_2b").reduced(), TLOOP.TrainConfig(), device="cpu")
     with pytest.raises(NotImplementedError, match="A6"):
-        TL.train_loss({}, {"tokens": tokens(1, 4)}, get_config("mamba2_1_3b").reduced())
+        TL.train_loss({}, {"tokens": tokens(1, 4)}, get_config("qwen2_vl_2b").reduced())
     with pytest.raises(NotImplementedError, match="A7"):
         TG.compressed_psum({}, {}, mesh=None)
 
